@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and hold every
+hand-written kernel against its plain PyTorch version.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (a line of JSON after each):
+ 1. card     — CUDA present, card name and power limit, TF32 off.
+ 2. build    — compile both kernels (one nvcc per source, in parallel).
+ 3. kernels  — kernel A (bin scores, both layouts, both score dtypes) and
+               kernel B (flash attention) against their plain versions.
+ 4. encoder  — BGE-M3 width (24 layers, d=1024), seeded random init, bf16:
+               512 query pairs (plain attention) and 256 passages of
+               600-1000 words at a 1024 bucket (kernel B).
+ 5. search   — the vector-mix run over an 8,841,823 x 1024 bf16 index (one
+               mMARCO language): alpha in {0, .25, .5, .75, 1} at k=100 and
+               alpha=.5 at k=1000, the two-level route (kernel A bin-major);
+               RR@10, f32-oracle overlap and the kernel's own stable top-k.
+ 6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
+               process) on a BGE-M3-width params.npz checkpoint and a
+               131,072-row store: the single-level route (kernel A transposed).
+ 7. kernels line — per kernel, at the main path's shape: the check against
+               its plain version again, its launches on the paths, max error,
+               time, its bound, the plain version's and one PyTorch call's
+               time (a yardstick the port never calls).
+Launch counts are set to 0 just before each path (phases 4, 5, 6) and read
+just after it; comparison and timing launches happen outside those windows.
+The last line is the device JSON. Any failed check raises (exit code != 0).
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import runpy
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent
+SEED = 20261016
+N_ROWS = 8_841_823          # one mMARCO language
+SMALL_ROWS = 131_072        # the CLI phase's store
+DIM = 1024
+N_QUERIES = 512
+N_PASSAGES = 256
+ALPHAS = (0.0, 0.25, 0.5, 0.75, 1.0)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+
+
+def say(tag: str, **fields) -> None:
+    print(f"[{tag}] " + json.dumps(fields, default=float), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    from codemix_dense_retrieval_torch.ops import kernels
+    from codemix_dense_retrieval_torch.ops import flash_attention as fa
+    from codemix_dense_retrieval_torch.ops import topk
+
+    work = REPO / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda", 0)
+
+    # ---------------- phase 1: card ----------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    say("card", name=torch.cuda.get_device_name(0), smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, count=torch.cuda.device_count())
+
+    # ---------------- phase 2: build ----------------
+    build_s = kernels.build_kernels()
+    say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()))
+
+    # ---------------- phase 3: kernels vs plain ----------------
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def unit(n, d=DIM):
+        x = torch.randn(n, d, device=dev, generator=g)
+        return x / x.norm(dim=1, keepdim=True)
+
+    errs = {"bin_major": 0.0, "transposed": 0.0, "flash_f32": 0.0, "flash_bf16": 0.0}
+    n = 262_144 + 123
+    n_valid = n - 77
+    n_pad = -(-n // 16) * 16
+    docs = torch.zeros(n_pad, DIM, dtype=torch.bfloat16, device=dev)
+    docs[:n] = unit(n).to(torch.bfloat16)
+    for b in (1, 7, 256):
+        q = unit(b).to(torch.bfloat16)
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b == 256 else n_valid
+        for bin_size in (8, 16):
+            for layout in topk.LAYOUTS:
+                for sdt in (torch.float32, torch.bfloat16):
+                    s, bm = topk.bin_scores(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
+                    s2, bm2 = topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
+                    torch.cuda.synchronize()
+                    if layout == "transposed":
+                        s, s2 = s.T, s2.T
+                    pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
+                    check(bool((s[:, n_valid:] == pad_val).all()), f"A pad b={b} G={bin_size} {layout} {sdt}")
+                    a, r = s[:, :n_valid].float(), s2[:, :n_valid].float()
+                    diff = (a - r).abs()
+                    if sdt == torch.float32:
+                        check(diff.max().item() <= 1e-4, f"A f32 err {diff.max().item()}")
+                        errs[layout] = max(errs[layout], diff.max().item())
+                    else:
+                        # one bf16 ulp of the larger value, plus the f32
+                        # accumulation-order difference the rounding inherits
+                        ulp = torch.maximum(a.abs(), r.abs()) * 2.0 ** -7 + 1e-6
+                        check(bool((diff <= ulp).all()), "A bf16 scores beyond one ulp")
+                    bdiff = (bm.float() - bm2.float()).abs().max().item()
+                    check(bdiff <= 1e-4, f"A binmax err {bdiff}")
+                    first_pad_bin = -(-n_valid // bin_size)
+                    bmr = bm if layout == "bin_major" else bm.T
+                    check(bool((bmr[:, first_pad_bin:] == topk.NEG_INF).all()), "A binmax pad")
+                    errs[layout] = max(errs[layout], bdiff)
+    del docs, s, s2, bm, bm2
+
+    for seq in (1024, 2048):
+        for dh in (64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                for causal, kvh, with_seg in ((False, 16, False), (True, 4, True)):
+                    bsz, h = 4, 16
+                    q = torch.randn(bsz, seq, h, dh, device=dev, generator=g).to(dt).transpose(1, 2)
+                    k = torch.randn(bsz, seq, kvh, dh, device=dev, generator=g).to(dt).transpose(1, 2)
+                    v = torch.randn(bsz, seq, kvh, dh, device=dev, generator=g).to(dt).transpose(1, 2)
+                    lens = [seq, seq - 100, 0, 700] if not causal else [seq, 0, seq - 1, 900]
+                    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                    seg = None
+                    if with_seg:
+                        seg = torch.zeros(bsz, seq, dtype=torch.int32, device=dev)
+                        for i, ln in enumerate(lens):
+                            seg[i, :ln] = torch.arange(ln, device=dev, dtype=torch.int32) // 300 + 1
+                    o = fa.attention_flash(q, k, v, lengths, causal=causal, segment_ids=seg)
+                    o2 = fa.attention_flash_plain(q.float(), k.float(), v.float(), lengths,
+                                                  causal=causal, segment_ids=seg)
+                    torch.cuda.synchronize()
+                    err = (o.float() - o2).abs().max().item()
+                    tol = 1e-4 if dt == torch.float32 else 2e-2
+                    check(err <= tol, f"B err {err} S={seq} dh={dh} {dt} causal={causal}")
+                    check(bool((o[2 if not causal else 1] == 0).all()), "B zero-length rows not 0")
+                    if seg is not None:
+                        dead = (seg == 0)[:, None, :, None].expand_as(o)
+                        check(bool((o[dead] == 0).all()), "B pad-segment rows not 0")
+                    key = "flash_f32" if dt == torch.float32 else "flash_bf16"
+                    errs[key] = max(errs[key], err)
+    del q, k, v, o, o2
+    say("kernels_vs_plain", max_abs_err=errs,
+        tolerances={"A_f32": 1e-4, "A_bf16": "1 ulp + 1e-6", "B_f32": 1e-4, "B_bf16": 2e-2})
+
+    # ---------------- phase 4: encoder at BGE-M3 width ----------------
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+    from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
+
+    rng = np.random.default_rng(SEED)
+
+    def sentence(prefix, lo, hi, vocab):
+        return " ".join(f"{prefix}{w}" for w in rng.integers(0, vocab, rng.integers(lo, hi + 1)))
+
+    qids = [f"q{i}" for i in range(N_QUERIES)]
+    texts_a = [sentence("en", 6, 16, 20_000) for _ in qids]
+    texts_b = [sentence("zh", 4, 12, 20_000) for _ in qids]
+    passages = [sentence("p", 600, 1000, 50_000) for _ in range(N_PASSAGES)]
+    buckets = (16, 32, 64, 128, 256, 512, 1024)
+    cfg = XLMRConfig.bge_m3(dtype=torch.bfloat16)
+    path_counts = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    enc = TextEncoder("BAAI/bge-m3", cfg, seed=SEED, length_buckets=buckets)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc.encode_queries(texts_a[:8])
+    enc.encode_documents(passages[:2], max_length=1024)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qa = enc.encode_queries(texts_a, batch_size=128)
+    qb = enc.encode_queries(texts_b, batch_size=128)
+    q_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pv = enc.encode_documents(passages, batch_size=32, max_length=1024, readback_dtype=torch.bfloat16)
+    p_s = time.perf_counter() - t0
+    path_counts["encode"] = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    enc.tokenizer.encode_batch(passages, 1024)
+    tok_s = time.perf_counter() - t0
+    check(path_counts["encode"]["flash_attention"] > 0, "encoder passages did not launch kernel B")
+    for name, x, rows in (("qa", qa, N_QUERIES), ("qb", qb, N_QUERIES), ("passages", pv, N_PASSAGES)):
+        check(x.shape == (rows, DIM) and bool(np.isfinite(x).all()), f"{name} embeddings shape/finite")
+        check(bool(np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=2e-2)), f"{name} not unit norm")
+    # the same weights through plain attention agree with the kernel path
+    plain_enc = TextEncoder("BAAI/bge-m3", XLMRConfig.bge_m3(dtype=torch.bfloat16, use_flash=False),
+                            seed=SEED, length_buckets=buckets)
+    pv_plain = plain_enc.encode_documents(passages[:16], batch_size=16, max_length=1024)
+    pv_kernel = enc.encode_documents(passages[:16], batch_size=16, max_length=1024)
+    cos = float((pv_plain * pv_kernel).sum(axis=1).min())
+    check(cos >= 0.99, f"kernel-path vs plain-path passage cosine {cos}")
+    del plain_enc
+    qa_t = torch.from_numpy(qa)
+    qb_t = torch.from_numpy(qb)
+    qcos = (qa_t @ qa_t.T).fill_diagonal_(0).max().item()
+    say("encoder", config="BGE-M3 (24L, d=1024, 16 heads, FFN 4096, vocab 250002) random init bf16",
+        init_s=round(init_s, 2), queries=2 * N_QUERIES, queries_per_s=round(2 * N_QUERIES / q_s, 1),
+        passages=N_PASSAGES, passages_per_s=round(N_PASSAGES / p_s, 2),
+        passage_tokens_bucket=1024, passage_tokenize_s=round(tok_s, 3), passage_encode_s=round(p_s, 3),
+        launches=path_counts["encode"],
+        kernel_vs_plain_min_cos=round(cos, 5), max_offdiag_query_cos=round(qcos, 4))
+
+    # ---------------- phase 5: vector-mix run at full size ----------------
+    from codemix_dense_retrieval_torch.cli import main as cli_main
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
+    from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
+
+    mix05 = mix_and_renorm(qa_t.to(dev), qb_t.to(dev), 0.5)
+    t0 = time.perf_counter()
+    host = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16)
+    gi = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        x = torch.randn(c1 - c0, DIM, device=dev, generator=gi)
+        host[c0:c1].copy_((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    # each query pair gets one relevant passage near its alpha=0.5 mix
+    planted = torch.randperm(N_ROWS, generator=torch.Generator().manual_seed(SEED + 2))[:N_QUERIES]
+    noise = torch.randn(N_QUERIES, DIM, device=dev, generator=gi)
+    near = mix05 + 0.5 * noise / noise.norm(dim=1, keepdim=True)
+    host[planted] = (near / near.norm(dim=1, keepdim=True)).to(torch.bfloat16).cpu()
+    docids = [str(i) for i in range(N_ROWS)]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = DenseFlatIndex.build(host, docids).to_device()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    check(index._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS, "index below the two-level threshold")
+
+    out5 = work / "search"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs100 = run_vector_mix_search(index, qids, qa, qb, ALPHAS, out5 / "k100", k=100, query_block=256)
+    t100 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs1000 = run_vector_mix_search(index, qids, qa, qb, [0.5], out5 / "k1000", k=1000, query_block=256)
+    t1000 = time.perf_counter() - t0
+    path_counts["search"] = dict(kernels.LAUNCHES)
+    check(path_counts["search"]["bin_scores_bin_major"] > 0, "search did not launch kernel A bin-major")
+    say("search", rows=N_ROWS, rows_padded=index._rows_per_shard, dim=DIM, dtype="bfloat16",
+        gen_s=round(gen_s, 2), upload_s=round(upload_s, 2),
+        k100_alphas=len(ALPHAS), k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t100, 1),
+        k1000_queries_per_s=round(N_QUERIES / t1000, 1), query_block=256,
+        launches=path_counts["search"])
+
+    def run_ids(path, k):
+        rows = {}
+        with open(path) as fh:
+            for line in fh:
+                qid, _, doc, _, _, _ = line.split()
+                rows.setdefault(qid, []).append(int(doc))
+        check(all(len(rows[q]) == k for q in qids), f"{path} rows per query != {k}")
+        return np.array([rows[q] for q in qids])
+
+    ids100 = run_ids(runs100[0.5], 100)
+    ids1000 = run_ids(runs1000[0.5], 1000)
+    for a in ALPHAS:
+        run_ids(runs100[a], 100)
+
+    def oracle_topk(q32, docs_dev, n_rows, k, chunk=262_144):
+        """Chunked f32 exact top-k with a running stable (score desc, id asc) merge."""
+        vals = torch.empty((q32.shape[0], 0), device=dev)
+        ids = torch.empty((q32.shape[0], 0), dtype=torch.long, device=dev)
+        for c0 in range(0, n_rows, chunk):
+            c1 = min(c0 + chunk, n_rows)
+            s = q32 @ docs_dev[c0:c1].float().T
+            v = torch.cat([vals, s], dim=1)
+            i = torch.cat([ids, torch.arange(c0, c1, device=dev).expand(q32.shape[0], -1)], dim=1)
+            sv, order = torch.sort(v, dim=1, descending=True, stable=True)
+            vals, ids = sv[:, :k], torch.gather(i, 1, order[:, :k])
+        return vals, ids
+
+    def overlap(a, b):
+        return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
+
+    q05 = mix05.to(torch.bfloat16)
+    t0 = time.perf_counter()
+    ovals, oids = oracle_topk(q05.float(), index._docs_dev, N_ROWS, 1000)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oids = oids.cpu().numpy()
+    ov = ovals.cpu().numpy()
+    gap = float((ov[:, 0] - ov[:, 1]).min())
+    ov100, ov1000 = overlap(ids100, oids[:, :100]), overlap(ids1000, oids)
+    check(ov100 >= 0.999 and ov1000 >= 0.999, f"oracle overlap {ov100} / {ov1000}")
+    qrels = work / "qrels.tsv"
+    qrels.write_text("".join(f"{q}\t{oids[i, 0]}\t1\n" for i, q in enumerate(qids)))
+    cli_main(["evaluate", "--dataset", "smoke", "--run", str(runs100[0.5]), "--qrels", str(qrels),
+              "--outdir", str(work / "eval"), "--metrics", "MRR@10", "nDCG@10", "R@100"])
+    (agg_path,) = (work / "eval").glob("*-agg.json")
+    agg = json.loads(agg_path.read_text())
+    check(agg["RR@10"] == 100.0, f"RR@10 {agg['RR@10']}")
+    # the run equals a stable (score desc, id asc) top-k of the kernel's own scores
+    s64, _ = topk.bin_scores(q05[:64].contiguous(), index._docs_dev, index._counts_dev[:1], 8,
+                             layout="bin_major")
+    thr = torch.topk(s64, 1000, dim=1).values[:, -1]
+    own = []
+    for r in range(64):
+        cand = torch.nonzero(s64[r] >= thr[r]).squeeze(1)
+        order = torch.sort(s64[r, cand], descending=True, stable=True).indices[:1000]
+        own.append(cand[order])
+    own = torch.stack(own).cpu().numpy()
+    del s64
+    check(bool((own == ids1000[:64]).all()), "k=1000 ids differ from the kernel's own stable top-k")
+    check(bool((own[:, :100] == ids100[:64]).all()), "k=100 ids differ from the kernel's own stable top-k")
+    say("search_checks", rr10=agg["RR@10"], ndcg10=agg["nDCG@10"], overlap_k100=ov100,
+        overlap_k1000=ov1000, own_scores_ids_equal_64q=True, oracle_top1_top2_min_gap=gap,
+        oracle_s=round(oracle_s, 2))
+
+    # ---------------- phase 6: CLI at full width ----------------
+    from codemix_dense_retrieval_torch.io.shards import ShardStore
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+    from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
+
+    ckpt = work / "ckpt"
+    ckpt.mkdir()
+    t0 = time.perf_counter()
+    save_params_npz(ckpt / "params.npz", flax_from_state_dict(enc.model.state_dict()))
+    (ckpt / "encoder_config.json").write_text(json.dumps(cfg.to_json_dict(), indent=2))
+    small = torch.empty((SMALL_ROWS, DIM), dtype=torch.bfloat16)
+    for c0 in range(0, SMALL_ROWS, 1 << 16):
+        x = torch.randn(1 << 16, DIM, device=dev, generator=gi)
+        small[c0 : c0 + (1 << 16)].copy_((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    ShardStore.build(small, [f"s{i}" for i in range(SMALL_ROWS)], lang="xx").save(work / "small")
+    write_queries_tsv(work / "en.tsv", zip(qids, texts_a))
+    write_queries_tsv(work / "zh.tsv", zip(qids, texts_b))
+    write_s = time.perf_counter() - t0
+    del enc
+    argv = ["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+            "--index", str(work / "small"), "--query_tsv", f"en={work / 'en.tsv'}",
+            f"zh={work / 'zh.tsv'}", "--outdir", str(work / "cli_runs"), "--k", "100",
+            "--qblock", "256", "--cm_alphas", "0", "0.5", "1", "--seed", str(SEED)]
+    saved_argv = sys.argv
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = argv
+        runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved_argv
+    cli_s = time.perf_counter() - t0
+    path_counts["cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["cli"]["bin_scores_transposed"] > 0, "CLI did not launch kernel A transposed")
+    small_dev = DenseFlatIndex.load(work / "small").to_device()
+    check(small_dev._rows_per_shard < topk.TWO_LEVEL_MIN_ROWS, "CLI store not on the single-level route")
+
+    def cli_ids(alpha_label):
+        ids = {}
+        with open(work / "cli_runs" / f"cm-alpha-{alpha_label}.trec") as fh:
+            for line in fh:
+                qid, _, doc, _, _, _ = line.split()
+                ids.setdefault(qid, []).append(int(doc[1:]))
+        check(len(ids) == N_QUERIES and all(len(v) == 100 for v in ids.values()), "CLI run shape")
+        return np.array([ids[q] for q in qids])
+
+    for label in ("0", "1"):
+        cli_ids(label)
+    _, soids = oracle_topk(q05.float(), small_dev._docs_dev, SMALL_ROWS, 100)
+    cli_ov = overlap(cli_ids("0.5"), soids.cpu().numpy())
+    check(cli_ov >= 0.999, f"CLI alpha=0.5 oracle overlap {cli_ov}")
+    say("cli", checkpoint="params.npz + encoder_config.json (BGE-M3 width, f32)", store_rows=SMALL_ROWS,
+        write_s=round(write_s, 2), run_s=round(cli_s, 2), overlap_k100=cli_ov,
+        launches=path_counts["cli"])
+
+    # ---------------- phase 7: kernels line ----------------
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def total(name):
+        return sum(c[name] for c in path_counts.values())
+
+    def kernel_a_err(q, docs, nv, bin_size, layout):
+        """Max |kernel - plain| over the valid scores and the bin maxima at
+        this shape (chunked, to bound memory); pad scores exactly NEG_INF."""
+        s, bm = topk.bin_scores(q, docs, nv, bin_size, layout=layout)
+        s2, bm2 = topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout)
+        torch.cuda.synchronize()
+        if layout == "transposed":
+            s, s2 = s.T, s2.T
+        n_valid = int(nv.item())
+        check(bool((s[:, n_valid:] == topk.NEG_INF).all()), f"A pad at the {layout} main shape")
+        err = (bm - bm2).abs().max().item()
+        for c0 in range(0, n_valid, 1 << 20):
+            c1 = min(c0 + (1 << 20), n_valid)
+            err = max(err, (s[:, c0:c1] - s2[:, c0:c1]).abs().max().item())
+        check(err <= 1e-4, f"A {layout} err {err} at the main shape")
+        return err
+
+    entries = []
+    # kernel A, bin-major, at the search phase's shape
+    qa256 = q05[:256].contiguous()
+    docs_big, nv_big = index._docs_dev, index._counts_dev[:1]
+    nb_big = docs_big.shape[0]
+    col = torch.arange(nb_big, device=dev)
+
+    def lib_bm():
+        s = torch.matmul(qa256, docs_big.T).masked_fill_(col >= nv_big, -torch.inf)
+        return s.view(256, nb_big // 8, 8).amax(dim=2)
+
+    err_main = kernel_a_err(qa256, docs_big, nv_big, 8, "bin_major")
+    ms = cuda_ms(lambda: topk.bin_scores(qa256, docs_big, nv_big, 8, layout="bin_major"), 5)
+    plain = cuda_ms(lambda: topk.bin_scores_plain(qa256, docs_big, nv_big, 8, layout="bin_major"), 2)
+    lib = cuda_ms(lib_bm, 3)
+    b_ms, b_by = bound(256 * DIM * 2 + nb_big * DIM * 2 + 256 * nb_big * 4 + 256 * nb_big // 8 * 4,
+                       2 * 256 * nb_big * DIM)
+    entries.append(dict(
+        name="bin_scores[bin_major]", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/topk.py:492",
+        launches=total("bin_scores_bin_major"), max_abs_err=max(errs["bin_major"], err_main), ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        shape=f"B=256 N={nb_big} d={DIM} G=8 f32 scores",
+    ))
+    # where a 256-query search block's time goes: kernel A, then the tail
+    from codemix_dense_retrieval_torch.parallel.sharded_search import sharded_topk_ip
+
+    q64 = qa256[:64].contiguous()
+    ms64 = cuda_ms(lambda: topk.bin_scores(q64, docs_big, nv_big, 8, layout="bin_major"), 5)
+    s_bm, b_bm = topk.bin_scores(qa256, docs_big, nv_big, 8, layout="bin_major")
+    tail100 = cuda_ms(lambda: topk._topk_from_bins_two_level_bm(s_bm, b_bm, 100, 8, 8), 3)
+    tail1000 = cuda_ms(lambda: topk._topk_from_bins_two_level_bm(s_bm, b_bm, 1000, 8, 8), 3)
+    del s_bm, b_bm
+    blk100 = cuda_ms(lambda: sharded_topk_ip(qa256, docs_big, index._counts_dev, 100), 3)
+    blk1000 = cuda_ms(lambda: sharded_topk_ip(qa256, docs_big, index._counts_dev, 1000), 3)
+    say("search_breakdown", block_queries=256, kernel_ms=entries[0]["ms"], kernel_ms_64_queries=ms64,
+        tail_k100_ms=tail100,
+        tail_k1000_ms=tail1000, sharded_topk_k100_ms=blk100, sharded_topk_k1000_ms=blk1000)
+    del docs_big, index
+    # kernel A, transposed, at the CLI phase's shape
+    docs_s, nv_s = small_dev._docs_dev, small_dev._counts_dev[:1]
+    ns = docs_s.shape[0]
+    col_s = torch.arange(ns, device=dev)[:, None]
+
+    def lib_tr():
+        s = torch.matmul(docs_s, qa256.T).masked_fill_(col_s >= nv_s, -torch.inf)
+        return s.view(ns // 16, 16, 256).amax(dim=1)
+
+    err_main = kernel_a_err(qa256, docs_s, nv_s, 16, "transposed")
+    ms = cuda_ms(lambda: topk.bin_scores(qa256, docs_s, nv_s, 16, layout="transposed"), 20)
+    plain = cuda_ms(lambda: topk.bin_scores_plain(qa256, docs_s, nv_s, 16, layout="transposed"), 5)
+    lib = cuda_ms(lib_tr, 20)
+    b_ms, b_by = bound(256 * DIM * 2 + ns * DIM * 2 + 256 * ns * 4 + 256 * ns // 16 * 4,
+                       2 * 256 * ns * DIM)
+    entries.append(dict(
+        name="bin_scores[transposed]", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/topk.py:389",
+        launches=total("bin_scores_transposed"), max_abs_err=max(errs["transposed"], err_main), ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        shape=f"B=256 N={ns} d={DIM} G=16 f32 scores",
+    ))
+    # kernel B at the passage encode's shape: 32 passages, bucket 1024, 16 heads of 64
+    from codemix_dense_retrieval_torch.models.tokenizer import HashTokenizer
+
+    _, tok_mask = HashTokenizer().encode_batch(passages[:32], 1024)
+    lens = torch.from_numpy(tok_mask.sum(axis=1).astype(np.int32)).to(dev)
+    bsz, h, seq, dh = 32, 16, 1024, 64
+    q = torch.randn(bsz, seq, h, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+    k = torch.randn(bsz, seq, h, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+    v = torch.randn(bsz, seq, h, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+    key_mask = (torch.arange(seq, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    err_main = (fa.attention_flash(q, k, v, lens).float()
+                - fa.attention_flash_plain(q.float(), k.float(), v.float(), lens)).abs().max().item()
+    check(err_main <= 2e-2, f"B err {err_main} at the main shape")
+    ms = cuda_ms(lambda: fa.attention_flash(q, k, v, lens), 20)
+    plain = cuda_ms(lambda: fa.attention_flash_plain(q, k, v, lens), 3)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask), 20)
+    b_ms, b_by = bound(4 * bsz * h * seq * dh * 2, 4 * h * seq * dh * int(lens.sum().item()))
+    entries.append(dict(
+        name="flash_attention", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/flash_attention.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/flash_attention.py:249",
+        launches=total("flash_attention"), max_abs_err=max(errs["flash_bf16"], err_main), ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        shape=f"B={bsz} H={h} S={seq} dh={dh} bf16 mean_len={lens.float().mean().item():.1f}",
+    ))
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} never launched on the main path")
+    say("path_launches", **path_counts)
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

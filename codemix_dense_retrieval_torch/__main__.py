@@ -1,0 +1,4 @@
+from codemix_dense_retrieval_torch.cli import main
+
+if __name__ == "__main__":
+    main()

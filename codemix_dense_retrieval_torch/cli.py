@@ -1,0 +1,237 @@
+"""Command-line interface: ``python -m codemix_dense_retrieval_torch <command>``.
+
+========================  ==============================================
+command                   what it does
+========================  ==============================================
+run-mono                  word-mix band search over one index
+run-mix                   vector-mix alpha sweep over one index
+evaluate                  evaluate a TREC run against qrels
+========================  ==============================================
+
+Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
+Query TSVs, index directories, TREC runs and eval artifacts keep the same
+on-disk formats. Options whose paths are not ported yet (``--fused``,
+``--approx`` other than off, ``--dp`` > 1, ``--shards`` > 1,
+``--weight_quant``) exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from codemix_dense_retrieval_torch.config import DEFAULT_ALPHAS
+from codemix_dense_retrieval_torch.utils.logging import get_logger, setup_logging
+
+log = get_logger("cli")
+
+
+def _parse_lang_path(specs: Sequence[str]) -> Dict[str, pathlib.Path]:
+    """Parse repeated ``LANG=PATH`` arguments."""
+    out: Dict[str, pathlib.Path] = {}
+    for spec in specs:
+        if "=" not in spec:
+            raise SystemExit(f"[ERROR] expected LANG=PATH, got {spec!r}")
+        lang, path = spec.split("=", 1)
+        out[lang] = pathlib.Path(path)
+    return out
+
+
+def _reject_unported(args) -> None:
+    if getattr(args, "fused", False):
+        raise SystemExit("[ERROR] --fused is not ported yet (ROADMAP: fused sweep)")
+    if getattr(args, "approx", "off") != "off":
+        raise SystemExit(f"[ERROR] --approx {args.approx} is not ported yet (ROADMAP: approximate tiers)")
+    if args.dp > 1:
+        raise SystemExit("[ERROR] --dp > 1 is not ported yet (ROADMAP: multi-GPU)")
+    if args.shards > 1:
+        raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
+    if args.weight_quant:
+        raise SystemExit("[ERROR] --weight_quant is not ported yet (ROADMAP: quantization)")
+
+
+def _build_encoder(args):
+    """TextEncoder from --encoder/--checkpoint via the registry; a tiny
+    random-init f32 model + hash tokenizer when no checkpoint (smoke mode)."""
+    if args.checkpoint:
+        from codemix_dense_retrieval_torch.models.registry import load_encoder
+
+        return load_encoder(args.encoder, args.checkpoint, seed=args.seed, device=args.device)
+    log.warning("no --checkpoint: random-init encoder + hash tokenizer (smoke mode)")
+    from codemix_dense_retrieval_torch.models.dialects import default_pooling
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+    from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
+
+    cfg = XLMRConfig.tiny(
+        vocab_size=30_000,
+        hidden_size=args.smoke_dim,
+        num_heads=4,
+        intermediate_size=args.smoke_dim * 4,
+        pooling=default_pooling(args.encoder),
+        use_flash=False,
+    )
+    return TextEncoder(args.encoder, cfg, seed=args.seed, device=args.device)
+
+
+def _load_query_sets(args) -> Dict[str, List[Tuple[str, str]]]:
+    """A directory of band files (queries-cm*.tsv) or single TSV files."""
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
+
+    sets: Dict[str, List[Tuple[str, str]]] = {}
+    for spec in args.queries or []:
+        p = pathlib.Path(spec)
+        if p.is_dir():
+            for f in sorted(p.glob("queries-cm*.tsv")):
+                sets[f.stem.replace("queries-", "")] = read_queries_tsv(f)
+        else:
+            sets[p.stem] = read_queries_tsv(p)
+    if not sets:
+        raise SystemExit("[ERROR] no query sets found")
+    return sets
+
+
+# ---------------------------------------------------------------------------
+# commands
+# ---------------------------------------------------------------------------
+
+def cmd_run_mono(args) -> None:
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.pipeline.runs import run_word_mix_search
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    index = DenseFlatIndex.load(args.index).to_device(args.device)
+    sets = _load_query_sets(args)
+    if args.max_queries:
+        sets = {k: v[: args.max_queries] for k, v in sets.items()}
+    runs = run_word_mix_search(
+        index, encoder, sets, args.outdir, k=args.k, batch_size=args.enc_batch,
+        query_block=args.qblock,
+    )
+    print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
+
+
+def cmd_run_mix(args) -> None:
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
+    from codemix_dense_retrieval_torch.pipeline.query_cache import (
+        QueryCacheMismatch,
+        load_query_cache,
+        save_query_cache,
+    )
+    from codemix_dense_retrieval_torch.pipeline.runs import (
+        intersect_query_sets,
+        run_vector_mix_search,
+    )
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    index = DenseFlatIndex.load(args.index).to_device(args.device)
+    tsvs = _parse_lang_path(args.query_tsv)
+    if len(tsvs) != 2:
+        raise SystemExit("[ERROR] run-mix needs exactly two LANG=PATH --query_tsv")
+    (lang_a, path_a), (lang_b, path_b) = tsvs.items()
+    qids, texts_a, texts_b = intersect_query_sets(
+        read_queries_tsv(path_a), read_queries_tsv(path_b)
+    )
+    if not qids:
+        raise SystemExit("[ERROR] empty qid intersection between the two query TSVs")
+
+    def encode_cached(lang, texts):
+        if args.query_cache:
+            cache = pathlib.Path(args.query_cache) / lang / "queries.npz"
+            if cache.exists():
+                try:
+                    _, vecs = load_query_cache(cache, expected_qids=qids)
+                    return vecs
+                except QueryCacheMismatch:
+                    log.warning("stale query cache %s; re-encoding", cache)
+            vecs = encoder.encode_queries(texts, batch_size=args.enc_batch)
+            save_query_cache(cache, qids, vecs)
+            return vecs
+        return encoder.encode_queries(texts, batch_size=args.enc_batch)
+
+    vecs_a = encode_cached(lang_a, texts_a)
+    vecs_b = encode_cached(lang_b, texts_b)
+    alphas = [float(a) for a in args.cm_alphas]
+    runs = run_vector_mix_search(
+        index, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
+    )
+    print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
+
+
+# ---------------------------------------------------------------------------
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--encoder", default="BAAI/bge-m3")
+    p.add_argument("--checkpoint", help="converted or HF checkpoint dir")
+    p.add_argument("--smoke_dim", type=int, default=64, help="hidden size for random-init smoke mode")
+    p.add_argument("--weight_quant", choices=("int8", "nf4"), help="not ported yet")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--enc_batch", type=int, default=64)
+    p.add_argument("--dp", type=int, default=1, help="data-parallel encode devices (only 1)")
+    p.add_argument("--shards", type=int, default=-1, help="index shard axis size (one device: -1 or 1)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--verbosity", type=int, default=1)
+
+
+def _add_approx_flag(p) -> None:
+    p.add_argument("--approx", choices=["off", "fast", "guaranteed", "adaptive"], default="off",
+                   help="search tier; only 'off' (exact) is ported")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="codemix_dense_retrieval_torch",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("run-mono", help="word-mix band search over one index")
+    _add_common(p)
+    p.add_argument("--index", required=True)
+    p.add_argument("--queries", nargs="+", help="band dir or TSV files")
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--k", type=int, default=100)
+    p.add_argument("--qblock", type=int, default=256)
+    p.add_argument("--max_queries", type=int, default=0)
+    _add_approx_flag(p)
+    p.set_defaults(fn=cmd_run_mono)
+
+    p = sub.add_parser("run-mix", help="vector-mix alpha sweep over one index")
+    _add_common(p)
+    p.add_argument("--index", required=True)
+    p.add_argument("--query_tsv", nargs=2, required=True, metavar="LANG=PATH")
+    p.add_argument("--cm_alphas", nargs="+", default=[str(a) for a in DEFAULT_ALPHAS])
+    p.add_argument("--query_cache")
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--k", type=int, default=100)
+    p.add_argument("--qblock", type=int, default=1024)
+    p.add_argument("--fused", action="store_true", help="not ported yet")
+    p.add_argument("--qrels", help="qrels file for --fused (not ported yet)")
+    _add_approx_flag(p)
+    p.set_defaults(fn=cmd_run_mix)
+
+    sub.add_parser(
+        "evaluate", help="evaluate a TREC run (all evaluate.py flags)", add_help=False,
+    )
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "evaluate":
+        from codemix_dense_retrieval_torch.evals.evaluate import main as eval_main
+
+        eval_main(argv[1:])
+        return
+    args = build_parser().parse_args(argv)
+    setup_logging(getattr(args, "verbosity", 1))
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,317 @@
+"""Embedding shard store — the on-disk index format.
+
+Directory layout (unchanged from the JAX package, so a store written by
+one package opens in the other):
+
+    <dir>/manifest.json   {"dim", "dtype", "count", "files": [{"name","rows"}...],
+                           "lang", "encoder", "normalized", "extra"}
+    <dir>/emb.00000.bin   raw row-major embeddings (bf16 by default)
+    <dir>/docids.txt      base docid per row (row order == vector order)
+    <dir>/docid_map.tsv   int_id \\t derived_id \\t base_id \\t lang
+    <dir>/scales.bin      per-row f32 scales (int8 storage only)
+
+numpy has no bfloat16, so bf16 rows are held host-side as their raw 16-bit
+patterns (``np.uint16``) and reinterpreted as ``torch.bfloat16`` at the
+tensor boundary (:func:`storage_to_tensor`); float -> bf16 conversion rounds
+to nearest even, the same rounding the JAX package's writer applies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pathlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+PathLike = os.PathLike | str
+
+_NP_DTYPES = {
+    "bfloat16": np.dtype(np.uint16),  # raw bf16 bit patterns
+    "float32": np.dtype(np.float32),
+    "float16": np.dtype(np.float16),
+    "int8": np.dtype(np.int8),
+}
+
+TORCH_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "int8": torch.int8,
+}
+
+
+def storage_dtype(name: str) -> np.dtype:
+    """Host numpy dtype a storage dtype is held in."""
+    if name not in _NP_DTYPES:
+        raise ValueError(f"unsupported storage dtype {name!r} (use {sorted(_NP_DTYPES)})")
+    return _NP_DTYPES[name]
+
+
+def to_storage(vecs, name: str) -> np.ndarray:
+    """Convert float rows (numpy array or torch tensor) to the host storage
+    array of dtype ``name``. A CPU bf16 tensor is viewed, not copied."""
+    storage_dtype(name)
+    if name == "int8":
+        if isinstance(vecs, torch.Tensor):
+            vecs = vecs.numpy()
+        if np.asarray(vecs).dtype != np.int8:
+            raise NotImplementedError(
+                "int8 quantization of float rows is not ported yet "
+                "(ROADMAP queue 1, quantization)"
+            )
+        return np.ascontiguousarray(vecs)
+    t = vecs if isinstance(vecs, torch.Tensor) else torch.from_numpy(np.asarray(vecs))
+    t = t.detach().to("cpu", TORCH_DTYPES[name]).contiguous()
+    if name == "bfloat16":
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def storage_to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
+    """Host storage rows -> CPU tensor of the storage's torch dtype (copies,
+    so read-only memmaps are safe to hand over)."""
+    host = np.array(arr, copy=True)
+    if name == "bfloat16":
+        return torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(host)
+
+
+@dataclass
+class ShardManifest:
+    dim: int
+    dtype: str
+    count: int
+    files: List[Dict]
+    lang: Optional[str] = None
+    encoder: Optional[str] = None
+    normalized: bool = True
+    extra: Dict = field(default_factory=dict)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "ShardManifest":
+        d = json.loads(text)
+        return cls(**{k: d[k] for k in ("dim", "dtype", "count", "files")},
+                   lang=d.get("lang"), encoder=d.get("encoder"),
+                   normalized=d.get("normalized", True), extra=d.get("extra", {}))
+
+
+class ShardWriter:
+    """Streaming writer: ``append`` writes rows to the current bin file
+    (flushed) and ``finalize`` writes the manifest last, so a finished
+    manifest means a complete store."""
+
+    def __init__(
+        self,
+        out_dir: PathLike,
+        dim: int,
+        dtype: str = "bfloat16",
+        *,
+        lang: Optional[str] = None,
+        encoder: Optional[str] = None,
+        normalized: bool = True,
+        rows_per_file: int = 1_000_000,
+    ) -> None:
+        self.dir = pathlib.Path(out_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.dim = dim
+        self.dtype_name = dtype
+        storage_dtype(dtype)
+        self.lang = lang
+        self.encoder = encoder
+        self.normalized = normalized
+        self.rows_per_file = rows_per_file
+        self.count = 0
+        self.files: List[Dict] = []
+        self._docids: List[str] = []
+        self._derived: List[str] = []
+        self._fh = None
+        self._rows_in_file = 0
+
+    def _open_new_file(self):
+        name = f"emb.{len(self.files):05d}.bin"
+        self.files.append({"name": name, "rows": 0})
+        self._fh = open(self.dir / name, "wb")
+        self._rows_in_file = 0
+
+    def append(
+        self,
+        vecs,
+        docids: Sequence[str],
+        derived_ids: Optional[Sequence[str]] = None,
+    ) -> None:
+        if vecs.ndim != 2 or vecs.shape[1] != self.dim:
+            raise ValueError(f"rows of shape {tuple(vecs.shape)} do not match dim {self.dim}")
+        if len(docids) != len(vecs):
+            raise ValueError(f"{len(docids)} docids for {len(vecs)} rows")
+        with open(self.dir / "docids.partial.txt", "a", encoding="utf-8") as fh:
+            fh.write("".join(f"{d}\n" for d in docids))
+        rows = to_storage(vecs, self.dtype_name)
+        pos = 0
+        while pos < len(rows):
+            if self._fh is None or self._rows_in_file >= self.rows_per_file:
+                if self._fh is not None:
+                    self._fh.close()
+                self._open_new_file()
+            take = min(len(rows) - pos, self.rows_per_file - self._rows_in_file)
+            self._fh.write(rows[pos : pos + take].tobytes())
+            self._rows_in_file += take
+            self.files[-1]["rows"] = self._rows_in_file
+            pos += take
+        self._fh.flush()
+        self._docids.extend(str(d) for d in docids)
+        src = derived_ids if derived_ids is not None else docids
+        self._derived.extend(str(d) for d in src)
+        self.count += len(rows)
+
+    def finalize(self, extra: Optional[Dict] = None) -> ShardManifest:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        (self.dir / "docids.txt").write_text("\n".join(self._docids), encoding="utf-8")
+        with open(self.dir / "docid_map.tsv", "w", encoding="utf-8") as fh:
+            print("int_id\tderived_id\tbase_id\tlang", file=fh)
+            for i, (derived, base) in enumerate(zip(self._derived, self._docids)):
+                print(f"{i}\t{derived}\t{base}\t{self.lang or ''}", file=fh)
+        manifest = ShardManifest(
+            dim=self.dim,
+            dtype=self.dtype_name,
+            count=self.count,
+            files=self.files,
+            lang=self.lang,
+            encoder=self.encoder,
+            normalized=self.normalized,
+            extra=extra or {},
+        )
+        tmp = self.dir / "manifest.json.tmp"
+        tmp.write_text(manifest.to_json(), encoding="utf-8")
+        tmp.replace(self.dir / "manifest.json")
+        partial = self.dir / "docids.partial.txt"
+        if partial.exists():
+            partial.unlink()
+        return manifest
+
+
+class ShardStore:
+    """Reader over a finalized shard directory (or an in-memory build)."""
+
+    def __init__(
+        self,
+        manifest: ShardManifest,
+        vectors: np.ndarray,
+        docids: List[str],
+        derived_ids: Optional[List[str]] = None,
+        directory: Optional[pathlib.Path] = None,
+        scales: Optional[np.ndarray] = None,
+    ) -> None:
+        self.manifest = manifest
+        self.vectors = vectors  # (count, dim) host storage array, maybe a memmap
+        self.docids = docids
+        self.derived_ids = derived_ids if derived_ids is not None else docids
+        self.dir = directory
+        self.scales = scales  # per-row f32 scales (int8 storage only)
+
+    @property
+    def count(self) -> int:
+        return self.manifest.count
+
+    @property
+    def dim(self) -> int:
+        return self.manifest.dim
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.manifest.dtype]
+
+    def rows(self, start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+        """Rows ``[start, stop)`` as a CPU tensor of the storage dtype."""
+        return storage_to_tensor(self.vectors[start:stop], self.manifest.dtype)
+
+    @classmethod
+    def open(cls, directory: PathLike) -> "ShardStore":
+        """Open a finalized store; its rows stay memory-mapped."""
+        d = pathlib.Path(directory)
+        manifest = ShardManifest.from_json((d / "manifest.json").read_text())
+        dtype = storage_dtype(manifest.dtype)
+        parts = []
+        for f in manifest.files:
+            parts.append(np.memmap(d / f["name"], dtype=dtype, mode="r",
+                                   shape=(f["rows"], manifest.dim)))
+        if len(parts) == 1:
+            vectors = parts[0]
+        else:
+            vectors = np.concatenate([np.asarray(p) for p in parts], axis=0) if parts else (
+                np.zeros((0, manifest.dim), dtype)
+            )
+        if vectors.shape[0] != manifest.count:
+            raise ValueError(
+                f"manifest count {manifest.count} != stored rows {vectors.shape[0]} in {d}"
+            )
+        docids = (d / "docids.txt").read_text(encoding="utf-8").splitlines()
+        derived: Optional[List[str]] = None
+        map_path = d / "docid_map.tsv"
+        if map_path.exists():
+            derived = []
+            with open(map_path, encoding="utf-8") as fh:
+                next(fh)  # header
+                for line in fh:
+                    fields = line.rstrip("\n").split("\t")
+                    if len(fields) >= 2:
+                        derived.append(fields[1])
+        scales = None
+        if manifest.dtype == "int8" and (d / "scales.bin").exists():
+            scales = np.fromfile(d / "scales.bin", dtype=np.float32)
+            if scales.shape[0] != manifest.count:
+                raise ValueError(
+                    f"scales count {scales.shape[0]} != manifest count {manifest.count} in {d}"
+                )
+        return cls(manifest, vectors, docids, derived, directory=d, scales=scales)
+
+    @classmethod
+    def build(
+        cls,
+        vectors,
+        docids: Sequence[str],
+        *,
+        dtype: str = "bfloat16",
+        lang: Optional[str] = None,
+        encoder: Optional[str] = None,
+        normalized: bool = True,
+        derived_ids: Optional[Sequence[str]] = None,
+    ) -> "ShardStore":
+        """In-memory store (no directory) from float rows (numpy or torch)."""
+        rows = to_storage(vectors, dtype)
+        manifest = ShardManifest(
+            dim=rows.shape[1], dtype=dtype, count=rows.shape[0], files=[],
+            lang=lang, encoder=encoder, normalized=normalized,
+        )
+        return cls(manifest, rows, list(map(str, docids)),
+                   list(map(str, derived_ids)) if derived_ids is not None else None)
+
+    def save(self, directory: PathLike, rows_per_file: int = 1_000_000) -> "ShardStore":
+        w = ShardWriter(
+            directory, self.dim, self.manifest.dtype, lang=self.manifest.lang,
+            encoder=self.manifest.encoder, normalized=self.manifest.normalized,
+            rows_per_file=rows_per_file,
+        )
+        step = max(1, min(rows_per_file, 262_144))
+        for start in range(0, self.count, step):
+            stop = min(start + step, self.count)
+            w.append(
+                self.rows(start, stop),
+                self.docids[start:stop],
+                self.derived_ids[start:stop],
+            )
+        if self.manifest.dtype == "int8" and self.scales is not None:
+            np.ascontiguousarray(self.scales, np.float32).tofile(
+                pathlib.Path(directory) / "scales.bin"
+            )
+        w.finalize(extra=self.manifest.extra)
+        return ShardStore.open(directory)

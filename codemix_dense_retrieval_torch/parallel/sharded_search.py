@@ -1,0 +1,111 @@
+"""Exact search over a device-resident, row-padded index shard.
+
+This slice runs one shard on one device. The shard's rows are padded to a
+multiple of ``pad_multiple`` and masked by a device-resident valid-row count;
+results carry global ids (local id + shard * rows_per_shard) and are merged
+by the two-key order (score desc, global id asc), the merge that a
+multi-device search reuses.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from codemix_dense_retrieval_torch.ops import topk as topk_ops
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def shard_rows(
+    store,
+    device: torch.device,
+    *,
+    pad_multiple: int = 1024,
+    chunk_rows: int = 262_144,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Place a shard store's (N, d) rows on ``device`` in the store's dtype,
+    zero-padded to ``rows_per_shard`` (a multiple of ``pad_multiple``),
+    copying ``chunk_rows`` rows at a time so no second host copy of the
+    index exists. Returns (rows (rows_per_shard, d), valid-row count (1,)
+    int32 on device, rows_per_shard)."""
+    n, d = store.count, store.dim
+    rows_per_shard = _ceil_to(max(1, n), pad_multiple)
+    docs = torch.empty((rows_per_shard, d), dtype=store.torch_dtype, device=device)
+    for start in range(0, n, chunk_rows):
+        stop = min(start + chunk_rows, n)
+        docs[start:stop].copy_(store.rows(start, stop))
+    docs[n:].zero_()
+    counts = torch.tensor([n], dtype=torch.int32, device=device)
+    return docs, counts, rows_per_shard
+
+
+def _merge_two_key(vals: torch.Tensor, gids: torch.Tensor, k: int):
+    """Select the top k of (B, m) candidates by (score desc, gid asc)."""
+    by_id = torch.argsort(gids, dim=1, stable=True)
+    vals = torch.gather(vals, 1, by_id)
+    gids = torch.gather(gids, 1, by_id)
+    by_score = torch.argsort(vals, dim=1, descending=True, stable=True)[:, :k]
+    return torch.gather(vals, 1, by_score), torch.gather(gids, 1, by_score)
+
+
+def sharded_topk_ip(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    counts: torch.Tensor,
+    k: int,
+    *,
+    bin_size: Optional[int] = None,
+    method: str = "auto",
+    tile_n: int = 1024,
+    tile_b: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a padded shard ``docs`` whose first ``counts[0]``
+    rows are valid. ``queries`` must already be in the index dtype. Returns
+    (values (B, k) f32, global ids (B, k) int64); ties go to the lower id.
+
+    Routing: shards of 262,144 rows or more take the two-level cover
+    (kernel A, bin-major), smaller ones the single-level cover (kernel A,
+    transposed); ``method`` may also name ``full`` or ``bins_xla``."""
+    if docs.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 index search is not ported yet (ROADMAP queue 2, kernel 4)"
+        )
+    shard_id = 0
+    rows_per_shard = docs.shape[0]
+    if k > rows_per_shard:
+        raise ValueError(
+            f"k={k} > rows_per_shard={rows_per_shard}; lower k or use fewer shards"
+        )
+    if method == "auto":
+        method = "bins_two_level" if rows_per_shard >= topk_ops.TWO_LEVEL_MIN_ROWS else "bins_pallas"
+    if bin_size is None:
+        bin_size = (
+            topk_ops._auto_bin_size_two_level(k)
+            if method == "bins_two_level" else topk_ops._auto_bin_size(k)
+        )
+    if tile_b is None:
+        tile_b = 256
+    n_valid = counts[:1]
+    if method == "full":
+        scores = queries.to(torch.float32) @ docs.to(torch.float32).T
+        col = torch.arange(rows_per_shard, device=docs.device)
+        scores = torch.where(col[None, :] < n_valid, scores, topk_ops.NEG_INF)
+        vals, idx = topk_ops._stable_topk(scores, k)
+    elif method == "bins_two_level":
+        vals, idx = topk_ops.topk_ip_bins_two_level(
+            queries, docs, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
+            n_valid=n_valid,
+        )
+    elif method in ("bins_pallas", "bins_xla"):
+        vals, idx = topk_ops.topk_ip_bins(
+            queries, docs, k, bin_size=bin_size, use_kernel=(method == "bins_pallas"),
+            tile_b=tile_b, tile_n=tile_n, n_valid=n_valid,
+        )
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    gids = idx + shard_id * rows_per_shard
+    return _merge_two_key(vals, gids, k)

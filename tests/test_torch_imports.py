@@ -1,0 +1,138 @@
+"""The PyTorch port stands alone: no module of it (nor chip_smoke.py)
+imports JAX, Flax or the JAX package, and its entry points refuse to run on
+the CPU unless asked to."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "codemix_dense_retrieval_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "codemix_dense_retrieval_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import codemix_dense_retrieval_torch as P\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(json.dumps({'modules': names, 'bad': bad}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(res["modules"]) >= 25
+    assert res["bad"] == []
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py"))
+    smoke = REPO / "chip_smoke.py"
+    if smoke.exists():
+        files.append(smoke)
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} imports {names}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_cfg():
+    from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
+
+    return XLMRConfig.tiny(vocab_size=50, hidden_size=16, num_heads=2, intermediate_size=32)
+
+
+def _entry_text_encoder():
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+
+    TextEncoder("BAAI/bge-m3", _tiny_cfg())
+
+
+def _entry_load_encoder():
+    from codemix_dense_retrieval_torch.models.registry import load_encoder
+
+    load_encoder("BAAI/bge-m3")
+
+
+def _entry_index_to_device():
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).to_device()
+
+
+def _entry_index_search():
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).search(np.ones((1, 8)), 2)
+
+
+def _entry_runner(tmp_path):
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
+
+    idx = DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd"))
+    v = np.ones((2, 8), np.float32)
+    run_vector_mix_search(idx, ["q1", "q2"], v, v, [0.5], tmp_path, k=2)
+
+
+def _entry_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+
+    DenseFlatIndex.build(np.ones((4, 16), np.float32), list("abcd")).save(tmp_path / "ix")
+    write_queries_tsv(tmp_path / "a.tsv", [("q1", "hello")])
+    main([
+        "run-mix", "--index", str(tmp_path / "ix"), "--smoke_dim", "16",
+        "--query_tsv", f"en={tmp_path / 'a.tsv'}", f"zh={tmp_path / 'a.tsv'}",
+        "--outdir", str(tmp_path / "runs"),
+    ])
+
+
+@pytest.mark.parametrize("entry", [
+    _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
+    _entry_index_search, _entry_runner, _entry_cli,
+], ids=lambda f: f.__name__.removeprefix("_entry_"))
+def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
+    args = (tmp_path,) if entry.__code__.co_argcount else ()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(*args)
+
+
+def test_cpu_is_taken_only_when_named(no_cuda):
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+
+    enc = TextEncoder("BAAI/bge-m3", _tiny_cfg(), device="cpu")
+    assert next(enc.model.parameters()).device.type == "cpu"
+    out = enc.encode_queries(["a b c", "d"])
+    assert out.shape == (2, 16) and np.isfinite(out).all()
