@@ -6,9 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (a line of JSON after each):
  1. card     — CUDA present, card name and power limit, TF32 off.
- 2. build    — compile both kernels (one nvcc per source, in parallel).
- 3. kernels  — kernel A (bin scores, both layouts, both score dtypes) and
-               kernel B (flash attention) against their plain versions.
+ 2. build    — compile every kernel (one nvcc per source, in parallel).
+ 3. kernels  — kernel A (bin scores, both layouts, both score dtypes),
+               kernel 4 (int8 bin scores, both layouts, bit for bit),
+               kernel 5 (bin maxima only) and kernel B (flash attention)
+               against their plain versions.
  4. encoder  — BGE-M3 width (24 layers, d=1024), seeded random init, bf16:
                512 query pairs (plain attention) and 256 passages of
                600-1000 words at a 1024 bucket (kernel B).
@@ -16,15 +18,28 @@ Phases (a line of JSON after each):
                mMARCO language): alpha in {0, .25, .5, .75, 1} at k=100 and
                alpha=.5 at k=1000, the two-level route (kernel A bin-major);
                RR@10, f32-oracle overlap and the kernel's own stable top-k.
+ 5b. int8   — the phase-5 index quantized on the card (8,841,823 x 1024
+               int8 + scales) and the same run over it: the int8 two-level
+               route (kernel 4 bin-major); ids equal a stable top-k of the
+               plain int8 scores for all 512 queries, RR@10, queries/s.
+ 5c. rescore — topk_ip(method="bins_rescore") at k=100 and
+               topk_ip_rescore_two_level at k=1000 on the bf16 index
+               (kernel 5); overlap with the f32 oracle.
  6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
                process) on a BGE-M3-width params.npz checkpoint and a
                131,072-row store: the single-level route (kernel A transposed).
+ 6b. corpus  — `encode-corpus --storage_dtype int8` on 2,048 passages of
+               600-1000 words (cut to the CLI's 512-token cap, so plain
+               attention, as in the JAX package), then `run-mix` over that
+               int8 store (kernel 4 transposed); ids equal the exact int8
+               top-k; passages/s.
  7. kernels line — per kernel, at the main path's shape: the check against
                its plain version again, its launches on the paths, max error,
                time, its bound, the plain version's and one PyTorch call's
                time (a yardstick the port never calls).
-Launch counts are set to 0 just before each path (phases 4, 5, 6) and read
-just after it; comparison and timing launches happen outside those windows.
+Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 6,
+6b) and read just after it; comparison and timing launches happen outside
+those windows.
 The last line is the device JSON. Any failed check raises (exit code != 0).
 """
 
@@ -42,12 +57,14 @@ REPO = pathlib.Path(__file__).resolve().parent
 SEED = 20261016
 N_ROWS = 8_841_823          # one mMARCO language
 SMALL_ROWS = 131_072        # the CLI phase's store
+N_CORPUS = 2048             # passages of the encode-corpus phase
 DIM = 1024
 N_QUERIES = 512
 N_PASSAGES = 256
 ALPHAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak
 
 
 def say(tag: str, **fields) -> None:
@@ -70,6 +87,7 @@ def main() -> None:
     from codemix_dense_retrieval_torch.ops import kernels
     from codemix_dense_retrieval_torch.ops import flash_attention as fa
     from codemix_dense_retrieval_torch.ops import topk
+    from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
 
     work = REPO / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -98,7 +116,8 @@ def main() -> None:
         x = torch.randn(n, d, device=dev, generator=g)
         return x / x.norm(dim=1, keepdim=True)
 
-    errs = {"bin_major": 0.0, "transposed": 0.0, "flash_f32": 0.0, "flash_bf16": 0.0}
+    errs = {"bin_major": 0.0, "transposed": 0.0, "int8_bin_major": 0.0, "int8_transposed": 0.0,
+            "binmax_only": 0.0, "flash_f32": 0.0, "flash_bf16": 0.0}
     n = 262_144 + 123
     n_valid = n - 77
     n_pad = -(-n // 16) * 16
@@ -133,7 +152,37 @@ def main() -> None:
                     bmr = bm if layout == "bin_major" else bm.T
                     check(bool((bmr[:, first_pad_bin:] == topk.NEG_INF).all()), "A binmax pad")
                     errs[layout] = max(errs[layout], bdiff)
-    del docs, s, s2, bm, bm2
+    # kernel 4 on the same rows quantized (zero pad rows: scale 1, values 0),
+    # kernel 5 on the bf16 rows
+    d8, ds8 = quantize_rows(docs)
+    for b in (1, 7, 256):
+        qf = unit(b)
+        q8, qs8 = quantize_rows(qf)
+        qb = qf.to(torch.bfloat16)
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b == 256 else n_valid
+        for bin_size in (8, 16):
+            first_pad_bin = -(-n_valid // bin_size)
+            for layout in topk.LAYOUTS:
+                for sdt in (torch.float32, torch.bfloat16):
+                    s, bm = topk.bin_scores_int8(q8, qs8, d8, ds8, nv, bin_size, layout=layout, score_dtype=sdt)
+                    s2, bm2 = topk.bin_scores_int8_plain(q8, qs8, d8, ds8, nv, bin_size, layout=layout,
+                                                         score_dtype=sdt)
+                    torch.cuda.synchronize()
+                    check(torch.equal(s, s2) and torch.equal(bm, bm2),
+                          f"kernel 4 not bit-equal to its plain version b={b} G={bin_size} {layout} {sdt}")
+                    if layout == "transposed":
+                        s, bm = s.T, bm.T
+                    pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
+                    check(bool((s[:, n_valid:] == pad_val).all()), f"4 pad b={b} G={bin_size} {layout} {sdt}")
+                    check(bool((bm[:, first_pad_bin:] == topk.NEG_INF).all()), "4 binmax pad")
+            bm = topk.binmax_only(qb, docs, nv, bin_size)
+            bm2 = topk.binmax_only_plain(qb, docs, nv, bin_size)
+            torch.cuda.synchronize()
+            err5 = (bm - bm2).abs().max().item()
+            check(err5 <= 1e-4, f"5 binmax err {err5} b={b} G={bin_size}")
+            check(bool((bm[:, first_pad_bin:] == topk.NEG_INF).all()), "5 binmax pad")
+            errs["binmax_only"] = max(errs["binmax_only"], err5)
+    del docs, d8, ds8, s, s2, bm, bm2
 
     for seq in (1024, 2048):
         for dh in (64, 128):
@@ -165,7 +214,8 @@ def main() -> None:
                     errs[key] = max(errs[key], err)
     del q, k, v, o, o2
     say("kernels_vs_plain", max_abs_err=errs,
-        tolerances={"A_f32": 1e-4, "A_bf16": "1 ulp + 1e-6", "B_f32": 1e-4, "B_bf16": 2e-2})
+        tolerances={"A_f32": 1e-4, "A_bf16": "1 ulp + 1e-6", "int8": 0, "binmax_only": 1e-4,
+                    "B_f32": 1e-4, "B_bf16": 2e-2})
 
     # ---------------- phase 4: encoder at BGE-M3 width ----------------
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
@@ -283,13 +333,20 @@ def main() -> None:
 
     def oracle_topk(q32, docs_dev, n_rows, k, chunk=262_144):
         """Chunked f32 exact top-k with a running stable (score desc, id asc) merge."""
-        vals = torch.empty((q32.shape[0], 0), device=dev)
-        ids = torch.empty((q32.shape[0], 0), dtype=torch.long, device=dev)
+        return exact_topk(lambda c0, c1: q32 @ docs_dev[c0:c1].float().T, n_rows, k, chunk)
+
+    def exact_topk(scores_of, n_rows, k, chunk=262_144):
+        """Exact top-k of the (B, c1 - c0) scores ``scores_of(c0, c1)`` with
+        a running stable (score desc, id asc) merge."""
+        vals = ids = None
         for c0 in range(0, n_rows, chunk):
             c1 = min(c0 + chunk, n_rows)
-            s = q32 @ docs_dev[c0:c1].float().T
+            s = scores_of(c0, c1)
+            if vals is None:
+                vals = s[:, :0]
+                ids = torch.empty((s.shape[0], 0), dtype=torch.long, device=dev)
             v = torch.cat([vals, s], dim=1)
-            i = torch.cat([ids, torch.arange(c0, c1, device=dev).expand(q32.shape[0], -1)], dim=1)
+            i = torch.cat([ids, torch.arange(c0, c1, device=dev).expand(s.shape[0], -1)], dim=1)
             sv, order = torch.sort(v, dim=1, descending=True, stable=True)
             vals, ids = sv[:, :k], torch.gather(i, 1, order[:, :k])
         return vals, ids
@@ -331,6 +388,91 @@ def main() -> None:
         overlap_k1000=ov1000, own_scores_ids_equal_64q=True, oracle_top1_top2_min_gap=gap,
         oracle_s=round(oracle_s, 2))
 
+    # ---------------- phase 5b: the same run over the int8 index ----------------
+    from codemix_dense_retrieval_torch.io.shards import ShardStore
+
+    t0 = time.perf_counter()
+    host8 = torch.empty((N_ROWS, DIM), dtype=torch.int8)
+    scales8 = torch.empty(N_ROWS, dtype=torch.float32)
+    for c0 in range(0, N_ROWS, 1 << 20):  # one chunk of f32 at a time, never the index
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        v8, s8 = quantize_rows(index._docs_dev[c0:c1])
+        host8[c0:c1].copy_(v8)
+        scales8[c0:c1].copy_(s8)
+    del v8, s8
+    index8 = DenseFlatIndex.from_store(
+        ShardStore.build(host8, docids, dtype="int8", scales=scales8.numpy())
+    ).to_device()
+    torch.cuda.synchronize()
+    build8_s = time.perf_counter() - t0
+    check(index8._docs_dev.dtype == torch.int8 and index8._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS,
+          "int8 index not int8 on the two-level route")
+    out8 = work / "search_int8"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs8_100 = run_vector_mix_search(index8, qids, qa, qb, ALPHAS, out8 / "k100", k=100, query_block=256)
+    t8_100 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs8_1000 = run_vector_mix_search(index8, qids, qa, qb, [0.5], out8 / "k1000", k=1000, query_block=256)
+    t8_1000 = time.perf_counter() - t0
+    path_counts["search_int8"] = dict(kernels.LAUNCHES)
+    check(path_counts["search_int8"]["bin_scores_int8_bin_major"] > 0,
+          "int8 search did not launch kernel 4 bin-major")
+    ids8_100 = run_ids(runs8_100[0.5], 100)
+    ids8_1000 = run_ids(runs8_1000[0.5], 1000)
+    for a in ALPHAS:
+        run_ids(runs8_100[a], 100)
+    cli_main(["evaluate", "--dataset", "smoke8", "--run", str(runs8_100[0.5]), "--qrels", str(qrels),
+              "--outdir", str(work / "eval8"), "--metrics", "MRR@10", "nDCG@10", "R@100"])
+    (agg8_path,) = (work / "eval8").glob("*-agg.json")
+    agg8 = json.loads(agg8_path.read_text())
+    check(agg8["RR@10"] == 100.0, f"int8 RR@10 {agg8['RR@10']}")
+    # the exact int8 top-k: the same f32 mixed queries, quantized, against the plain int8 scores
+    q8, qs8 = quantize_rows(mix05)
+    d8_big, ds8_big = index8._docs_dev, index8.search_kwargs["doc_scales"]
+    t0 = time.perf_counter()
+    _, o8ids = exact_topk(lambda c0, c1: int8_ip_scores(q8, qs8, d8_big[c0:c1], ds8_big[c0:c1]),
+                          N_ROWS, 1000)
+    o8ids = o8ids.cpu().numpy()
+    oracle8_s = time.perf_counter() - t0
+    ov8_100, ov8_1000 = overlap(ids8_100, o8ids[:, :100]), overlap(ids8_1000, o8ids)
+    check(bool((ids8_1000 == o8ids).all()) and bool((ids8_100 == o8ids[:, :100]).all())
+          and ov8_100 == 1.0 and ov8_1000 == 1.0,
+          f"int8 run ids differ from the exact int8 top-k (overlap {ov8_100} / {ov8_1000})")
+    say("search_int8", rows=N_ROWS, rows_padded=index8._rows_per_shard, dim=DIM, dtype="int8",
+        quantize_and_upload_s=round(build8_s, 2),
+        k100_alphas=len(ALPHAS), k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t8_100, 1),
+        k1000_queries_per_s=round(N_QUERIES / t8_1000, 1), query_block=256,
+        launches=path_counts["search_int8"], rr10=agg8["RR@10"], ndcg10=agg8["nDCG@10"],
+        ids_equal_exact_int8_topk_512q=True, overlap_exact_int8_k100=ov8_100,
+        overlap_exact_int8_k1000=ov8_1000,
+        recall_vs_f32_oracle_k100=overlap(ids8_100, oids[:, :100]),
+        recall_vs_f32_oracle_k1000=overlap(ids8_1000, oids), exact_int8_oracle_s=round(oracle8_s, 2))
+    del host8, scales8
+
+    # ---------------- phase 5c: rescore search (kernel 5) ----------------
+    q256 = q05[:256].contiguous()
+    nv_big = index._counts_dev[:1]
+    kernels.reset_launch_counts()
+    rescore_s = {}
+    for _ in range(2):  # the second call is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rids100 = topk.topk_ip(q256, index._docs_dev, 100, method="bins_rescore", n_valid=nv_big)
+        torch.cuda.synchronize()
+        rescore_s["k100"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, rids1000 = topk.topk_ip_rescore_two_level(q256, index._docs_dev, 1000, n_valid=nv_big)
+        torch.cuda.synchronize()
+        rescore_s["k1000"] = time.perf_counter() - t0
+    path_counts["rescore"] = dict(kernels.LAUNCHES)
+    check(path_counts["rescore"]["binmax_only"] > 0, "rescore search did not launch kernel 5")
+    rov100 = overlap(rids100.cpu().numpy(), oids[:256, :100])
+    rov1000 = overlap(rids1000.cpu().numpy(), oids[:256])
+    check(rov100 >= 0.999 and rov1000 >= 0.999, f"rescore oracle overlap {rov100} / {rov1000}")
+    say("rescore", queries=256, k100_ms=rescore_s["k100"] * 1e3, k1000_ms=rescore_s["k1000"] * 1e3,
+        overlap_k100=rov100, overlap_k1000=rov1000, launches=path_counts["rescore"])
+
     # ---------------- phase 6: CLI at full width ----------------
     from codemix_dense_retrieval_torch.io.shards import ShardStore
     from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
@@ -354,14 +496,18 @@ def main() -> None:
             "--index", str(work / "small"), "--query_tsv", f"en={work / 'en.tsv'}",
             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "cli_runs"), "--k", "100",
             "--qblock", "256", "--cm_alphas", "0", "0.5", "1", "--seed", str(SEED)]
-    saved_argv = sys.argv
+
+    def run_cli(argv):
+        saved_argv = sys.argv
+        try:
+            sys.argv = argv
+            runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
+        finally:
+            sys.argv = saved_argv
+
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
-        sys.argv = argv
-        runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
-    finally:
-        sys.argv = saved_argv
+    run_cli(argv)
     cli_s = time.perf_counter() - t0
     path_counts["cli"] = dict(kernels.LAUNCHES)
     check(path_counts["cli"]["bin_scores_transposed"] > 0, "CLI did not launch kernel A transposed")
@@ -386,6 +532,50 @@ def main() -> None:
         write_s=round(write_s, 2), run_s=round(cli_s, 2), overlap_k100=cli_ov,
         launches=path_counts["cli"])
 
+    # ---------------- phase 6b: encode-corpus (int8) + run-mix over it ----------------
+    from codemix_dense_retrieval_torch.pipeline.query_cache import load_query_cache
+
+    corpus_tsv = work / "corpus.tsv"
+    corpus_tsv.write_text("".join(f"c{i}\t{sentence('p', 600, 1000, 50_000)}\n" for i in range(N_CORPUS)))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "encode-corpus", "--checkpoint", str(ckpt),
+             "--corpus_tsv", f"xx={corpus_tsv}", "--storage_dtype", "int8", "--out", str(work / "corpus"),
+             "--batch", "512", "--enc_batch", "32", "--seed", str(SEED)])
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), "--query_tsv", f"en={work / 'en.tsv'}",
+             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "corpus_runs"), "--k", "100",
+             "--qblock", "256", "--cm_alphas", "0.5", "--query_cache", str(work / "qcache"),
+             "--seed", str(SEED)])
+    corpus_run_s = time.perf_counter() - t0
+    path_counts["corpus_cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_cli"]["bin_scores_int8_transposed"] > 0,
+          "run-mix over the int8 store did not launch kernel 4 transposed")
+    store8 = ShardStore.open(work / "corpus" / "xx")
+    check(store8.count == N_CORPUS and store8.manifest.dtype == "int8"
+          and (work / "corpus" / "xx" / "scales.bin").exists() and store8.scales.shape == (N_CORPUS,),
+          "encode-corpus int8 store shape / scales.bin")
+    _, va = load_query_cache(work / "qcache" / "en" / "queries.npz", expected_qids=qids)
+    _, vb = load_query_cache(work / "qcache" / "zh" / "queries.npz", expected_qids=qids)
+    cq8, cqs8 = quantize_rows(mix_and_renorm(torch.from_numpy(va).to(dev), torch.from_numpy(vb).to(dev), 0.5))
+    cd8 = store8.rows().to(dev)
+    want8 = topk._stable_topk(int8_ip_scores(cq8, cqs8, cd8, torch.from_numpy(store8.scales).to(dev)), 100)[1]
+    got8 = {}
+    with open(work / "corpus_runs" / "cm-alpha-0.5.trec") as fh:
+        for line in fh:
+            qid, _, doc, _, _, _ = line.split()
+            got8.setdefault(qid, []).append(int(doc.split("#")[0][1:]))
+    check(len(got8) == N_QUERIES and all(len(v) == 100 for v in got8.values()), "corpus run shape")
+    check(bool((np.array([got8[q] for q in qids]) == want8.cpu().numpy()).all()),
+          "run-mix over the int8 store differs from the exact int8 top-k")
+    say("corpus_cli", passages=N_CORPUS, words_per_passage="600-1000", bucket=512, storage_dtype="int8",
+        encode_corpus_s=round(encode_s, 2), passages_per_s=round(N_CORPUS / encode_s, 1),
+        run_mix_s=round(corpus_run_s, 2), store_rows=store8.count, ids_equal_exact_int8_topk=True,
+        launches=path_counts["corpus_cli"])
+    del cd8
+
     # ---------------- phase 7: kernels line ----------------
     def cuda_ms(fn, reps):
         fn()
@@ -398,29 +588,43 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    def bound(nbytes, ops, peak=BF16_FLOPS):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def total(name):
         return sum(c[name] for c in path_counts.values())
 
-    def kernel_a_err(q, docs, nv, bin_size, layout):
+    def bin_kernel_err(run, run_plain, nv, layout, tol, label):
         """Max |kernel - plain| over the valid scores and the bin maxima at
         this shape (chunked, to bound memory); pad scores exactly NEG_INF."""
-        s, bm = topk.bin_scores(q, docs, nv, bin_size, layout=layout)
-        s2, bm2 = topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout)
+        s, bm = run()
+        s2, bm2 = run_plain()
         torch.cuda.synchronize()
         if layout == "transposed":
             s, s2 = s.T, s2.T
         n_valid = int(nv.item())
-        check(bool((s[:, n_valid:] == topk.NEG_INF).all()), f"A pad at the {layout} main shape")
+        check(bool((s[:, n_valid:] == topk.NEG_INF).all()), f"{label} pad at the {layout} main shape")
         err = (bm - bm2).abs().max().item()
         for c0 in range(0, n_valid, 1 << 20):
             c1 = min(c0 + (1 << 20), n_valid)
             err = max(err, (s[:, c0:c1] - s2[:, c0:c1]).abs().max().item())
-        check(err <= 1e-4, f"A {layout} err {err} at the main shape")
+        check(err <= tol, f"{label} {layout} err {err} at the main shape")
         return err
+
+    def kernel_a_err(q, docs, nv, bin_size, layout):
+        return bin_kernel_err(
+            lambda: topk.bin_scores(q, docs, nv, bin_size, layout=layout),
+            lambda: topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout),
+            nv, layout, 1e-4, "A",
+        )
+
+    def kernel_4_err(q8, qs8, d8, ds8, nv, bin_size, layout):
+        return bin_kernel_err(
+            lambda: topk.bin_scores_int8(q8, qs8, d8, ds8, nv, bin_size, layout=layout),
+            lambda: topk.bin_scores_int8_plain(q8, qs8, d8, ds8, nv, bin_size, layout=layout),
+            nv, layout, 0.0, "kernel 4",
+        )
 
     entries = []
     # kernel A, bin-major, at the search phase's shape
@@ -461,7 +665,53 @@ def main() -> None:
     say("search_breakdown", block_queries=256, kernel_ms=entries[0]["ms"], kernel_ms_64_queries=ms64,
         tail_k100_ms=tail100,
         tail_k1000_ms=tail1000, sharded_topk_k100_ms=blk100, sharded_topk_k1000_ms=blk1000)
+    # kernel 5 at the rescore search's shape; its yardstick is kernel A's (the
+    # same PyTorch call computes these bin maxima)
+    bm5 = topk.binmax_only(qa256, docs_big, nv_big, 8)
+    bm5p = topk.binmax_only_plain(qa256, docs_big, nv_big, 8)
+    torch.cuda.synchronize()
+    err5 = (bm5 - bm5p).abs().max().item()
+    check(err5 <= 1e-4, f"5 err {err5} at the main shape")
+    check(bool((bm5[:, -(-N_ROWS // 8):] == topk.NEG_INF).all()), "5 pad bins at the main shape")
+    del bm5, bm5p
+    ms = cuda_ms(lambda: topk.binmax_only(qa256, docs_big, nv_big, 8), 5)
+    plain = cuda_ms(lambda: topk.binmax_only_plain(qa256, docs_big, nv_big, 8), 2)
+    b_ms, b_by = bound(256 * DIM * 2 + nb_big * DIM * 2 + 256 * nb_big // 8 * 4, 2 * 256 * nb_big * DIM)
+    entries.append(dict(
+        name="binmax_only", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/topk.py:710",
+        launches=total("binmax_only"), max_abs_err=max(errs["binmax_only"], err5), ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=entries[0]["library_ms"],
+        shape=f"B=256 N={nb_big} d={DIM} G=8 bf16, bin-major maxima only",
+    ))
     del docs_big, index
+    # kernel 4, bin-major, at the int8 search phase's shape
+    q8_256, qs8_256 = quantize_rows(mix05[:256].contiguous())
+    nv8 = index8._counts_dev[:1]
+
+    def lib_int8_bm():
+        acc = torch._int_mm(q8_256, d8_big.T)
+        s = acc.to(torch.float32).mul_(ds8_big).mul_(qs8_256[:, None])
+        return s.masked_fill_(col >= nv8, -torch.inf).view(256, nb_big // 8, 8).amax(dim=2)
+
+    err_main = kernel_4_err(q8_256, qs8_256, d8_big, ds8_big, nv8, 8, "bin_major")
+    ms = cuda_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_big, ds8_big, nv8, 8, layout="bin_major"), 5)
+    plain = cuda_ms(lambda: topk.bin_scores_int8_plain(q8_256, qs8_256, d8_big, ds8_big, nv8, 8,
+                                                       layout="bin_major"), 2)
+    lib = cuda_ms(lib_int8_bm, 3)
+    gemm_only = cuda_ms(lambda: torch._int_mm(q8_256, d8_big.T), 3)  # the yardstick's GEMM alone
+    b_ms, b_by = bound(256 * DIM + 256 * 4 + nb_big * DIM + nb_big * 4 + 256 * nb_big * 4
+                       + 256 * nb_big // 8 * 4, 2 * 256 * nb_big * DIM, INT8_OPS)
+    entries.append(dict(
+        name="bin_scores_int8[bin_major]", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/bin_scores_int8.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/topk.py:605",
+        launches=total("bin_scores_int8_bin_major"), max_abs_err=max(errs["int8_bin_major"], err_main),
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib, library_gemm_ms=gemm_only,
+        shape=f"B=256 N={nb_big} d={DIM} G=8 int8, f32 scores",
+    ))
+    del d8_big, ds8_big, index8
     # kernel A, transposed, at the CLI phase's shape
     docs_s, nv_s = small_dev._docs_dev, small_dev._counts_dev[:1]
     ns = docs_s.shape[0]
@@ -484,6 +734,29 @@ def main() -> None:
         launches=total("bin_scores_transposed"), max_abs_err=max(errs["transposed"], err_main), ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B=256 N={ns} d={DIM} G=16 f32 scores",
+    ))
+    # kernel 4, transposed, on the CLI phase's rows quantized
+    d8_s, ds8_s = quantize_rows(docs_s)
+
+    def lib_int8_tr():
+        acc = torch._int_mm(d8_s, q8_256.T)
+        s = acc.to(torch.float32).mul_(ds8_s[:, None]).mul_(qs8_256)
+        return s.masked_fill_(col_s >= nv_s, -torch.inf).view(ns // 16, 16, 256).amax(dim=1)
+
+    err_main = kernel_4_err(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16, "transposed")
+    ms = cuda_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16, layout="transposed"), 20)
+    plain = cuda_ms(lambda: topk.bin_scores_int8_plain(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16,
+                                                       layout="transposed"), 5)
+    lib = cuda_ms(lib_int8_tr, 20)
+    b_ms, b_by = bound(256 * DIM + 256 * 4 + ns * DIM + ns * 4 + 256 * ns * 4 + 256 * ns // 16 * 4,
+                       2 * 256 * ns * DIM, INT8_OPS)
+    entries.append(dict(
+        name="bin_scores_int8[transposed]", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/bin_scores_int8.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/topk.py:605",
+        launches=total("bin_scores_int8_transposed"), max_abs_err=max(errs["int8_transposed"], err_main),
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        shape=f"B=256 N={ns} d={DIM} G=16 int8, f32 scores",
     ))
     # kernel B at the passage encode's shape: 32 passages, bucket 1024, 16 heads of 64
     from codemix_dense_retrieval_torch.models.tokenizer import HashTokenizer

@@ -3,16 +3,20 @@
 ========================  ==============================================
 command                   what it does
 ========================  ==============================================
+encode-corpus             encode per-language corpora into shard stores
+                          (bf16 by default; ``--storage_dtype int8``
+                          writes int8 rows + ``scales.bin``)
 run-mono                  word-mix band search over one index
 run-mix                   vector-mix alpha sweep over one index
 evaluate                  evaluate a TREC run against qrels
 ========================  ==============================================
 
 Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
-Query TSVs, index directories, TREC runs and eval artifacts keep the same
-on-disk formats. Options whose paths are not ported yet (``--fused``,
-``--approx`` other than off, ``--dp`` > 1, ``--shards`` > 1,
-``--weight_quant``) exit with an error.
+Corpus and query TSVs, index directories (bf16 or int8), TREC runs and eval
+artifacts keep the same on-disk formats. Options whose paths are not ported
+yet (``--fused``, ``--approx`` other than off, ``--dp`` > 1, ``--shards`` >
+1, ``--weight_quant``, ``--tokens_per_doc`` > 0, ``--pack``) exit with an
+error.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ def _reject_unported(args) -> None:
         raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.weight_quant:
         raise SystemExit("[ERROR] --weight_quant is not ported yet (ROADMAP: quantization)")
+    if getattr(args, "tokens_per_doc", 0):
+        raise SystemExit("[ERROR] --tokens_per_doc > 0 is not ported yet (ROADMAP: two-stage ColBERT)")
+    if getattr(args, "pack", False):
+        raise SystemExit("[ERROR] --pack is not ported yet (ROADMAP: sequence packing)")
 
 
 def _build_encoder(args):
@@ -96,6 +104,55 @@ def _load_query_sets(args) -> Dict[str, List[Tuple[str, str]]]:
 # ---------------------------------------------------------------------------
 # commands
 # ---------------------------------------------------------------------------
+
+def cmd_encode_corpus(args) -> None:
+    from codemix_dense_retrieval_torch.pipeline.corpus import (
+        HFCorpusSource,
+        SelectionState,
+        TsvCorpusSource,
+        encode_corpus,
+    )
+
+    _reject_unported(args)
+    sources = {}
+    if args.corpus_tsv:
+        for lang, path in _parse_lang_path(args.corpus_tsv).items():
+            sources[lang] = TsvCorpusSource(path, lang)
+    elif args.repo:
+        for lang in args.langs:
+            sources[lang] = HFCorpusSource(args.repo, f"collection-{lang}")
+    else:
+        raise SystemExit("[ERROR] need --corpus_tsv or --repo")
+    encoder = _build_encoder(args)
+
+    rel_ids = set()
+    if args.rel_ids:
+        rel_ids = set(pathlib.Path(args.rel_ids).read_text().split())
+    elif args.rel_qrels:
+        from codemix_dense_retrieval_torch.io.tsv import read_qrels
+
+        qr = read_qrels(args.rel_qrels)
+        rel_ids = {d for judged in qr.values() for d, r in judged.items() if r > 0}
+        log.info("harvested %d relevant docids from %s", len(rel_ids), args.rel_qrels)
+    selection = SelectionState(
+        rel_ids=rel_ids,
+        subset_neg_cap=args.subset_neg_cap,
+        neg_prob=args.neg_prob,
+        seed=args.seed,
+    )
+    dirs = encode_corpus(
+        encoder,
+        sources,
+        args.out,
+        selection=selection,
+        batch_size=args.batch,
+        enc_batch=args.enc_batch,
+        max_docs=args.max_docs,
+        storage_dtype=args.storage_dtype,
+        force=args.force,
+    )
+    print(json.dumps({lang: str(d) for lang, d in dirs.items()}, indent=2))
+
 
 def cmd_run_mono(args) -> None:
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
@@ -189,6 +246,26 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("encode-corpus", help="encode per-language corpora into shard stores")
+    _add_common(p)
+    p.add_argument("--repo", help="HF dataset repo (e.g. unicamp-dl/mmarco; needs `datasets`)")
+    p.add_argument("--langs", nargs="+", default=["english"])
+    p.add_argument("--corpus_tsv", nargs="+", help="LANG=PATH offline corpus TSVs")
+    p.add_argument("--out", required=True)
+    p.add_argument("--rel_ids", help="file with relevant docids (subset mode)")
+    p.add_argument("--rel_qrels", help="qrels file to harvest relevant docids from")
+    p.add_argument("--subset_neg_cap", type=int, default=0)
+    p.add_argument("--neg_prob", type=float, default=1.0)
+    p.add_argument("--batch", type=int, default=4096)
+    p.add_argument("--max_docs", type=int, default=0)
+    p.add_argument("--storage_dtype", default="bfloat16",
+                   choices=("bfloat16", "float32", "float16", "int8"))
+    p.add_argument("--tokens_per_doc", type=int, default=0, help="not ported yet (only 0)")
+    p.add_argument("--token_dtype", default="int8", help="for --tokens_per_doc (not ported yet)")
+    p.add_argument("--pack", action="store_true", help="not ported yet")
+    p.add_argument("--force", action="store_true")
+    p.set_defaults(fn=cmd_encode_corpus)
 
     p = sub.add_parser("run-mono", help="word-mix band search over one index")
     _add_common(p)

@@ -7,10 +7,16 @@
 // ::_bin_scores_pallas (transposed outputs: S (N, B), binmax (N/G, B)); one
 // kernel serves both through its layout template argument.
 //
+// The same kernel with the score store compiled out (STORE = false) is
+// kernel 5, "bin max only", which replaces ::_binmax_only_pallas: only the
+// bin maxima leave the SM, emitted bin-major (B, N/G) (the TPU kernel writes
+// (N/G, B) and its callers transpose at once).
+//
 // What bounds it on an H100: bytes. At the main path's shape (B = 256
 // queries, N = 8,842,240 rows, d = 1024, bf16) it must read D once (18.1 GB)
 // and write S (9.05 GB f32) and binmax (1.13 GB): 28.3 GB, 8.4 ms at
 // 3.35 TB/s, against 4.64 TFLOP = 4.7 ms at 989 TF/s of bf16 tensor-core work.
+// Without the score store: 19.2 GB, 5.74 ms.
 //
 // Design:
 // - a block computes a 128-query x 128-row tile with nvcuda::wmma bf16
@@ -23,54 +29,35 @@
 //   D re-reads of 64-query ones (72 GB instead of 108 GB per 256-query call
 //   at the main path's shape). Blocks are numbered query-tile fastest, so the
 //   query tiles that share a D tile run side by side and read it from L2;
-// - the epilogue stages the f32 tile in shared memory, masks it, writes the
-//   scores coalesced in the requested layout and reduces each G-row run to its
-//   bin max there: the score matrix is written once and never read back;
+// - the epilogue (bin_epilogue.cuh) stages the f32 tile in shared memory,
+//   masks it, writes the scores coalesced in the requested layout and
+//   reduces each G-row run to its bin max there: the score matrix is written
+//   once and never read back;
 // - every offset into S and binmax is 64-bit: B * N exceeds 2^31 at the main
 //   path's shape.
 // Requirements (checked by the Python wrapper): Q, D bf16 and contiguous,
 // d % 32 == 0, N % G == 0, G in {8, 16}.
 
-#include <cfloat>
-#include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "bin_epilogue.cuh"
+
 using namespace nvcuda;
+using namespace bin_tile;
 
 namespace {
 
-constexpr int TILE_Q = 128;
-constexpr int TILE_N = 128;
 constexpr int TILE_K = 32;
-constexpr int THREADS = 256;
 constexpr int LDS = TILE_K + 8;      // bf16 row stride of the staged chunks
-constexpr int LDC = TILE_N + 4;      // f32 row stride of the staged tile
 constexpr int SQ_BYTES = TILE_Q * LDS * 2;
 constexpr int SD_BYTES = TILE_N * LDS * 2;
-constexpr int SC_BYTES = TILE_Q * LDC * 4;
 constexpr int SMEM_BYTES = (SQ_BYTES + SD_BYTES) > SC_BYTES ? (SQ_BYTES + SD_BYTES) : SC_BYTES;
-constexpr float NEG_INF = -FLT_MAX;
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ void store_out4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store_out4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
-template <int G, bool BIN_MAJOR, typename OutT>
+template <int G, bool BIN_MAJOR, bool STORE, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 bin_scores_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ d,
@@ -164,69 +151,17 @@ bin_scores_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const long long nv = nv_ptr != nullptr ? static_cast<long long>(*nv_ptr) : nv_int;
-  if (BIN_MAJOR) {
-    // S row q is contiguous along n: 4 rows per thread, one vector store
-    for (int idx = tid; idx < TILE_Q * (TILE_N / 4); idx += THREADS) {
-      const int ql = idx / (TILE_N / 4);
-      const int r = (idx % (TILE_N / 4)) * 4;
-      const long long n = n0 + r;
-      float4 v = *reinterpret_cast<float4*>(sC + ql * LDC + r);
-      v.x = n + 0 < nv ? v.x : NEG_INF;
-      v.y = n + 1 < nv ? v.y : NEG_INF;
-      v.z = n + 2 < nv ? v.z : NEG_INF;
-      v.w = n + 3 < nv ? v.w : NEG_INF;
-      *reinterpret_cast<float4*>(sC + ql * LDC + r) = v;
-      if (q0 + ql < B && n < N)  // N % 4 == 0: the 4 rows are all in or all out
-        store_out4(scores + static_cast<long long>(q0 + ql) * N + n, v);
-    }
-  } else {
-    // S row n is contiguous along q: consecutive threads take consecutive q
-    for (int idx = tid; idx < TILE_Q * TILE_N; idx += THREADS) {
-      const int r = idx / TILE_Q;
-      const int ql = idx % TILE_Q;
-      const long long n = n0 + r;
-      float v = sC[ql * LDC + r];
-      v = n < nv ? v : NEG_INF;
-      sC[ql * LDC + r] = v;
-      if (q0 + ql < B && n < N) store_out(scores + n * B + (q0 + ql), v);
-    }
-  }
-  __syncthreads();
-
-  constexpr int NB = TILE_N / G;
-  const long long nb_total = N / G;
-  const long long b0 = n0 / G;
-  for (int idx = tid; idx < TILE_Q * NB; idx += THREADS) {
-    int ql, j;
-    if (BIN_MAJOR) {
-      ql = idx / NB;
-      j = idx % NB;
-    } else {
-      j = idx / TILE_Q;
-      ql = idx % TILE_Q;
-    }
-    const float* row = sC + ql * LDC + j * G;
-    float m = row[0];
-#pragma unroll
-    for (int t = 1; t < G; ++t) m = fmaxf(m, row[t]);
-    const long long bin = b0 + j;
-    if (q0 + ql < B && bin < nb_total) {
-      if (BIN_MAJOR)
-        binmax[static_cast<long long>(q0 + ql) * nb_total + bin] = m;
-      else
-        binmax[bin * B + (q0 + ql)] = m;
-    }
-  }
+  mask_store_binmax<G, BIN_MAJOR, STORE>(sC, scores, binmax, nv, q0, n0, B, N);
 }
 
-template <int G, bool BIN_MAJOR, typename OutT>
+template <int G, bool BIN_MAJOR, typename OutT, bool STORE = true>
 void launch(const void* q, const void* d, void* scores, void* binmax, const void* nv_ptr,
             long long nv_int, int B, long long N, int D, unsigned int blocks, int nqt,
             cudaStream_t stream) {
   // the 67.6 KB staged tile is above the 48 KB a launch gets by default
-  cudaFuncSetAttribute(bin_scores_kernel<G, BIN_MAJOR, OutT>,
+  cudaFuncSetAttribute(bin_scores_kernel<G, BIN_MAJOR, STORE, OutT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  bin_scores_kernel<G, BIN_MAJOR, OutT><<<blocks, THREADS, SMEM_BYTES, stream>>>(
+  bin_scores_kernel<G, BIN_MAJOR, STORE, OutT><<<blocks, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(d),
       static_cast<OutT*>(scores), static_cast<float*>(binmax),
       static_cast<const int*>(nv_ptr), nv_int, B, N, D, nqt);
@@ -257,19 +192,29 @@ void dispatch(int bin_major, int score_bf16, const void* q, const void* d, void*
 extern "C" int bin_scores_launch(const void* q, const void* d, void* scores, void* binmax,
                                  const void* nv_ptr, long long nv_int, int B, long long N,
                                  int D, int G, int bin_major, int score_bf16, void* stream) {
-  if (B <= 0 || N <= 0 || D <= 0 || D % TILE_K != 0 || N % 4 != 0) return cudaErrorInvalidValue;
-  if (G != 8 && G != 16) return cudaErrorInvalidValue;
-  if (N % G != 0) return cudaErrorInvalidValue;
-  const int nqt = (B + TILE_Q - 1) / TILE_Q;
-  const long long nnt = (N + TILE_N - 1) / TILE_N;
-  const long long blocks = nnt * nqt;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  int nqt = 0;
+  const unsigned int blocks = grid_blocks(B, N, D, G, TILE_K, &nqt);
+  if (blocks == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 8)
-    dispatch<8>(bin_major, score_bf16, q, d, scores, binmax, nv_ptr, nv_int, B, N, D,
-                static_cast<unsigned int>(blocks), nqt, s);
+    dispatch<8>(bin_major, score_bf16, q, d, scores, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
   else
-    dispatch<16>(bin_major, score_bf16, q, d, scores, binmax, nv_ptr, nv_int, B, N, D,
-                 static_cast<unsigned int>(blocks), nqt, s);
+    dispatch<16>(bin_major, score_bf16, q, d, scores, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 5: the bin maxima alone, bin-major (B, N/G); same requirements and
+// return value as bin_scores_launch.
+extern "C" int binmax_only_launch(const void* q, const void* d, void* binmax, const void* nv_ptr,
+                                  long long nv_int, int B, long long N, int D, int G,
+                                  void* stream) {
+  int nqt = 0;
+  const unsigned int blocks = grid_blocks(B, N, D, G, TILE_K, &nqt);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (G == 8)
+    launch<8, true, float, false>(q, d, nullptr, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
+  else
+    launch<16, true, float, false>(q, d, nullptr, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
   return static_cast<int>(cudaGetLastError());
 }

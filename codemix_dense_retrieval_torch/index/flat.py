@@ -3,11 +3,12 @@
 Composition:
 
 - **storage**: :class:`~codemix_dense_retrieval_torch.io.shards.ShardStore`
-  (bf16 rows + docid sidecars, memory-mappable);
+  (bf16 or int8 rows + docid sidecars, memory-mappable);
 - **device residency**: rows padded and uploaded to one device
-  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.shard_rows`);
-- **search**: the bin-max cover over kernel A
-  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip`).
+  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.shard_rows`),
+  with the per-row scales of an int8 store beside them;
+- **search**: the bin-max cover over kernel A, or kernel 4 for an int8
+  store (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip`).
 
 The row id -> docid remap is a host lookup into the docid table.
 """
@@ -20,7 +21,11 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardStore
-from codemix_dense_retrieval_torch.parallel.sharded_search import shard_rows, sharded_topk_ip
+from codemix_dense_retrieval_torch.parallel.sharded_search import (
+    shard_row_sidecar,
+    shard_rows,
+    sharded_topk_ip,
+)
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, resolve_device
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
@@ -99,16 +104,20 @@ class DenseFlatIndex:
         """Upload the rows to ``device`` (the CUDA card by default; raises
         when there is none and no device is named). ``search_kwargs``
         (``method``, ``bin_size``, ``tile_b``, ``tile_n``) pass through to
-        every search."""
-        if self.store.manifest.dtype == "int8":
-            raise NotImplementedError(
-                "int8 stores are not searchable in this port yet (ROADMAP queue 2, kernel 4)"
-            )
+        every search. An int8 store uploads its int8 rows and its per-row
+        scale sidecar, and searches over kernel 4 (half the card memory of
+        bf16)."""
+        if self.store.manifest.dtype == "int8" and self.store.scales is None:
+            raise ValueError("int8 store has no scales.bin; it cannot be searched")
         self.device = resolve_device(device)
         self._docs_dev, self._counts_dev, self._rows_per_shard = shard_rows(
             self.store, self.device, pad_multiple=pad_multiple
         )
         self.search_kwargs = dict(search_kwargs)
+        if self.store.manifest.dtype == "int8":
+            self.search_kwargs["doc_scales"] = shard_row_sidecar(
+                self.store.scales, self.device, self._rows_per_shard
+            )
         return self
 
     # ---------------- search ----------------
@@ -128,8 +137,9 @@ class DenseFlatIndex:
         ``query_block`` processes queries in fixed-size blocks (0 = one
         block); a ragged tail block is zero-padded to the block size and its
         results sliced off. Queries are cast to the index dtype before the
-        kernel. The approximate tiers are not ported: any ``approx`` other
-        than False raises."""
+        kernel, except over an int8 index, where they stay f32 and are
+        quantized on the device. The approximate tiers are not ported: any
+        ``approx`` other than False raises."""
         if approx is not False:
             raise NotImplementedError(
                 f"approx={approx!r}: the approximate and adaptive tiers are not "
@@ -160,6 +170,8 @@ class DenseFlatIndex:
             q = torch.cat([q, q.new_zeros((tail_pad, q.shape[1]))])
         blocks = q.split(query_block) if query_block else [q]
         dtype = self._docs_dev.dtype
+        if dtype == torch.int8:
+            dtype = torch.float32  # the int8 path quantizes queries on the device
         vals, gids = [], []
         for blk in blocks:
             v, g = sharded_topk_ip(

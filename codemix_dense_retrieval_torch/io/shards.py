@@ -10,10 +10,13 @@ one package opens in the other):
     <dir>/docid_map.tsv   int_id \\t derived_id \\t base_id \\t lang
     <dir>/scales.bin      per-row f32 scales (int8 storage only)
 
-numpy has no bfloat16, so bf16 rows are held host-side as their raw 16-bit
-patterns (``np.uint16``) and reinterpreted as ``torch.bfloat16`` at the
-tensor boundary (:func:`storage_to_tensor`); float -> bf16 conversion rounds
-to nearest even, the same rounding the JAX package's writer applies.
+Float rows stored as int8 are quantized per row
+(:func:`~codemix_dense_retrieval_torch.ops.quant.quantize_rows_np`) and
+their scales appended to ``scales.bin``. numpy has no bfloat16, so bf16
+rows are held host-side as their raw 16-bit patterns (``np.uint16``) and
+reinterpreted as ``torch.bfloat16`` at the tensor boundary
+(:func:`storage_to_tensor`); float -> bf16 conversion rounds to nearest
+even, the same rounding the JAX package's writer applies.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ import json
 import os
 import pathlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from codemix_dense_retrieval_torch.ops.quant import quantize_rows_np
 
 PathLike = os.PathLike | str
 
@@ -52,24 +57,25 @@ def storage_dtype(name: str) -> np.dtype:
     return _NP_DTYPES[name]
 
 
-def to_storage(vecs, name: str) -> np.ndarray:
-    """Convert float rows (numpy array or torch tensor) to the host storage
-    array of dtype ``name``. A CPU bf16 tensor is viewed, not copied."""
+def to_storage(vecs, name: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Convert rows (numpy array or torch tensor) to the host storage array
+    of dtype ``name``; returns (rows, scales). Float rows stored as int8 are
+    quantized per row and their f32 scales returned; every other case
+    returns ``None`` scales. A CPU bf16 tensor is viewed, not copied."""
     storage_dtype(name)
     if name == "int8":
         if isinstance(vecs, torch.Tensor):
-            vecs = vecs.numpy()
-        if np.asarray(vecs).dtype != np.int8:
-            raise NotImplementedError(
-                "int8 quantization of float rows is not ported yet "
-                "(ROADMAP queue 1, quantization)"
-            )
-        return np.ascontiguousarray(vecs)
+            vecs = vecs.detach().cpu()
+            vecs = (vecs.float() if vecs.is_floating_point() else vecs).numpy()
+        vecs = np.asarray(vecs)
+        if vecs.dtype == np.int8:
+            return np.ascontiguousarray(vecs), None
+        return quantize_rows_np(vecs)
     t = vecs if isinstance(vecs, torch.Tensor) else torch.from_numpy(np.asarray(vecs))
     t = t.detach().to("cpu", TORCH_DTYPES[name]).contiguous()
     if name == "bfloat16":
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(np.uint16), None
+    return t.numpy(), None
 
 
 def storage_to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
@@ -135,6 +141,58 @@ class ShardWriter:
         self._fh = None
         self._rows_in_file = 0
 
+    @classmethod
+    def resume_partial(
+        cls, out_dir: PathLike, dim: int, dtype: str = "bfloat16", **kw
+    ) -> Tuple["ShardWriter", set]:
+        """Reopen an unfinalized shard directory, positioned after the rows
+        already written (mid-language crash recovery).
+
+        Returns (writer, already-written docids); rows whose docids are in
+        that set must not be appended again. A torn trailing row is cut off;
+        the docid and (int8) scale sidecars are written before the rows, so
+        they may run ahead by one batch after a crash and are truncated to
+        the row count."""
+        w = cls(out_dir, dim, dtype, **kw)
+        partial = w.dir / "docids.partial.txt"
+        existing: List[str] = []
+        if partial.exists():
+            existing = [line for line in partial.read_text(encoding="utf-8").splitlines() if line]
+        row_bytes = storage_dtype(dtype).itemsize * dim
+        total_rows = 0
+        idx = 0
+        while True:
+            path = w.dir / f"emb.{idx:05d}.bin"
+            if not path.exists():
+                break
+            size = path.stat().st_size
+            rows = size // row_bytes
+            if size % row_bytes:
+                with open(path, "r+b") as fh:
+                    fh.truncate(rows * row_bytes)
+            w.files.append({"name": path.name, "rows": rows})
+            total_rows += rows
+            idx += 1
+        existing = existing[:total_rows]
+        scales_path = w.dir / "scales.bin"
+        if dtype == "int8" and scales_path.exists():
+            want = total_rows * np.dtype(np.float32).itemsize
+            if scales_path.stat().st_size > want:
+                with open(scales_path, "r+b") as fh:
+                    fh.truncate(want)
+            elif scales_path.stat().st_size < want:
+                raise ValueError(
+                    f"scales.bin has fewer rows than the vectors in {w.dir} "
+                    "(corrupt partial shard)"
+                )
+        if total_rows:
+            w._fh = open(w.dir / w.files[-1]["name"], "ab")
+            w._rows_in_file = w.files[-1]["rows"]
+        w.count = total_rows
+        w._docids = list(existing)
+        w._derived = [f"{d}#{w.lang}" if w.lang else d for d in existing]
+        return w, set(existing)
+
     def _open_new_file(self):
         name = f"emb.{len(self.files):05d}.bin"
         self.files.append({"name": name, "rows": 0})
@@ -151,9 +209,13 @@ class ShardWriter:
             raise ValueError(f"rows of shape {tuple(vecs.shape)} do not match dim {self.dim}")
         if len(docids) != len(vecs):
             raise ValueError(f"{len(docids)} docids for {len(vecs)} rows")
+        # sidecars first, then rows: resume_partial trusts the row count
         with open(self.dir / "docids.partial.txt", "a", encoding="utf-8") as fh:
             fh.write("".join(f"{d}\n" for d in docids))
-        rows = to_storage(vecs, self.dtype_name)
+        rows, scales = to_storage(vecs, self.dtype_name)
+        if scales is not None:
+            with open(self.dir / "scales.bin", "ab") as fh:
+                fh.write(np.ascontiguousarray(scales, np.float32).tobytes())
         pos = 0
         while pos < len(rows):
             if self._fh is None or self._rows_in_file >= self.rows_per_file:
@@ -226,6 +288,10 @@ class ShardStore:
     def dim(self) -> int:
         return self.manifest.dim
 
+    @classmethod
+    def exists(cls, directory: PathLike) -> bool:
+        return (pathlib.Path(directory) / "manifest.json").exists()
+
     @property
     def torch_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.manifest.dtype]
@@ -285,15 +351,25 @@ class ShardStore:
         encoder: Optional[str] = None,
         normalized: bool = True,
         derived_ids: Optional[Sequence[str]] = None,
+        scales: Optional[np.ndarray] = None,
     ) -> "ShardStore":
-        """In-memory store (no directory) from float rows (numpy or torch)."""
-        rows = to_storage(vectors, dtype)
+        """In-memory store (no directory) from rows (numpy or torch). Float
+        rows with ``dtype="int8"`` are quantized per row; rows that are
+        already int8 take their f32 ``scales``."""
+        rows, quant_scales = to_storage(vectors, dtype)
+        if quant_scales is not None:
+            scales = quant_scales
+        elif scales is not None:
+            scales = np.ascontiguousarray(scales, np.float32)
+            if dtype != "int8" or scales.shape != (rows.shape[0],):
+                raise ValueError(f"scales of shape {scales.shape} for {rows.shape[0]} {dtype} rows")
         manifest = ShardManifest(
             dim=rows.shape[1], dtype=dtype, count=rows.shape[0], files=[],
             lang=lang, encoder=encoder, normalized=normalized,
         )
         return cls(manifest, rows, list(map(str, docids)),
-                   list(map(str, derived_ids)) if derived_ids is not None else None)
+                   list(map(str, derived_ids)) if derived_ids is not None else None,
+                   scales=scales)
 
     def save(self, directory: PathLike, rows_per_file: int = 1_000_000) -> "ShardStore":
         w = ShardWriter(

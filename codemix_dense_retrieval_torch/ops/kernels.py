@@ -3,13 +3,16 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` at first
 use. Libraries land in ``csrc/build/`` under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt and a built one is
-reused by later processes. :func:`build_kernels` starts one ``nvcc`` per
-source, all at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a built one is reused by later processes.
+:func:`build_kernels` starts one ``nvcc`` per source, all at once.
+``bin_scores.cu`` holds kernel A and kernel 5 (``binmax_only``),
+``bin_scores_int8.cu`` kernel 4, ``flash_attention.cu`` kernel B.
 
 ``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
-where it launches its kernel, and nowhere else. Kernel A counts its two
-layouts apart, since each stands for a TPU kernel of its own.
+where it launches its kernel, and nowhere else. Kernels A and 4 count their
+two layouts apart, since each layout stands for a TPU kernel or a route of
+its own.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
     "bin_scores": "bin_scores.cu",
+    "bin_scores_int8": "bin_scores_int8.cu",
     "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = [
@@ -38,6 +42,9 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "bin_scores_bin_major": 0,
     "bin_scores_transposed": 0,
+    "bin_scores_int8_bin_major": 0,
+    "bin_scores_int8_transposed": 0,
+    "binmax_only": 0,
     "flash_attention": 0,
 }
 
@@ -62,8 +69,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> pathlib.Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 

@@ -14,6 +14,13 @@ cover algorithm.
 3. *Candidate select* gathers the k*G candidate scores and keeps the top k
    by (score desc, id asc).
 
+Two variants share the cover. Over an int8 index (:func:`topk_ip_bins_int8`)
+phase 1 is kernel 4 (:func:`bin_scores_int8`): exact int8 products rescaled
+per row, queries quantized on the device. The rescore search
+(:func:`topk_ip_bins_rescore`, :func:`topk_ip_rescore_two_level`) runs
+kernel 5 (:func:`binmax_only`), which writes the bin maxima alone, then
+gathers the covered bins' doc rows and recomputes their scores.
+
 Tie-break: every selection is a STABLE descending sort followed by a slice,
 over domains whose positions ascend with the ids (selected bin ids are
 re-sorted ascending at each level), so among equal scores the lower id wins
@@ -25,12 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
+from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -74,6 +82,31 @@ def _auto_super_size(k: int) -> int:
 _PLAIN_ROW_CHUNK = 262_144
 
 
+def _rows_int(n_valid: Rows) -> int:
+    return int(n_valid.reshape(-1)[0]) if isinstance(n_valid, torch.Tensor) else int(n_valid)
+
+
+def _mask_bin_max(
+    scores: torch.Tensor, n_valid: Rows, bin_size: int, layout: str, score_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain versions' epilogue on f32 scores (B, N): ``NEG_INF`` at
+    rows >= ``n_valid``, bin maxima of the f32 scores, then the score cast
+    and the layout."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    b, n = scores.shape
+    if n % bin_size:
+        raise ValueError(f"rows {n} not a multiple of bin_size {bin_size}")
+    nv = _rows_int(n_valid)
+    if nv < n:
+        scores[:, max(nv, 0):] = NEG_INF
+    bin_max = scores.view(b, n // bin_size, bin_size).amax(dim=2)
+    scores = scores.to(score_dtype)
+    if layout == "transposed":
+        return scores.T.contiguous(), bin_max.T.contiguous()
+    return scores, bin_max
+
+
 def bin_scores_plain(
     queries: torch.Tensor,
     docs: torch.Tensor,
@@ -87,25 +120,57 @@ def bin_scores_plain(
     products of the given values (rows processed in chunks so no f32 copy of
     the whole shard exists), the ``NEG_INF`` mask, the bin maxima of the f32
     scores, then the score cast and the layout."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
-    b = queries.shape[0]
-    n = docs.shape[0]
-    if n % bin_size:
-        raise ValueError(f"rows {n} not a multiple of bin_size {bin_size}")
-    nv = int(n_valid.reshape(-1)[0]) if isinstance(n_valid, torch.Tensor) else int(n_valid)
+    b, n = queries.shape[0], docs.shape[0]
     qf = queries.to(torch.float32)
     scores = torch.empty((b, n), dtype=torch.float32, device=docs.device)
     for r0 in range(0, n, _PLAIN_ROW_CHUNK):
         r1 = min(r0 + _PLAIN_ROW_CHUNK, n)
         torch.matmul(qf, docs[r0:r1].to(torch.float32).T, out=scores[:, r0:r1])
-    if nv < n:
-        scores[:, max(nv, 0):] = NEG_INF
-    bin_max = scores.view(b, n // bin_size, bin_size).amax(dim=2)
-    scores = scores.to(score_dtype)
-    if layout == "transposed":
-        return scores.T.contiguous(), bin_max.T.contiguous()
-    return scores, bin_max
+    return _mask_bin_max(scores, n_valid, bin_size, layout, score_dtype)
+
+
+def _cuda_operands(
+    name: str, queries: torch.Tensor, docs: torch.Tensor, dtype: torch.dtype,
+    bin_size: int, dim_multiple: int,
+) -> Tuple[int, int, int]:
+    """Validate a bin kernel's operands on the card; returns (B, d, N)."""
+    if docs.device.type != "cuda" or queries.device != docs.device:
+        raise ValueError(
+            f"{name}: queries on {queries.device}, docs on {docs.device}; "
+            "both must be on the same CUDA device (or both on the CPU)"
+        )
+    if docs.dtype != dtype:
+        raise NotImplementedError(
+            f"{name} on CUDA takes a {dtype} index, got {docs.dtype} "
+            "(other index dtypes on the card are a ROADMAP item)"
+        )
+    if queries.dtype != dtype:
+        raise ValueError(f"{name}: queries must be {dtype} like the index, got {queries.dtype}")
+    if queries.ndim != 2 or docs.ndim != 2 or queries.shape[1] != docs.shape[1]:
+        raise ValueError(f"shapes {tuple(queries.shape)} x {tuple(docs.shape)} do not contract")
+    b, dim = queries.shape
+    n = docs.shape[0]
+    if bin_size not in (8, 16):
+        raise ValueError(f"the CUDA kernel takes bin_size 8 or 16, got {bin_size}")
+    if dim % dim_multiple or n % bin_size or b == 0:
+        raise ValueError(
+            f"the CUDA kernel needs d % {dim_multiple} == 0, N % G == 0, B > 0 "
+            f"(d={dim}, N={n}, B={b})"
+        )
+    for label, t in (("queries", queries), ("docs", docs)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{label} must be contiguous and 16-byte aligned")
+    return b, dim, n
+
+
+def _n_valid_arg(n_valid: Rows, docs: torch.Tensor) -> Tuple[Optional[int], int]:
+    """(device pointer, 0) for a one-element int32 tensor, else (None, int)."""
+    if isinstance(n_valid, torch.Tensor):
+        if (n_valid.device != docs.device or n_valid.dtype != torch.int32
+                or n_valid.numel() != 1 or not n_valid.is_contiguous()):
+            raise ValueError("n_valid tensor must be one contiguous int32 on the docs' device")
+        return n_valid.data_ptr(), 0
+    return None, int(n_valid)
 
 
 _BIN_SCORES_ARGTYPES = [
@@ -148,38 +213,10 @@ def bin_scores(
         return bin_scores_plain(
             queries, docs, n_valid, bin_size, layout=layout, score_dtype=score_dtype
         )
-    if docs.device.type != "cuda" or queries.device != docs.device:
-        raise ValueError(
-            f"bin_scores: queries on {queries.device}, docs on {docs.device}; "
-            "both must be on the same CUDA device (or both on the CPU)"
-        )
-    if docs.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"bin_scores on CUDA takes a bfloat16 index, got {docs.dtype} "
-            "(float32/float16 stores on the card are a ROADMAP item)"
-        )
-    if queries.dtype != torch.bfloat16:
-        raise ValueError(f"queries must be cast to the index dtype bfloat16, got {queries.dtype}")
+    b, dim, n = _cuda_operands("bin_scores", queries, docs, torch.bfloat16, bin_size, 32)
     if score_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"score_dtype must be float32 or bfloat16, got {score_dtype}")
-    if queries.ndim != 2 or docs.ndim != 2 or queries.shape[1] != docs.shape[1]:
-        raise ValueError(f"shapes {tuple(queries.shape)} x {tuple(docs.shape)} do not contract")
-    b, dim = queries.shape
-    n = docs.shape[0]
-    if bin_size not in (8, 16):
-        raise ValueError(f"the CUDA kernel takes bin_size 8 or 16, got {bin_size}")
-    if dim % 32 or n % bin_size or b == 0:
-        raise ValueError(f"the CUDA kernel needs d % 32 == 0, N % G == 0, B > 0 (d={dim}, N={n}, B={b})")
-    for name, t in (("queries", queries), ("docs", docs)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if isinstance(n_valid, torch.Tensor):
-        if (n_valid.device != docs.device or n_valid.dtype != torch.int32
-                or n_valid.numel() != 1 or not n_valid.is_contiguous()):
-            raise ValueError("n_valid tensor must be one contiguous int32 on the docs' device")
-        nv_ptr, nv_int = n_valid.data_ptr(), 0
-    else:
-        nv_ptr, nv_int = None, int(n_valid)
+    nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
     bin_major = layout == "bin_major"
     nb = n // bin_size
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=docs.device)
@@ -193,6 +230,165 @@ def bin_scores(
     kernels.check(rc, "bin_scores")
     kernels.LAUNCHES[f"bin_scores_{layout}"] += 1
     return scores, binmax
+
+
+# --------------------------------------------------------------------------
+# phase 1 over an int8 index (kernel 4 and its plain version)
+# --------------------------------------------------------------------------
+
+def bin_scores_int8_plain(
+    q_vals: torch.Tensor,
+    q_scales: torch.Tensor,
+    d_vals: torch.Tensor,
+    d_scales: torch.Tensor,
+    n_valid: Rows,
+    bin_size: int,
+    *,
+    layout: str = "bin_major",
+    score_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`bin_scores_int8`, on any device:
+    exact integer products (:func:`~codemix_dense_retrieval_torch.ops.quant.int8_ip_scores`,
+    rows in chunks), ``(acc * d_scale) * q_scale``, the ``NEG_INF`` mask and
+    the bin maxima; bit-identical to the kernel."""
+    b, n = q_vals.shape[0], d_vals.shape[0]
+    scores = torch.empty((b, n), dtype=torch.float32, device=d_vals.device)
+    for r0 in range(0, n, _PLAIN_ROW_CHUNK):
+        r1 = min(r0 + _PLAIN_ROW_CHUNK, n)
+        scores[:, r0:r1] = int8_ip_scores(q_vals, q_scales, d_vals[r0:r1], d_scales[r0:r1])
+    return _mask_bin_max(scores, n_valid, bin_size, layout, score_dtype)
+
+
+_BIN_SCORES_INT8_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _bin_scores_int8_lib():
+    fn = kernels.load("bin_scores_int8").bin_scores_int8_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BIN_SCORES_INT8_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_scales(name: str, scales: torch.Tensor, rows: torch.Tensor) -> None:
+    if (scales.device != rows.device or scales.dtype != torch.float32
+            or scales.shape != (rows.shape[0],) or not scales.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous f32 ({rows.shape[0]},) tensor on {rows.device}, "
+            f"got {scales.dtype} {tuple(scales.shape)} on {scales.device}"
+        )
+
+
+def bin_scores_int8(
+    q_vals: torch.Tensor,
+    q_scales: torch.Tensor,
+    d_vals: torch.Tensor,
+    d_scales: torch.Tensor,
+    n_valid: Rows,
+    bin_size: int,
+    *,
+    layout: str = "bin_major",
+    score_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4: fused int8 scores and bin maxima. ``q_vals`` (B, d) and
+    ``d_vals`` (N, d) are int8 with per-row f32 scales; scores are
+    ``(f32(acc) * d_scale) * q_scale`` with rows at or past ``n_valid`` set
+    to ``NEG_INF``. Layouts and outputs as :func:`bin_scores`. CPU tensors
+    take :func:`bin_scores_int8_plain`; CUDA tensors launch the kernel
+    (``csrc/bin_scores_int8.cu``), which takes d % 64 == 0, N % G == 0 and
+    G in {8, 16}."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if q_vals.device.type == "cpu" and d_vals.device.type == "cpu":
+        return bin_scores_int8_plain(
+            q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
+            layout=layout, score_dtype=score_dtype,
+        )
+    b, dim, n = _cuda_operands("bin_scores_int8", q_vals, d_vals, torch.int8, bin_size, 64)
+    _check_scales("q_scales", q_scales, q_vals)
+    _check_scales("d_scales", d_scales, d_vals)
+    if score_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"score_dtype must be float32 or bfloat16, got {score_dtype}")
+    nv_ptr, nv_int = _n_valid_arg(n_valid, d_vals)
+    bin_major = layout == "bin_major"
+    nb = n // bin_size
+    dev = d_vals.device
+    scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=dev)
+    binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=dev)
+    rc = _bin_scores_int8_lib()(
+        q_vals.data_ptr(), q_scales.data_ptr(), d_vals.data_ptr(), d_scales.data_ptr(),
+        scores.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int, b, n, dim, bin_size,
+        int(bin_major), int(score_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(rc, "bin_scores_int8")
+    kernels.LAUNCHES[f"bin_scores_int8_{layout}"] += 1
+    return scores, binmax
+
+
+# --------------------------------------------------------------------------
+# phase 1 without the score matrix (kernel 5 and its plain version)
+# --------------------------------------------------------------------------
+
+def binmax_only_plain(
+    queries: torch.Tensor, docs: torch.Tensor, n_valid: Rows, bin_size: int
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`binmax_only`, on any device: the bin
+    maxima (B, N/G) of the masked f32 products, one chunk of rows at a time
+    (no (B, N) score matrix)."""
+    b, n = queries.shape[0], docs.shape[0]
+    if n % bin_size:
+        raise ValueError(f"rows {n} not a multiple of bin_size {bin_size}")
+    nv = _rows_int(n_valid)
+    qf = queries.to(torch.float32)
+    binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
+    for r0 in range(0, n, _PLAIN_ROW_CHUNK):
+        r1 = min(r0 + _PLAIN_ROW_CHUNK, n)
+        s = qf @ docs[r0:r1].to(torch.float32).T
+        if nv < r1:
+            s[:, max(nv - r0, 0):] = NEG_INF
+        binmax[:, r0 // bin_size : r1 // bin_size] = s.view(b, -1, bin_size).amax(dim=2)
+    return binmax
+
+
+_BINMAX_ONLY_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _binmax_only_lib():
+    fn = kernels.load("bin_scores").binmax_only_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BINMAX_ONLY_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def binmax_only(
+    queries: torch.Tensor, docs: torch.Tensor, n_valid: Rows, bin_size: int
+) -> torch.Tensor:
+    """Kernel 5: the bin maxima (B, N/G) f32 of ``queries @ docs.T`` with
+    rows at or past ``n_valid`` set to ``NEG_INF``; the score matrix is
+    never stored. CPU tensors take :func:`binmax_only_plain`; CUDA tensors
+    launch kernel A with its score store compiled out
+    (``csrc/bin_scores.cu``), with kernel A's requirements."""
+    if queries.device.type == "cpu" and docs.device.type == "cpu":
+        return binmax_only_plain(queries, docs, n_valid, bin_size)
+    b, dim, n = _cuda_operands("binmax_only", queries, docs, torch.bfloat16, bin_size, 32)
+    nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
+    binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
+    rc = _binmax_only_lib()(
+        queries.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,
+        b, n, dim, bin_size, torch.cuda.current_stream(docs.device).cuda_stream,
+    )
+    kernels.check(rc, "binmax_only")
+    kernels.LAUNCHES["binmax_only"] += 1
+    return binmax
 
 
 def _bin_scores_xla(
@@ -222,25 +418,30 @@ def _expand_ids(ids: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _prep_shard(
-    k: int, n_valid: Optional[Rows], tile_n: int, docs: torch.Tensor,
+    k: int, n_valid: Optional[Rows], tile_n: int, doc_arrays: Sequence[torch.Tensor],
     chunk: Optional[int] = None,
-) -> Tuple[torch.Tensor, Rows]:
-    """The ``k > n_valid`` fail-fast and the zero padding of the shard's row
-    axis to the lcm of ``tile_n`` and the two-level ``chunk`` (G*M), so the
-    two-level tail sees nb % M == 0. The kernel takes any batch, so queries
+) -> Tuple[List[torch.Tensor], Rows]:
+    """The ``k > n_valid`` fail-fast and the zero padding of the row axis of
+    every doc array (the rows, and for an int8 shard its per-row scales) to
+    the lcm of ``tile_n`` and the two-level ``chunk`` (G*M), so the
+    two-level tail sees nb % M == 0. The kernels take any batch, so queries
     are not padded. A shard that is already a multiple is not copied."""
-    n_rows = docs.shape[0]
+    n_rows = doc_arrays[0].shape[0]
     if n_valid is None:
         n_valid = n_rows
     if isinstance(n_valid, int) and k > n_valid:
         raise ValueError(f"k={k} > num docs {n_valid}")
     lcm_tile = tile_n if chunk is None else tile_n * chunk // math.gcd(tile_n, chunk)
     n_pad = _ceil_to(n_rows, lcm_tile)
+    arrays = list(doc_arrays)
     if n_pad != n_rows:
-        docs = torch.nn.functional.pad(docs, (0, 0, 0, n_pad - n_rows))
+        arrays = [
+            torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (0, n_pad - n_rows))
+            for a in arrays
+        ]
         if isinstance(n_valid, int):
             n_valid = min(n_valid, n_rows)
-    return docs, n_valid
+    return arrays, n_valid
 
 
 def _by_query_chunks(
@@ -401,7 +602,7 @@ def topk_ip_bins_two_level(
         super_size = _auto_super_size(k)
     if tile_b is None:
         tile_b = int(TUNED_DEFAULTS["topk.tile_b"])
-    docs, n_valid = _prep_shard(k, n_valid, tile_n, docs, chunk=bin_size * super_size)
+    (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
     if bin_major:
         def run(q):
             scores_bm, binmax_bm = bin_scores(
@@ -441,16 +642,186 @@ def topk_ip_bins(
     if bin_size is None:
         bin_size = _auto_bin_size(k)
     if not use_kernel:
-        docs, n_valid = _prep_shard(k, n_valid, bin_size, docs)
+        (docs,), n_valid = _prep_shard(k, n_valid, bin_size, [docs])
         scores, bin_max = _bin_scores_xla(queries, docs, bin_size, n_valid)
         return _topk_from_bins(scores, bin_max, k, bin_size)
-    docs, n_valid = _prep_shard(k, n_valid, tile_n, docs)
+    (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs])
 
     def run(q):
         scores_t, bin_max_t = bin_scores(
             q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
         )
         return _topk_from_bins(scores_t, bin_max_t.T, k, bin_size, scores_transposed=True)
+
+    return _by_query_chunks(queries, tile_b, run)
+
+
+def topk_ip_bins_int8(
+    queries: torch.Tensor,
+    d_vals: torch.Tensor,
+    d_scales: torch.Tensor,
+    k: int,
+    *,
+    bin_size: Optional[int] = None,
+    tile_b: Optional[int] = None,
+    tile_n: int = 1024,
+    n_valid: Optional[Rows] = None,
+    score_dtype: torch.dtype = torch.float32,
+    super_size: Optional[int] = None,
+    two_level: bool = False,
+    bin_major: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bin-max-cover top-k over an int8 index (``d_vals`` (N, d) int8 with
+    per-row f32 ``d_scales``): float ``queries`` are quantized per row on
+    their device, phase 1 is kernel 4 (:func:`bin_scores_int8`). Single
+    level uses the transposed layout; ``two_level`` finishes with the
+    super-bin cover, in the bin-major layout when ``bin_major`` (the
+    two-level route of an int8 shard). The scores are exact, so the ids
+    equal a stable top-k of the plain int8 scores."""
+    if bin_size is None:
+        bin_size = _auto_bin_size_two_level(k) if two_level else _auto_bin_size(k)
+    if super_size is None:
+        super_size = _auto_super_size(k)
+    if tile_b is None:
+        tile_b = 256
+    (d_vals, d_scales), n_valid = _prep_shard(
+        k, n_valid, tile_n, [d_vals, d_scales],
+        chunk=bin_size * super_size if two_level else None,
+    )
+    layout = "bin_major" if two_level and bin_major else "transposed"
+
+    def run(q):
+        q_vals, q_scales = quantize_rows(q)
+        scores, bin_max = bin_scores_int8(
+            q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
+            layout=layout, score_dtype=score_dtype,
+        )
+        if layout == "bin_major":
+            return _topk_from_bins_two_level_bm(scores, bin_max, k, bin_size, super_size)
+        if two_level:
+            return _topk_from_bins_two_level(scores, bin_max, k, bin_size, super_size)
+        return _topk_from_bins(scores, bin_max.T, k, bin_size, scores_transposed=True)
+
+    return _by_query_chunks(queries, tile_b, run)
+
+
+# --------------------------------------------------------------------------
+# rescore search: kernel 5 bin maxima -> covered bins' rows -> exact rescore
+# --------------------------------------------------------------------------
+
+#: Rescore working-set budget (bytes) of one query chunk: the gathered
+#: candidate rows, their f32 copy and the candidate scores.
+_RESCORE_BUDGET = 2 << 30
+
+
+def _rescore_chunk(b: int, kb: int, bin_size: int, d: int, itemsize: int) -> int:
+    """Largest divisor of ``b`` whose rescore working set fits the budget
+    (per query: the gathered rows + their f32 copy + scores)."""
+    c = kb * bin_size
+    per_q = c * d * (itemsize + 4) + c * 16
+    chunk = max(1, min(b, _RESCORE_BUDGET // max(per_q, 1)))
+    while b % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _rescore_block(
+    docs: torch.Tensor, queries: torch.Tensor, bin_ids: torch.Tensor,
+    bin_size: int, n_valid: Rows, k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, kb = bin_ids.shape
+    cand_idx = _expand_ids(bin_ids, bin_size)
+    cand_rows = docs.index_select(0, cand_idx.reshape(-1)).reshape(b, kb * bin_size, -1)
+    cand_scores = torch.bmm(cand_rows.to(torch.float32), queries.to(torch.float32)[:, :, None])[:, :, 0]
+    cand_scores = torch.where(cand_idx < n_valid, cand_scores, NEG_INF)
+    vals, pos = _stable_topk(cand_scores, k)
+    return vals, torch.gather(cand_idx, 1, pos)
+
+
+def _rescore_candidates(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    bin_ids: torch.Tensor,  # (B, kb), sorted ascending
+    bin_size: int,
+    n_valid: Rows,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared rescore tail: expand the covered bins to candidate row ids,
+    gather those doc rows, recompute their scores as f32 products, mask pad
+    rows, stable top k. Ties go to the lower id because ``bin_ids`` arrive
+    sorted ascending. Query chunks run one after another when the candidate
+    working set would exceed ``_RESCORE_BUDGET``."""
+    b, kb = bin_ids.shape
+    chunk = _rescore_chunk(b, kb, bin_size, docs.shape[1], docs.element_size())
+    outs = [
+        _rescore_block(docs, queries[i : i + chunk], bin_ids[i : i + chunk], bin_size, n_valid, k)
+        for i in range(0, b, chunk)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def topk_ip_bins_rescore(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    *,
+    bin_size: Optional[int] = None,
+    slack_bins: int = 16,
+    tile_b: int = 256,
+    tile_n: int = 1024,
+    n_valid: Optional[Rows] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bin-max cover with candidate rescoring, the least-HBM variant.
+
+    Phase 1 (kernel 5, :func:`binmax_only`) writes only the (B, N/G) bin
+    maxima; the score matrix never exists. The top ``k + slack_bins`` bins'
+    doc rows are gathered and rescored. Rescoring sums the same products in
+    another order than the kernel, so near-ties at the cover boundary may
+    differ by round-off; ``slack_bins`` absorbs that. Use the stored-scores
+    path where bit-exact parity matters."""
+    if bin_size is None:
+        bin_size = _auto_bin_size(k)
+    (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs])
+
+    def run(q):
+        bin_max = binmax_only(q, docs, n_valid, bin_size)
+        kb = min(k + slack_bins, bin_max.shape[1])
+        _, bin_ids = _stable_topk(bin_max, kb)
+        bin_ids, _ = torch.sort(bin_ids, dim=1)
+        return _rescore_candidates(docs, q, bin_ids, bin_size, n_valid, k)
+
+    return _by_query_chunks(queries, tile_b, run)
+
+
+def topk_ip_rescore_two_level(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    *,
+    bin_size: int = 8,
+    super_size: Optional[int] = None,
+    slack_bins: int = 16,
+    tile_b: int = 512,
+    tile_n: int = 1024,
+    n_valid: Optional[Rows] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact deep-k top-k with no score matrix: kernel 5's bin-major bin
+    maxima, the two-level bin selection over contiguous slices
+    (:func:`_select_bins_two_level`), then the ``k + slack_bins`` covered
+    bins' doc rows rescored. The transitive cover of
+    :func:`topk_ip_bins_two_level` selects a superset of the true top-k
+    bins; ``slack_bins`` absorbs round-off at the boundary. Ties go to the
+    lower id."""
+    if super_size is None:
+        super_size = _auto_super_size(k)
+    (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
+
+    def run(q):
+        bin_max = binmax_only(q, docs, n_valid, bin_size)
+        bin_ids = _select_bins_two_level(bin_max, min(k + slack_bins, bin_max.shape[1]), super_size)
+        return _rescore_candidates(docs, q, bin_ids, bin_size, n_valid, k)
 
     return _by_query_chunks(queries, tile_b, run)
 
@@ -465,8 +836,10 @@ def topk_ip(
     **kwargs,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact inner-product top-k. ``method``: auto | full | bins_xla |
-    bins_pallas | bins_two_level (``bins_pallas`` is the kernel A route in
-    the transposed layout; the name is the JAX package's).
+    bins_pallas | bins_two_level | bins_rescore (``bins_pallas`` is the
+    kernel A route in the transposed layout, ``bins_rescore`` the kernel 5
+    route of :func:`topk_ip_bins_rescore`; the names are the JAX
+    package's).
 
     ``auto``: full sort below 16,384 rows, the two-level cover at 262,144
     rows and above, the single-level cover in between."""
@@ -489,9 +862,5 @@ def topk_ip(
     if method == "bins_two_level":
         return topk_ip_bins_two_level(queries, docs, k, bin_size=bin_size, **kwargs)
     if method == "bins_rescore":
-        raise NotImplementedError(
-            "method='bins_rescore' needs the bin-max-only kernel "
-            "(ops/topk.py::_binmax_only_pallas), still to be ported: "
-            "ROADMAP queue 2, kernel 5"
-        )
+        return topk_ip_bins_rescore(queries, docs, k, bin_size=bin_size, **kwargs)
     raise ValueError(f"unknown method {method!r}")

@@ -4,16 +4,19 @@ This slice runs one shard on one device. The shard's rows are padded to a
 multiple of ``pad_multiple`` and masked by a device-resident valid-row count;
 results carry global ids (local id + shard * rows_per_shard) and are merged
 by the two-key order (score desc, global id asc), the merge that a
-multi-device search reuses.
+multi-device search reuses. An int8 shard carries its per-row scales as a
+padded sidecar (:func:`shard_row_sidecar`) and searches over kernel 4.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops import topk as topk_ops
+from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -43,6 +46,17 @@ def shard_rows(
     return docs, counts, rows_per_shard
 
 
+def shard_row_sidecar(
+    values: np.ndarray, device: torch.device, rows_per_shard: int
+) -> torch.Tensor:
+    """A per-row (N,) sidecar (int8 scales) on ``device`` with the padded
+    layout of :func:`shard_rows` (zeros past N)."""
+    src = torch.from_numpy(np.ascontiguousarray(values))
+    out = torch.zeros(rows_per_shard, dtype=src.dtype, device=device)
+    out[: len(src)].copy_(src)
+    return out
+
+
 def _merge_two_key(vals: torch.Tensor, gids: torch.Tensor, k: int):
     """Select the top k of (B, m) candidates by (score desc, gid asc)."""
     by_id = torch.argsort(gids, dim=1, stable=True)
@@ -50,6 +64,9 @@ def _merge_two_key(vals: torch.Tensor, gids: torch.Tensor, k: int):
     gids = torch.gather(gids, 1, by_id)
     by_score = torch.argsort(vals, dim=1, descending=True, stable=True)[:, :k]
     return torch.gather(vals, 1, by_score), torch.gather(gids, 1, by_score)
+
+
+METHODS = ("auto", "full", "bins_xla", "bins_pallas", "bins_two_level")
 
 
 def sharded_topk_ip(
@@ -62,24 +79,30 @@ def sharded_topk_ip(
     method: str = "auto",
     tile_n: int = 1024,
     tile_b: Optional[int] = None,
+    doc_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over a padded shard ``docs`` whose first ``counts[0]``
-    rows are valid. ``queries`` must already be in the index dtype. Returns
-    (values (B, k) f32, global ids (B, k) int64); ties go to the lower id.
+    rows are valid. ``queries`` must already be in the index dtype, except
+    over an int8 shard: there they stay float and are quantized per row on
+    the device, and ``doc_scales`` (the shard's per-row f32 scales, padded
+    like the rows) is required. Returns (values (B, k) f32, global ids
+    (B, k) int64); ties go to the lower id.
 
     Routing: shards of 262,144 rows or more take the two-level cover
-    (kernel A, bin-major), smaller ones the single-level cover (kernel A,
-    transposed); ``method`` may also name ``full`` or ``bins_xla``."""
-    if docs.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 index search is not ported yet (ROADMAP queue 2, kernel 4)"
-        )
+    (kernel A, or kernel 4 for int8, bin-major), smaller ones the
+    single-level cover (the same kernels, transposed); ``method`` may also
+    name ``full`` or ``bins_xla``, which score with the plain versions."""
     shard_id = 0
     rows_per_shard = docs.shape[0]
     if k > rows_per_shard:
         raise ValueError(
             f"k={k} > rows_per_shard={rows_per_shard}; lower k or use fewer shards"
         )
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    int8_mode = docs.dtype == torch.int8
+    if int8_mode and doc_scales is None:
+        raise ValueError("int8 index requires doc_scales")
     if method == "auto":
         method = "bins_two_level" if rows_per_shard >= topk_ops.TWO_LEVEL_MIN_ROWS else "bins_pallas"
     if bin_size is None:
@@ -90,22 +113,40 @@ def sharded_topk_ip(
     if tile_b is None:
         tile_b = 256
     n_valid = counts[:1]
-    if method == "full":
-        scores = queries.to(torch.float32) @ docs.to(torch.float32).T
+    if int8_mode and method in ("bins_pallas", "bins_two_level"):
+        vals, idx = topk_ops.topk_ip_bins_int8(
+            queries, docs, doc_scales, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
+            n_valid=n_valid, two_level=(method == "bins_two_level"),
+        )
+    elif method == "full" or int8_mode:
+        if int8_mode:
+            q_vals, q_scales = quantize_rows(queries)
+            scores = int8_ip_scores(q_vals, q_scales, docs, doc_scales)
+        else:
+            scores = queries.to(torch.float32) @ docs.to(torch.float32).T
         col = torch.arange(rows_per_shard, device=docs.device)
         scores = torch.where(col[None, :] < n_valid, scores, topk_ops.NEG_INF)
-        vals, idx = topk_ops._stable_topk(scores, k)
+        if method == "bins_xla":
+            # pad the tail UP to a bin multiple with NEG_INF (never
+            # selectable): truncating would make tail rows unselectable
+            n_pad_b = -(-scores.shape[1] // bin_size) * bin_size
+            if n_pad_b != scores.shape[1]:
+                scores = torch.nn.functional.pad(
+                    scores, (0, n_pad_b - scores.shape[1]), value=topk_ops.NEG_INF
+                )
+            bin_max = scores.view(scores.shape[0], -1, bin_size).amax(dim=2)
+            vals, idx = topk_ops._topk_from_bins(scores, bin_max, k, bin_size)
+        else:
+            vals, idx = topk_ops._stable_topk(scores, k)
     elif method == "bins_two_level":
         vals, idx = topk_ops.topk_ip_bins_two_level(
             queries, docs, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
             n_valid=n_valid,
         )
-    elif method in ("bins_pallas", "bins_xla"):
+    else:
         vals, idx = topk_ops.topk_ip_bins(
             queries, docs, k, bin_size=bin_size, use_kernel=(method == "bins_pallas"),
             tile_b=tile_b, tile_n=tile_n, n_valid=n_valid,
         )
-    else:
-        raise ValueError(f"unknown method {method!r}")
     gids = idx + shard_id * rows_per_shard
     return _merge_two_key(vals, gids, k)

@@ -119,9 +119,17 @@ def _entry_cli(tmp_path):
     ])
 
 
+def _entry_encode_corpus_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+
+    (tmp_path / "c.tsv").write_text("d1\tsome passage\n")
+    main(["encode-corpus", "--corpus_tsv", f"xx={tmp_path / 'c.tsv'}", "--storage_dtype", "int8",
+          "--out", str(tmp_path / "ix"), "--smoke_dim", "16"])
+
+
 @pytest.mark.parametrize("entry", [
     _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
-    _entry_index_search, _entry_runner, _entry_cli,
+    _entry_index_search, _entry_runner, _entry_cli, _entry_encode_corpus_cli,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()

@@ -69,7 +69,8 @@ def test_query_block_with_ragged_tail_matches_one_block():
     v0, d0 = port.search(qs, 20)
     v1, d1 = port.search(qs, 20, query_block=4)  # 10 = 4 + 4 + 2 (padded)
     np.testing.assert_array_equal(d1, d0)
-    np.testing.assert_array_equal(v1, v0)
+    # the CPU GEMM's summation order depends on the batch, so scores may move by an ulp
+    np.testing.assert_allclose(v1, v0, rtol=0, atol=1e-6)
     rv, rd, gv, gd = _search_both(docs, ids, qs, 20, query_block=4)
     np.testing.assert_array_equal(gd, rd)
 

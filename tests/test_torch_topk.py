@@ -164,9 +164,15 @@ def test_k_greater_than_n_valid_raises(name):
         fn()
 
 
-def test_bins_rescore_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.topk_ip(torch.zeros(1, 8), torch.zeros(64, 8), 4, method="bins_rescore")
+def test_bins_rescore_routes_to_the_rescore_search():
+    """``method="bins_rescore"`` routes to the rescore search (kernel 5's
+    path) and gives the exact ids of a full sort."""
+    rng = np.random.default_rng(4)
+    qs, docs = torch.from_numpy(_unit(rng, 3, 16)), torch.from_numpy(_unit(rng, 64, 16))
+    vals, ids = port.topk_ip(qs, docs, 4, method="bins_rescore")
+    want_vals, want_ids = port.topk_ip_full(qs, docs, 4)
+    torch.testing.assert_close(ids, want_ids, rtol=0, atol=0)
+    torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
 
 
 def test_auto_routing_thresholds(monkeypatch):
