@@ -9,8 +9,12 @@ Phases (a line of JSON after each):
  2. build    — compile every kernel (one nvcc per source, in parallel).
  3. kernels  — kernel A (bin scores, both layouts, both score dtypes),
                kernel 4 (int8 bin scores, both layouts, bit for bit),
-               kernel 5 (bin maxima only) and kernel B (flash attention)
-               against their plain versions.
+               kernel 5 (bin maxima only), kernel B (flash attention),
+               kernel 7 (sketch upper-bound bin maxima: ragged n_valid,
+               G in {8, 16}) and kernel 6 (MaxSim: ragged K, a candidate
+               with every token masked, masked query tokens) against their
+               plain versions; a sketch index with ds = d certifies every
+               query and returns the exact ids.
  4. encoder  — BGE-M3 width (24 layers, d=1024), seeded random init, bf16:
                512 query pairs (plain attention) and 256 passages of
                600-1000 words at a 1024 bucket (kernel B).
@@ -25,21 +29,40 @@ Phases (a line of JSON after each):
  5c. rescore — topk_ip(method="bins_rescore") at k=100 and
                topk_ip_rescore_two_level at k=1000 on the bf16 index
                (kernel 5); overlap with the f32 oracle.
+ 5d. sketch  — the phase-5 index reshaped in place into an anisotropic
+               corpus (column i scaled by exp(-0.009 i), rows renormalised;
+               queries alike), enable_sketch(sketch_dim=128), the run-mix
+               loop with approx=True and approx="guaranteed" (5 alphas at
+               k=100, alpha=.5 at k=1000; kernel 7) and exactly; every
+               guaranteed query has the exact run's ids; approx=True at k=1,
+               alpha=.5, where each query's planted row certifies; certified
+               queries have the exact run's ids (swaps only between scores
+               within 1e-5: their scores come from the rescore's products),
+               calibrate_sketch.
  6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
                process) on a BGE-M3-width params.npz checkpoint and a
                131,072-row store: the single-level route (kernel A transposed).
- 6b. corpus  — `encode-corpus --storage_dtype int8` on 2,048 passages of
-               600-1000 words (cut to the CLI's 512-token cap, so plain
-               attention, as in the JAX package), then `run-mix` over that
-               int8 store (kernel 4 transposed); ids equal the exact int8
-               top-k; passages/s.
+ 6b. corpus  — `encode-corpus --storage_dtype int8 --tokens_per_doc 32` on
+               2,048 passages of 600-1000 words (cut to the CLI's 512-token
+               cap, so plain attention, as in the JAX package), then
+               `run-mix` over that int8 store (kernel 4 transposed), `run-mix
+               --approx guaranteed` (kernel 7; the int8 sketch tier) and
+               `run-rerank --k 100 --k_dense 400` (kernel 6); both run-mix
+               runs equal the exact int8 top-k; passages/s.
+ 6c. twostage — a 131,072-row bf16 index and a 131,072 x 32 x 1024 int8
+               token store written by TokenShardWriter, 512 queries of 32
+               tokens with one planted document each:
+               run_two_stage_search(k=100, k_dense=400), card-resident
+               (kernel 6); ids equal a stable top-100 of the plain MaxSim
+               over the same candidates (swaps only within 1e-4), RR@10,
+               the memmap path gives the same ids.
  7. kernels line — per kernel, at the main path's shape: the check against
                its plain version again, its launches on the paths, max error,
                time, its bound, the plain version's and one PyTorch call's
                time (a yardstick the port never calls).
-Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 6,
-6b) and read just after it; comparison and timing launches happen outside
-those windows.
+Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 5d,
+6, 6b, 6c) and read just after it; comparison and timing launches happen
+outside those windows.
 The last line is the device JSON. Any failed check raises (exit code != 0).
 """
 
@@ -65,6 +88,20 @@ ALPHAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak
+# kernel 7 vs its plain version: the same exact bf16 products, summed in f32
+# in another order (|ub| < 1.5 here, so a few f32 ulps)
+TOL_BINUB = 1e-6
+# kernel 6 vs its plain version: |kernel - plain| <= TOL_MAXSIM + TOL_MAXSIM_REL
+# * |plain|. The f32 query split into bf16 hi + lo keeps it to ~2^-16
+# relative, the tensor cores' f32 accumulation does not round to nearest,
+# and 32 maxima are summed in another order; scores reach ~30 when the
+# query's tokens all have near twins
+TOL_MAXSIM = 2e-5
+TOL_MAXSIM_REL = 3e-6
+TIE_TOL = 1e-5              # two runs' ids may swap only between scores this close
+TIE_TOL_MAXSIM = 1e-4       # the same for MaxSim scores (sums of 32 maxima)
+TQ = TD = 32                # two-stage query and doc tokens
+K_DENSE = 400               # two-stage dense recall depth
 
 
 def say(tag: str, **fields) -> None:
@@ -76,6 +113,29 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` launches between CUDA events, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, peak: float = BF16_FLOPS):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> None:
     import torch
 
@@ -84,6 +144,7 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.ops import kernels
     from codemix_dense_retrieval_torch.ops import flash_attention as fa
     from codemix_dense_retrieval_torch.ops import topk
@@ -213,9 +274,71 @@ def main() -> None:
                     key = "flash_f32" if dt == torch.float32 else "flash_bf16"
                     errs[key] = max(errs[key], err)
     del q, k, v, o, o2
-    say("kernels_vs_plain", max_abs_err=errs,
+
+    # kernel 7: bf16 sketches (ds = 128) with f32 tails, ragged n_valid
+    from codemix_dense_retrieval_torch.ops import maxsim as msim
+    from codemix_dense_retrieval_torch.ops import sketch as sk
+
+    n7 = 262_144 + 64
+    d_sk = (torch.randn(n7, 128, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+    d_tl = torch.rand(n7, device=dev, generator=g) * 0.3
+    errs["binub"] = errs["maxsim"] = 0.0
+    for b in (1, 7, 256):
+        q_sk = (torch.randn(b, 128, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+        q_tl = torch.rand(b, device=dev, generator=g) * 0.3
+        for bin_size in (8, 16):
+            for nv7 in (n7 - 77, 1000):
+                nv = torch.tensor([nv7], dtype=torch.int32, device=dev) if b == 256 else nv7
+                ub = sk.binub(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
+                ub2 = sk.binub_plain(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
+                torch.cuda.synchronize()
+                err7 = (ub - ub2).abs().max().item()
+                check(err7 <= TOL_BINUB, f"7 err {err7} b={b} G={bin_size} nv={nv7}")
+                check(bool((ub[:, -(-nv7 // bin_size):] == topk.NEG_INF).all()), "7 pad bins")
+                errs["binub"] = max(errs["binub"], err7)
+    del d_sk, d_tl, ub, ub2
+
+    # kernel 6: ragged K, Tq and Td (query groups past 32 tokens, partial doc
+    # chunks), a candidate with every token masked, masked query tokens
+    def unit_rows(*shape):
+        x = torch.randn(*shape, device=dev, generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    for b, kc, tq, td, dm in ((3, 37, 5, 7, 128), (4, 81, 32, 32, DIM), (2, 17, 40, 45, DIM),
+                              (5, 200, 16, 64, 256)):
+        qt = unit_rows(b, tq, dm)
+        dt = unit_rows(b, kc, td, dm).to(torch.bfloat16)
+        qm = (torch.rand(b, tq, device=dev, generator=g) < 0.8).to(torch.int32)
+        qm[:, 0] = 1
+        dmask = (torch.rand(b, kc, td, device=dev, generator=g) < 0.8).to(torch.int32)
+        dmask[:, :, 0] = 1
+        dmask[0, 2] = 0
+        qm[1, 1:] = 0
+        s6 = msim.maxsim_scores(qt, qm, dt, dmask)
+        s6p = msim.maxsim_scores_plain(qt, qm, dt, dmask)
+        torch.cuda.synchronize()
+        err6 = (s6 - s6p).abs().max().item()
+        check(bool(((s6 - s6p).abs() <= TOL_MAXSIM + TOL_MAXSIM_REL * s6p.abs()).all()),
+              f"6 err {err6} at {(b, kc, tq, td, dm)}")
+        check(s6[0, 2].item() == 0.0, "6: a candidate with no valid token must score 0")
+        errs["maxsim"] = max(errs["maxsim"], err6)
+    del qt, dt, s6, s6p
+
+    # the sketch tier with ds = d: every query certified, the exact ids
+    xs = unit_rows(65_536, 128).to(torch.bfloat16).cpu()
+    sk_ix = DenseFlatIndex.build(xs, [str(i) for i in range(65_536)]).to_device()
+    sk_ix.enable_sketch(sketch_dim=128, probe_bins=64, cache=False)
+    qs = unit_rows(64, 128)
+    _, sk_ids = sk_ix.search(qs, 10, return_docids=False, approx=True)
+    full_cert = int(sk_ix.last_certified.sum())
+    _, ex_ids = sk_ix.search(qs, 10, return_docids=False)
+    check(full_cert == 64, f"ds = d sketch certified {full_cert} of 64 queries")
+    check(bool((sk_ids == ex_ids).all()), "ds = d sketch ids differ from exact search")
+    del sk_ix, xs
+    say("kernels_vs_plain", max_abs_err=errs, sketch_ds_eq_d_certified=f"{full_cert}/64",
         tolerances={"A_f32": 1e-4, "A_bf16": "1 ulp + 1e-6", "int8": 0, "binmax_only": 1e-4,
-                    "B_f32": 1e-4, "B_bf16": 2e-2})
+                    "B_f32": 1e-4, "B_bf16": 2e-2, "binub": TOL_BINUB,
+                    "maxsim": f"{TOL_MAXSIM} + {TOL_MAXSIM_REL} |score|"})
 
     # ---------------- phase 4: encoder at BGE-M3 width ----------------
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
@@ -276,7 +399,6 @@ def main() -> None:
 
     # ---------------- phase 5: vector-mix run at full size ----------------
     from codemix_dense_retrieval_torch.cli import main as cli_main
-    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
     from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
 
@@ -317,14 +439,19 @@ def main() -> None:
         k1000_queries_per_s=round(N_QUERIES / t1000, 1), query_block=256,
         launches=path_counts["search"])
 
-    def run_ids(path, k):
+    def run_table(path, k, doc_int=int):
+        """(ids (512, k), scores (512, k)) of a TREC run, in qid order."""
         rows = {}
         with open(path) as fh:
             for line in fh:
-                qid, _, doc, _, _, _ = line.split()
-                rows.setdefault(qid, []).append(int(doc))
+                qid, _, doc, _, score, _ = line.split()
+                rows.setdefault(qid, []).append((doc_int(doc), float(score)))
         check(all(len(rows[q]) == k for q in qids), f"{path} rows per query != {k}")
-        return np.array([rows[q] for q in qids])
+        return (np.array([[d for d, _ in rows[q]] for q in qids]),
+                np.array([[v for _, v in rows[q]] for q in qids]))
+
+    def run_ids(path, k):
+        return run_table(path, k)[0]
 
     ids100 = run_ids(runs100[0.5], 100)
     ids1000 = run_ids(runs1000[0.5], 1000)
@@ -473,6 +600,162 @@ def main() -> None:
     say("rescore", queries=256, k100_ms=rescore_s["k100"] * 1e3, k1000_ms=rescore_s["k1000"] * 1e3,
         overlap_k100=rov100, overlap_k1000=rov1000, launches=path_counts["rescore"])
 
+    # ---------------- phase 5d: the sketch tier at full size ----------------
+    from codemix_dense_retrieval_torch.ops.sketch import _sketch_with_err
+
+    spec = torch.exp(-0.009 * torch.arange(DIM, device=dev, dtype=torch.float32))
+
+    def aniso(x):
+        y = x.to(dev, torch.float32) * spec
+        return y / y.norm(dim=1, keepdim=True)
+
+    t0 = time.perf_counter()
+    docs5 = index._docs_dev  # reshaped in place: the recipe of the JAX package's bench
+    for c0 in range(0, N_ROWS, 1 << 20):
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        docs5[c0:c1] = aniso(docs5[c0:c1]).to(torch.bfloat16)
+    qa5, qb5 = aniso(qa_t).cpu().numpy(), aniso(qb_t).cpu().numpy()
+    index.enable_sketch(sketch_dim=128, cache=False)
+    torch.cuda.synchronize()
+    sketch_build_s = time.perf_counter() - t0
+    out5d = work / "sketch"
+    runs5d, cert5d, t5d = {}, {}, {}
+    depths = ((100, ALPHAS), (1000, (0.5,)))
+    kernels.reset_launch_counts()
+    for mode, approx in (("fast", True), ("guaranteed", "guaranteed")):
+        for k, alphas in depths:
+            t0 = time.perf_counter()
+            for a in alphas:  # one alpha per call, to keep each alpha's certificates
+                runs5d[(mode, k, a)] = run_vector_mix_search(
+                    index, qids, qa5, qb5, [a], out5d / f"{mode}{k}", k=k, query_block=256, approx=approx,
+                )[a]
+                cert5d[(mode, k, a)] = index.last_certified.copy()
+            t5d[(mode, k)] = time.perf_counter() - t0
+    # k = 1 at alpha = .5: each query's planted row lies far above the rest, so
+    # certificates fire at full size and their soundness is held on real cases
+    t0 = time.perf_counter()
+    runs5d[("fast", 1, 0.5)] = run_vector_mix_search(
+        index, qids, qa5, qb5, [0.5], out5d / "fast1", k=1, query_block=256, approx=True,
+    )[0.5]
+    cert5d[("fast", 1, 0.5)] = index.last_certified.copy()
+    t5d[("fast", 1)] = time.perf_counter() - t0
+    path_counts["sketch"] = dict(kernels.LAUNCHES)
+    check(path_counts["sketch"]["binub"] > 0, "the sketch runs did not launch kernel 7")
+    kernels.reset_launch_counts()
+    for k, alphas in depths:
+        t0 = time.perf_counter()
+        ex = run_vector_mix_search(index, qids, qa5, qb5, list(alphas), out5d / f"exact{k}", k=k, query_block=256)
+        t5d[("exact", k)] = time.perf_counter() - t0
+        for a in alphas:
+            runs5d[("exact", k, a)] = ex[a]
+    path_counts["sketch_exact"] = dict(kernels.LAUNCHES)
+
+    def mixed5(a):
+        """The queries the index scores: the bf16 mix of the reshaped pair."""
+        return mix_and_renorm(torch.from_numpy(qa5).to(dev), torch.from_numpy(qb5).to(dev), a)
+
+    def row_scores(q, ids):
+        """f32 products of queries q (n, d) with their rows ids (n, k)."""
+        out = []
+        for i in range(0, len(ids), 64):
+            rows = docs5[torch.from_numpy(ids[i : i + 64]).to(dev)].float()
+            out.append(torch.bmm(rows, q[i : i + 64, :, None])[:, :, 0])
+        return torch.cat(out)
+
+    def tie_check(q, got, want, tol):
+        """(rows equal, rows that differ only where the swapped entries'
+        scores lie within tol, violating rows) over the rows of got/want."""
+        eq = (got == want).all(axis=1)
+        diff = np.flatnonzero(~eq)
+        bad = 0
+        if len(diff):
+            qd = q[torch.from_numpy(diff).to(dev)]
+            gap = (row_scores(qd, got[diff]) - row_scores(qd, want[diff])).abs()
+            bad = int((gap > tol).any(dim=1).sum().item())
+        return int(eq.sum()), len(diff) - bad, bad
+
+    cert_frac, recall5d, certified = {}, {}, [0, 0, 0, 0]
+    grt_eq = 0
+    grt_score_gap = 0.0
+    for k, alphas in depths:
+        for a in alphas:
+            q = mixed5(a).to(torch.bfloat16).float()
+            ex_ids, ex_sc = run_table(runs5d[("exact", k, a)], k)
+            f_ids, _ = run_table(runs5d[("fast", k, a)], k)
+            cert = cert5d[("fast", k, a)]
+            cert_frac[f"k{k}_a{a}"] = float(cert.mean())
+            recall5d[f"k{k}_a{a}"] = overlap(f_ids, ex_ids)
+            c = np.flatnonzero(cert)
+            n_eq, n_tie, n_bad = tie_check(q[torch.from_numpy(c).to(dev)], f_ids[c], ex_ids[c], TIE_TOL)
+            certified = [certified[0] + len(c), certified[1] + n_eq, certified[2] + n_tie, certified[3] + n_bad]
+            # guaranteed mode answers every uncertified query by exact search:
+            # its ids are the exact run's, with no tie allowance
+            g_ids, g_sc = run_table(runs5d[("guaranteed", k, a)], k)
+            grt_eq += int((g_ids == ex_ids).all(axis=1).sum())
+            grt_score_gap = max(grt_score_gap, float(np.abs(g_sc - ex_sc).max()))
+            check(bool(cert5d[("guaranteed", k, a)].all()), "guaranteed mode left a query uncertified")
+    check(certified[3] == 0, f"{certified[3]} certified queries differ from exact search beyond ties")
+    n_runs = {100: len(ALPHAS) * N_QUERIES, 1000: N_QUERIES}
+    check(grt_eq == n_runs[100] + n_runs[1000],
+          f"{n_runs[100] + n_runs[1000] - grt_eq} guaranteed queries differ from the exact run's ids")
+    ex_top1 = run_table(runs5d[("exact", 100, 0.5)], 100)[0][:, :1]  # the exact top-1
+    f1_ids, _ = run_table(runs5d[("fast", 1, 0.5)], 1)
+    c1 = np.flatnonzero(cert5d[("fast", 1, 0.5)])
+    top1 = tie_check(mixed5(0.5).to(torch.bfloat16).float()[torch.from_numpy(c1).to(dev)],
+                     f1_ids[c1], ex_top1[c1], TIE_TOL)
+    check(len(c1) > 0, "no planted query was certified at k = 1: the certificate never fired at full size")
+    check(top1[2] == 0, f"{top1[2]} certified k = 1 queries differ from exact search beyond ties")
+    check(grt_score_gap <= 1e-4 + 1e-6, f"guaranteed vs exact TREC score gap {grt_score_gap}")
+    t0 = time.perf_counter()
+    cal = index.calibrate_sketch(mixed5(0.5).cpu().numpy(), 100, recall_target=0.99)
+    cal_s = time.perf_counter() - t0
+    say("sketch", rows=N_ROWS, sketch_dim=128, reshape="column i x exp(-0.009 i), renormalised",
+        build_s=round(sketch_build_s, 2),
+        queries_per_s={f"{m}_k{k}": round(n_runs[k] / t5d[(m, k)], 1)
+                       for m in ("fast", "guaranteed", "exact") for k in (100, 1000)}
+        | {"fast_k1_a0.5": round(N_QUERIES / t5d[("fast", 1)], 1)},
+        certified_frac_fast=cert_frac, recall_fast_vs_exact=recall5d,
+        certified_queries=certified[0], certified_ids_equal=certified[1],
+        certified_equal_up_to_ties=certified[2], guaranteed_ids_equal=grt_eq,
+        guaranteed_max_trec_score_gap=grt_score_gap, certified_k1_a05=len(c1),
+        certified_k1_ids_equal=top1[0], certified_k1_equal_up_to_ties=top1[1],
+        tie_tol=TIE_TOL, calibrate_k100_recall099=cal, calibrate_s=round(cal_s, 2),
+        launches=path_counts["sketch"], exact_launches=path_counts["sketch_exact"])
+
+    # kernel 7 at the sketch tier's main shape, while the sidecar is alive
+    sk5, tl5, proj5, _ = index._sketch
+    nv_big = index._counts_dev[:1]
+    q_sk, q_tl, _ = _sketch_with_err(mixed5(0.5)[:256].to(torch.bfloat16).float(), proj5, torch.bfloat16)
+    nb5 = sk5.shape[0]
+    ub = sk.binub(q_sk, q_tl, sk5, tl5, 8, nv_big)
+    ub2 = sk.binub_plain(q_sk, q_tl, sk5, tl5, 8, nv_big)
+    torch.cuda.synchronize()
+    err7 = (ub - ub2).abs().max().item()
+    check(err7 <= TOL_BINUB, f"7 err {err7} at the main shape")
+    check(bool((ub[:, -(-N_ROWS // 8):] == topk.NEG_INF).all()), "7 pad bins at the main shape")
+    del ub, ub2
+    col5 = torch.arange(nb5, device=dev)
+
+    def lib_binub():
+        s = torch.matmul(q_sk, sk5.T).float()
+        s.addr_(q_tl, tl5)
+        return s.masked_fill_(col5 >= nv_big, -torch.inf).view(256, nb5 // 8, 8).amax(dim=2)
+
+    b_ms, b_by = bound(256 * 128 * 2 + 256 * 4 + nb5 * 128 * 2 + nb5 * 4 + 256 * nb5 // 8 * 4,
+                       2 * 256 * nb5 * 128)
+    late_entries = [dict(
+        name="binub", route="cuda", source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/sketch.py:310", launches=None,
+        max_abs_err=max(errs["binub"], err7),
+        ms=cuda_ms(lambda: sk.binub(q_sk, q_tl, sk5, tl5, 8, nv_big), 5),
+        plain_ms=cuda_ms(lambda: sk.binub_plain(q_sk, q_tl, sk5, tl5, 8, nv_big), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_binub, 3),
+        shape=f"B=256 N={nb5} ds=128 G=8 bf16 sketch, bin-major upper-bound maxima",
+    )]
+    index._sketch = None
+    del sk5, tl5, q_sk, q_tl, col5
+    torch.cuda.empty_cache()
+
     # ---------------- phase 6: CLI at full width ----------------
     from codemix_dense_retrieval_torch.io.shards import ShardStore
     from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
@@ -541,7 +824,7 @@ def main() -> None:
     t0 = time.perf_counter()
     run_cli(["codemix_dense_retrieval_torch", "encode-corpus", "--checkpoint", str(ckpt),
              "--corpus_tsv", f"xx={corpus_tsv}", "--storage_dtype", "int8", "--out", str(work / "corpus"),
-             "--batch", "512", "--enc_batch", "32", "--seed", str(SEED)])
+             "--batch", "512", "--enc_batch", "32", "--tokens_per_doc", str(TD), "--seed", str(SEED)])
     encode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
@@ -570,28 +853,204 @@ def main() -> None:
     check(len(got8) == N_QUERIES and all(len(v) == 100 for v in got8.values()), "corpus run shape")
     check(bool((np.array([got8[q] for q in qids]) == want8.cpu().numpy()).all()),
           "run-mix over the int8 store differs from the exact int8 top-k")
+    from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
+
+    tok8 = TokenShardStore.open(work / "corpus" / "xx" / "tokens")
+    check(tok8.count == N_CORPUS and tok8.tokens_per_doc == TD and tok8.docids == store8.docids
+          and bool((tok8.lengths == TD).all()), "encode-corpus token store shape / alignment")
+
+    def corpus_run_ids(path):
+        got = {}
+        with open(path) as fh:
+            for line in fh:
+                qid, _, doc, _, _, _ = line.split()
+                got.setdefault(qid, []).append(int(doc.split("#")[0][1:]))
+        check(len(got) == N_QUERIES and all(len(v) == 100 for v in got.values()), f"{path} shape")
+        return np.array([got[q] for q in qids])
+
+    # the same run through the int8 sketch tier, guaranteed: the exact int8 ids
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), "--query_tsv", f"en={work / 'en.tsv'}",
+             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "corpus_grt_runs"), "--k", "100",
+             "--qblock", "256", "--cm_alphas", "0.5", "--query_cache", str(work / "qcache"),
+             "--approx", "guaranteed", "--seed", str(SEED)])
+    corpus_grt_s = time.perf_counter() - t0
+    path_counts["corpus_grt"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_grt"]["binub"] > 0, "run-mix --approx guaranteed did not launch kernel 7")
+    check(bool((corpus_run_ids(work / "corpus_grt_runs" / "cm-alpha-0.5.trec") == want8.cpu().numpy()).all()),
+          "run-mix --approx guaranteed over the int8 store differs from the exact int8 top-k")
+    grt_meta = json.loads((work / "corpus_grt_runs" / "cm-alpha-0.5_meta.json").read_text())
+    # the two-stage CLI over the encode-corpus store and its token store
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-rerank", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), "--queries", str(work / "en.tsv"),
+             "--outdir", str(work / "rerank_runs"), "--k", "100", "--k_dense", str(K_DENSE),
+             "--qblock", "256", "--seed", str(SEED)])
+    rerank_cli_s = time.perf_counter() - t0
+    path_counts["rerank_cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["rerank_cli"]["maxsim"] > 0, "run-rerank did not launch kernel 6")
+    corpus_run_ids(work / "rerank_runs" / "en.trec")
+    rerank_meta = json.loads((work / "rerank_runs" / "en_meta.json").read_text())
+    check(rerank_meta["k_dense_effective"] == K_DENSE and rerank_meta["k_effective"] == 100,
+          f"run-rerank depths {rerank_meta}")
     say("corpus_cli", passages=N_CORPUS, words_per_passage="600-1000", bucket=512, storage_dtype="int8",
-        encode_corpus_s=round(encode_s, 2), passages_per_s=round(N_CORPUS / encode_s, 1),
+        tokens_per_doc=TD, encode_corpus_s=round(encode_s, 2), passages_per_s=round(N_CORPUS / encode_s, 1),
         run_mix_s=round(corpus_run_s, 2), store_rows=store8.count, ids_equal_exact_int8_topk=True,
-        launches=path_counts["corpus_cli"])
+        launches=path_counts["corpus_cli"], run_mix_guaranteed_s=round(corpus_grt_s, 2),
+        guaranteed_ids_equal_exact_int8_topk=True, guaranteed_meta=grt_meta,
+        guaranteed_launches=path_counts["corpus_grt"], run_rerank_s=round(rerank_cli_s, 2),
+        run_rerank_launches=path_counts["rerank_cli"])
     del cd8
 
+    # ---------------- phase 6c: two-stage search at scale ----------------
+    from codemix_dense_retrieval_torch.io.token_shards import TokenShardWriter
+    from codemix_dense_retrieval_torch.parallel.sharded_search import _merge_two_key
+    from codemix_dense_retrieval_torch.pipeline.query_cache import save_query_token_cache
+    from codemix_dense_retrieval_torch.pipeline.rerank import (
+        TwoStageSearcher,
+        _dequant_bf16,
+        run_two_stage_search,
+    )
+
+    g6 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cpu6 = torch.Generator().manual_seed(SEED + 4)
+
+    def unit6(*shape):
+        x = torch.randn(*shape, device=dev, generator=g6)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    t0 = time.perf_counter()
+    q_lens6 = torch.randint(8, TQ + 1, (N_QUERIES,), generator=cpu6)
+    q_mask6 = (torch.arange(TQ)[None, :] < q_lens6[:, None]).to(torch.int32).to(dev)
+    q_toks6 = unit6(N_QUERIES, TQ, DIM) * q_mask6[..., None]  # pad tokens are 0, as encoded
+    q_dense6 = q_toks6.sum(dim=1)
+    q_dense6 /= q_dense6.norm(dim=1, keepdim=True)
+    # one planted document per query: its dense row and its tokens sit near the query's
+    planted6 = torch.randperm(SMALL_ROWS, generator=cpu6)[:N_QUERIES]
+    plant_of = torch.full((SMALL_ROWS,), -1, dtype=torch.long)
+    plant_of[planted6] = torch.arange(N_QUERIES)
+    doc_lens6 = torch.randint(1, TD + 1, (SMALL_ROWS,), generator=cpu6)
+    doc_lens6[planted6] = TD
+    ids6 = [f"t{i}" for i in range(SMALL_ROWS)]
+    dense6 = torch.empty((SMALL_ROWS, DIM), dtype=torch.bfloat16)
+    writer = TokenShardWriter(work / "twostage" / "tokens", token_dim=DIM, tokens_per_doc=TD, dtype="int8")
+    for c0 in range(0, SMALL_ROWS, 4096):
+        c1 = c0 + 4096
+        rows, toks = unit6(c1 - c0, DIM), unit6(c1 - c0, TD, DIM)
+        sel = torch.nonzero(plant_of[c0:c1] >= 0).squeeze(1)
+        if len(sel):
+            qi, sel_d = plant_of[c0:c1][sel].to(dev), sel.to(dev)
+            near = q_dense6[qi] + 0.5 * unit6(len(sel), DIM)
+            rows[sel_d] = near / near.norm(dim=1, keepdim=True)
+            near_t = q_toks6[qi] + 0.3 * unit6(len(sel), TD, DIM)
+            toks[sel_d] = near_t / near_t.norm(dim=-1, keepdim=True)
+        dense6[c0:c1].copy_(rows.to(torch.bfloat16))
+        writer.append(toks, doc_lens6[c0:c1].numpy(), ids6[c0:c1])
+    writer.finalize()
+    del rows, toks
+    store6 = TokenShardStore.open(work / "twostage" / "tokens")
+    index6 = DenseFlatIndex.build(dense6, ids6).to_device()
+    q_np = (q_dense6.cpu().numpy(), q_toks6.cpu().numpy(), q_lens6.numpy().astype(np.int32))
+    save_query_token_cache(work / "qc6" / "twostage.npz", qids, *q_np)
+    torch.cuda.synchronize()
+    gen6_s = time.perf_counter() - t0
+    check(index6._rows_per_shard < topk.TWO_LEVEL_MIN_ROWS, "two-stage index not on the single-level route")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs6 = run_two_stage_search(index6, store6, None, {"twostage": [(q, "") for q in qids]}, work / "ts_runs",
+                                 k=100, k_dense=K_DENSE, query_block=256, cache_root=work / "qc6")
+    run6_s = time.perf_counter() - t0
+    path_counts["two_stage"] = dict(kernels.LAUNCHES)
+    check(path_counts["two_stage"]["maxsim"] > 0, "the two-stage run did not launch kernel 6")
+    got6, _ = run_table(runs6["twostage"], 100, doc_int=lambda d: int(d[1:]))
+    # the same searcher card-resident (timed warm) and through the memmap path
+    res = TwoStageSearcher(index6, store6)
+    check(res.device_resident, "a 4.3 GB token store should be card-resident under the 6 GiB budget")
+    res.search(*q_np, 100, k_dense=K_DENSE, query_block=256, return_docids=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res_ids = res.search(*q_np, 100, k_dense=K_DENSE, query_block=256, return_docids=False)
+    res_s = time.perf_counter() - t0
+    mm = TwoStageSearcher(index6, store6, device_resident=False)
+    t0 = time.perf_counter()
+    _, mm_ids = mm.search(*q_np, 100, k_dense=K_DENSE, query_block=256, return_docids=False)
+    mm_s = time.perf_counter() - t0
+    check(bool((res_ids == got6).all()), "run_two_stage_search ids differ from a resident search")
+    check(bool((mm_ids == res_ids).all()), "the memmap path's ids differ from the card-resident path's")
+    # against a stable (score desc, id asc) top-100 of the plain MaxSim over the same candidates
+    _, cands = index6.search(q_dense6, K_DENSE, return_docids=False, query_block=256)
+    ts_eq = ts_tie = ts_bad = 0
+    for i in range(0, N_QUERIES, 256):
+        cand = torch.from_numpy(cands[i : i + 256]).to(dev)
+        flat = cand.reshape(-1)
+        dt6 = _dequant_bf16(res._tok_dev.index_select(0, flat), res._scales_dev.index_select(0, flat))
+        dt6 = dt6.reshape(256, K_DENSE, TD, DIM)
+        dm6 = (torch.arange(TD, device=dev)[None, :] < res._lengths_dev.index_select(0, flat)[:, None])
+        dm6 = dm6.to(torch.int32).reshape(256, K_DENSE, TD)
+        ps6 = msim.maxsim_scores_plain(q_toks6[i : i + 256], q_mask6[i : i + 256], dt6, dm6)
+        ws6, wi6 = _merge_two_key(ps6, cand, 100)
+        gid6 = torch.from_numpy(got6[i : i + 256]).to(dev)
+        hit = gid6[:, :, None] == cand[:, None, :]
+        check(bool(hit.any(dim=2).all()), "a reranked id is not among its dense candidates")
+        gs6 = torch.gather(ps6, 1, hit.to(torch.int32).argmax(dim=2))
+        eq = (gid6 == wi6).all(dim=1)
+        bad = ((gs6 - ws6).abs() > TIE_TOL_MAXSIM).any(dim=1) & ~eq
+        ts_eq += int(eq.sum())
+        ts_bad += int(bad.sum())
+        ts_tie += int((~eq & ~bad).sum())
+        if i == 0:  # kernel 6 at the main shape: the first block as the path gives it
+            q256, qm256, dt256, dm256 = q_toks6[:256].contiguous(), q_mask6[:256].contiguous(), dt6, dm6
+        del dt6, dm6, ps6
+    check(ts_bad == 0, f"{ts_bad} two-stage queries differ from the plain MaxSim top-100 beyond ties")
+    qrels6 = work / "qrels6.tsv"
+    qrels6.write_text("".join(f"{q}\tt{int(planted6[i])}\t1\n" for i, q in enumerate(qids)))
+    cli_main(["evaluate", "--dataset", "twostage", "--run", str(runs6["twostage"]), "--qrels", str(qrels6),
+              "--outdir", str(work / "eval6"), "--metrics", "MRR@10", "nDCG@10", "R@100"])
+    (agg6_path,) = (work / "eval6").glob("*-agg.json")
+    agg6 = json.loads(agg6_path.read_text())
+    check(agg6["RR@10"] == 100.0, f"two-stage RR@10 {agg6['RR@10']}")
+    say("two_stage", docs=SMALL_ROWS, tokens_per_doc=TD, token_dim=DIM, token_dtype="int8",
+        token_store_gb=round(res._store_bytes() / 1e9, 2),
+        queries=N_QUERIES, query_tokens=TQ, k=100, k_dense=K_DENSE, query_block=256,
+        generate_and_write_s=round(gen6_s, 2), run_two_stage_search_s=round(run6_s, 2),
+        resident_queries_per_s=round(N_QUERIES / res_s, 1), memmap_queries_per_s=round(N_QUERIES / mm_s, 1),
+        memmap_ids_equal_resident=True, ids_equal_plain_topk=ts_eq, ids_equal_up_to_ties=ts_tie,
+        tie_tol=TIE_TOL_MAXSIM, rr10=agg6["RR@10"], launches=path_counts["two_stage"])
+    k6 = msim.maxsim_scores(q256, qm256, dt256, dm256)
+    p6 = msim.maxsim_scores_plain(q256, qm256, dt256, dm256)
+    torch.cuda.synchronize()
+    err6 = (k6 - p6).abs().max().item()
+    rel6 = ((k6 - p6).abs() / p6.abs().clamp(min=1.0)).max().item()
+    check(bool(((k6 - p6).abs() <= TOL_MAXSIM + TOL_MAXSIM_REL * p6.abs()).all()),
+          f"6 err {err6} (relative {rel6}) at the main shape")
+    qb256 = q256.to(torch.bfloat16)
+
+    def lib_maxsim():
+        s = torch.einsum("bqd,bktd->bkqt", qb256, dt256)
+        s = s.masked_fill(dm256[:, :, None, :] == 0, -torch.inf).amax(dim=-1).float()
+        s = torch.where(qm256[:, None, :] > 0, s, 0.0)
+        return torch.where(torch.isfinite(s), s, 0.0).sum(dim=-1)
+
+    b_ms, b_by = bound(256 * TQ * DIM * 4 + 256 * TQ * 4 + 256 * K_DENSE * TD * DIM * 2
+                       + 256 * K_DENSE * TD * 4 + 256 * K_DENSE * 4, 2 * 256 * K_DENSE * TQ * TD * DIM)
+    late_entries.append(dict(
+        name="maxsim", route="cuda", source="codemix_dense_retrieval_torch/csrc/maxsim.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/maxsim.py:132", launches=None,
+        max_abs_err=max(errs["maxsim"], err6), max_rel_err=rel6,
+        ms=cuda_ms(lambda: msim.maxsim_scores(q256, qm256, dt256, dm256), 5),
+        plain_ms=cuda_ms(lambda: msim.maxsim_scores_plain(q256, qm256, dt256, dm256), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_maxsim, 3),
+        shape=f"B=256 K={K_DENSE} Tq={TQ} Td={TD} d={DIM}, f32 queries, bf16 doc tokens "
+              "(library: einsum in bf16)",
+    ))
+    del res, mm, index6, q256, qm256, dt256, dm256, k6, p6
+    shutil.rmtree(work / "twostage", ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # ---------------- phase 7: kernels line ----------------
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def bound(nbytes, ops, peak=BF16_FLOPS):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     def total(name):
         return sum(c[name] for c in path_counts.values())
 
@@ -783,6 +1242,9 @@ def main() -> None:
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B={bsz} H={h} S={seq} dh={dh} bf16 mean_len={lens.float().mean().item():.1f}",
     ))
+    for e in late_entries:
+        e["launches"] = total(e["name"])
+        entries.append(e)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     say("path_launches", **path_counts)

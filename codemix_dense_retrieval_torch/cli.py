@@ -5,18 +5,21 @@ command                   what it does
 ========================  ==============================================
 encode-corpus             encode per-language corpora into shard stores
                           (bf16 by default; ``--storage_dtype int8``
-                          writes int8 rows + ``scales.bin``)
+                          writes int8 rows + ``scales.bin``;
+                          ``--tokens_per_doc T`` adds a token store)
 run-mono                  word-mix band search over one index
 run-mix                   vector-mix alpha sweep over one index
+run-rerank                two-stage search: dense recall + MaxSim rerank
 evaluate                  evaluate a TREC run against qrels
 ========================  ==============================================
 
 Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
-Corpus and query TSVs, index directories (bf16 or int8), TREC runs and eval
-artifacts keep the same on-disk formats. Options whose paths are not ported
-yet (``--fused``, ``--approx`` other than off, ``--dp`` > 1, ``--shards`` >
-1, ``--weight_quant``, ``--tokens_per_doc`` > 0, ``--pack``) exit with an
-error.
+Corpus and query TSVs, index and token-store directories, TREC runs and
+eval artifacts keep the same on-disk formats. ``--approx fast|guaranteed``
+searches through the sketch tier. Options whose paths are not ported yet
+(``--fused``, ``--approx adaptive``, ``--dp`` > 1, ``--shards`` > 1,
+``--weight_quant``, ``--pack``, ``run-rerank`` over two or more indexes)
+exit with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,18 +50,24 @@ def _parse_lang_path(specs: Sequence[str]) -> Dict[str, pathlib.Path]:
 def _reject_unported(args) -> None:
     if getattr(args, "fused", False):
         raise SystemExit("[ERROR] --fused is not ported yet (ROADMAP: fused sweep)")
-    if getattr(args, "approx", "off") != "off":
-        raise SystemExit(f"[ERROR] --approx {args.approx} is not ported yet (ROADMAP: approximate tiers)")
+    if getattr(args, "approx", "off") == "adaptive":
+        raise SystemExit(
+            "[ERROR] --approx adaptive is not ported yet (ROADMAP queue 1, item 15: "
+            "adaptive probed-exact tier)"
+        )
     if args.dp > 1:
         raise SystemExit("[ERROR] --dp > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.shards > 1:
         raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.weight_quant:
         raise SystemExit("[ERROR] --weight_quant is not ported yet (ROADMAP: quantization)")
-    if getattr(args, "tokens_per_doc", 0):
-        raise SystemExit("[ERROR] --tokens_per_doc > 0 is not ported yet (ROADMAP: two-stage ColBERT)")
     if getattr(args, "pack", False):
         raise SystemExit("[ERROR] --pack is not ported yet (ROADMAP: sequence packing)")
+
+
+def _approx_mode(args):
+    """--approx {off,fast,guaranteed} -> the DenseFlatIndex.search value."""
+    return {"off": False, "fast": True, "guaranteed": "guaranteed"}[getattr(args, "approx", "off")]
 
 
 def _build_encoder(args):
@@ -85,10 +94,27 @@ def _build_encoder(args):
 
 
 def _load_query_sets(args) -> Dict[str, List[Tuple[str, str]]]:
-    """A directory of band files (queries-cm*.tsv) or single TSV files."""
+    """A directory of band files (queries-cm*.tsv), single TSV files, or an
+    HF streaming split (``--queries_repo``; needs the ``datasets`` package)."""
     from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
 
     sets: Dict[str, List[Tuple[str, str]]] = {}
+    if getattr(args, "queries_repo", None):
+        try:
+            from datasets import load_dataset
+        except ImportError as e:
+            raise SystemExit(
+                "[ERROR] --queries_repo needs the `datasets` package, which is not installed; "
+                "export the queries to a `qid<TAB>text` TSV and pass --queries instead"
+            ) from e
+        ds = load_dataset(args.queries_repo, args.queries_config, split=args.queries_split, streaming=True)
+        rows = []
+        for rec in ds:
+            rows.append((str(rec[args.qid_field]), rec[args.qtext_field]))
+            if args.max_queries and len(rows) >= args.max_queries:
+                break
+        sets[args.queries_config or "hf"] = rows
+        return sets
     for spec in args.queries or []:
         p = pathlib.Path(spec)
         if p.is_dir():
@@ -150,6 +176,8 @@ def cmd_encode_corpus(args) -> None:
         max_docs=args.max_docs,
         storage_dtype=args.storage_dtype,
         force=args.force,
+        tokens_per_doc=args.tokens_per_doc,
+        token_dtype=args.token_dtype,
     )
     print(json.dumps({lang: str(d) for lang, d in dirs.items()}, indent=2))
 
@@ -166,7 +194,36 @@ def cmd_run_mono(args) -> None:
         sets = {k: v[: args.max_queries] for k, v in sets.items()}
     runs = run_word_mix_search(
         index, encoder, sets, args.outdir, k=args.k, batch_size=args.enc_batch,
-        query_block=args.qblock,
+        query_block=args.qblock, approx=_approx_mode(args),
+    )
+    print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
+
+
+def cmd_run_rerank(args) -> None:
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
+    from codemix_dense_retrieval_torch.pipeline.rerank import run_two_stage_search
+
+    _reject_unported(args)
+    if len(args.index) > 1:
+        raise SystemExit(
+            "[ERROR] run-rerank over two or more indexes (the bilingual hub) is not ported "
+            "yet (ROADMAP queue 1, item 10: bilingual hub)"
+        )
+    tok_dir = pathlib.Path(args.index[0]) / "tokens"
+    if not TokenShardStore.exists(tok_dir):
+        raise SystemExit(
+            f"[ERROR] {tok_dir} is not a token store: re-run encode-corpus with --tokens_per_doc"
+        )
+    encoder = _build_encoder(args)
+    index = DenseFlatIndex.load(args.index[0]).to_device(args.device)
+    store = TokenShardStore.open(tok_dir)
+    sets = _load_query_sets(args)
+    if args.max_queries:
+        sets = {k: v[: args.max_queries] for k, v in sets.items()}
+    runs = run_two_stage_search(
+        index, store, encoder, sets, args.outdir, k=args.k, k_dense=args.k_dense or None,
+        batch_size=args.enc_batch, query_block=args.qblock, cache_root=args.query_cache,
     )
     print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
 
@@ -214,8 +271,10 @@ def cmd_run_mix(args) -> None:
     vecs_a = encode_cached(lang_a, texts_a)
     vecs_b = encode_cached(lang_b, texts_b)
     alphas = [float(a) for a in args.cm_alphas]
+    approx = _approx_mode(args)
     runs = run_vector_mix_search(
         index, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
+        approx=approx, write_meta=bool(approx),  # the meta carries the certificate rate
     )
     print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
 
@@ -235,9 +294,20 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--verbosity", type=int, default=1)
 
 
+def _add_query_source_flags(p) -> None:
+    p.add_argument("--queries", nargs="+", help="band dir or TSV files")
+    p.add_argument("--queries_repo", help="HF dataset repo (streaming query mode; needs `datasets`)")
+    p.add_argument("--queries_config", default=None)
+    p.add_argument("--queries_split", default="dev")
+    p.add_argument("--qid_field", default="id")
+    p.add_argument("--qtext_field", default="text")
+
+
 def _add_approx_flag(p) -> None:
     p.add_argument("--approx", choices=["off", "fast", "guaranteed", "adaptive"], default="off",
-                   help="search tier; only 'off' (exact) is ported")
+                   help="search tier: 'fast' = PCA sketch, approximate (certificate rate in the "
+                        "meta); 'guaranteed' escalates uncertified queries to exact search, so the "
+                        "run files equal exact output; 'adaptive' is not ported yet")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -261,8 +331,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_docs", type=int, default=0)
     p.add_argument("--storage_dtype", default="bfloat16",
                    choices=("bfloat16", "float32", "float16", "int8"))
-    p.add_argument("--tokens_per_doc", type=int, default=0, help="not ported yet (only 0)")
-    p.add_argument("--token_dtype", default="int8", help="for --tokens_per_doc (not ported yet)")
+    p.add_argument("--tokens_per_doc", type=int, default=0,
+                   help="also write a token store of this many tokens per doc (two-stage MaxSim)")
+    p.add_argument("--token_dtype", default="int8", help="storage dtype of the token store")
     p.add_argument("--pack", action="store_true", help="not ported yet")
     p.add_argument("--force", action="store_true")
     p.set_defaults(fn=cmd_encode_corpus)
@@ -270,7 +341,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run-mono", help="word-mix band search over one index")
     _add_common(p)
     p.add_argument("--index", required=True)
-    p.add_argument("--queries", nargs="+", help="band dir or TSV files")
+    _add_query_source_flags(p)
     p.add_argument("--outdir", required=True)
     p.add_argument("--k", type=int, default=100)
     p.add_argument("--qblock", type=int, default=256)
@@ -291,6 +362,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--qrels", help="qrels file for --fused (not ported yet)")
     _add_approx_flag(p)
     p.set_defaults(fn=cmd_run_mix)
+
+    p = sub.add_parser(
+        "run-rerank",
+        help="two-stage search: dense recall + MaxSim token rerank "
+             "(needs a token store from encode-corpus --tokens_per_doc)",
+    )
+    _add_common(p)
+    p.add_argument("--index", nargs="+", required=True,
+                   help="shard dir with a tokens/ substore (one; the bilingual hub is not ported)")
+    _add_query_source_flags(p)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--k", type=int, default=100)
+    p.add_argument("--k_dense", type=int, default=0, help="dense recall depth (0 = max(4k, 100))")
+    p.add_argument("--qblock", type=int, default=256)
+    p.add_argument("--max_queries", type=int, default=0)
+    p.add_argument("--query_cache", help="dir for per-set dense+token query embedding caches")
+    p.set_defaults(fn=cmd_run_rerank)
 
     sub.add_parser(
         "evaluate", help="evaluate a TREC run (all evaluate.py flags)", add_help=False,

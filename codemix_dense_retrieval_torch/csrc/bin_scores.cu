@@ -12,6 +12,18 @@
 // bin maxima leave the SM, emitted bin-major (B, N/G) (the TPU kernel writes
 // (N/G, B) and its callers transpose at once).
 //
+// Kernel 7, "binub", replaces codemix_dense_retrieval_tpu/ops/sketch.py::
+// _binub_pallas: kernel 5 over the PCA sketch (d = ds = 128, bf16) with one
+// more epilogue term, ub = s + d_tail[n] * q_tail[q], the Cauchy-Schwarz
+// upper bound of the full-width score, before the mask and the bin max. The
+// term is written __fadd_rn(s, __fmul_rn(d_tail, q_tail)) in the JAX order so
+// no FMA contraction can fuse it: the kernel differs from its plain version
+// only in the order of the ds-long f32 sum. At the sketch tier's main shape
+// (B = 256, N = 8,842,240, ds = 128, G = 8) it must read 2.26 GB of sketch and
+// 35 MB of tails and write 1.13 GB of bin maxima: 1.02 ms at 3.35 TB/s, above
+// the 0.59 ms of bf16 tensor-core work, so bytes bound it as they bound
+// kernel 5.
+//
 // What bounds it on an H100: bytes. At the main path's shape (B = 256
 // queries, N = 8,842,240 rows, d = 1024, bf16) it must read D once (18.1 GB)
 // and write S (9.05 GB f32) and binmax (1.13 GB): 28.3 GB, 8.4 ms at
@@ -57,7 +69,7 @@ constexpr int SQ_BYTES = TILE_Q * LDS * 2;
 constexpr int SD_BYTES = TILE_N * LDS * 2;
 constexpr int SMEM_BYTES = (SQ_BYTES + SD_BYTES) > SC_BYTES ? (SQ_BYTES + SD_BYTES) : SC_BYTES;
 
-template <int G, bool BIN_MAJOR, bool STORE, typename OutT>
+template <int G, bool BIN_MAJOR, bool STORE, bool UB, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 bin_scores_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ d,
@@ -65,7 +77,9 @@ bin_scores_kernel(const __nv_bfloat16* __restrict__ q,
                   float* __restrict__ binmax,
                   const int* __restrict__ nv_ptr,
                   long long nv_int,
-                  int B, long long N, int D, int num_q_tiles) {
+                  int B, long long N, int D, int num_q_tiles,
+                  const float* __restrict__ q_tail,
+                  const float* __restrict__ d_tail) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sD = reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES);
@@ -149,22 +163,33 @@ bin_scores_kernel(const __nv_bfloat16* __restrict__ q,
       wmma::store_matrix_sync(sC + (warp_q * 64 + i * 16) * LDC + warp_n * 32 + j * 16,
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
+  if (UB) {  // kernel 7: add the tail bound, in the JAX order, before the mask
+    for (int idx = tid; idx < TILE_Q * TILE_N; idx += THREADS) {
+      const int ql = idx / TILE_N;
+      const int r = idx % TILE_N;
+      const float qt = q0 + ql < B ? q_tail[q0 + ql] : 0.0f;
+      const float dt = n0 + r < N ? d_tail[n0 + r] : 0.0f;
+      sC[ql * LDC + r] = __fadd_rn(sC[ql * LDC + r], __fmul_rn(dt, qt));
+    }
+    __syncthreads();
+  }
 
   const long long nv = nv_ptr != nullptr ? static_cast<long long>(*nv_ptr) : nv_int;
   mask_store_binmax<G, BIN_MAJOR, STORE>(sC, scores, binmax, nv, q0, n0, B, N);
 }
 
-template <int G, bool BIN_MAJOR, typename OutT, bool STORE = true>
+template <int G, bool BIN_MAJOR, typename OutT, bool STORE = true, bool UB = false>
 void launch(const void* q, const void* d, void* scores, void* binmax, const void* nv_ptr,
             long long nv_int, int B, long long N, int D, unsigned int blocks, int nqt,
-            cudaStream_t stream) {
+            cudaStream_t stream, const void* q_tail = nullptr, const void* d_tail = nullptr) {
   // the 67.6 KB staged tile is above the 48 KB a launch gets by default
-  cudaFuncSetAttribute(bin_scores_kernel<G, BIN_MAJOR, STORE, OutT>,
+  cudaFuncSetAttribute(bin_scores_kernel<G, BIN_MAJOR, STORE, UB, OutT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  bin_scores_kernel<G, BIN_MAJOR, STORE, OutT><<<blocks, THREADS, SMEM_BYTES, stream>>>(
+  bin_scores_kernel<G, BIN_MAJOR, STORE, UB, OutT><<<blocks, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(d),
       static_cast<OutT*>(scores), static_cast<float*>(binmax),
-      static_cast<const int*>(nv_ptr), nv_int, B, N, D, nqt);
+      static_cast<const int*>(nv_ptr), nv_int, B, N, D, nqt,
+      static_cast<const float*>(q_tail), static_cast<const float*>(d_tail));
 }
 
 template <int G>
@@ -216,5 +241,25 @@ extern "C" int binmax_only_launch(const void* q, const void* d, void* binmax, co
     launch<8, true, float, false>(q, d, nullptr, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
   else
     launch<16, true, float, false>(q, d, nullptr, binmax, nv_ptr, nv_int, B, N, D, blocks, nqt, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 7: bin maxima (B, N/G), bin-major, of the sketch upper bound
+// s_q . s_x + q_tail[q] * d_tail[x] with rows >= n_valid masked; q_sketch
+// (B, ds) and d_sketch (N, ds) bf16, tails f32. Same requirements and return
+// value as bin_scores_launch (ds % 32 == 0).
+extern "C" int binub_launch(const void* q_sketch, const void* q_tail, const void* d_sketch,
+                            const void* d_tail, void* binmax, const void* nv_ptr,
+                            long long nv_int, int B, long long N, int DS, int G, void* stream) {
+  int nqt = 0;
+  const unsigned int blocks = grid_blocks(B, N, DS, G, TILE_K, &nqt);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (G == 8)
+    launch<8, true, float, false, true>(q_sketch, d_sketch, nullptr, binmax, nv_ptr, nv_int, B, N,
+                                        DS, blocks, nqt, s, q_tail, d_tail);
+  else
+    launch<16, true, float, false, true>(q_sketch, d_sketch, nullptr, binmax, nv_ptr, nv_int, B,
+                                         N, DS, blocks, nqt, s, q_tail, d_tail);
   return static_cast<int>(cudaGetLastError());
 }

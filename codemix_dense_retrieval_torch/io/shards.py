@@ -301,8 +301,11 @@ class ShardStore:
         return storage_to_tensor(self.vectors[start:stop], self.manifest.dtype)
 
     @classmethod
-    def open(cls, directory: PathLike) -> "ShardStore":
-        """Open a finalized store; its rows stay memory-mapped."""
+    def open(cls, directory: PathLike, *, concat_parts: bool = True) -> "ShardStore":
+        """Open a finalized store; a one-file store stays memory-mapped, a
+        multi-file one is concatenated into one host array unless
+        ``concat_parts=False``: ``vectors`` is then None and the caller reads
+        through its own per-file maps (as the token store does)."""
         d = pathlib.Path(directory)
         manifest = ShardManifest.from_json((d / "manifest.json").read_text())
         dtype = storage_dtype(manifest.dtype)
@@ -312,13 +315,16 @@ class ShardStore:
                                    shape=(f["rows"], manifest.dim)))
         if len(parts) == 1:
             vectors = parts[0]
+        elif not parts:
+            vectors = np.zeros((0, manifest.dim), dtype)
+        elif concat_parts:
+            vectors = np.concatenate([np.asarray(p) for p in parts], axis=0)
         else:
-            vectors = np.concatenate([np.asarray(p) for p in parts], axis=0) if parts else (
-                np.zeros((0, manifest.dim), dtype)
-            )
-        if vectors.shape[0] != manifest.count:
+            vectors = None
+        n_stored = sum(p.shape[0] for p in parts)
+        if n_stored != manifest.count:
             raise ValueError(
-                f"manifest count {manifest.count} != stored rows {vectors.shape[0]} in {d}"
+                f"manifest count {manifest.count} != stored rows {n_stored} in {d}"
             )
         docids = (d / "docids.txt").read_text(encoding="utf-8").splitlines()
         derived: Optional[List[str]] = None

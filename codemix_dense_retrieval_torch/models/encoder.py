@@ -2,8 +2,9 @@
 
 Tokenize on the host (on a prefetch thread, in length-sorted batches padded
 to a few bucket lengths), run the encoder on the device (pooling + L2 norm
-included), return float32 numpy rows in input order. Family dialects apply
-their query / passage prompt prefixes.
+included), return float32 numpy rows in input order (per-token document
+embeddings stay on the device, for the token store's writer). Family
+dialects apply their query / passage prompt prefixes.
 """
 
 from __future__ import annotations
@@ -204,6 +205,107 @@ class TextEncoder:
         return self._encode(
             texts, batch_size, dialects.doc_prefix(self.name), max_length,
             readback_dtype=readback_dtype,
+        )
+
+    # ------------------------------------------------------------------
+    # per-token embeddings (two-stage MaxSim)
+
+    def _stack_tokens(self, outs, order: np.ndarray) -> torch.Tensor:
+        """Length-sorted (n_i, T_i, d) batches -> (n, T, d) f32 on the
+        encoder's device in input order, T the longest bucketed batch
+        length, shorter batches zero-padded."""
+        t_max = max(int(t.shape[1]) for t in outs)
+        out = torch.zeros(
+            (sum(t.shape[0] for t in outs), t_max, self.cfg.hidden_size),
+            dtype=torch.float32, device=self.device,
+        )
+        pos = 0
+        for t in outs:
+            out[pos : pos + t.shape[0], : t.shape[1]] = t
+            pos += t.shape[0]
+        return out[torch.from_numpy(self._inverse(order)).to(self.device)]
+
+    def _encode_tokens(
+        self,
+        texts: Sequence[str],
+        batch_size: int,
+        prefix: str,
+        max_length: Optional[int],
+        max_tokens: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """Per-token embeddings for multi-vector serving: (tokens (n, T, d)
+        f32 on the encoder's device, valid-token lengths (n,) int32). With
+        ``max_tokens`` each batch keeps only its first ``max_tokens`` tokens
+        on the card (the lengths stay the full valid counts)."""
+        order = self._length_order(texts)
+        texts = [texts[i] for i in order]
+        outs, lengths = [], []
+        with torch.inference_mode():
+            for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length):
+                lengths.append(mask.sum(axis=1).astype(np.int32))
+                t = self.model.token_embeddings(
+                    torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+                )
+                outs.append(t[:, :max_tokens].contiguous())
+        if not outs:
+            return torch.zeros((0, 0, self.cfg.hidden_size), device=self.device), np.zeros(0, np.int32)
+        return self._stack_tokens(outs, order), np.concatenate(lengths)[self._inverse(order)]
+
+    def encode_documents_with_tokens(
+        self,
+        texts: Sequence[str],
+        batch_size: int = 64,
+        max_length: Optional[int] = None,
+        pack: bool = False,
+        max_tokens: Optional[int] = None,
+    ) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
+        """One forward pass -> (dense (n, d) f32, tokens (n, T, d) f32,
+        lengths (n,)): the corpus encode builds the flat index and the token
+        store together. The tokens stay on the encoder's device, where the
+        token store's writer masks and quantizes them before they reach the
+        host; ``max_tokens`` (the store's tokens per doc) keeps only the
+        first tokens of each batch there."""
+        if pack:
+            raise NotImplementedError(
+                "sequence packing is not ported yet: ROADMAP queue 1, item 11 (sequence packing)"
+            )
+        order = self._length_order(texts)
+        texts = [texts[i] for i in order]
+        dense, outs, lengths = [], [], []
+        with torch.inference_mode():
+            for ids, mask in self._batch_inputs(texts, batch_size, dialects.doc_prefix(self.name), max_length):
+                lengths.append(mask.sum(axis=1).astype(np.int32))
+                dv, tv = self.model.embed_with_tokens(
+                    torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+                )
+                dense.append(dv.cpu().numpy())
+                outs.append(tv[:, :max_tokens].contiguous())
+        d = self.cfg.hidden_size
+        if not outs:
+            return (np.zeros((0, d), np.float32), torch.zeros((0, 0, d), device=self.device),
+                    np.zeros(0, np.int32))
+        inv = self._inverse(order)
+        return np.concatenate(dense)[inv], self._stack_tokens(outs, order), np.concatenate(lengths)[inv]
+
+    def encode_queries_tokens(
+        self, texts: Sequence[str], batch_size: int = 64, max_length: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(tokens (n, T, d) f32 on the host, lengths (n,) int32)."""
+        toks, lens = self._encode_tokens(texts, batch_size, dialects.query_prefix(self.name), max_length)
+        return toks.cpu().numpy(), lens
+
+    def encode_documents_tokens(
+        self,
+        texts: Sequence[str],
+        batch_size: int = 64,
+        max_length: Optional[int] = None,
+        max_tokens: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """(tokens (n, T, d) f32 on the encoder's device, lengths (n,) int32),
+        for the token store's writer; ``max_tokens`` as in
+        :meth:`encode_documents_with_tokens`."""
+        return self._encode_tokens(
+            texts, batch_size, dialects.doc_prefix(self.name), max_length, max_tokens
         )
 
     @property

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -159,6 +159,29 @@ class XLMREncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         x = self.hidden_states(input_ids, attention_mask)
         return pool_and_normalize(x, attention_mask, self.cfg.pooling, self.cfg.normalize)
+
+    def token_embeddings(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Per-token L2-normalized f32 embeddings (B, S, d) for multi-vector
+        (ColBERT / BGE-M3 colbert-head) late interaction; pad tokens zeroed.
+        Feed into :mod:`~codemix_dense_retrieval_torch.ops.maxsim`."""
+        return normalize_tokens(self.hidden_states(input_ids, attention_mask), attention_mask)
+
+    def embed_with_tokens(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One backbone pass -> (pooled sentence embedding, per-token
+        normalized embeddings), so the dense index and the token store are
+        built together without a second forward."""
+        x = self.hidden_states(input_ids, attention_mask)
+        pooled = pool_and_normalize(x, attention_mask, self.cfg.pooling, self.cfg.normalize)
+        return pooled, normalize_tokens(x, attention_mask)
+
+
+def normalize_tokens(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Hidden states -> f32, L2-normalized per token, pad tokens set to 0."""
+    t = hidden.to(torch.float32)
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+    return t * attention_mask.to(torch.float32)[..., None]
 
 
 def init_random_(model: XLMREncoder, generator: torch.Generator, std: float = 0.02) -> None:

@@ -6,8 +6,10 @@ use. Libraries land in ``csrc/build/`` under a name that carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt and a built one is reused by later processes.
 :func:`build_kernels` starts one ``nvcc`` per source, all at once.
-``bin_scores.cu`` holds kernel A and kernel 5 (``binmax_only``),
-``bin_scores_int8.cu`` kernel 4, ``flash_attention.cu`` kernel B.
+``bin_scores.cu`` holds kernel A, kernel 5 (``binmax_only``) and kernel 7
+(``binub``, the sketch tier's upper-bound bin maxima),
+``bin_scores_int8.cu`` kernel 4, ``flash_attention.cu`` kernel B and
+``maxsim.cu`` kernel 6 (the two-stage rerank's MaxSim).
 
 ``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
 where it launches its kernel, and nowhere else. Kernels A and 4 count their
@@ -33,6 +35,7 @@ SOURCES = {
     "bin_scores": "bin_scores.cu",
     "bin_scores_int8": "bin_scores_int8.cu",
     "flash_attention": "flash_attention.cu",
+    "maxsim": "maxsim.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,7 +48,9 @@ LAUNCHES: Dict[str, int] = {
     "bin_scores_int8_bin_major": 0,
     "bin_scores_int8_transposed": 0,
     "binmax_only": 0,
+    "binub": 0,
     "flash_attention": 0,
+    "maxsim": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

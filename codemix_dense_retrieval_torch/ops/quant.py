@@ -58,6 +58,22 @@ def int8_ip_acc(q_vals: torch.Tensor, d_vals: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def int8_ip_acc_rows(q_vals: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
+    """Exact integer inner products of each query (B, d) with its own
+    candidate rows (B, C, d) -> (B, C), exact as :func:`int8_ip_acc`."""
+    qf = q_vals.to(torch.float32)[:, :, None]
+    cf = cand_vals.to(torch.float32)
+    dim = qf.shape[1]
+    if dim <= EXACT_F32_K:
+        return torch.bmm(cf, qf)[:, :, 0]
+    acc = None
+    for k0 in range(0, dim, EXACT_F32_K):
+        part = torch.bmm(cf[:, :, k0 : k0 + EXACT_F32_K], qf[:, k0 : k0 + EXACT_F32_K])
+        part = part[:, :, 0].to(torch.int64)
+        acc = part if acc is None else acc.add_(part)
+    return acc
+
+
 def int8_ip_scores(
     q_vals: torch.Tensor,   # (B, d) int8
     q_scales: torch.Tensor,  # (B,) f32

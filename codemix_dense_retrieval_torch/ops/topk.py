@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
-from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
+from codemix_dense_retrieval_torch.ops.quant import int8_ip_acc_rows, int8_ip_scores, quantize_rows
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -497,11 +497,19 @@ def _topk_from_bins(
 
 
 def _select_bins_two_level(
-    bin_max: torch.Tensor, k_bins: int, super_size: int
-) -> torch.Tensor:
+    bin_max: torch.Tensor, k_bins: int, super_size: int, *,
+    return_unselected_bound: bool = False,
+):
     """Two-level bin selection over BIN-MAJOR maxima (B, nb): super-max
     reduce -> best ``k_bins`` supers -> their M-contiguous bin maxima -> best
-    ``k_bins`` bins; returns the bin ids sorted ascending."""
+    ``k_bins`` bins; returns the bin ids sorted ascending.
+
+    ``return_unselected_bound=True`` also returns, per query, the largest
+    bin maximum among the bins NOT selected (the sketch tier's certificate
+    bound): the larger of the best unselected super's maximum, which bounds
+    all its bins, and the best covered but unselected bin. Each is the
+    (k+1)-th value of a stable sort, which ties do not change; ``NEG_INF``
+    where every super or every covered bin was selected."""
     b, nb = bin_max.shape
     if nb % super_size:
         raise ValueError(f"{nb} bins not a multiple of super_size {super_size}")
@@ -509,14 +517,20 @@ def _select_bins_two_level(
     bm3 = bin_max.reshape(b, ns, super_size)
     super_max = bm3.amax(dim=2)
     ks = min(k_bins, ns)
-    _, sup_ids = _stable_topk(super_max, ks)
-    sup_ids, _ = torch.sort(sup_ids, dim=1)
+    sup_vals, sup_ids = _stable_topk(super_max, ks + 1)
+    sup_ids, _ = torch.sort(sup_ids[:, :ks], dim=1)
     cand_bm = torch.gather(bm3, 1, sup_ids[:, :, None].expand(b, ks, super_size))
     cand_bins = _expand_ids(sup_ids, super_size)
-    kb = min(k_bins, cand_bins.shape[1])
-    _, pos = _stable_topk(cand_bm.reshape(b, -1), kb)
-    bin_ids, _ = torch.sort(torch.gather(cand_bins, 1, pos), dim=1)
-    return bin_ids
+    n_cand = cand_bins.shape[1]
+    kb = min(k_bins, n_cand)
+    vals2, pos = _stable_topk(cand_bm.reshape(b, -1), kb + 1)
+    bin_ids, _ = torch.sort(torch.gather(cand_bins, 1, pos[:, :kb]), dim=1)
+    if not return_unselected_bound:
+        return bin_ids
+    none = torch.full((b,), NEG_INF, dtype=torch.float32, device=bin_max.device)
+    unsel_super = sup_vals[:, ks] if ns > ks else none
+    unsel_cand = vals2[:, kb] if n_cand > kb else none
+    return bin_ids, torch.maximum(unsel_super, unsel_cand)
 
 
 def _topk_from_bins_two_level(
@@ -755,6 +769,52 @@ def _rescore_candidates(
     chunk = _rescore_chunk(b, kb, bin_size, docs.shape[1], docs.element_size())
     outs = [
         _rescore_block(docs, queries[i : i + chunk], bin_ids[i : i + chunk], bin_size, n_valid, k)
+        for i in range(0, b, chunk)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _rescore_int8_block(
+    d_vals: torch.Tensor, d_scales: torch.Tensor, q_vals: torch.Tensor, q_scales: torch.Tensor,
+    bin_ids: torch.Tensor, bin_size: int, n_valid: Rows, k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, kb = bin_ids.shape
+    cand_idx = _expand_ids(bin_ids, bin_size)
+    flat = cand_idx.reshape(-1)
+    cand_rows = d_vals.index_select(0, flat).reshape(b, kb * bin_size, -1)
+    cand_sc = d_scales.index_select(0, flat).reshape(b, kb * bin_size)
+    acc = int8_ip_acc_rows(q_vals, cand_rows).to(torch.float32)
+    cand_scores = acc.mul_(cand_sc).mul_(q_scales[:, None])
+    cand_scores = torch.where(cand_idx < n_valid, cand_scores, NEG_INF)
+    vals, pos = _stable_topk(cand_scores, k)
+    return vals, torch.gather(cand_idx, 1, pos)
+
+
+def _rescore_candidates_int8(
+    d_vals: torch.Tensor,    # (N, d) int8
+    d_scales: torch.Tensor,  # (N,) f32
+    q_vals: torch.Tensor,    # (B, d) int8
+    q_scales: torch.Tensor,  # (B,) f32
+    bin_ids: torch.Tensor,   # (B, kb), sorted ascending
+    bin_size: int,
+    n_valid: Rows,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 rescore tail (the sketch tier's refine over a quantized index):
+    exact integer products of the covered bins' int8 rows, rescaled in the
+    ``(f32(acc) * d_scale) * q_scale`` order of kernel 4's epilogue, so the
+    refined scores equal the exact int8 path's bit for bit. Query chunks
+    run one after another under ``_RESCORE_BUDGET`` (1 byte per gathered
+    element)."""
+    b, kb = bin_ids.shape
+    chunk = _rescore_chunk(b, kb, bin_size, d_vals.shape[1], 1)
+    outs = [
+        _rescore_int8_block(
+            d_vals, d_scales, q_vals[i : i + chunk], q_scales[i : i + chunk],
+            bin_ids[i : i + chunk], bin_size, n_valid, k,
+        )
         for i in range(0, b, chunk)
     ]
     if len(outs) == 1:

@@ -150,3 +150,58 @@ def sharded_topk_ip(
         )
     gids = idx + shard_id * rows_per_shard
     return _merge_two_key(vals, gids, k)
+
+
+def sharded_topk_ip_sketch(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    counts: torch.Tensor,
+    sketch: torch.Tensor,
+    tails: torch.Tensor,
+    proj: torch.Tensor,
+    k: int,
+    *,
+    probe_bins: Optional[int] = None,
+    expand: float = 4.0,
+    bin_size: Optional[int] = None,
+    super_size: Optional[int] = None,
+    tile_n: int = 1024,
+    tile_b: Optional[int] = None,
+    doc_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Approximate top-k over a padded shard with per-query exactness
+    certificates (:mod:`~codemix_dense_retrieval_torch.ops.sketch`).
+    ``sketch``/``tails`` come from ``sketch_rows`` over the padded rows (for
+    an int8 shard: ``sketch_rows_int8``, and ``doc_scales`` is required; the
+    certificates then prove parity with the int8 exact path). Returns
+    (values (B, k), global ids (B, k), certified (B,) bool). A query's
+    certificate over several shards is the AND of its per-shard ones."""
+    from codemix_dense_retrieval_torch.ops import sketch as sketch_ops
+
+    bin_size = bin_size or sketch_ops.DEFAULT_BIN_SIZE
+    super_size = super_size or sketch_ops.DEFAULT_SUPER_SIZE
+    shard_id = 0
+    rows_per_shard = docs.shape[0]
+    if k > rows_per_shard:
+        raise ValueError(
+            f"k={k} > rows_per_shard={rows_per_shard}; lower k or use fewer shards"
+        )
+    if probe_bins is None:
+        probe_bins = sketch_ops._default_probe_bins(
+            k, bin_size, rows_per_shard // bin_size, expand
+        )
+    tile_b = 512 if tile_b is None else tile_b
+    common = dict(probe_bins=probe_bins, bin_size=bin_size, super_size=super_size,
+                  tile_b=tile_b, tile_n=tile_n, n_valid=counts[:1])
+    if docs.dtype == torch.int8:
+        if doc_scales is None:
+            raise ValueError("int8 index requires doc_scales")
+        vals, idx, cert = sketch_ops.topk_ip_sketch_int8(
+            queries, docs, doc_scales, sketch, tails, proj, k, **common
+        )
+    else:
+        vals, idx, cert = sketch_ops.topk_ip_sketch(
+            queries, docs, sketch, tails, proj, k, **common
+        )
+    vals, gids = _merge_two_key(vals, idx + shard_id * rows_per_shard, k)
+    return vals, gids, cert

@@ -11,10 +11,13 @@
   language (bf16, f32, f16 or int8 with ``scales.bin``), skipped when its
   manifest exists (whole-language resume) and reopened after the rows
   already on disk when it does not (mid-language resume);
+- with ``tokens_per_doc > 0``, a per-language token store at
+  ``<lang>/tokens`` for the two-stage MaxSim rerank, written from the same
+  backbone pass as the dense rows; each store resumes on its own, and a
+  language whose dense store is finished gets its token store backfilled;
 - the root ``docids.txt`` and ``meta.json``.
 
-Token stores (``tokens_per_doc > 0``) and sequence packing (``pack``) are
-not ported yet and raise.
+Sequence packing (``pack``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import json
 import pathlib
 import random
+import shutil
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
@@ -29,6 +33,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
 import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardStore, ShardWriter
+from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore, TokenShardWriter
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 log = get_logger("corpus")
@@ -160,6 +165,51 @@ def _batched(it: Iterable, n: int) -> Iterator[List]:
         yield buf
 
 
+def _backfill_tokens(
+    encoder,
+    source: Iterable[Doc],
+    lang: str,
+    lang_dir: pathlib.Path,
+    existing: ShardStore,
+    tokens_per_doc: int,
+    token_dtype: str,
+    batch_size: int,
+    enc_batch: int,
+) -> None:
+    """Token store for a language whose dense store is already finished: a
+    token-only encode pass over exactly the docids the store kept."""
+    log.info("backfilling token store for already-indexed language %s", lang)
+    wanted = set(existing.docids)
+    tok_writer, tok_written = TokenShardWriter.resume_partial(
+        lang_dir / "tokens", token_dim=encoder.dim, tokens_per_doc=tokens_per_doc,
+        dtype=token_dtype, lang=lang, encoder=getattr(encoder, "name", None),
+    )
+    done = len(tok_written)
+    for batch in _batched(iter(source), batch_size):
+        if done >= len(wanted):
+            break
+        keep = [(d, t) for d, t in batch if d in wanted and d not in tok_written]
+        if not keep:
+            continue
+        ids = [d for d, _ in keep]
+        toks, lens = encoder.encode_documents_tokens(
+            [t for _, t in keep], batch_size=enc_batch, max_tokens=tokens_per_doc
+        )
+        tok_writer.append(toks, lens, ids, [f"{d}#{lang}" for d in ids])
+        tok_written.update(ids)
+        done += len(ids)
+    tok_writer.finalize()
+    # the backfill rebuilds the row order by re-reading the source: any
+    # drift or duplicate docid would desync its rows from the dense store
+    built = TokenShardStore.open(lang_dir / "tokens")
+    if list(built.docids) != list(existing.docids):
+        raise RuntimeError(
+            f"token-store backfill for {lang} produced a docid order that does not match "
+            f"the dense index ({built.count} vs {existing.count} rows): the source stream "
+            "changed since the index was built; re-encode with --force"
+        )
+
+
 def encode_corpus(
     encoder,
     sources: Dict[str, Iterable[Doc]],
@@ -172,6 +222,7 @@ def encode_corpus(
     storage_dtype: str = "bfloat16",
     force: bool = False,
     tokens_per_doc: int = 0,
+    token_dtype: str = "int8",
     pack: bool = False,
 ) -> Dict[str, pathlib.Path]:
     """Encode per-language corpora into ShardStore directories.
@@ -179,12 +230,13 @@ def encode_corpus(
     ``sources`` maps language code -> doc stream; the FIRST entry drives
     selection, later ones mirror it. Languages whose manifest already exists
     are skipped (resume); an unfinalized language directory is reopened
-    after the rows already written. Returns {lang: shard_dir}."""
-    if tokens_per_doc:
-        raise NotImplementedError(
-            "tokens_per_doc > 0 (token stores for two-stage MaxSim) is not ported yet: "
-            "ROADMAP queue 1, item 14 (two-stage ColBERT)"
-        )
+    after the rows already written. Returns {lang: shard_dir}.
+
+    ``tokens_per_doc > 0`` also writes a
+    :class:`~codemix_dense_retrieval_torch.io.token_shards.TokenShardStore`
+    (``token_dtype``) at ``<lang>/tokens``: one backbone pass gives the
+    dense row and the token block. Each store skips only its own rows
+    already written, so a crash between the two appends heals on restart."""
     if pack:
         raise NotImplementedError(
             "pack=True (sequence-packed encode) is not ported yet: "
@@ -212,6 +264,19 @@ def encode_corpus(
                     1 for d in existing.docids if d not in selection.rel_ids
                 )
             base_ids_global.update(existing.docids)
+            if tokens_per_doc and not TokenShardStore.exists(lang_dir / "tokens"):
+                _backfill_tokens(
+                    encoder, source, lang, lang_dir, existing,
+                    tokens_per_doc, token_dtype, batch_size, enc_batch,
+                )
+            elif tokens_per_doc:
+                tok_existing = TokenShardStore.open(lang_dir / "tokens")
+                if tok_existing.count != existing.count:
+                    raise ValueError(
+                        f"token store for {lang} is finalized with {tok_existing.count} rows "
+                        f"but the dense index has {existing.count}; delete "
+                        f"{lang_dir / 'tokens'} and re-run to rebuild it"
+                    )
             continue
 
         if force:
@@ -220,6 +285,7 @@ def encode_corpus(
             for f in lang_dir.glob("*"):
                 if f.is_file() and (f.name in _STORE_FILES or f.name.startswith("emb.")):
                     f.unlink()
+            shutil.rmtree(lang_dir / "tokens", ignore_errors=True)
         # mid-language resume: reopen partial shard files and skip docids
         # already encoded (selection is deterministic under the same seed
         # and stream order, so replaying it reproduces the same keep-set)
@@ -236,16 +302,31 @@ def encode_corpus(
                 lang, len(already_written),
             )
             base_ids_global.update(already_written)
+        tok_writer = None
+        tok_written: Set[str] = set()
+        if tokens_per_doc:
+            tok_writer, tok_written = TokenShardWriter.resume_partial(
+                lang_dir / "tokens", token_dim=encoder.dim, tokens_per_doc=tokens_per_doc,
+                dtype=token_dtype, lang=lang, encoder=getattr(encoder, "name", None),
+            )
         seen_rel: Set[str] = set()
         kept = writer.count
 
+        def tok_lagging() -> bool:
+            # after a crash between the dense and the token append the token
+            # store is short of the dense one: every "dense looks done" stop
+            # keeps scanning until the token side has caught up
+            return tok_writer is not None and tok_writer.count < writer.count
+
         for batch in _batched(iter(source), batch_size):
-            if lang_idx == 0 and selection.first_lang_done(seen_rel):
+            if lang_idx == 0 and selection.first_lang_done(seen_rel) and not tok_lagging():
                 break
-            if lang_idx > 0 and selection.subset_mode and kept >= len(selection.selected):
+            if (lang_idx > 0 and selection.subset_mode and kept >= len(selection.selected)
+                    and not tok_lagging()):
                 break
             keep_ids: List[str] = []
             keep_texts: List[str] = []
+            new_dense = 0
             for docid, text in batch:
                 if lang_idx == 0:
                     ok = selection.select_first_lang(docid)
@@ -253,21 +334,43 @@ def encode_corpus(
                         seen_rel.add(docid)
                 else:
                     ok = selection.select_mirror(docid)
-                if not ok or docid in already_written:
+                if not ok:
                     continue
-                if max_docs and kept + len(keep_ids) >= max_docs:
+                need_dense = docid not in already_written
+                if max_docs and need_dense and kept + new_dense >= max_docs:
+                    # past the dense cap; token catch-up rows are docids
+                    # already in the dense store, which fills in stream
+                    # order, so none lies past this point
                     break
-                keep_ids.append(docid)
-                keep_texts.append(text)
+                need_tok = tok_writer is not None and docid not in tok_written
+                if need_dense or need_tok:
+                    keep_ids.append(docid)
+                    keep_texts.append(text)
+                    new_dense += need_dense
             if not keep_ids:
-                if max_docs and kept >= max_docs:
+                if max_docs and kept >= max_docs and not tok_lagging():
                     break
                 continue
-            vecs = encoder.encode_documents(keep_texts, batch_size=enc_batch, readback_dtype=readback)
-            writer.append(vecs, keep_ids, [f"{d}#{lang}" for d in keep_ids])
-            kept += len(keep_ids)
-            base_ids_global.update(keep_ids)
-            if max_docs and kept >= max_docs:
+            if tok_writer is None:
+                vecs = encoder.encode_documents(keep_texts, batch_size=enc_batch, readback_dtype=readback)
+                toks = lens = None
+            else:
+                vecs, toks, lens = encoder.encode_documents_with_tokens(
+                    keep_texts, batch_size=enc_batch, max_tokens=tokens_per_doc
+                )
+            # each store skips only its own rows already written
+            dense_new = [i for i, d in enumerate(keep_ids) if d not in already_written]
+            if dense_new:
+                ids_n = [keep_ids[i] for i in dense_new]
+                writer.append(vecs[dense_new], ids_n, [f"{d}#{lang}" for d in ids_n])
+                kept += len(ids_n)
+                base_ids_global.update(ids_n)
+            if tok_writer is not None:
+                tok_new = [i for i, d in enumerate(keep_ids) if d not in tok_written]
+                if tok_new:
+                    ids_t = [keep_ids[i] for i in tok_new]
+                    tok_writer.append(toks[tok_new], lens[tok_new], ids_t, [f"{d}#{lang}" for d in ids_t])
+            if max_docs and kept >= max_docs and not tok_lagging():
                 break
         writer.finalize(
             extra={
@@ -276,6 +379,8 @@ def encode_corpus(
                 "rel_ids": len(selection.rel_ids),
             }
         )
+        if tok_writer is not None:
+            tok_writer.finalize()
         log.info("saved %d vectors for language %s -> %s", kept, lang, lang_dir)
 
     (out_root / "docids.txt").write_text(
@@ -292,8 +397,8 @@ def encode_corpus(
         "rel_ids": len(selection.rel_ids),
         "saved_dir": str(out_root),
         "dimension": encoder.dim,
-        "tokens_per_doc": 0,
-        "token_dtype": None,
+        "tokens_per_doc": tokens_per_doc,
+        "token_dtype": token_dtype if tokens_per_doc else None,
         "indexes": [
             {"lang": lang, "path": str(path)} for lang, path in results.items()
         ],

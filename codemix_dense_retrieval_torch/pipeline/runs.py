@@ -37,9 +37,13 @@ def run_word_mix_search(
     query_block: int = 256,
     tag: str = "onepass",
     max_queries: int = 0,
+    approx=False,
 ) -> Dict[str, pathlib.Path]:
-    """Encode + exact search of each band's query set; one ``<set>.trec``
-    per set."""
+    """Encode + search each band's query set; one ``<set>.trec`` per set.
+
+    ``approx``: search through the sketch tier (True = fast approximate,
+    ``"guaranteed"`` = certificate-escalated, output identical to exact
+    search); the certificate rate goes into ``<set>_meta.json``."""
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     out: Dict[str, pathlib.Path] = {}
@@ -49,10 +53,16 @@ def run_word_mix_search(
         qids = [q for q, _ in rows]
         texts = [t for _, t in rows]
         qvecs = encoder.encode_queries(texts, batch_size=batch_size)
-        vals, docids = index.search(qvecs, k, query_block=query_block)
+        vals, docids = index.search(qvecs, k, query_block=query_block, approx=approx)
         run_path = outdir / f"{set_name}.trec"
         write_run(run_path, qids, docids, vals, tag=tag)
         out[set_name] = run_path
+        if approx and index.last_certified is not None:
+            (outdir / f"{set_name}_meta.json").write_text(json.dumps({
+                "approx": str(approx),
+                "certified_frac": float(index.last_certified.mean()),
+                "num_queries": len(qids), "k": k,
+            }, indent=2))
         log.info("run saved: %s (%d queries)", run_path, len(qids))
     return out
 
@@ -72,12 +82,16 @@ def run_vector_mix_search(
     write_meta: bool = False,
     meta_extra: Optional[Dict] = None,
     precision: int = 4,
+    approx=False,
+    cert_out: Optional[Dict[float, float]] = None,
 ) -> Dict[float, pathlib.Path]:
     """Alpha-sweep search with on-device mix + renorm.
 
     ``primary_vecs``/``secondary_vecs`` are the two monolingual query
     embedding matrices over the SAME qid order. Writes
-    ``cm-alpha-<label>.trec`` per alpha."""
+    ``cm-alpha-<label>.trec`` per alpha. ``approx`` as in
+    :func:`run_word_mix_search`; ``cert_out`` collects each alpha's
+    certificate rate, and the meta carries it as ``certified_frac``."""
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     if index.device is None:
@@ -88,7 +102,10 @@ def run_vector_mix_search(
     for alpha in alphas:
         label = format_alpha(alpha)
         q_matrix = mix_and_renorm(p, s, float(alpha))
-        vals, docids = index.search(q_matrix, k, query_block=query_block)
+        vals, docids = index.search(q_matrix, k, query_block=query_block, approx=approx)
+        if cert_out is not None and index.last_certified is not None:
+            # per alpha, inside the loop: the index holds only the latest
+            cert_out[alpha] = float(index.last_certified.mean())
         run_path = outdir / f"{run_prefix}{label}.trec"
         write_run(run_path, list(qids), docids, vals, tag=tag, precision=precision)
         out[alpha] = run_path
@@ -99,6 +116,9 @@ def run_vector_mix_search(
                 "k": k,
                 "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
             }
+            if approx and index.last_certified is not None:
+                meta["approx"] = str(approx)
+                meta["certified_frac"] = float(index.last_certified.mean())
             meta.update(meta_extra or {})
             (outdir / f"{run_prefix}{label}_meta.json").write_text(json.dumps(meta, indent=2))
         log.info("run saved: %s (%d queries, alpha=%s)", run_path, len(qids), label)

@@ -96,7 +96,7 @@ def test_approx_is_refused():
     docs, qs, ids = _data(6, n=64)
     port = PortIndex.build(docs, ids).to_device("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search(qs, 5, approx=True)
+        port.search(qs, 5, approx="adaptive")
 
 
 def test_queries_are_cast_to_the_index_dtype():

@@ -104,7 +104,7 @@ def test_cli_run_mix_smoke_on_cpu(tmp_path):
     assert (tmp_path / "cache" / "en" / "queries.npz").exists()
 
 
-@pytest.mark.parametrize("flag", [["--fused"], ["--approx", "fast"], ["--shards", "2"], ["--dp", "2"]])
+@pytest.mark.parametrize("flag", [["--fused"], ["--approx", "adaptive"], ["--shards", "2"], ["--dp", "2"]])
 def test_cli_refuses_unported_options(tmp_path, flag):
     from codemix_dense_retrieval_torch.cli import main
 
@@ -173,3 +173,36 @@ def test_cli_run_mono_smoke_on_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert sorted(json.loads(out.stdout)) == ["cm0-20", "cm20-40"]
     assert len((tmp_path / "runs" / "cm20-40.trec").read_text().splitlines()) == 15
+
+
+def test_cli_streams_queries_from_a_dataset_repo(tmp_path, monkeypatch):
+    """--queries_repo reads an HF streaming split, as the JAX CLI does; a
+    stand-in ``datasets`` module serves the split here."""
+    import types
+
+    from codemix_dense_retrieval_torch.cli import build_parser, main
+
+    seen = {}
+
+    def load_dataset(repo, config, split, streaming):
+        seen.update(repo=repo, config=config, split=split, streaming=streaming)
+        return iter([{"qid": 10 + i, "q": f"streamed query {i}"} for i in range(5)])
+
+    monkeypatch.setitem(sys.modules, "datasets", types.SimpleNamespace(load_dataset=load_dataset))
+    rng = np.random.default_rng(8)
+    PortIndex.build(rng.standard_normal((50, 32)).astype(np.float32), [f"d{i}" for i in range(50)]).save(
+        tmp_path / "ix")
+    flags = ["--queries_repo", "org/queries", "--queries_config", "hindi", "--queries_split", "dev",
+             "--qid_field", "qid", "--qtext_field", "q", "--max_queries", "3"]
+    main(["run-mono", "--device", "cpu", "--index", str(tmp_path / "ix"), "--smoke_dim", "32", "--k", "4",
+          "--outdir", str(tmp_path / "runs"), *flags])
+    assert seen == dict(repo="org/queries", config="hindi", split="dev", streaming=True)
+    lines = (tmp_path / "runs" / "hindi.trec").read_text().splitlines()
+    assert sorted({ln.split()[0] for ln in lines}) == ["10", "11", "12"] and len(lines) == 12
+    # run-rerank takes the same query flags
+    args = build_parser().parse_args(["run-rerank", "--index", "x", "--outdir", "o", *flags])
+    assert (args.queries_repo, args.qid_field, args.qtext_field) == ("org/queries", "qid", "q")
+    monkeypatch.setitem(sys.modules, "datasets", None)  # not installed
+    with pytest.raises(SystemExit, match="needs the `datasets` package"):
+        main(["run-mono", "--device", "cpu", "--index", str(tmp_path / "ix"), "--smoke_dim", "32",
+              "--outdir", str(tmp_path / "runs2"), *flags])
