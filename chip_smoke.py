@@ -7,17 +7,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (a line of JSON after each):
  1. card     — CUDA present, card name and power limit, TF32 off.
  2. build    — compile every kernel (one nvcc per source, in parallel).
- 3. kernels  — kernel A (bin scores, both layouts, both score dtypes),
+ 3. kernels  — kernel A (bin scores, bin-major) and kernel 2 (its
+               transposed layout), both score dtypes, at 1, 7, 64, 100, 130
+               and 256 queries (kernel 2's n64 / n128 / n256 query tiles),
                kernel 4 (int8 bin scores, both layouts, bit for bit),
-               kernel 5 (bin maxima only), kernel B (flash attention),
-               kernel 7 (sketch upper-bound bin maxima: ragged n_valid,
-               G in {8, 16}) and kernel 6 (MaxSim: ragged K, a candidate
-               with every token masked, masked query tokens) against their
-               plain versions; a sketch index with ds = d certifies every
-               query and returns the exact ids.
+               kernel 5 (bin maxima only), kernel B (flash attention, also
+               at S = 1000 and lengths 0, 1, 127, 128, 129, S around its
+               128-row tiles), kernel 7 (sketch upper-bound bin maxima:
+               ragged n_valid, G in {8, 16}) and kernel 6 (MaxSim: ragged K,
+               a candidate with every token masked, masked query tokens)
+               against their plain versions; a sketch index with ds = d
+               certifies every query and returns the exact ids; kernel B
+               and plain attention timed at S = 256 and 512 (the flash/plain
+               crossover, measured only).
  4. encoder  — BGE-M3 width (24 layers, d=1024), seeded random init, bf16:
                512 query pairs (plain attention) and 256 passages of
-               600-1000 words at a 1024 bucket (kernel B).
+               600-1000 words at a 1024 bucket (kernel B); one tokenized
+               batch of 32 passages through the model alone, with kernel B
+               and with plain attention (device time, no tokenizer).
  5. search   — the vector-mix run over an 8,841,823 x 1024 bf16 index (one
                mMARCO language): alpha in {0, .25, .5, .75, 1} at k=100 and
                alpha=.5 at k=1000, the two-level route (kernel A bin-major);
@@ -41,7 +48,7 @@ Phases (a line of JSON after each):
                calibrate_sketch.
  6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
                process) on a BGE-M3-width params.npz checkpoint and a
-               131,072-row store: the single-level route (kernel A transposed).
+               131,072-row store: the single-level route (kernel 2, transposed).
  6b. corpus  — `encode-corpus --storage_dtype int8 --tokens_per_doc 32` on
                2,048 passages of 600-1000 words (cut to the CLI's 512-token
                cap, so plain attention, as in the JAX package), then
@@ -58,8 +65,9 @@ Phases (a line of JSON after each):
                the memmap path gives the same ids.
  7. kernels line — per kernel, at the main path's shape: the check against
                its plain version again, its launches on the paths, max error,
-               time, its bound, the plain version's and one PyTorch call's
-               time (a yardstick the port never calls).
+               time (mean, fastest and slowest of 5 timed windows), its
+               bound, the plain version's and one PyTorch call's time (a
+               yardstick the port never calls).
 Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 5d,
 6, 6b, 6c) and read just after it; comparison and timing launches happen
 outside those windows.
@@ -129,6 +137,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int, windows: int = 5) -> dict:
+    """A kernel's time: ``ms`` the mean over ``windows`` separately timed
+    windows of ``reps`` launches each, ``ms_min`` / ``ms_max`` the fastest
+    and slowest window's mean."""
+    per = [cuda_ms(fn, reps) for _ in range(windows)]
+    return {"ms": sum(per) / len(per), "ms_min": min(per), "ms_max": max(per)}
+
+
 def bound(nbytes: float, ops: float, peak: float = BF16_FLOPS):
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
     HBM rate and the operations over ``peak``."""
@@ -184,9 +200,11 @@ def main() -> None:
     n_pad = -(-n // 16) * 16
     docs = torch.zeros(n_pad, DIM, dtype=torch.bfloat16, device=dev)
     docs[:n] = unit(n).to(torch.bfloat16)
-    for b in (1, 7, 256):
+    # b = 64, 100 and 130 take kernel 2's n64 and n128 query tiles and
+    # straddle 128; n_valid is a device int for 7, 130 and 256
+    for b in (1, 7, 64, 100, 130, 256):
         q = unit(b).to(torch.bfloat16)
-        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b == 256 else n_valid
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b in (7, 130, 256) else n_valid
         for bin_size in (8, 16):
             for layout in topk.LAYOUTS:
                 for sdt in (torch.float32, torch.bfloat16):
@@ -273,7 +291,50 @@ def main() -> None:
                         check(bool((o[dead] == 0).all()), "B pad-segment rows not 0")
                     key = "flash_f32" if dt == torch.float32 else "flash_bf16"
                     errs[key] = max(errs[key], err)
+    # kernel B at its tile edges: lengths around the 128-key tile and a
+    # sequence length that is not a multiple of the 128-query tile
+    for seq in (1000, 1024):
+        for dh in (64, 128):
+            for causal, kvh, with_seg in ((False, 16, False), (True, 4, True)):
+                lens = [0, 1, 127, 128, 129, seq]
+                bsz, h = len(lens), 16
+                q = torch.randn(bsz, seq, h, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+                k = torch.randn(bsz, seq, kvh, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+                v = torch.randn(bsz, seq, kvh, dh, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                seg = None
+                if with_seg:
+                    seg = torch.zeros(bsz, seq, dtype=torch.int32, device=dev)
+                    for i, ln in enumerate(lens):
+                        seg[i, :ln] = torch.arange(ln, device=dev, dtype=torch.int32) // 300 + 1
+                o = fa.attention_flash(q, k, v, lengths, causal=causal, segment_ids=seg)
+                o2 = fa.attention_flash_plain(q.float(), k.float(), v.float(), lengths,
+                                              causal=causal, segment_ids=seg)
+                torch.cuda.synchronize()
+                err = (o.float() - o2).abs().max().item()
+                check(err <= 2e-2, f"B err {err} S={seq} dh={dh} lengths={lens} causal={causal}")
+                check(bool((o[0] == 0).all()), "B zero-length rows not 0 at the tile edges")
+                if seg is not None:
+                    dead = (seg == 0)[:, None, :, None].expand_as(o)
+                    check(bool((o[dead] == 0).all()), "B pad-segment rows not 0 at the tile edges")
+                errs["flash_bf16"] = max(errs["flash_bf16"], err)
     del q, k, v, o, o2
+    # the flash/plain crossover at BGE-M3's heads (H=16, dh=64), 32,768 tokens
+    # per call, lengths uniform in (S/2, S] as in a length bucket (measured
+    # only: FLASH_MIN_SEQ stays 512)
+    crossover = {}
+    for seq in (256, 512):
+        bsz = 32_768 // seq
+        lens = torch.randint(seq // 2 + 1, seq + 1, (bsz,), device=dev, generator=g, dtype=torch.int32)
+        q, k, v = (torch.randn(bsz, seq, 16, 64, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        crossover[f"S{seq}_B{bsz}"] = {
+            "flash_ms": cuda_ms(lambda: fa.attention_flash(q, k, v, lens), 20),
+            "plain_xla_ms": cuda_ms(lambda: fa.attention_xla(q, k, v, lens), 20),
+        }
+    del q, k, v
+    say("flash_crossover", heads=16, head_dim=64, tokens_per_call=32_768, flash_min_seq=fa.FLASH_MIN_SEQ,
+        **crossover)
 
     # kernel 7: bf16 sketches (ds = 128) with f32 tails, ragged n_valid
     from codemix_dense_retrieval_torch.ops import maxsim as msim
@@ -386,6 +447,12 @@ def main() -> None:
     pv_kernel = enc.encode_documents(passages[:16], batch_size=16, max_length=1024)
     cos = float((pv_plain * pv_kernel).sum(axis=1).min())
     check(cos >= 0.99, f"kernel-path vs plain-path passage cosine {cos}")
+    # the device side alone: one tokenized batch of 32 passages at the 1024
+    # bucket through the model, with kernel B and with plain attention
+    ids32, mask32 = (torch.from_numpy(x).to(dev) for x in next(enc._batch_inputs(passages[:32], 32, "", 1024)))
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: enc.model(ids32, mask32), 5)
+        fwd_plain_ms = cuda_ms(lambda: plain_enc.model(ids32, mask32), 5)
     del plain_enc
     qa_t = torch.from_numpy(qa)
     qb_t = torch.from_numpy(qb)
@@ -394,7 +461,7 @@ def main() -> None:
         init_s=round(init_s, 2), queries=2 * N_QUERIES, queries_per_s=round(2 * N_QUERIES / q_s, 1),
         passages=N_PASSAGES, passages_per_s=round(N_PASSAGES / p_s, 2),
         passage_tokens_bucket=1024, passage_tokenize_s=round(tok_s, 3), passage_encode_s=round(p_s, 3),
-        launches=path_counts["encode"],
+        launches=path_counts["encode"], forward_ms_32x1024=fwd_ms, forward_ms_32x1024_plain_attention=fwd_plain_ms,
         kernel_vs_plain_min_cos=round(cos, 5), max_offdiag_query_cos=round(qcos, 4))
 
     # ---------------- phase 5: vector-mix run at full size ----------------
@@ -747,7 +814,7 @@ def main() -> None:
         name="binub", route="cuda", source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
         replaces="codemix_dense_retrieval_tpu/ops/sketch.py:310", launches=None,
         max_abs_err=max(errs["binub"], err7),
-        ms=cuda_ms(lambda: sk.binub(q_sk, q_tl, sk5, tl5, 8, nv_big), 5),
+        **kernel_ms(lambda: sk.binub(q_sk, q_tl, sk5, tl5, 8, nv_big), 5),
         plain_ms=cuda_ms(lambda: sk.binub_plain(q_sk, q_tl, sk5, tl5, 8, nv_big), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_binub, 3),
         shape=f"B=256 N={nb5} ds=128 G=8 bf16 sketch, bin-major upper-bound maxima",
@@ -793,7 +860,7 @@ def main() -> None:
     run_cli(argv)
     cli_s = time.perf_counter() - t0
     path_counts["cli"] = dict(kernels.LAUNCHES)
-    check(path_counts["cli"]["bin_scores_transposed"] > 0, "CLI did not launch kernel A transposed")
+    check(path_counts["cli"]["bin_scores_transposed"] > 0, "CLI did not launch kernel 2 (transposed)")
     small_dev = DenseFlatIndex.load(work / "small").to_device()
     check(small_dev._rows_per_shard < topk.TWO_LEVEL_MIN_ROWS, "CLI store not on the single-level route")
 
@@ -965,6 +1032,8 @@ def main() -> None:
     run6_s = time.perf_counter() - t0
     path_counts["two_stage"] = dict(kernels.LAUNCHES)
     check(path_counts["two_stage"]["maxsim"] > 0, "the two-stage run did not launch kernel 6")
+    check(path_counts["two_stage"]["bin_scores_transposed"] > 0,
+          "the two-stage dense stage did not launch kernel 2 (transposed)")
     got6, _ = run_table(runs6["twostage"], 100, doc_int=lambda d: int(d[1:]))
     # the same searcher card-resident (timed warm) and through the memmap path
     res = TwoStageSearcher(index6, store6)
@@ -1040,7 +1109,7 @@ def main() -> None:
         name="maxsim", route="cuda", source="codemix_dense_retrieval_torch/csrc/maxsim.cu",
         replaces="codemix_dense_retrieval_tpu/ops/maxsim.py:132", launches=None,
         max_abs_err=max(errs["maxsim"], err6), max_rel_err=rel6,
-        ms=cuda_ms(lambda: msim.maxsim_scores(q256, qm256, dt256, dm256), 5),
+        **kernel_ms(lambda: msim.maxsim_scores(q256, qm256, dt256, dm256), 5),
         plain_ms=cuda_ms(lambda: msim.maxsim_scores_plain(q256, qm256, dt256, dm256), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_maxsim, 3),
         shape=f"B=256 K={K_DENSE} Tq={TQ} Td={TD} d={DIM}, f32 queries, bf16 doc tokens "
@@ -1097,7 +1166,7 @@ def main() -> None:
         return s.view(256, nb_big // 8, 8).amax(dim=2)
 
     err_main = kernel_a_err(qa256, docs_big, nv_big, 8, "bin_major")
-    ms = cuda_ms(lambda: topk.bin_scores(qa256, docs_big, nv_big, 8, layout="bin_major"), 5)
+    ms = kernel_ms(lambda: topk.bin_scores(qa256, docs_big, nv_big, 8, layout="bin_major"), 5)
     plain = cuda_ms(lambda: topk.bin_scores_plain(qa256, docs_big, nv_big, 8, layout="bin_major"), 2)
     lib = cuda_ms(lib_bm, 3)
     b_ms, b_by = bound(256 * DIM * 2 + nb_big * DIM * 2 + 256 * nb_big * 4 + 256 * nb_big // 8 * 4,
@@ -1106,7 +1175,7 @@ def main() -> None:
         name="bin_scores[bin_major]", route="cuda",
         source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
         replaces="codemix_dense_retrieval_tpu/ops/topk.py:492",
-        launches=total("bin_scores_bin_major"), max_abs_err=max(errs["bin_major"], err_main), ms=ms,
+        launches=total("bin_scores_bin_major"), max_abs_err=max(errs["bin_major"], err_main), **ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B=256 N={nb_big} d={DIM} G=8 f32 scores",
     ))
@@ -1133,14 +1202,14 @@ def main() -> None:
     check(err5 <= 1e-4, f"5 err {err5} at the main shape")
     check(bool((bm5[:, -(-N_ROWS // 8):] == topk.NEG_INF).all()), "5 pad bins at the main shape")
     del bm5, bm5p
-    ms = cuda_ms(lambda: topk.binmax_only(qa256, docs_big, nv_big, 8), 5)
+    ms = kernel_ms(lambda: topk.binmax_only(qa256, docs_big, nv_big, 8), 5)
     plain = cuda_ms(lambda: topk.binmax_only_plain(qa256, docs_big, nv_big, 8), 2)
     b_ms, b_by = bound(256 * DIM * 2 + nb_big * DIM * 2 + 256 * nb_big // 8 * 4, 2 * 256 * nb_big * DIM)
     entries.append(dict(
         name="binmax_only", route="cuda",
         source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
         replaces="codemix_dense_retrieval_tpu/ops/topk.py:710",
-        launches=total("binmax_only"), max_abs_err=max(errs["binmax_only"], err5), ms=ms,
+        launches=total("binmax_only"), max_abs_err=max(errs["binmax_only"], err5), **ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=entries[0]["library_ms"],
         shape=f"B=256 N={nb_big} d={DIM} G=8 bf16, bin-major maxima only",
     ))
@@ -1155,7 +1224,7 @@ def main() -> None:
         return s.masked_fill_(col >= nv8, -torch.inf).view(256, nb_big // 8, 8).amax(dim=2)
 
     err_main = kernel_4_err(q8_256, qs8_256, d8_big, ds8_big, nv8, 8, "bin_major")
-    ms = cuda_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_big, ds8_big, nv8, 8, layout="bin_major"), 5)
+    ms = kernel_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_big, ds8_big, nv8, 8, layout="bin_major"), 5)
     plain = cuda_ms(lambda: topk.bin_scores_int8_plain(q8_256, qs8_256, d8_big, ds8_big, nv8, 8,
                                                        layout="bin_major"), 2)
     lib = cuda_ms(lib_int8_bm, 3)
@@ -1167,7 +1236,7 @@ def main() -> None:
         source="codemix_dense_retrieval_torch/csrc/bin_scores_int8.cu",
         replaces="codemix_dense_retrieval_tpu/ops/topk.py:605",
         launches=total("bin_scores_int8_bin_major"), max_abs_err=max(errs["int8_bin_major"], err_main),
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib, library_gemm_ms=gemm_only,
+        **ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib, library_gemm_ms=gemm_only,
         shape=f"B=256 N={nb_big} d={DIM} G=8 int8, f32 scores",
     ))
     del d8_big, ds8_big, index8
@@ -1181,7 +1250,7 @@ def main() -> None:
         return s.view(ns // 16, 16, 256).amax(dim=1)
 
     err_main = kernel_a_err(qa256, docs_s, nv_s, 16, "transposed")
-    ms = cuda_ms(lambda: topk.bin_scores(qa256, docs_s, nv_s, 16, layout="transposed"), 20)
+    ms = kernel_ms(lambda: topk.bin_scores(qa256, docs_s, nv_s, 16, layout="transposed"), 20)
     plain = cuda_ms(lambda: topk.bin_scores_plain(qa256, docs_s, nv_s, 16, layout="transposed"), 5)
     lib = cuda_ms(lib_tr, 20)
     b_ms, b_by = bound(256 * DIM * 2 + ns * DIM * 2 + 256 * ns * 4 + 256 * ns // 16 * 4,
@@ -1190,7 +1259,7 @@ def main() -> None:
         name="bin_scores[transposed]", route="cuda",
         source="codemix_dense_retrieval_torch/csrc/bin_scores.cu",
         replaces="codemix_dense_retrieval_tpu/ops/topk.py:389",
-        launches=total("bin_scores_transposed"), max_abs_err=max(errs["transposed"], err_main), ms=ms,
+        launches=total("bin_scores_transposed"), max_abs_err=max(errs["transposed"], err_main), **ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B=256 N={ns} d={DIM} G=16 f32 scores",
     ))
@@ -1203,7 +1272,7 @@ def main() -> None:
         return s.masked_fill_(col_s >= nv_s, -torch.inf).view(ns // 16, 16, 256).amax(dim=1)
 
     err_main = kernel_4_err(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16, "transposed")
-    ms = cuda_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16, layout="transposed"), 20)
+    ms = kernel_ms(lambda: topk.bin_scores_int8(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16, layout="transposed"), 20)
     plain = cuda_ms(lambda: topk.bin_scores_int8_plain(q8_256, qs8_256, d8_s, ds8_s, nv_s, 16,
                                                        layout="transposed"), 5)
     lib = cuda_ms(lib_int8_tr, 20)
@@ -1214,7 +1283,7 @@ def main() -> None:
         source="codemix_dense_retrieval_torch/csrc/bin_scores_int8.cu",
         replaces="codemix_dense_retrieval_tpu/ops/topk.py:605",
         launches=total("bin_scores_int8_transposed"), max_abs_err=max(errs["int8_transposed"], err_main),
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        **ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B=256 N={ns} d={DIM} G=16 int8, f32 scores",
     ))
     # kernel B at the passage encode's shape: 32 passages, bucket 1024, 16 heads of 64
@@ -1230,7 +1299,7 @@ def main() -> None:
     err_main = (fa.attention_flash(q, k, v, lens).float()
                 - fa.attention_flash_plain(q.float(), k.float(), v.float(), lens)).abs().max().item()
     check(err_main <= 2e-2, f"B err {err_main} at the main shape")
-    ms = cuda_ms(lambda: fa.attention_flash(q, k, v, lens), 20)
+    ms = kernel_ms(lambda: fa.attention_flash(q, k, v, lens), 20)
     plain = cuda_ms(lambda: fa.attention_flash_plain(q, k, v, lens), 3)
     lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask), 20)
     b_ms, b_by = bound(4 * bsz * h * seq * dh * 2, 4 * h * seq * dh * int(lens.sum().item()))
@@ -1238,7 +1307,7 @@ def main() -> None:
         name="flash_attention", route="cuda",
         source="codemix_dense_retrieval_torch/csrc/flash_attention.cu",
         replaces="codemix_dense_retrieval_tpu/ops/flash_attention.py:249",
-        launches=total("flash_attention"), max_abs_err=max(errs["flash_bf16"], err_main), ms=ms,
+        launches=total("flash_attention"), max_abs_err=max(errs["flash_bf16"], err_main), **ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B={bsz} H={h} S={seq} dh={dh} bf16 mean_len={lens.float().mean().item():.1f}",
     ))

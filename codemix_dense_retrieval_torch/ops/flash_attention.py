@@ -117,6 +117,20 @@ def _flash_lib():
     return fn
 
 
+def check_strided_operand(name: str, t: torch.Tensor) -> None:
+    """Raise unless kernel B can read ``t`` (B, heads, S, dh) through its
+    strides: a contiguous head dim, every other stride a positive multiple
+    of 16 bytes and a 16-byte aligned start. bf16 operands are read by TMA
+    tensor maps, which require exactly that (a broadcast, stride-0 view is
+    refused); f32 rows are read as 16-byte vectors."""
+    vec = 16 // t.element_size()
+    if t.stride(3) != 1 or any(st <= 0 or st % vec for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs a contiguous head dim, positive strides that are multiples of "
+            f"16 bytes and a 16-byte aligned start; got strides {tuple(t.stride())}"
+        )
+
+
 def attention_flash(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -128,9 +142,10 @@ def attention_flash(
 ) -> torch.Tensor:
     """Kernel B: flash attention. CPU tensors take
     :func:`attention_flash_plain`; CUDA tensors launch the kernel, which
-    takes bf16 or f32 (all alike), dh 64 or 128, any strides whose last dim
-    is contiguous, int32 ``lengths`` (B,) and int32 ``segment_ids`` (B, S).
-    The output has q's shape and dtype."""
+    takes bf16 (the TMA + wgmma kernel) or f32 (a SIMT kernel), all alike,
+    dh 64 or 128, strides as :func:`check_strided_operand` allows, int32
+    ``lengths`` (B,) and int32 ``segment_ids`` (B, S). The output has q's
+    shape and dtype, in (B, S, H, dh) storage."""
     if q.device.type == "cpu":
         return attention_flash_plain(q, k, v, lengths, causal=causal, segment_ids=segment_ids)
     if q.device.type != "cuda":
@@ -145,12 +160,10 @@ def attention_flash(
         raise ValueError(f"attention_flash takes bf16 or f32 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if dh not in (64, 128):
         raise ValueError(f"attention_flash takes head dim 64 or 128, got {dh}")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows")
+        check_strided_operand(name, t)
     if lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != q.device:
         raise ValueError("lengths must be (B,) int32 on q's device")
     lengths = lengths.contiguous()

@@ -6,10 +6,12 @@ use. Libraries land in ``csrc/build/`` under a name that carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt and a built one is reused by later processes.
 :func:`build_kernels` starts one ``nvcc`` per source, all at once.
-``bin_scores.cu`` holds kernel A, kernel 5 (``binmax_only``) and kernel 7
-(``binub``, the sketch tier's upper-bound bin maxima),
-``bin_scores_int8.cu`` kernel 4, ``flash_attention.cu`` kernel B and
-``maxsim.cu`` kernel 6 (the two-stage rerank's MaxSim).
+``bin_scores.cu`` holds kernel A (bin-major), kernel 2 (its transposed
+layout), kernel 5 (``binmax_only``) and kernel 7 (``binub``, the sketch
+tier's upper-bound bin maxima), ``bin_scores_int8.cu`` kernel 4,
+``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the two-stage
+rerank's MaxSim). Kernels B and 2 are built on ``sm90.cuh`` (TMA, mbarrier
+rings, wgmma).
 
 ``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
 where it launches its kernel, and nowhere else. Kernels A and 4 count their

@@ -198,15 +198,15 @@ def bin_scores(
     layout: str = "bin_major",
     score_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel A: fused scores and bin maxima of ``queries`` (B, d) against
-    ``docs`` (N, d), rows at or past ``n_valid`` (an int or a one-element
-    int32 tensor on the docs' device) set to ``NEG_INF``.
+    """Kernels A and 2: fused scores and bin maxima of ``queries`` (B, d)
+    against ``docs`` (N, d), rows at or past ``n_valid`` (an int or a
+    one-element int32 tensor on the docs' device) set to ``NEG_INF``.
 
-    ``layout="bin_major"`` returns (scores (B, N) ``score_dtype``, binmax
-    (B, N/G) f32); ``"transposed"`` returns (N, B) and (N/G, B). CPU tensors
-    take :func:`bin_scores_plain`; CUDA tensors launch the kernel
-    (``csrc/bin_scores.cu``), which takes bf16 rows and queries, d % 32 == 0,
-    N % G == 0 and G in {8, 16}."""
+    ``layout="bin_major"`` (kernel A) returns (scores (B, N) ``score_dtype``,
+    binmax (B, N/G) f32); ``"transposed"`` (kernel 2) returns (N, B) and
+    (N/G, B). CPU tensors take :func:`bin_scores_plain`; CUDA tensors launch
+    the kernel (``csrc/bin_scores.cu``), which takes bf16 rows and queries,
+    d % 32 == 0, N % G == 0 and G in {8, 16}."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if queries.device.type == "cpu" and docs.device.type == "cpu":
@@ -648,7 +648,8 @@ def topk_ip_bins(
 
     ``docs`` may have any row count; it is padded to a tile multiple and
     padded rows are never selected (masked to NEG_INF). ``use_kernel``
-    selects kernel A in the transposed layout (the ``bins_pallas`` route);
+    selects kernel 2, phase 1 in the transposed layout (the ``bins_pallas``
+    route);
     otherwise phase 1 is plain PyTorch (the ``bins_xla`` route).
     ``score_dtype=torch.bfloat16`` halves the score writes but rounds scores,
     so near-ties may reorder. Returns (values f32 (B, k), row ids (B, k));
@@ -897,7 +898,7 @@ def topk_ip(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact inner-product top-k. ``method``: auto | full | bins_xla |
     bins_pallas | bins_two_level | bins_rescore (``bins_pallas`` is the
-    kernel A route in the transposed layout, ``bins_rescore`` the kernel 5
+    kernel 2 route (the transposed layout), ``bins_rescore`` the kernel 5
     route of :func:`topk_ip_bins_rescore`; the names are the JAX
     package's).
 

@@ -81,6 +81,72 @@ def test_plain_flash_matches_pallas_and_xla(case):
     np.testing.assert_allclose(got, got_xla, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("causal_gqa_seg", [False, True])
+def test_plain_flash_matches_pallas_at_tile_edges(causal_gqa_seg):
+    """Lengths around kernel B's 128-key tiles (0, 1, 127, 128, 129, S) and
+    a sequence length that is not a multiple of its 128-query tiles: the
+    plain version the card holds the kernel to, against the Pallas kernel."""
+    s = 260
+    lengths = np.asarray([0, 1, 127, 128, 129, s], np.int32)
+    kvh = 2 if causal_gqa_seg else 4
+    q, k, v = _qkv(100 + int(causal_gqa_seg), b=len(lengths), kvh=kvh, s=s)
+    seg = _segments(lengths, s, 9) if causal_gqa_seg else None
+    want = np.asarray(ref.attention_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        block_q=64, block_k=64, window=128, interpret=True, causal=causal_gqa_seg,
+        segment_ids=None if seg is None else jnp.asarray(seg),
+    ))
+    got = port.attention_flash(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), causal=causal_gqa_seg,
+        segment_ids=None if seg is None else torch.from_numpy(seg),
+    ).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert (got[0] == 0).all() and (want[0] == 0).all()
+    if seg is not None:
+        dead = np.broadcast_to((seg == 0)[:, None, :], got.shape[:3])
+        assert (got[dead] == 0).all()
+
+
+def _heads_view(dtype, head_dim=64, pad=0):
+    """A (B, H, S, dh) view of (B, S, H, dh + pad) storage, as the encoder's
+    projections hand it to kernel B."""
+    x = torch.zeros(2, 8, 4, head_dim + pad, dtype=dtype)
+    return x[..., :head_dim].transpose(1, 2)
+
+
+def _shifted(dtype):
+    flat = torch.zeros(2 * 8 * 4 * 64 + 8, dtype=dtype)
+    return flat[1 : 1 + 2 * 8 * 4 * 64].view(2, 8, 4, 64).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,dtype,ok", [
+    ("heads_view", torch.bfloat16, True),
+    ("heads_view", torch.float32, True),
+    ("row_pad_8", torch.bfloat16, True),        # 72 bf16 = 144 bytes per row
+    ("row_pad_4", torch.bfloat16, False),       # 68 bf16 = 136 bytes: not a multiple of 16
+    ("row_pad_4", torch.float32, True),         # 68 f32 = 272 bytes
+    ("shifted_start", torch.bfloat16, False),   # start 2 bytes past an aligned one
+    ("broadcast_batch", torch.bfloat16, False), # stride 0
+    ("strided_head_dim", torch.bfloat16, False),
+])
+def test_check_strided_operand(case, dtype, ok):
+    t = {
+        "heads_view": lambda: _heads_view(dtype),
+        "row_pad_8": lambda: _heads_view(dtype, pad=8),
+        "row_pad_4": lambda: _heads_view(dtype, pad=4),
+        "shifted_start": lambda: _shifted(dtype),
+        "broadcast_batch": lambda: torch.zeros(1, 8, 4, 64, dtype=dtype).expand(2, 8, 4, 64).transpose(1, 2),
+        "strided_head_dim": lambda: torch.zeros(2, 4, 64, 8, dtype=dtype).transpose(2, 3),
+    }[case]()
+    assert t.shape[3] == 64
+    if ok:
+        port.check_strided_operand("q", t)
+    else:
+        with pytest.raises(ValueError, match="16 bytes"):
+            port.check_strided_operand("q", t)
+
+
 @pytest.mark.parametrize("s,packed,expect", [
     (511, False, "xla"), (512, False, "xla"), (513, False, "flash"),
     (511, True, "xla"), (512, True, "flash"),

@@ -70,6 +70,26 @@ def test_bin_scores_plain_matches_pallas(bin_size, layout, score_dtype):
     np.testing.assert_allclose(bm_got[live], bm_ref[live], atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("bin_size", [8, 16])
+@pytest.mark.parametrize("b", [1, 7, 64, 130])
+def test_bin_scores_plain_transposed_across_query_counts(b, bin_size):
+    """The transposed plain version at the query counts the card holds
+    kernel 2 to: one query, an odd count, a count that fills the kernel's
+    64-wide query tile and one past its 128-wide tile."""
+    rng = np.random.default_rng(1000 + b)
+    n, d, n_valid = 1024, 64, 1000 - 13
+    qj, qt = _bf16_pair(_unit(rng, b, d))
+    dj, dt = _bf16_pair(_unit(rng, n, d))
+    s_ref, bm_ref = ref._bin_scores_pallas(qj, dj, bin_size, n_valid, tile_n=512, interpret=True)
+    s_got, bm_got = port.bin_scores(qt, dt, n_valid, bin_size, layout="transposed")
+    assert s_got.shape == (n, b) and bm_got.shape == (n // bin_size, b)
+    s_ref, bm_ref = np.asarray(s_ref), np.asarray(bm_ref)
+    s_got, bm_got = s_got.numpy(), bm_got.numpy()
+    assert (s_got[n_valid:] == NEG_INF).all() and (bm_got[-(-n_valid // bin_size):] == NEG_INF).all()
+    np.testing.assert_allclose(s_got[:n_valid], s_ref[:n_valid], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(bm_got, bm_ref, atol=1e-5, rtol=0)
+
+
 def test_bin_scores_rejects_unknown_layout():
     q = torch.zeros(2, 8)
     with pytest.raises(ValueError):
