@@ -6,15 +6,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (a line of JSON after each):
  1. card     — CUDA present, card name and power limit, TF32 off.
- 2. build    — compile every kernel (one nvcc per source, in parallel).
+ 2. build    — compile every kernel (one nvcc per source, in parallel,
+               with -Xptxas -v); the line carries ptxas's registers, spill
+               bytes and warnings per kernel, and the script fails if a
+               wgmma kernel spills or ptxas serialised its wgmma (C7518).
  3. kernels  — kernel A (bin scores, bin-major) and kernel 2 (its
                transposed layout), both score dtypes, at 1, 7, 64, 100, 130
-               and 256 queries (kernel 2's n64 / n128 / n256 query tiles),
-               kernel 4 (int8 bin scores, both layouts, bit for bit),
+               and 256 queries (the n64 / n128 / n256 query tiles), kernel A
+               also at 65, 128, 129 and 257 (two query tiles), at n_valid =
+               1000 (whole tiles past it) and at d = 96 (a half 64-dim
+               chunk), kernel 4 (int8 bin scores, both layouts, bit for bit),
                kernel 5 (bin maxima only), kernel B (flash attention, also
                at S = 1000 and lengths 0, 1, 127, 128, 129, S around its
                128-row tiles), kernel 7 (sketch upper-bound bin maxima:
-               ragged n_valid, G in {8, 16}) and kernel 6 (MaxSim: ragged K,
+               ds in {96, 128, 512} (512: Q streamed, not resident), 1, 7,
+               256 and 257 queries, ragged n_valid and n_valid = 1000, G in
+               {8, 16}) and kernel 6 (MaxSim: ragged K,
                a candidate with every token masked, masked query tokens)
                against their plain versions; a sketch index with ds = d
                certifies every query and returns the exact ids; kernel B
@@ -109,6 +116,11 @@ TOL_MAXSIM_REL = 3e-6
 TIE_TOL = 1e-5              # two runs' ids may swap only between scores this close
 TIE_TOL_MAXSIM = 1e-4       # the same for MaxSim scores (sums of 32 maxima)
 TQ = TD = 32                # two-stage query and doc tokens
+# the kernels' function names in csrc/ (ptxas reports template instances
+# under mangled names that contain them); the wgmma ones may not spill
+KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "binmax_only_kernel",
+                "bin_scores_int8_kernel", "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel")
+WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma"}
 K_DENSE = 400               # two-stage dense recall depth
 
 
@@ -184,7 +196,23 @@ def main() -> None:
 
     # ---------------- phase 2: build ----------------
     build_s = kernels.build_kernels()
-    say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()))
+    # ptxas's report per source, grouped by kernel (template instances
+    # summed): no wgmma kernel may be serialised (C7518) or spill
+    ptxas = {}
+    for name, source in kernels.SOURCES.items():
+        rep = kernels.ptxas_report(kernels.build_log(name))
+        fams = {}
+        for mangled, v in rep["kernels"].items():
+            fam = next((f for f in KERNEL_NAMES if f in mangled), mangled)
+            e = fams.setdefault(fam, {"instances": 0, "max_registers": 0, "spill_bytes": 0})
+            e["instances"] += 1
+            e["max_registers"] = max(e["max_registers"], v["registers"])
+            e["spill_bytes"] += v["spill_bytes"]
+        ptxas[source] = {"warnings": rep["warnings"], "kernels": fams}
+        check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
+        for fam in WGMMA_KERNELS & fams.keys():
+            check(fams[fam]["spill_bytes"] == 0, f"{fam} spills {fams[fam]['spill_bytes']} bytes")
+    say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()), ptxas=ptxas)
 
     # ---------------- phase 3: kernels vs plain ----------------
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -195,42 +223,58 @@ def main() -> None:
 
     errs = {"bin_major": 0.0, "transposed": 0.0, "int8_bin_major": 0.0, "int8_transposed": 0.0,
             "binmax_only": 0.0, "flash_f32": 0.0, "flash_bf16": 0.0}
+    def check_a(q, docs, nv, n_valid, bin_size, layout, sdt, label):
+        """Kernel A or 2 against its plain version: pad scores and pad bins
+        exactly NEG_INF, f32 scores within 1e-4, bf16 within one ulp."""
+        s, bm = topk.bin_scores(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
+        s2, bm2 = topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
+        torch.cuda.synchronize()
+        if layout == "transposed":
+            s, s2, bm, bm2 = s.T, s2.T, bm.T, bm2.T
+        pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
+        check(bool((s[:, n_valid:] == pad_val).all()), f"A pad {label}")
+        a, r = s[:, :n_valid].float(), s2[:, :n_valid].float()
+        diff = (a - r).abs()
+        if sdt == torch.float32:
+            check(diff.max().item() <= 1e-4, f"A f32 err {diff.max().item()} {label}")
+            errs[layout] = max(errs[layout], diff.max().item())
+        else:
+            # one bf16 ulp of the larger value, plus the f32 accumulation-order
+            # difference the rounding inherits
+            ulp = torch.maximum(a.abs(), r.abs()) * 2.0 ** -7 + 1e-6
+            check(bool((diff <= ulp).all()), f"A bf16 scores beyond one ulp {label}")
+        bdiff = (bm.float() - bm2.float()).abs().max().item()
+        check(bdiff <= 1e-4, f"A binmax err {bdiff} {label}")
+        check(bool((bm[:, -(-n_valid // bin_size):] == topk.NEG_INF).all()), f"A binmax pad {label}")
+        errs[layout] = max(errs[layout], bdiff)
+
     n = 262_144 + 123
     n_valid = n - 77
     n_pad = -(-n // 16) * 16
     docs = torch.zeros(n_pad, DIM, dtype=torch.bfloat16, device=dev)
     docs[:n] = unit(n).to(torch.bfloat16)
     # b = 64, 100 and 130 take kernel 2's n64 and n128 query tiles and
-    # straddle 128; n_valid is a device int for 7, 130 and 256
-    for b in (1, 7, 64, 100, 130, 256):
+    # straddle 128; n_valid is a device int for 7, 130 and 256. Kernel A also
+    # at 65, 128, 129 and 257 (two 256-query tiles)
+    for b in (1, 7, 64, 65, 100, 128, 129, 130, 256, 257):
         q = unit(b).to(torch.bfloat16)
         nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b in (7, 130, 256) else n_valid
+        layouts = topk.LAYOUTS if b in (1, 7, 64, 100, 130, 256) else ("bin_major",)
         for bin_size in (8, 16):
-            for layout in topk.LAYOUTS:
+            for layout in layouts:
                 for sdt in (torch.float32, torch.bfloat16):
-                    s, bm = topk.bin_scores(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
-                    s2, bm2 = topk.bin_scores_plain(q, docs, nv, bin_size, layout=layout, score_dtype=sdt)
-                    torch.cuda.synchronize()
-                    if layout == "transposed":
-                        s, s2 = s.T, s2.T
-                    pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
-                    check(bool((s[:, n_valid:] == pad_val).all()), f"A pad b={b} G={bin_size} {layout} {sdt}")
-                    a, r = s[:, :n_valid].float(), s2[:, :n_valid].float()
-                    diff = (a - r).abs()
-                    if sdt == torch.float32:
-                        check(diff.max().item() <= 1e-4, f"A f32 err {diff.max().item()}")
-                        errs[layout] = max(errs[layout], diff.max().item())
-                    else:
-                        # one bf16 ulp of the larger value, plus the f32
-                        # accumulation-order difference the rounding inherits
-                        ulp = torch.maximum(a.abs(), r.abs()) * 2.0 ** -7 + 1e-6
-                        check(bool((diff <= ulp).all()), "A bf16 scores beyond one ulp")
-                    bdiff = (bm.float() - bm2.float()).abs().max().item()
-                    check(bdiff <= 1e-4, f"A binmax err {bdiff}")
-                    first_pad_bin = -(-n_valid // bin_size)
-                    bmr = bm if layout == "bin_major" else bm.T
-                    check(bool((bmr[:, first_pad_bin:] == topk.NEG_INF).all()), "A binmax pad")
-                    errs[layout] = max(errs[layout], bdiff)
+                    check_a(q, docs, nv, n_valid, bin_size, layout, sdt, f"b={b} G={bin_size} {layout} {sdt}")
+    # kernel A's tile edges: whole 128-row tiles past n_valid = 1000, and
+    # d = 96 (a half 64-dim chunk, Q resident in shared memory)
+    docs96 = unit(65_536, 96).to(torch.bfloat16)
+    for b in (1, 7, 64, 65, 100, 128, 129, 130, 256, 257):
+        q, q96 = unit(b).to(torch.bfloat16), unit(b, 96).to(torch.bfloat16)
+        for bin_size in (8, 16):
+            sdt = torch.float32 if b % 2 else torch.bfloat16
+            check_a(q, docs, 1000, 1000, bin_size, "bin_major", sdt, f"nv=1000 b={b} G={bin_size} {sdt}")
+            check_a(q96, docs96, 65_536 - 40, 65_536 - 40, bin_size, "bin_major", sdt,
+                    f"d=96 b={b} G={bin_size} {sdt}")
+    del docs96
     # kernel 4 on the same rows quantized (zero pad rows: scale 1, values 0),
     # kernel 5 on the bf16 rows
     d8, ds8 = quantize_rows(docs)
@@ -336,27 +380,32 @@ def main() -> None:
     say("flash_crossover", heads=16, head_dim=64, tokens_per_call=32_768, flash_min_seq=fa.FLASH_MIN_SEQ,
         **crossover)
 
-    # kernel 7: bf16 sketches (ds = 128) with f32 tails, ragged n_valid
+    # kernel 7: bf16 sketches with f32 tails, ragged n_valid and whole tiles
+    # past it; ds = 96 (a half 64-dim chunk), 128 (the sketch tier's) and 512
+    # (at 256 queries a 256 KB query sketch: Q streams instead of staying
+    # resident); 257 queries make two query tiles, so Q is loaded twice
     from codemix_dense_retrieval_torch.ops import maxsim as msim
     from codemix_dense_retrieval_torch.ops import sketch as sk
 
     n7 = 262_144 + 64
-    d_sk = (torch.randn(n7, 128, device=dev, generator=g) * 0.1).to(torch.bfloat16)
     d_tl = torch.rand(n7, device=dev, generator=g) * 0.3
     errs["binub"] = errs["maxsim"] = 0.0
-    for b in (1, 7, 256):
-        q_sk = (torch.randn(b, 128, device=dev, generator=g) * 0.1).to(torch.bfloat16)
-        q_tl = torch.rand(b, device=dev, generator=g) * 0.3
-        for bin_size in (8, 16):
-            for nv7 in (n7 - 77, 1000):
-                nv = torch.tensor([nv7], dtype=torch.int32, device=dev) if b == 256 else nv7
-                ub = sk.binub(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
-                ub2 = sk.binub_plain(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
-                torch.cuda.synchronize()
-                err7 = (ub - ub2).abs().max().item()
-                check(err7 <= TOL_BINUB, f"7 err {err7} b={b} G={bin_size} nv={nv7}")
-                check(bool((ub[:, -(-nv7 // bin_size):] == topk.NEG_INF).all()), "7 pad bins")
-                errs["binub"] = max(errs["binub"], err7)
+    for ds in (96, 128, 512):
+        # rows scaled so |ub| stays below 1.5 at every ds, as for a sketch of unit rows
+        d_sk = (torch.randn(n7, ds, device=dev, generator=g) * (0.1 * (128 / ds) ** 0.5)).to(torch.bfloat16)
+        for b in (1, 7, 256, 257):
+            q_sk = (torch.randn(b, ds, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+            q_tl = torch.rand(b, device=dev, generator=g) * 0.3
+            for bin_size in (8, 16):
+                for nv7 in (n7 - 77, 1000):
+                    nv = torch.tensor([nv7], dtype=torch.int32, device=dev) if b == 256 else nv7
+                    ub = sk.binub(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
+                    ub2 = sk.binub_plain(q_sk, q_tl, d_sk, d_tl, bin_size, nv)
+                    torch.cuda.synchronize()
+                    err7 = (ub - ub2).abs().max().item()
+                    check(err7 <= TOL_BINUB, f"7 err {err7} ds={ds} b={b} G={bin_size} nv={nv7}")
+                    check(bool((ub[:, -(-nv7 // bin_size):] == topk.NEG_INF).all()), "7 pad bins")
+                    errs["binub"] = max(errs["binub"], err7)
     del d_sk, d_tl, ub, ub2
 
     # kernel 6: ragged K, Tq and Td (query groups past 32 tokens, partial doc

@@ -5,13 +5,16 @@ shared library with a plain C interface and loaded with ``ctypes`` at first
 use. Libraries land in ``csrc/build/`` under a name that carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt and a built one is reused by later processes.
-:func:`build_kernels` starts one ``nvcc`` per source, all at once.
+:func:`build_kernels` starts one ``nvcc`` per source, all at once. ``nvcc``
+runs with ``-Xptxas -v``, and its log is kept beside the library
+(:func:`build_log`); :func:`ptxas_report` reads each kernel's registers and
+spill bytes and ptxas's warnings out of it (C7518: wgmma serialised).
 ``bin_scores.cu`` holds kernel A (bin-major), kernel 2 (its transposed
 layout), kernel 5 (``binmax_only``) and kernel 7 (``binub``, the sketch
 tier's upper-bound bin maxima), ``bin_scores_int8.cu`` kernel 4,
 ``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the two-stage
-rerank's MaxSim). Kernels B and 2 are built on ``sm90.cuh`` (TMA, mbarrier
-rings, wgmma).
+rerank's MaxSim). Kernels A, 2, 7 and B are built on ``sm90.cuh`` (TMA,
+mbarrier rings, wgmma).
 
 ``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
 where it launches its kernel, and nowhere else. Kernels A and 4 count their
@@ -25,11 +28,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -41,7 +45,7 @@ SOURCES = {
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
 LAUNCHES: Dict[str, int] = {
@@ -102,8 +106,56 @@ def build_kernels(names: Iterable[str] = tuple(SOURCES)) -> float:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` log of kernel ``name``'s library, built on
+    first use."""
+    build_kernels([name])
+    return _library_path(name).with_suffix(".log").read_text()
+
+
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> Dict[str, object]:
+    """ptxas's verdict from an ``nvcc -Xptxas -v`` log: ``{"warnings": [line,
+    ...], "kernels": {mangled name: {"registers": R, "spill_bytes": S}},
+    "serialized": [kernels whose wgmma ptxas serialised (C7518 and kin)]}``.
+    Spill bytes are the stores plus the loads."""
+    warnings: List[str] = []
+    found: Dict[str, Dict[str, int]] = {}
+    serialized: List[str] = []
+    current = None
+    for line in log.splitlines():
+        # ptxas prints the wgmma serialisation notes (C7510-C7520) as
+        # "warning" or as "info" depending on its version
+        if "warning" in line or "Potential Performance Loss" in line:
+            warnings.append(line.strip())
+            if "wgmma" in line and "serialized" in line:
+                named = re.search(r"function '([\w$]+)'", line)
+                serialized.append(named.group(1) if named else line.strip())
+            continue
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            current = m.group(1)
+            found.setdefault(current, {"registers": 0, "spill_bytes": 0})
+            continue
+        if current is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            found[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            found[current]["registers"] = int(m.group(1))
+    kernels = {k: v for k, v in found.items() if v["registers"] > 0}
+    return {"warnings": warnings, "kernels": kernels, "serialized": serialized}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -116,6 +116,28 @@ def test_binub_plain_matches_pallas_interpret(bin_size, n_valid):
     assert (got[:, first_pad:] == port_topk.NEG_INF).all()
 
 
+@pytest.mark.parametrize("bin_size", [8, 16])
+@pytest.mark.parametrize("n_valid", [1024, 100])
+def test_binub_plain_matches_pallas_at_kernel_tile_edges(bin_size, n_valid):
+    """ds = 96 (half of the card kernel's 64-dim chunk) and 130 queries (one
+    past its 128-wide query tile), n_valid ragged or inside the first
+    128-row tile."""
+    rng = np.random.default_rng(3)
+    d_sk, d_sk_np = _bf16(rng.standard_normal((1024, 96)).astype(np.float32) * 0.1)
+    q_sk, q_sk_np = _bf16(rng.standard_normal((130, 96)).astype(np.float32) * 0.1)
+    d_tail = np.abs(rng.standard_normal(1024)).astype(np.float32) * 0.1
+    q_tail = np.abs(rng.standard_normal(130)).astype(np.float32) * 0.1
+    want = np.asarray(ref._binub_pallas(
+        jnp.asarray(q_sk_np, jnp.bfloat16), jnp.asarray(q_tail).reshape(-1, 1),
+        jnp.asarray(d_sk_np, jnp.bfloat16), jnp.asarray(d_tail).reshape(-1, 1),
+        bin_size, n_valid, tile_n=512, interpret=True,
+    ))
+    got = port.binub(q_sk, _t(q_tail), d_sk, _t(d_tail), bin_size, n_valid)
+    assert got.shape == want.shape == (130, 1024 // bin_size)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert (got[:, -(-n_valid // bin_size):] == port_topk.NEG_INF).all()
+
+
 @pytest.mark.parametrize("k_bins", [3, 7, 16])
 def test_select_bins_two_level_unselected_bound_matches_jax(k_bins):
     rng = np.random.default_rng(3)

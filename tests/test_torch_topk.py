@@ -90,6 +90,28 @@ def test_bin_scores_plain_transposed_across_query_counts(b, bin_size):
     np.testing.assert_allclose(bm_got, bm_ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("bin_size", [8, 16])
+@pytest.mark.parametrize("b", [1, 65, 129, 257])
+def test_bin_scores_plain_bin_major_at_kernel_tile_edges(b, bin_size):
+    """The bin-major plain version (the card's oracle for kernel A) at the
+    kernel's tile edges: one query, one past its 64- and 128-wide query
+    tiles, two 256-query tiles; d = 96, half of a 64-dim chunk; n_valid
+    inside the first 128-row tile, so every later tile is padding."""
+    rng = np.random.default_rng(2000 + b)
+    n, d, n_valid = 1024, 96, 100
+    qj, qt = _bf16_pair(_unit(rng, b, d))
+    dj, dt = _bf16_pair(_unit(rng, n, d))
+    s_ref, bm_ref = ref._bin_scores_pallas_bm(qj, dj, bin_size, n_valid, tile_n=512, interpret=True)
+    s_got, bm_got = port.bin_scores(qt, dt, n_valid, bin_size, layout="bin_major")
+    assert s_got.shape == (b, n) and bm_got.shape == (b, n // bin_size)
+    s_ref, bm_ref = np.asarray(s_ref), np.asarray(bm_ref)
+    s_got, bm_got = s_got.numpy(), bm_got.numpy()
+    first_pad = -(-n_valid // bin_size)
+    assert (s_got[:, n_valid:] == NEG_INF).all() and (bm_got[:, first_pad:] == NEG_INF).all()
+    np.testing.assert_allclose(s_got[:, :n_valid], s_ref[:, :n_valid], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(bm_got, bm_ref, atol=1e-5, rtol=0)
+
+
 def test_bin_scores_rejects_unknown_layout():
     q = torch.zeros(2, 8)
     with pytest.raises(ValueError):
