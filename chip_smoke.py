@@ -15,8 +15,11 @@ Phases (a line of JSON after each):
                and 256 queries (the n64 / n128 / n256 query tiles), kernel A
                also at 65, 128, 129 and 257 (two query tiles), at n_valid =
                1000 (whole tiles past it) and at d = 96 (a half 64-dim
-               chunk), kernel 4 (int8 bin scores, both layouts, bit for bit),
-               kernel 5 (bin maxima only), kernel B (flash attention, also
+               chunk); kernel 4 (int8 bin scores, both layouts, both score
+               dtypes, bit for bit) and kernel 5 (bin maxima only) at 1, 7,
+               64, 65, 100, 128, 129, 130, 256 and 257 queries, at n_valid =
+               1000 and at d = 192 (kernel 4: a half 128-byte stage) or 96
+               (kernel 5); kernel B (flash attention, also
                at S = 1000 and lengths 0, 1, 127, 128, 129, S around its
                128-row tiles), kernel 7 (sketch upper-bound bin maxima:
                ds in {96, 128, 512} (512: Q streamed, not resident), 1, 7,
@@ -118,8 +121,8 @@ TIE_TOL_MAXSIM = 1e-4       # the same for MaxSim scores (sums of 32 maxima)
 TQ = TD = 32                # two-stage query and doc tokens
 # the kernels' function names in csrc/ (ptxas reports template instances
 # under mangled names that contain them); the wgmma ones may not spill
-KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "binmax_only_kernel",
-                "bin_scores_int8_kernel", "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel")
+KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma", "flash_fwd_f32",
+                "maxsim_kernel")
 WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma"}
 K_DENSE = 400               # two-stage dense recall depth
 
@@ -274,38 +277,58 @@ def main() -> None:
             check_a(q, docs, 1000, 1000, bin_size, "bin_major", sdt, f"nv=1000 b={b} G={bin_size} {sdt}")
             check_a(q96, docs96, 65_536 - 40, 65_536 - 40, bin_size, "bin_major", sdt,
                     f"d=96 b={b} G={bin_size} {sdt}")
-    del docs96
-    # kernel 4 on the same rows quantized (zero pad rows: scale 1, values 0),
-    # kernel 5 on the bf16 rows
+
+    def check_4(q8, qs8, d8, ds8, nv, n_valid, bin_size, layout, sdt, label):
+        """Kernel 4 against its plain version: torch.equal, pad scores and
+        pad bins exactly NEG_INF."""
+        s, bm = topk.bin_scores_int8(q8, qs8, d8, ds8, nv, bin_size, layout=layout, score_dtype=sdt)
+        s2, bm2 = topk.bin_scores_int8_plain(q8, qs8, d8, ds8, nv, bin_size, layout=layout, score_dtype=sdt)
+        torch.cuda.synchronize()
+        check(torch.equal(s, s2) and torch.equal(bm, bm2), f"kernel 4 not bit-equal to its plain version {label}")
+        if layout == "transposed":
+            s, bm = s.T, bm.T
+        pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
+        check(bool((s[:, n_valid:] == pad_val).all()), f"4 pad {label}")
+        check(bool((bm[:, -(-n_valid // bin_size):] == topk.NEG_INF).all()), f"4 binmax pad {label}")
+
+    def check_5(q, docs, nv, n_valid, bin_size, label):
+        """Kernel 5 against its plain version: within 1e-4, pad bins exactly
+        NEG_INF."""
+        bm = topk.binmax_only(q, docs, nv, bin_size)
+        bm2 = topk.binmax_only_plain(q, docs, nv, bin_size)
+        torch.cuda.synchronize()
+        err5 = (bm - bm2).abs().max().item()
+        check(err5 <= 1e-4, f"5 binmax err {err5} {label}")
+        check(bool((bm[:, -(-n_valid // bin_size):] == topk.NEG_INF).all()), f"5 binmax pad {label}")
+        errs["binmax_only"] = max(errs["binmax_only"], err5)
+
+    # kernel 4 on the same rows quantized (zero pad rows: scale 1, values 0)
+    # and kernel 5 on the bf16 rows, at kernel A's query counts (n_valid a
+    # device int for 7, 130 and 256); then whole tiles past n_valid = 1000,
+    # and kernel 4 at d = 192 (one and a half 128-byte stages), kernel 5 at
+    # d = 96 (one and a half 64-dim chunks)
     d8, ds8 = quantize_rows(docs)
-    for b in (1, 7, 256):
-        qf = unit(b)
+    d8_192, ds8_192 = quantize_rows(unit(65_536, 192))
+    for b in (1, 7, 64, 65, 100, 128, 129, 130, 256, 257):
+        qf, qf192 = unit(b), unit(b, 192)
         q8, qs8 = quantize_rows(qf)
-        qb = qf.to(torch.bfloat16)
-        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b == 256 else n_valid
+        q8_192, qs8_192 = quantize_rows(qf192)
+        qb, q96 = qf.to(torch.bfloat16), unit(b, 96).to(torch.bfloat16)
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev) if b in (7, 130, 256) else n_valid
         for bin_size in (8, 16):
-            first_pad_bin = -(-n_valid // bin_size)
             for layout in topk.LAYOUTS:
                 for sdt in (torch.float32, torch.bfloat16):
-                    s, bm = topk.bin_scores_int8(q8, qs8, d8, ds8, nv, bin_size, layout=layout, score_dtype=sdt)
-                    s2, bm2 = topk.bin_scores_int8_plain(q8, qs8, d8, ds8, nv, bin_size, layout=layout,
-                                                         score_dtype=sdt)
-                    torch.cuda.synchronize()
-                    check(torch.equal(s, s2) and torch.equal(bm, bm2),
-                          f"kernel 4 not bit-equal to its plain version b={b} G={bin_size} {layout} {sdt}")
-                    if layout == "transposed":
-                        s, bm = s.T, bm.T
-                    pad_val = torch.tensor(topk.NEG_INF).to(sdt).item()
-                    check(bool((s[:, n_valid:] == pad_val).all()), f"4 pad b={b} G={bin_size} {layout} {sdt}")
-                    check(bool((bm[:, first_pad_bin:] == topk.NEG_INF).all()), "4 binmax pad")
-            bm = topk.binmax_only(qb, docs, nv, bin_size)
-            bm2 = topk.binmax_only_plain(qb, docs, nv, bin_size)
-            torch.cuda.synchronize()
-            err5 = (bm - bm2).abs().max().item()
-            check(err5 <= 1e-4, f"5 binmax err {err5} b={b} G={bin_size}")
-            check(bool((bm[:, first_pad_bin:] == topk.NEG_INF).all()), "5 binmax pad")
-            errs["binmax_only"] = max(errs["binmax_only"], err5)
-    del docs, d8, ds8, s, s2, bm, bm2
+                    check_4(q8, qs8, d8, ds8, nv, n_valid, bin_size, layout, sdt,
+                            f"b={b} G={bin_size} {layout} {sdt}")
+                sdt = torch.float32 if b % 2 else torch.bfloat16
+                check_4(q8, qs8, d8, ds8, 1000, 1000, bin_size, layout, sdt,
+                        f"nv=1000 b={b} G={bin_size} {layout} {sdt}")
+                check_4(q8_192, qs8_192, d8_192, ds8_192, 65_536 - 40, 65_536 - 40, bin_size, layout, sdt,
+                        f"d=192 b={b} G={bin_size} {layout} {sdt}")
+            check_5(qb, docs, nv, n_valid, bin_size, f"b={b} G={bin_size}")
+            check_5(qb, docs, 1000, 1000, bin_size, f"nv=1000 b={b} G={bin_size}")
+            check_5(q96, docs96, 65_536 - 40, 65_536 - 40, bin_size, f"d=96 b={b} G={bin_size}")
+    del docs, docs96, d8, ds8, d8_192, ds8_192
 
     for seq in (1024, 2048):
         for dh in (64, 128):

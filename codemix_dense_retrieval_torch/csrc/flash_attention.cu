@@ -412,7 +412,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const i
     const uint64_t bytes[3] = {static_cast<uint64_t>(st[3 * i + 2]) * 2,
                                static_cast<uint64_t>(st[3 * i + 1]) * 2,
                                static_cast<uint64_t>(st[3 * i]) * 2};
-    const int rc = sm90::make_tma_bf16(&maps[i], ptrs[i], 4, dims, bytes, box);
+    const int rc =
+        sm90::make_tma(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptrs[i], 4, dims, bytes, box);
     if (rc != 0) return rc;
   }
   WgParams prm;

@@ -1,23 +1,24 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (flash_attention.cu, bin_scores.cu's transposed kernel): mbarrier rings,
-// TMA tile loads, shared-memory matrix descriptors for the 128-byte swizzle,
-// warpgroup matrix multiply-accumulate (wgmma) and register reallocation, and
-// the host-side tensor-map encoder.
+// (flash_attention.cu, bin_kernels.cuh): mbarrier rings, TMA tile loads,
+// shared-memory matrix descriptors for the 128-byte swizzle, warpgroup matrix
+// multiply-accumulate (wgmma, bf16 and s8) and register reallocation, and the
+// host-side tensor-map encoder.
 //
 // Conventions:
-// - every TMA tile is bf16 with a 128-byte inner box (64 values) and
+// - every TMA tile has a 128-byte inner box (64 bf16 or 128 int8 values) and
 //   CU_TENSOR_MAP_SWIZZLE_128B, landing at a 1024-byte aligned shared address,
 //   so wgmma reads it through a SW128 descriptor: K-major (the contraction dim
 //   contiguous, rows 128 bytes apart, 8-row groups 1024 bytes apart; a k16
-//   step inside the 128-byte row adds 32 bytes to the start address) or
-//   MN-major (the output dim contiguous; 8-deep k groups 1024 bytes apart, 64-
-//   wide output chunks `lbo` bytes apart);
-// - accumulator fragments follow PTX's m64nNk16 f32 layout: in warp w of the
-//   warpgroup, lane l holds rows 16 w + l / 4 (+ 8) and columns 8 i + 2 (l % 4)
-//   (+ 1) in d[4 i .. 4 i + 3] (row, col), (row, col + 1), (row + 8, col),
-//   (row + 8, col + 1); a register A operand (k16) is the same layout packed to
-//   bf16 pairs: {d[8 j], d[8 j + 1]}, {d[8 j + 2], d[8 j + 3]}, {d[8 j + 4],
-//   d[8 j + 5]}, {d[8 j + 6], d[8 j + 7]} for keys 16 j .. 16 j + 15;
+//   bf16 or k32 s8 step inside the 128-byte row adds 32 bytes to the start
+//   address) or MN-major (bf16 only: the output dim contiguous; 8-deep k
+//   groups 1024 bytes apart, 64-wide output chunks `lbo` bytes apart);
+// - accumulator fragments follow PTX's m64nNk16 f32 layout (m64nNk32 s32 is
+//   the same): in warp w of the warpgroup, lane l holds rows 16 w + l / 4
+//   (+ 8) and columns 8 i + 2 (l % 4) (+ 1) in d[4 i .. 4 i + 3] (row, col),
+//   (row, col + 1), (row + 8, col), (row + 8, col + 1); a register A operand
+//   (k16) is the same layout packed to bf16 pairs: {d[8 j], d[8 j + 1]},
+//   {d[8 j + 2], d[8 j + 3]}, {d[8 j + 4], d[8 j + 5]}, {d[8 j + 6],
+//   d[8 j + 7]} for keys 16 j .. 16 j + 15;
 // - a wait on an mbarrier that does not complete within ~5 s of SM clock traps,
 //   so a protocol fault fails the launch instead of hanging the card.
 #pragma once
@@ -266,6 +267,72 @@ struct Wgmma<256> {
 
 #undef SM90_ACC8
 
+#define SM90_IACC8(b)                                                                      \
+  "+r"(d[b + 0]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3]), "+r"(d[b + 4]), "+r"(d[b + 5]), \
+      "+r"(d[b + 6]), "+r"(d[b + 7])
+
+// d (64 x N s32, the fragment layout above) += A (64 x 32 s8) * B (32 x N
+// s8), both from K-major SW128 descriptors (integer wgmma takes no
+// transpose). The sum is exact. scale_d = 0 overwrites d instead of adding.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void ss(uint32_t (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : SM90_IACC8(0), SM90_IACC8(8), SM90_IACC8(16), SM90_IACC8(24)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(uint32_t (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : SM90_IACC8(0), SM90_IACC8(8), SM90_IACC8(16), SM90_IACC8(24),
+          SM90_IACC8(32), SM90_IACC8(40), SM90_IACC8(48), SM90_IACC8(56)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void ss(uint32_t (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : SM90_IACC8(0), SM90_IACC8(8), SM90_IACC8(16), SM90_IACC8(24),
+          SM90_IACC8(32), SM90_IACC8(40), SM90_IACC8(48), SM90_IACC8(56),
+          SM90_IACC8(64), SM90_IACC8(72), SM90_IACC8(80), SM90_IACC8(88),
+          SM90_IACC8(96), SM90_IACC8(104), SM90_IACC8(112), SM90_IACC8(120)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+#undef SM90_IACC8
+
 // ---- host: tensor maps ----
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -299,11 +366,12 @@ inline int sm_count() {
   return n;
 }
 
-// bf16 tensor map of `rank` dims (innermost first) with byte strides of dims
-// 1.. and a box whose inner extent is 64 values (128 bytes), 128-byte swizzle,
-// out-of-range elements read as zero. Returns 0 or a cudaError_t.
-inline int make_tma_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                         const uint64_t* strides, const uint32_t* box) {
+// tensor map of `rank` dims (innermost first) of `dtype` elements (BFLOAT16
+// or UINT8), with byte strides of dims 1.. and a box whose inner extent is 128
+// bytes (64 bf16 or 128 int8 values), 128-byte swizzle, out-of-range elements
+// read as zero. Returns 0 or a cudaError_t.
+inline int make_tma(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int rank,
+                    const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t gdim[5], gstride[4];
@@ -314,10 +382,9 @@ inline int make_tma_bf16(CUtensorMap* map, const void* base, int rank, const uin
     estride[i] = 1;
     if (i > 0) gstride[i - 1] = strides[i - 1];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                  const_cast<void*>(base), gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, dtype, static_cast<cuuint32_t>(rank), const_cast<void*>(base), gdim, gstride,
+                  bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

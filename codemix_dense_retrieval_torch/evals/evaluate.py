@@ -18,6 +18,7 @@ import collections
 import csv
 import datetime
 import json
+import math
 import os
 import pathlib
 import re
@@ -117,6 +118,26 @@ def evaluate_run(
     return ordered, perquery_rows, diag
 
 
+def _csv_column(values: List[object]) -> List[str]:
+    """One column's fields as pandas ``to_csv`` writes them (``None`` =
+    missing cell): a complete column of ints as ints, otherwise floats by
+    ``repr`` with NaN and missing cells empty."""
+    if values and all(isinstance(v, int) and not isinstance(v, bool) for v in values):
+        return [str(v) for v in values]
+    out = []
+    for v in values:
+        f = float("nan") if v is None else float(v)
+        out.append("" if math.isnan(f) else repr(f))
+    return out
+
+
+def _write_csv(path: pathlib.Path, header: List[str], columns: List[List[str]]) -> None:
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(zip(*columns))
+
+
 def write_artifacts(
     ordered: Dict[str, float],
     perquery_rows: List[Tuple[str, str, float]],
@@ -127,17 +148,15 @@ def write_artifacts(
     metric_names: Optional[List[str]] = None,
     timestamp: Optional[str] = None,
 ) -> pathlib.Path:
-    """Write the -agg.csv/-agg.json/-perquery.csv/-diagnostic.txt quartet
-    (plain csv, no pandas); returns the artifact base path."""
+    """Write the -agg.csv/-agg.json/-perquery.csv/-diagnostic.txt quartet,
+    byte for byte as the JAX package's pandas ``to_csv`` does (plain csv, no
+    pandas); returns the artifact base path."""
     ts = timestamp or datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
     stem = run_path.stem
     base = f"{stem}_{split}_{ts}"
     outdir.mkdir(parents=True, exist_ok=True)
 
-    with open(outdir / f"{base}-agg.csv", "w", newline="") as fh:
-        w = csv.writer(fh)
-        w.writerow(list(ordered))
-        w.writerow([repr(float(v)) for v in ordered.values()])
+    _write_csv(outdir / f"{base}-agg.csv", list(ordered), [_csv_column([v]) for v in ordered.values()])
     with open(outdir / f"{base}-agg.json", "w") as fh:
         json.dump(ordered, fh, indent=2)
     if perquery_rows:
@@ -145,11 +164,9 @@ def write_artifacts(
         table: Dict[str, Dict[str, float]] = {}
         for qid, name, val in perquery_rows:
             table.setdefault(qid, {})[name] = val
-        with open(outdir / f"{base}-perquery.csv", "w", newline="") as fh:
-            w = csv.writer(fh)
-            w.writerow(["qid", *names])
-            for qid in sorted(table):
-                w.writerow([qid, *(repr(float(table[qid].get(n, float("nan")))) for n in names)])
+        qids = sorted(table)
+        _write_csv(outdir / f"{base}-perquery.csv", ["qid", *names],
+                   [qids] + [_csv_column([table[q].get(n) for q in qids]) for n in names])
     with open(outdir / f"{base}-diagnostic.txt", "w") as fh:
         for k, v in diag.items():
             print(f"{k}: {v}", file=fh)

@@ -11,10 +11,12 @@ runs with ``-Xptxas -v``, and its log is kept beside the library
 spill bytes and ptxas's warnings out of it (C7518: wgmma serialised).
 ``bin_scores.cu`` holds kernel A (bin-major), kernel 2 (its transposed
 layout), kernel 5 (``binmax_only``) and kernel 7 (``binub``, the sketch
-tier's upper-bound bin maxima), ``bin_scores_int8.cu`` kernel 4,
-``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the two-stage
-rerank's MaxSim). Kernels A, 2, 7 and B are built on ``sm90.cuh`` (TMA,
-mbarrier rings, wgmma).
+tier's upper-bound bin maxima), ``bin_scores_int8.cu`` kernel 4 (both
+layouts), ``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the
+two-stage rerank's MaxSim). The bin-score kernels (A, 2, 4, 5, 7) are two
+templates in ``bin_kernels.cuh``, instantiated per operand type and
+epilogue; they and kernel B are built on ``sm90.cuh`` (TMA, mbarrier rings,
+wgmma).
 
 ``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
 where it launches its kernel, and nowhere else. Kernels A and 4 count their

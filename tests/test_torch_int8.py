@@ -65,6 +65,34 @@ def test_bin_scores_int8_plain_is_bit_equal_to_pallas(bin_size, layout, score_dt
     assert (pad_rows == np.float32(NEG_INF) if score_dtype == "float32" else pad_rows < -1e38).all()
 
 
+@pytest.mark.parametrize("layout", ["bin_major", "transposed"])
+@pytest.mark.parametrize("bin_size", [8, 16])
+@pytest.mark.parametrize("b", [1, 65, 129, 257])
+def test_bin_scores_int8_plain_is_bit_equal_to_pallas_at_kernel_tile_edges(b, bin_size, layout):
+    """The card's oracle for kernel 4 at the kernel's tile edges: one query,
+    one past its 64- and 128-wide query tiles, two 256-query tiles; d = 192,
+    one and a half 128-byte stages; n_valid inside the first 128-row tile,
+    so every later tile is padding."""
+    rng = np.random.default_rng(3000 + b)
+    n, d, n_valid = 1024, 192, 100
+    qv, qs = quantize_rows_np(_unit(rng, b, d))
+    dv, ds = quantize_rows_np(_unit(rng, n, d))
+    s_ref, bm_ref = ref._bin_scores_pallas_int8(
+        *map(jnp.asarray, (qv, qs, dv, ds)), bin_size, n_valid, tile_b=b, tile_n=512,
+        interpret=True, bin_major=(layout == "bin_major"),
+    )
+    s_got, bm_got = port.bin_scores_int8(*map(torch.from_numpy, (qv, qs, dv, ds)), n_valid, bin_size,
+                                         layout=layout)
+    s_got, bm_got = s_got.numpy(), bm_got.numpy()
+    assert s_got.shape == np.shape(s_ref) and bm_got.shape == np.shape(bm_ref)
+    np.testing.assert_array_equal(_bits(s_got), _bits(s_ref))
+    np.testing.assert_array_equal(_bits(bm_got), _bits(bm_ref))
+    if layout == "transposed":
+        s_got, bm_got = s_got.T, bm_got.T
+    assert (s_got[:, n_valid:] == NEG_INF).all()
+    assert (bm_got[:, -(-n_valid // bin_size):] == NEG_INF).all()
+
+
 def _int8_pair(seed, n=3000, d=64, b=16):
     rng = np.random.default_rng(seed)
     qs = _unit(rng, b, d)

@@ -47,6 +47,27 @@ def test_binmax_only_plain_matches_pallas(bin_size, dtype):
     np.testing.assert_array_equal(got, bm.numpy())
 
 
+@pytest.mark.parametrize("bin_size", [8, 16])
+@pytest.mark.parametrize("b", [1, 65, 129, 257])
+def test_binmax_only_plain_matches_pallas_at_kernel_tile_edges(b, bin_size):
+    """The card's oracle for kernel 5 at kernel A's tile edges: one query,
+    one past the 64- and 128-wide query tiles, two 256-query tiles; d = 96,
+    half of a 64-dim chunk; n_valid inside the first 128-row tile."""
+    rng = np.random.default_rng(4000 + b)
+    n, d, n_valid = 1024, 96, 100
+    q, x = _unit(rng, b, d), _unit(rng, n, d)
+    want = np.asarray(ref._binmax_only_pallas(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16), bin_size, n_valid,
+        tile_b=b, tile_n=512, interpret=True,
+    )).T
+    got = port.binmax_only(torch.from_numpy(q).to(torch.bfloat16), torch.from_numpy(x).to(torch.bfloat16),
+                           n_valid, bin_size).numpy()
+    assert got.shape == want.shape == (b, n // bin_size)
+    first_pad = -(-n_valid // bin_size)
+    assert (got[:, first_pad:] == NEG_INF).all() and (want[:, first_pad:] == NEG_INF).all()
+    np.testing.assert_allclose(got[:, :first_pad], want[:, :first_pad], atol=1e-5, rtol=0)
+
+
 def _run_both(name, qs, docs, k, **kw):
     if name == "bins_rescore":
         rv, ri = ref.topk_ip(jnp.asarray(qs), jnp.asarray(docs), k, method="bins_rescore",

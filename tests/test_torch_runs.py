@@ -75,6 +75,38 @@ def test_evaluate_agg_json_matches(mix_runs, tmp_path):
     assert (tmp_path / "port" / got_path.name.replace("-agg.json", "-perquery.csv")).exists()
 
 
+def _nan_and_missing_cells():
+    """Hand-made metrics: a NaN aggregate, a negative zero, an int, and
+    per-query rows where one query lacks a metric (an empty cell)."""
+    ordered = {"nDCG@10": 12.345678901234567, "RR@10": float("nan"), "P@1": -0.0, "R@100": 100.0,
+               "n": 3}
+    rows = [("q2", "RR@10", 50.0), ("q2", "nDCG@10", 1 / 3), ("q10", "nDCG@10", 0.0),
+            ("q1", "RR@10", float("nan")), ("q1", "nDCG@10", 1e-05)]
+    diag = {"num_queries": 3, "pct_unjudged": 12.5}
+    return ordered, rows, diag, ["RR@10", "nDCG@10"]
+
+
+def _empty_evaluation():
+    ordered, rows, diag = port_eval.evaluate_run({}, {}, perquery=True)
+    return ordered, rows, diag, None
+
+
+@pytest.mark.parametrize("make", [_nan_and_missing_cells, _empty_evaluation])
+def test_evaluate_artifacts_are_byte_identical(make, tmp_path):
+    ordered, rows, diag, names = make()
+    run = pathlib.Path("runs/cm-alpha-0.5.trec")
+    got = port_eval.write_artifacts(ordered, rows, diag, run, "dev", tmp_path / "port",
+                                    metric_names=names, timestamp="20260101-000000")
+    want = ref_eval.write_artifacts(ordered, rows, diag, run, "dev", tmp_path / "ref",
+                                    metric_names=names, timestamp="20260101-000000")
+    assert got.name == want.name
+    written = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == written
+    assert len(written) == (4 if rows else 3)
+    for name in written:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "ref" / name).read_bytes(), name
+
+
 def test_intersect_query_sets_matches():
     a = [("1", "x"), ("2", "y"), ("3", "z")]
     b = [("3", "Z"), ("1", "X"), ("9", "?")]
