@@ -38,7 +38,10 @@ Phases (a line of JSON after each):
  5. search   — the vector-mix run over an 8,841,823 x 1024 bf16 index (one
                mMARCO language): alpha in {0, .25, .5, .75, 1} at k=100 and
                alpha=.5 at k=1000, the two-level route (kernel A bin-major);
-               RR@10, f32-oracle overlap and the kernel's own stable top-k.
+               RR@10, f32-oracle overlap and the kernel's own stable top-k;
+               the fused sweep (fused_alpha_sweep, same 5 alphas at k=100)
+               beside it, its ids equal to the unfused runs'; the k=1000 run
+               written by the native TREC writer and by the Python one.
  5b. int8   — the phase-5 index quantized on the card (8,841,823 x 1024
                int8 + scales) and the same run over it: the int8 two-level
                route (kernel 4 bin-major); ids equal a stable top-k of the
@@ -55,17 +58,27 @@ Phases (a line of JSON after each):
                alpha=.5, where each query's planted row certifies; certified
                queries have the exact run's ids (swaps only between scores
                within 1e-5: their scores come from the rescore's products),
-               calibrate_sketch.
+               calibrate_sketch; the fused sweep exact and guaranteed
+               (fused_alpha_sweep_guaranteed, kernel 7), equal ids, and at
+               k=1 fast and guaranteed, where planted queries certify: the
+               fast sweep's certified rows are the exact sweep's (swaps only
+               within ties), the guaranteed ids equal the exact ones.
  6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
                process) on a BGE-M3-width params.npz checkpoint and a
-               131,072-row store: the single-level route (kernel 2, transposed).
+               131,072-row store: the single-level route (kernel 2, transposed);
+               `run-mix --fused --qrels` (ids equal the unfused run's) and
+               `run-bilingual-mix --fused --qrels` over that store and a
+               parallel second language (a 262,144-row hub: kernel A).
  6b. corpus  — `encode-corpus --storage_dtype int8 --tokens_per_doc 32` on
                2,048 passages of 600-1000 words (cut to the CLI's 512-token
-               cap, so plain attention, as in the JAX package), then
+               cap, so plain attention, as in the JAX package) and 512 of a
+               second language, then
                `run-mix` over that int8 store (kernel 4 transposed), `run-mix
                --approx guaranteed` (kernel 7; the int8 sketch tier) and
-               `run-rerank --k 100 --k_dense 400` (kernel 6); both run-mix
-               runs equal the exact int8 top-k; passages/s.
+               `run-rerank --k 100 --k_dense 400` (kernel 6), also over both
+               languages (the bilingual two-stage), and `run-mix --fused
+               --qrels` over the int8 store (kernel 4 in the fused sweep);
+               the three run-mix runs equal the exact int8 top-k; passages/s.
  6c. twostage — a 131,072-row bf16 index and a 131,072 x 32 x 1024 int8
                token store written by TokenShardWriter, 512 queries of 32
                tokens with one planted document each:
@@ -74,18 +87,38 @@ Phases (a line of JSON after each):
                over the same candidates (swaps only within 1e-4), RR@10,
                the memmap path gives the same ids.
  7. kernels line — per kernel, at the main path's shape: the check against
-               its plain version again, its launches on the paths, max error,
-               time (mean, fastest and slowest of 5 timed windows), its
-               bound, the plain version's and one PyTorch call's time (a
-               yardstick the port never calls).
+               its plain version again, max error, time (mean, fastest and
+               slowest of 5 timed windows), its bound, the plain version's and
+               one PyTorch call's time (a yardstick the port never calls).
+ 8. hub      — the bilingual hub at the paper's size: the phase-5 rows
+               (language 1) and a parallel language 2 made from them on the
+               card (row i: normalize(row_i + 0.3 u_i), u_i a random unit
+               vector, the same docid), joined by DenseFlatIndex.merged
+               (17,683,646 x 1024 bf16, 36.2 GB on the card), searched with
+               the phase-4 query pairs, asking for the CLI's 1024-query block
+               (cut to what fits beside the hub: fit_query_block);
+               run_bilingual_vector_mix (5 alphas, k=500, raw run + host
+               collapse) and run_bilingual_vector_mix_fused (2k raw depth,
+               on-device collapse and metrics, planted qrels); kernel A
+               against its plain version on one block at the hub's shape
+               (its score store passes 2^32 elements); per query the
+               unfused collapsed run is a prefix of the fused one (order free
+               only among equal printed scores); the fused ids of 64 queries
+               equal a stable collapsed top-500 of kernel A's own scores; the
+               device metrics x100 equal `evaluate` on the fused runs within
+               1e-4, RR@10 = 100 at alpha = .5; kernel A's time per block.
+               Then each kernel's launches on all the paths.
 Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 5d,
-6, 6b, 6c) and read just after it; comparison and timing launches happen
-outside those windows.
+6, 6b, 6c, 8 and their fused runs) and read just after it; comparison and
+timing launches happen outside those windows. Every TREC run of the paths is
+written by the native writer (csrc/fastio.cpp, built in phase 2).
 The last line is the device JSON. Any failed check raises (exit code != 0).
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import pathlib
 import runpy
@@ -99,6 +132,7 @@ SEED = 20261016
 N_ROWS = 8_841_823          # one mMARCO language
 SMALL_ROWS = 131_072        # the CLI phase's store
 N_CORPUS = 2048             # passages of the encode-corpus phase
+N_CORPUS_YY = 512           # passages of its second language
 DIM = 1024
 N_QUERIES = 512
 N_PASSAGES = 256
@@ -215,7 +249,14 @@ def main() -> None:
         check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
         for fam in WGMMA_KERNELS & fams.keys():
             check(fams[fam]["spill_bytes"] == 0, f"{fam} spills {fams[fam]['spill_bytes']} bytes")
-    say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()), ptxas=ptxas)
+    from codemix_dense_retrieval_torch.io import _fastio, trec
+
+    t0 = time.perf_counter()
+    check(_fastio.available(), "the native TREC writer (csrc/fastio.cpp) did not build or load")
+    fastio_s = time.perf_counter() - t0
+    trec.WRITES.update(native=0, python=0)
+    say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()), ptxas=ptxas,
+        fastio_seconds=round(fastio_s, 2), fastio=_fastio.library_path().name)
 
     # ---------------- phase 3: kernels vs plain ----------------
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -652,7 +693,42 @@ def main() -> None:
     check(bool((own[:, :100] == ids100[:64]).all()), "k=100 ids differ from the kernel's own stable top-k")
     say("search_checks", rr10=agg["RR@10"], ndcg10=agg["nDCG@10"], overlap_k100=ov100,
         overlap_k1000=ov1000, own_scores_ids_equal_64q=True, oracle_top1_top2_min_gap=gap,
-        oracle_s=round(oracle_s, 2))
+        oracle_s=round(oracle_s, 2), planted_is_top1_frac=float((ids100[:, 0] == planted.numpy()).mean()))
+
+    # the same sweep fused: mix, search and (no qrels here) nothing else leave
+    # the card until the (A, B, k) ids; the same blocks, mix and kernel, so
+    # the ids are the unfused runs'
+    from codemix_dense_retrieval_torch.pipeline.fused import fused_alpha_sweep, fused_alpha_sweep_guaranteed
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, fids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, index._docs_dev, index._counts_dev, 100,
+                                      search_kwargs=index.search_kwargs, query_block=256)
+    fids = fids.cpu().numpy()
+    tf100 = time.perf_counter() - t0
+    path_counts["fused"] = dict(kernels.LAUNCHES)
+    check(path_counts["fused"]["bin_scores_bin_major"] > 0, "the fused sweep did not launch kernel A")
+    for ai, a in enumerate(ALPHAS):
+        check(np.array_equal(fids[ai], run_ids(runs100[a], 100)), f"fused ids differ from the unfused run, alpha={a}")
+    # the k=1000 table written by the native writer and by the Python one
+    table_ids, table_sc = run_table(runs1000[0.5], 1000)
+    table_docs = index.docids[table_ids]
+    table_sc = table_sc.astype(np.float32)
+    t0 = time.perf_counter()
+    trec.write_run(work / "w_native.trec", qids, table_docs, table_sc, tag="onepass-cm")
+    native_w_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trec._write_run_python(work / "w_python.trec", qids, table_docs, table_sc, "onepass-cm", 4)
+    python_w_s = time.perf_counter() - t0
+    check((work / "w_native.trec").read_bytes() == (work / "w_python.trec").read_bytes(),
+          "the native and Python TREC writers differ")
+    say("fused", alphas=len(ALPHAS), k=100, query_block=256,
+        unfused_k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t100, 1),
+        fused_k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / tf100, 1), fused_ids_equal_unfused=True,
+        k1000_queries_per_s_native_writer=round(N_QUERIES / t1000, 1),
+        trec_k1000_lines=N_QUERIES * 1000, trec_write_native_s=round(native_w_s, 3),
+        trec_write_python_s=round(python_w_s, 3), launches=path_counts["fused"])
 
     # ---------------- phase 5b: the same run over the int8 index ----------------
     from codemix_dense_retrieval_torch.io.shards import ShardStore
@@ -845,6 +921,53 @@ def main() -> None:
     check(len(c1) > 0, "no planted query was certified at k = 1: the certificate never fired at full size")
     check(top1[2] == 0, f"{top1[2]} certified k = 1 queries differ from exact search beyond ties")
     check(grt_score_gap <= 1e-4 + 1e-6, f"guaranteed vs exact TREC score gap {grt_score_gap}")
+    # the fused sweep on this index, exact and guaranteed: the same ids
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, fe_ids, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 100,
+                                        search_kwargs=index.search_kwargs, query_block=256)
+    fe_ids = fe_ids.cpu().numpy()
+    tfe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, fg_ids, _, fg_cert = fused_alpha_sweep_guaranteed(
+        qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 100, sketch=index._sketch,
+        search_kwargs=index.search_kwargs, query_block=256)
+    tfg = time.perf_counter() - t0
+    # k = 1, where the planted queries certify at alpha = .5: the fast sweep
+    # keeps its certified rows, and the guaranteed one escalates only the rest
+    sweep1 = dict(search_kwargs=index.search_kwargs, query_block=256)
+    _, fe1, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1, **sweep1)
+    t0 = time.perf_counter()
+    _, ff1, _, ff1_cert = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1,
+                                            sketch=index._sketch, **sweep1)
+    ff1, ff1_cert = ff1.cpu().numpy(), ff1_cert.cpu().numpy()
+    tff1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, fg1, _, fg1_cert = fused_alpha_sweep_guaranteed(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1,
+                                                       sketch=index._sketch, **sweep1)
+    tfg1 = time.perf_counter() - t0
+    path_counts["fused_sketch"] = dict(kernels.LAUNCHES)
+    fe1 = fe1.cpu().numpy()
+    check(path_counts["fused_sketch"]["binub"] > 0, "the guaranteed fused sweep did not launch kernel 7")
+    check(np.array_equal(fg_ids, fe_ids), "guaranteed fused ids differ from the exact fused sweep's")
+    fused_k1 = [0, 0, 0]  # certified rows: equal, equal up to ties, differing
+    for ai, a in enumerate(ALPHAS):
+        c = np.flatnonzero(ff1_cert[ai])
+        if len(c):
+            r = tie_check(mixed5(a).to(torch.bfloat16).float()[torch.from_numpy(c).to(dev)], ff1[ai, c], fe1[ai, c],
+                          TIE_TOL)
+            fused_k1 = [x + y for x, y in zip(fused_k1, r)]
+    say("fused_sketch", alphas=len(ALPHAS), k=100, exact_queries_per_s=round(len(ALPHAS) * N_QUERIES / tfe, 1),
+        guaranteed_queries_per_s=round(len(ALPHAS) * N_QUERIES / tfg, 1),
+        certified_frac=float(fg_cert.mean()), guaranteed_ids_equal_exact=True,
+        k1_fast_queries_per_s=round(len(ALPHAS) * N_QUERIES / tff1, 1),
+        k1_guaranteed_queries_per_s=round(len(ALPHAS) * N_QUERIES / tfg1, 1),
+        k1_certified_frac_fast=float(ff1_cert.mean()), k1_certified_frac_guaranteed=float(fg1_cert.mean()),
+        k1_certified_ids_equal_exact=fused_k1[0], k1_certified_equal_up_to_ties=fused_k1[1],
+        k1_guaranteed_ids_equal_exact=bool(np.array_equal(fg1, fe1)), launches=path_counts["fused_sketch"])
+    check(ff1_cert.any() and fg1_cert.any(), "no (alpha, query) pair certified in the fused k = 1 sweeps")
+    check(fused_k1[2] == 0, f"{fused_k1[2]} certified fused k = 1 rows differ from the exact sweep beyond ties")
+    check(np.array_equal(fg1, fe1), "guaranteed fused ids at k = 1 differ from the exact fused sweep's")
     t0 = time.perf_counter()
     cal = index.calibrate_sketch(mixed5(0.5).cpu().numpy(), 100, recall_target=0.99)
     cal_s = time.perf_counter() - t0
@@ -954,16 +1077,80 @@ def main() -> None:
         write_s=round(write_s, 2), run_s=round(cli_s, 2), overlap_k100=cli_ov,
         launches=path_counts["cli"])
 
+    def run_cli_json(argv):
+        """run_cli, and the JSON the command printed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_cli(argv)
+        return json.loads(buf.getvalue())
+
+    # run-mix --fused --qrels over the same store: the unfused run's ids, and
+    # the metrics per alpha (qrels: the f32 oracle's top-1 at alpha = .5)
+    qrels_s = work / "qrels_small.tsv"
+    top1_s = soids[:, 0].cpu().numpy()
+    qrels_s.write_text("".join(f"{q}\ts{top1_s[i]}\t1\n" for i, q in enumerate(qids)))
+    fused_argv = [a if a != str(work / "cli_runs") else str(work / "cli_fused") for a in argv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_fused = run_cli_json([*fused_argv, "--fused", "--qrels", str(qrels_s)])
+    cli_fused_s = time.perf_counter() - t0
+    path_counts["cli_fused"] = dict(kernels.LAUNCHES)
+    check(path_counts["cli_fused"]["bin_scores_transposed"] > 0, "run-mix --fused did not launch kernel 2")
+    for label in ("0", "0.5", "1"):
+        got = {}
+        with open(work / "cli_fused" / f"cm-alpha-{label}.trec") as fh:
+            for line in fh:
+                qid, _, doc, _, _, _ = line.split()
+                got.setdefault(qid, []).append(int(doc[1:]))
+        check(np.array_equal(np.array([got[q] for q in qids]), cli_ids(label)),
+              f"run-mix --fused ids differ from the unfused run's, alpha={label}")
+        check({"run", "RR@10", "nDCG@10", "R@100", "AP"} <= set(cli_fused[label]), f"run-mix --fused payload {label}")
+    # a parallel second language of the same store, and run-bilingual-mix
+    # --fused over the two (262,144 rows: the two-level route)
+    small2 = torch.empty_like(small)
+    for c0 in range(0, SMALL_ROWS, 1 << 16):
+        x = small[c0 : c0 + (1 << 16)].to(dev).float()
+        u = torch.randn(x.shape, device=dev, generator=gi)
+        y = x + 0.3 * u / u.norm(dim=1, keepdim=True)
+        small2[c0 : c0 + (1 << 16)].copy_((y / y.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    ShardStore.build(small2, [f"s{i}" for i in range(SMALL_ROWS)], lang="yy").save(work / "small2")
+    del small2
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_bi = run_cli_json(["codemix_dense_retrieval_torch", "run-bilingual-mix", "--checkpoint", str(ckpt),
+                           "--index", str(work / "small"), str(work / "small2"), "--query_tsv",
+                           f"en={work / 'en.tsv'}", f"zh={work / 'zh.tsv'}", "--outdir", str(work / "cli_bi"),
+                           "--k", "100", "--qblock", "256", "--cm_alphas", "0", "0.5", "1", "--fused",
+                           "--qrels", str(qrels_s), "--seed", str(SEED)])
+    cli_bi_s = time.perf_counter() - t0
+    path_counts["cli_bilingual_fused"] = dict(kernels.LAUNCHES)
+    check(path_counts["cli_bilingual_fused"]["bin_scores_bin_major"] > 0,
+          "run-bilingual-mix --fused did not launch kernel A")
+    check(sorted(cli_bi) == ["0.0", "0.5", "1.0"], f"run-bilingual-mix --fused payload {sorted(cli_bi)}")
+    for a, entry in cli_bi.items():
+        n_lines = len(pathlib.Path(entry["run"]).read_text().splitlines())
+        check(n_lines == N_QUERIES * 100 and "RR@10" in entry, f"run-bilingual-mix --fused run {a}: {n_lines} lines")
+    say("cli_fused", run_mix_fused_s=round(cli_fused_s, 2), run_mix_fused_ids_equal_unfused=True,
+        run_mix_fused_metrics={a: {m: v for m, v in e.items() if m in ("RR@10", "nDCG@10", "R@100")}
+                               for a, e in cli_fused.items()},
+        run_bilingual_mix_fused_s=round(cli_bi_s, 2), hub_rows=2 * SMALL_ROWS,
+        run_bilingual_mix_fused_metrics={a: {m: v for m, v in e.items() if m in ("RR@10", "nDCG@10", "R@100")}
+                                         for a, e in cli_bi.items()},
+        launches={"run_mix": path_counts["cli_fused"], "run_bilingual_mix": path_counts["cli_bilingual_fused"]})
+
     # ---------------- phase 6b: encode-corpus (int8) + run-mix over it ----------------
     from codemix_dense_retrieval_torch.pipeline.query_cache import load_query_cache
 
     corpus_tsv = work / "corpus.tsv"
     corpus_tsv.write_text("".join(f"c{i}\t{sentence('p', 600, 1000, 50_000)}\n" for i in range(N_CORPUS)))
+    corpus_yy = work / "corpus_yy.tsv"  # a second language for the bilingual two-stage
+    corpus_yy.write_text("".join(f"c{i}\t{sentence('y', 600, 1000, 50_000)}\n" for i in range(N_CORPUS_YY)))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     run_cli(["codemix_dense_retrieval_torch", "encode-corpus", "--checkpoint", str(ckpt),
-             "--corpus_tsv", f"xx={corpus_tsv}", "--storage_dtype", "int8", "--out", str(work / "corpus"),
-             "--batch", "512", "--enc_batch", "32", "--tokens_per_doc", str(TD), "--seed", str(SEED)])
+             "--corpus_tsv", f"xx={corpus_tsv}", f"yy={corpus_yy}", "--storage_dtype", "int8",
+             "--out", str(work / "corpus"), "--batch", "512", "--enc_batch", "32", "--tokens_per_doc", str(TD),
+             "--seed", str(SEED)])
     encode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
@@ -1021,6 +1208,26 @@ def main() -> None:
     check(bool((corpus_run_ids(work / "corpus_grt_runs" / "cm-alpha-0.5.trec") == want8.cpu().numpy()).all()),
           "run-mix --approx guaranteed over the int8 store differs from the exact int8 top-k")
     grt_meta = json.loads((work / "corpus_grt_runs" / "cm-alpha-0.5_meta.json").read_text())
+    # run-mix --fused --qrels over the int8 store (kernel 4 inside the fused
+    # sweep): the exact int8 ids; qrels: that top-1, under the derived id
+    # (`c<i>#xx`) the run prints
+    qrels8 = work / "qrels_corpus.tsv"
+    top8 = want8[:, 0].cpu().numpy()
+    qrels8.write_text("".join(f"{q}\t{store8.derived_ids[top8[i]]}\t1\n" for i, q in enumerate(qids)))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    corpus_fused = run_cli_json(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+                                 "--index", str(work / "corpus" / "xx"), "--query_tsv", f"en={work / 'en.tsv'}",
+                                 f"zh={work / 'zh.tsv'}", "--outdir", str(work / "corpus_fused_runs"), "--k", "100",
+                                 "--qblock", "256", "--cm_alphas", "0.5", "--query_cache", str(work / "qcache"),
+                                 "--fused", "--qrels", str(qrels8), "--seed", str(SEED)])
+    corpus_fused_s = time.perf_counter() - t0
+    path_counts["corpus_cli_fused"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_cli_fused"]["bin_scores_int8_transposed"] > 0,
+          "run-mix --fused over the int8 store did not launch kernel 4 transposed")
+    check(bool((corpus_run_ids(work / "corpus_fused_runs" / "cm-alpha-0.5.trec") == want8.cpu().numpy()).all()),
+          "run-mix --fused over the int8 store differs from the exact int8 top-k")
+    check(corpus_fused["0.5"]["RR@10"] == 100.0, f"run-mix --fused int8 RR@10 {corpus_fused['0.5']['RR@10']}")
     # the two-stage CLI over the encode-corpus store and its token store
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1035,12 +1242,31 @@ def main() -> None:
     rerank_meta = json.loads((work / "rerank_runs" / "en_meta.json").read_text())
     check(rerank_meta["k_dense_effective"] == K_DENSE and rerank_meta["k_effective"] == 100,
           f"run-rerank depths {rerank_meta}")
-    say("corpus_cli", passages=N_CORPUS, words_per_passage="600-1000", bucket=512, storage_dtype="int8",
-        tokens_per_doc=TD, encode_corpus_s=round(encode_s, 2), passages_per_s=round(N_CORPUS / encode_s, 1),
+    # the bilingual two-stage: each language's two-stage search, merged and collapsed
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-rerank", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), str(work / "corpus" / "yy"), "--queries", str(work / "en.tsv"),
+             "--outdir", str(work / "rerank_bi"), "--k", "100", "--k_dense", str(K_DENSE),
+             "--qblock", "256", "--seed", str(SEED)])
+    rerank_bi_s = time.perf_counter() - t0
+    path_counts["rerank_bilingual_cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["rerank_bilingual_cli"]["maxsim"] > 0, "run-rerank over two indexes did not launch kernel 6")
+    raw_bi = run_table(work / "rerank_bi" / "en_raw.trec", 100, doc_int=lambda d: int(d.split("#")[0][1:]))[0]
+    check(all(len(set(r)) >= 50 for r in raw_bi), "bilingual two-stage raw run shape")
+    base_bi = (work / "rerank_bi" / "en_base.trec").read_text().splitlines()
+    check(len({ln.split()[0] for ln in base_bi}) == N_QUERIES and all("#" not in ln for ln in base_bi),
+          "bilingual two-stage collapsed run")
+    say("corpus_cli", passages=N_CORPUS + N_CORPUS_YY, words_per_passage="600-1000", bucket=512,
+        storage_dtype="int8", tokens_per_doc=TD, encode_corpus_s=round(encode_s, 2),
+        passages_per_s=round((N_CORPUS + N_CORPUS_YY) / encode_s, 1), run_rerank_bilingual_s=round(rerank_bi_s, 2),
+        run_rerank_bilingual_launches=path_counts["rerank_bilingual_cli"],
         run_mix_s=round(corpus_run_s, 2), store_rows=store8.count, ids_equal_exact_int8_topk=True,
         launches=path_counts["corpus_cli"], run_mix_guaranteed_s=round(corpus_grt_s, 2),
         guaranteed_ids_equal_exact_int8_topk=True, guaranteed_meta=grt_meta,
-        guaranteed_launches=path_counts["corpus_grt"], run_rerank_s=round(rerank_cli_s, 2),
+        guaranteed_launches=path_counts["corpus_grt"], run_mix_fused_s=round(corpus_fused_s, 2),
+        fused_ids_equal_exact_int8_topk=True, fused_rr10=corpus_fused["0.5"]["RR@10"],
+        fused_launches=path_counts["corpus_cli_fused"], run_rerank_s=round(rerank_cli_s, 2),
         run_rerank_launches=path_counts["rerank_cli"])
     del cd8
 
@@ -1383,11 +1609,169 @@ def main() -> None:
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B={bsz} H={h} S={seq} dh={dh} bf16 mean_len={lens.float().mean().item():.1f}",
     ))
-    for e in late_entries:
-        e["launches"] = total(e["name"])
-        entries.append(e)
+    del q, k, v, small_dev, docs_s, d8_s, ds8_s, col_s
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 8: the bilingual hub at full size ----------------
+    from codemix_dense_retrieval_torch.config import format_alpha
+    from codemix_dense_retrieval_torch.pipeline.bilingual import (
+        run_bilingual_vector_mix,
+        run_bilingual_vector_mix_fused,
+    )
+
+    # language 2, parallel to the phase-5 rows: row i is normalize(row_i +
+    # 0.3 u_i), u_i a random unit vector, under the same docid
+    t0 = time.perf_counter()
+    host2 = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16)
+    gh = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        x = host[c0:c1].to(dev).float()
+        u = torch.randn(x.shape, device=dev, generator=gh)
+        y = x + 0.3 * u / u.norm(dim=1, keepdim=True)
+        host2[c0:c1].copy_((y / y.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    del x, u, y
+    hub = DenseFlatIndex.merged([DenseFlatIndex.build(host, docids), DenseFlatIndex.build(host2, docids)],
+                                lang_tags=["l1", "l2"])
+    hub_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hub.to_device()
+    torch.cuda.synchronize()
+    hub_upload_s = time.perf_counter() - t0
+    check(hub.count == 2 * N_ROWS and hub._rows_per_shard == -(-2 * N_ROWS // 1024) * 1024,
+          f"hub rows {hub.count} / {hub._rows_per_shard}")
+    # both runs ask for the CLI's 1024-query block; the search cuts it to
+    # what fits beside the hub (256 on an 80 GB card)
+    from codemix_dense_retrieval_torch.parallel.sharded_search import fit_query_block
+
+    hub_block = min(fit_query_block(1024, N_QUERIES, hub._rows_per_shard, dev), N_QUERIES)
+    out_hub = work / "hub"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hub_unfused = run_bilingual_vector_mix(hub, qids, qa, qb, ALPHAS, out_hub / "unfused", k=500, query_block=1024)
+    t_hub = time.perf_counter() - t0
+    path_counts["hub_unfused"] = dict(kernels.LAUNCHES)
+    check(path_counts["hub_unfused"]["bin_scores_bin_major"] > 0, "the hub run did not launch kernel A")
+    hub_qrels = {q: {str(int(planted[i])): 1} for i, q in enumerate(qids)}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hub_fused, hub_metrics = run_bilingual_vector_mix_fused(
+        hub, qids, qa, qb, ALPHAS, out_hub / "fused", k=500, qrels=hub_qrels, query_block=1024)
+    t_hub_fused = time.perf_counter() - t0
+    path_counts["hub_fused"] = dict(kernels.LAUNCHES)
+    check(path_counts["hub_fused"]["bin_scores_bin_major"] > 0, "the fused hub run did not launch kernel A")
+
+    def trec_rows(path):
+        rows = {}
+        with open(path) as fh:
+            for line in fh:
+                f = line.split()
+                rows.setdefault(f[0], []).append((f[2], f[4]))
+        return rows
+
+    # per query the unfused collapse (the bases whose best row is in the raw
+    # top-500, at their true max) is a prefix of the fused run (2k raw depth,
+    # always 500 bases); order is free only among equal printed scores
+    # (the checks of this phase run after its line is printed)
+    tie_reordered, unfused_len_min, not_prefix = 0, 500, []
+    for a in ALPHAS:
+        u_rows, f_rows = trec_rows(hub_unfused[a]), trec_rows(hub_fused[a])
+        check(len(f_rows) == N_QUERIES and len(u_rows) == N_QUERIES, f"hub runs cover the queries, alpha={a}")
+        for q in qids:
+            ur, fr = u_rows[q], f_rows[q]
+            unfused_len_min = min(unfused_len_min, len(ur))
+            if len(fr) != 500 or len(ur) > 500 or [sc for _, sc in ur] != [sc for _, sc in fr[: len(ur)]]:
+                not_prefix.append((a, q))
+            elif [d for d, _ in ur] != [d for d, _ in fr[: len(ur)]]:
+                # the order may differ only among equal printed scores
+                if any(not {d for d, x in ur if x == sc} <= {d for d, x in fr if x == sc} for sc in {x for _, x in ur}):
+                    not_prefix.append((a, q))
+                tie_reordered += 1
+    # kernel A against its plain version at the hub's block shape (one block
+    # of the alpha = .5 mix, as the sweep made it): the score store passes
+    # 2^32 elements (offsets b * N + n of queries b >= 243 at B = 256). Every
+    # query of the block, the plain version 32 queries at a time; scores and
+    # bin maxima within 1e-4, pad scores and pad bins exactly NEG_INF
+    mixh = mix_and_renorm(qa_t.to(dev), qb_t.to(dev), 0.5)
+    qblk = mixh[:hub_block].to(torch.bfloat16).contiguous()
+    nv_h, nb_h = hub._counts_dev[:1], hub._docs_dev.shape[0]
+    s_h, bm_h = topk.bin_scores(qblk, hub._docs_dev, nv_h, 8, layout="bin_major")
+    torch.cuda.synchronize()
+    check(bool((s_h[:, hub.count:] == topk.NEG_INF).all()), "A pad scores at the hub's shape")
+    check(bool((bm_h[:, -(-hub.count // 8):] == topk.NEG_INF).all()), "A pad bins at the hub's shape")
+    err_hub = 0.0
+    for r0 in range(0, hub_block, 32):
+        s2, bm2 = topk.bin_scores_plain(qblk[r0 : r0 + 32], hub._docs_dev, nv_h, 8, layout="bin_major")
+        err_hub = max(err_hub, (bm_h[r0 : r0 + 32] - bm2).abs().max().item())
+        for c0 in range(0, hub.count, 1 << 22):
+            c1 = min(c0 + (1 << 22), hub.count)
+            err_hub = max(err_hub, (s_h[r0 : r0 + 32, c0:c1] - s2[:, c0:c1]).abs().max().item())
+        del s2, bm2
+    check(err_hub <= 1e-4, f"A err {err_hub} at the hub's shape B={hub_block} N={nb_h}")
+    entries[0].update(max_abs_err=max(entries[0]["max_abs_err"], err_hub),
+                      hub_shape=f"B={hub_block} N={nb_h} d={DIM} G=8 f32 scores", hub_max_abs_err=err_hub)
+    # the fused ids of 64 queries: a stable (score desc, base asc) top-500 of
+    # each base's max over its two rows, from kernel A's own scores
+    base_max = torch.maximum(s_h[:64, :N_ROWS], s_h[:64, N_ROWS : 2 * N_ROWS])
+    del s_h, bm_h
+    thr = torch.topk(base_max, 500, dim=1).values[:, -1]
+    own_h = []
+    for r in range(64):
+        cand = torch.nonzero(base_max[r] >= thr[r]).squeeze(1)
+        order = torch.sort(base_max[r, cand], descending=True, stable=True).indices[:500]
+        own_h.append(cand[order])
+    own_h = torch.stack(own_h).cpu().numpy()
+    del base_max
+    f05 = trec_rows(hub_fused[0.5])
+    own_rows_equal = int((own_h == np.array([[int(d) for d, _ in f05[q]] for q in qids[:64]])).all(axis=1).sum())
+    # the device metrics x100 against evaluate on the fused runs
+    qrels_hub = work / "qrels_hub.tsv"
+    qrels_hub.write_text("".join(f"{q}\t{int(planted[i])}\t1\n" for i, q in enumerate(qids)))
+    metric_gap, host_metrics = 0.0, {}
+    for a in ALPHAS:
+        label = format_alpha(a)
+        cli_main(["evaluate", "--dataset", "hub", "--run", str(hub_fused[a]), "--qrels", str(qrels_hub),
+                  "--outdir", str(work / "eval_hub" / label), "--metrics", "MRR@10", "nDCG@10", "R@100"])
+        (agg_h_path,) = (work / "eval_hub" / label).glob("*-agg.json")
+        agg_h = json.loads(agg_h_path.read_text())
+        host_metrics[label] = {m: agg_h[m] for m in ("RR@10", "nDCG@10", "R@100")}
+        for m in ("RR@10", "nDCG@10", "R@100"):
+            metric_gap = max(metric_gap, abs(agg_h[m] - hub_metrics[label][m]))
+    # kernel A and one search block at the hub's shape
+    hub_kernel = kernel_ms(lambda: topk.bin_scores(qblk, hub._docs_dev, nv_h, 8, layout="bin_major"), 3)
+    hub_blk500 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev, hub._counts_dev, 500), 3)
+    hub_blk1000 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev, hub._counts_dev, 1000), 3)
+    say("hub", rows=hub.count, rows_padded=hub._rows_per_shard, dim=DIM, dtype="bfloat16", langs=["l1", "l2"],
+        card_gb=round(hub._docs_dev.numel() * 2 / 1e9, 2), build_s=round(hub_build_s, 2),
+        upload_s=round(hub_upload_s, 2), alphas=len(ALPHAS), k=500, query_block_asked=1024,
+        query_block=hub_block, kernel_a_max_abs_err=err_hub,
+        unfused_queries_per_s=round(len(ALPHAS) * N_QUERIES / t_hub, 1),
+        fused_queries_per_s=round(len(ALPHAS) * N_QUERIES / t_hub_fused, 1),
+        unfused_min_bases=unfused_len_min, prefix_violations=len(not_prefix),
+        prefix_queries_reordered_within_ties=tie_reordered, own_scores_collapsed_ids_equal_of_64=own_rows_equal,
+        metric_gap_vs_evaluate=metric_gap,
+        metrics={format_alpha(a): {m: hub_metrics[format_alpha(a)][m] for m in ("RR@10", "nDCG@10", "R@100")}
+                 for a in ALPHAS},
+        evaluate_metrics=host_metrics,
+        kernel_a_ms=hub_kernel, block_k500_ms=hub_blk500, block_k1000_ms=hub_blk1000,
+        launches={"unfused": path_counts["hub_unfused"], "fused": path_counts["hub_fused"]})
+    check(not not_prefix, f"hub: the unfused run is not a prefix of the fused one (up to ties) for "
+                          f"{len(not_prefix)} (alpha, query) pairs, e.g. {not_prefix[:3]}")
+    check(own_rows_equal == 64, f"fused hub ids differ from a stable collapsed top-500 of kernel A's own "
+                                f"scores for {64 - own_rows_equal} of 64 queries")
+    check(metric_gap <= 1e-4, f"hub device metrics x100 vs evaluate: gap {metric_gap}")
+    check(host_metrics["0.5"]["RR@10"] == 100.0 and hub_metrics["0.5"]["RR@10"] == 100.0,
+          f"hub RR@10 at alpha=.5: evaluate {host_metrics['0.5']['RR@10']}, device {hub_metrics['0.5']['RR@10']}")
+    del hub, host2, mixh, qblk
+    torch.cuda.empty_cache()
+
+    # each kernel's launches over all the paths
+    entries.extend(late_entries)
     for e in entries:
+        e["launches"] = total(e["name"].replace("[", "_").rstrip("]"))
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
+    check(trec.WRITES["python"] == 0 and trec.WRITES["native"] > 0,
+          f"TREC runs written by the Python path: {trec.WRITES}")
     say("path_launches", **path_counts)
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -9,7 +9,15 @@ encode-corpus             encode per-language corpora into shard stores
                           ``--tokens_per_doc T`` adds a token store)
 run-mono                  word-mix band search over one index
 run-mix                   vector-mix alpha sweep over one index
+                          (``--fused [--qrels]``: the sweep and its
+                          metrics on the device)
+run-bilingual             word-mix band search over a bilingual hub
+                          (raw run + max-collapsed run per set)
+run-bilingual-mix         vector-mix alpha sweep over a bilingual hub
+                          (``--fused [--qrels]``: 2k-deep search and the
+                          collapse on the device; parallel hubs only)
 run-rerank                two-stage search: dense recall + MaxSim rerank
+                          (two or more ``--index``: the bilingual hub)
 evaluate                  evaluate a TREC run against qrels
 ========================  ==============================================
 
@@ -17,9 +25,9 @@ Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
 Corpus and query TSVs, index and token-store directories, TREC runs and
 eval artifacts keep the same on-disk formats. ``--approx fast|guaranteed``
 searches through the sketch tier. Options whose paths are not ported yet
-(``--fused``, ``--approx adaptive``, ``--dp`` > 1, ``--shards`` > 1,
-``--weight_quant``, ``--pack``, ``run-rerank`` over two or more indexes)
-exit with an error that names the ROADMAP item.
+(``--approx adaptive``, ``--dp`` > 1, ``--shards`` > 1, ``--weight_quant``,
+``--pack``) exit with an error that names the ROADMAP item; ``--fused
+--approx adaptive`` exits with the JAX package's error.
 """
 
 from __future__ import annotations
@@ -47,9 +55,15 @@ def _parse_lang_path(specs: Sequence[str]) -> Dict[str, pathlib.Path]:
     return out
 
 
+_FUSED_ADAPTIVE = (
+    "--fused does not support --approx adaptive: the probed-exact escalation is host-driven and "
+    "cannot run inside the one-jit sweep (use --approx guaranteed for exact output, or drop --fused)"
+)
+
+
 def _reject_unported(args) -> None:
-    if getattr(args, "fused", False):
-        raise SystemExit("[ERROR] --fused is not ported yet (ROADMAP: fused sweep)")
+    if getattr(args, "fused", False) and getattr(args, "approx", "off") == "adaptive":
+        raise SystemExit(_FUSED_ADAPTIVE)
     if getattr(args, "approx", "off") == "adaptive":
         raise SystemExit(
             "[ERROR] --approx adaptive is not ported yet (ROADMAP queue 1, item 15: "
@@ -202,29 +216,33 @@ def cmd_run_mono(args) -> None:
 def cmd_run_rerank(args) -> None:
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
-    from codemix_dense_retrieval_torch.pipeline.rerank import run_two_stage_search
+    from codemix_dense_retrieval_torch.pipeline.rerank import (
+        run_two_stage_bilingual,
+        run_two_stage_search,
+    )
 
     _reject_unported(args)
-    if len(args.index) > 1:
-        raise SystemExit(
-            "[ERROR] run-rerank over two or more indexes (the bilingual hub) is not ported "
-            "yet (ROADMAP queue 1, item 10: bilingual hub)"
-        )
-    tok_dir = pathlib.Path(args.index[0]) / "tokens"
-    if not TokenShardStore.exists(tok_dir):
-        raise SystemExit(
-            f"[ERROR] {tok_dir} is not a token store: re-run encode-corpus with --tokens_per_doc"
-        )
     encoder = _build_encoder(args)
-    index = DenseFlatIndex.load(args.index[0]).to_device(args.device)
-    store = TokenShardStore.open(tok_dir)
+    indexes, stores = [], []
+    for ix_dir in args.index:
+        tok_dir = pathlib.Path(ix_dir) / "tokens"
+        if not TokenShardStore.exists(tok_dir):
+            raise SystemExit(
+                f"[ERROR] {tok_dir} is not a token store: re-run encode-corpus with --tokens_per_doc"
+            )
+        indexes.append(DenseFlatIndex.load(ix_dir).to_device(args.device))
+        stores.append(TokenShardStore.open(tok_dir))
     sets = _load_query_sets(args)
     if args.max_queries:
         sets = {k: v[: args.max_queries] for k, v in sets.items()}
-    runs = run_two_stage_search(
-        index, store, encoder, sets, args.outdir, k=args.k, k_dense=args.k_dense or None,
-        batch_size=args.enc_batch, query_block=args.qblock, cache_root=args.query_cache,
-    )
+    common = dict(k=args.k, k_dense=args.k_dense or None, batch_size=args.enc_batch,
+                  query_block=args.qblock, cache_root=args.query_cache)
+    if len(indexes) == 1:
+        runs = run_two_stage_search(indexes[0], stores[0], encoder, sets, args.outdir, **common)
+    else:
+        # the bilingual hub: per-language two-stage + merge + collapse (the
+        # queries are shared, so one query cache serves all languages)
+        runs = run_two_stage_bilingual(indexes, stores, encoder, sets, args.outdir, **common)
     print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
 
 
@@ -272,9 +290,123 @@ def cmd_run_mix(args) -> None:
     vecs_b = encode_cached(lang_b, texts_b)
     alphas = [float(a) for a in args.cm_alphas]
     approx = _approx_mode(args)
+    if args.fused:
+        _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx)
+        return
     runs = run_vector_mix_search(
         index, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
         approx=approx, write_meta=bool(approx),  # the meta carries the certificate rate
+    )
+    print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
+
+
+def _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx) -> None:
+    """``run-mix --fused``: the sweep on the device (+ its metrics when
+    ``--qrels`` is given); run files are written either way, and one JSON
+    payload per alpha is printed."""
+    from codemix_dense_retrieval_torch.config import format_alpha
+    from codemix_dense_retrieval_torch.evals.device_metrics import qrels_rel_matrix
+    from codemix_dense_retrieval_torch.io.trec import write_run
+    from codemix_dense_retrieval_torch.pipeline.fused import sweep_index
+
+    rel_matrix, extra_zero = None, 0
+    if args.qrels:
+        from codemix_dense_retrieval_torch.io.tsv import read_qrels
+
+        rel_matrix, extra_zero = qrels_rel_matrix(qids, read_qrels(args.qrels), index.docids)
+    vals, ids, metrics, cert = sweep_index(
+        index, vecs_a, vecs_b, alphas, args.k, approx=approx, rel_ids=rel_matrix,
+        metric_extra_zero_queries=extra_zero, query_block=args.qblock,
+    )
+    outdir = pathlib.Path(args.outdir)
+    out = {}
+    for ai, alpha in enumerate(alphas):
+        label = format_alpha(alpha)
+        path = outdir / f"cm-alpha-{label}.trec"
+        write_run(path, qids, index.docids[ids[ai]], vals[ai], tag="onepass-cm")
+        out[label] = {
+            "run": str(path),
+            **({name: round(float(v[ai]) * 100, 4) for name, v in metrics.items()} if metrics else {}),
+        }
+        if cert is not None:
+            # guaranteed: the rate before escalation (the share that skipped
+            # exact search; the runs are exact either way)
+            out[label]["certified_frac"] = round(float(cert[ai].mean()), 4)
+            out[label]["approx"] = "guaranteed" if approx == "guaranteed" else "fast"
+    print(json.dumps(out, indent=2))
+
+
+def _load_hub(args):
+    """The per-language ``--index`` stores as one hub (``DenseFlatIndex.merged``,
+    derived ids ``base#tag`` with ``--lang_tags`` or each store's language),
+    on ``--device``."""
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    indexes = [DenseFlatIndex.load(p) for p in args.index]
+    tags = args.lang_tags or [ix.store.manifest.lang or str(i) for i, ix in enumerate(indexes)]
+    hub = DenseFlatIndex.merged(indexes, lang_tags=tags) if len(indexes) > 1 else indexes[0]
+    return hub.to_device(args.device)
+
+
+def cmd_run_bilingual(args) -> None:
+    from codemix_dense_retrieval_torch.pipeline.bilingual import run_bilingual_word_mix
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    hub = _load_hub(args)
+    sets = _load_query_sets(args)
+    runs = run_bilingual_word_mix(
+        hub, encoder, sets, args.outdir, k=args.k, batch_size=args.enc_batch, query_block=args.qblock,
+        approx=_approx_mode(args),
+    )
+    print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
+
+
+def cmd_run_bilingual_mix(args) -> None:
+    from codemix_dense_retrieval_torch.config import format_alpha
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
+    from codemix_dense_retrieval_torch.pipeline.bilingual import (
+        run_bilingual_vector_mix,
+        run_bilingual_vector_mix_fused,
+    )
+    from codemix_dense_retrieval_torch.pipeline.runs import intersect_query_sets
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    hub = _load_hub(args)
+    tsvs = _parse_lang_path(args.query_tsv)
+    if len(tsvs) != 2:
+        raise SystemExit("[ERROR] need exactly two LANG=PATH --query_tsv")
+    (lang_a, path_a), (lang_b, path_b) = tsvs.items()
+    qids, texts_a, texts_b = intersect_query_sets(read_queries_tsv(path_a), read_queries_tsv(path_b))
+    vecs_a = encoder.encode_queries(texts_a, batch_size=args.enc_batch)
+    vecs_b = encoder.encode_queries(texts_b, batch_size=args.enc_batch)
+    alphas = [float(a) for a in args.cm_alphas]
+    if args.fused:
+        qrels = None
+        if args.qrels:
+            from codemix_dense_retrieval_torch.io.tsv import read_qrels
+
+            qrels = read_qrels(args.qrels)
+        try:
+            runs, metrics = run_bilingual_vector_mix_fused(
+                hub, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, qrels=qrels,
+                approx=_approx_mode(args), query_block=args.qblock,
+            )
+        except ValueError as e:
+            raise SystemExit(
+                f"[ERROR] --fused requires a parallel hub: {e}\n"
+                "        Re-run without --fused to use the host-side collapse (handles non-parallel hubs)."
+            )
+        payload = {
+            str(a): {"run": str(p), **(metrics.get(format_alpha(a), {}) if metrics else {})}
+            for a, p in runs.items()
+        }
+        print(json.dumps(payload, indent=2))
+        return
+    runs = run_bilingual_vector_mix(
+        hub, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
+        approx=_approx_mode(args),
     )
     print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
 
@@ -358,10 +490,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outdir", required=True)
     p.add_argument("--k", type=int, default=100)
     p.add_argument("--qblock", type=int, default=1024)
-    p.add_argument("--fused", action="store_true", help="not ported yet")
-    p.add_argument("--qrels", help="qrels file for --fused (not ported yet)")
+    p.add_argument("--fused", action="store_true",
+                   help="the sweep on the device, with on-device metrics when --qrels is given")
+    p.add_argument("--qrels", help="qrels file for --fused on-device metrics")
     _add_approx_flag(p)
     p.set_defaults(fn=cmd_run_mix)
+
+    p = sub.add_parser("run-bilingual", help="bilingual hub word-mix search (collapse-max)")
+    _add_common(p)
+    p.add_argument("--index", nargs="+", required=True, help="per-language shard dirs")
+    p.add_argument("--lang_tags", nargs="+")
+    p.add_argument("--queries", nargs="+", required=True)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--k", type=int, default=500)
+    p.add_argument("--qblock", type=int, default=256)
+    _add_approx_flag(p)
+    p.set_defaults(fn=cmd_run_bilingual)
+
+    p = sub.add_parser("run-bilingual-mix", help="bilingual hub vector-mix sweep")
+    _add_common(p)
+    p.add_argument("--index", nargs="+", required=True)
+    p.add_argument("--lang_tags", nargs="+")
+    p.add_argument("--query_tsv", nargs=2, required=True, metavar="LANG=PATH")
+    p.add_argument("--cm_alphas", nargs="+", default=[str(a) for a in DEFAULT_ALPHAS])
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--k", type=int, default=500)
+    p.add_argument("--qblock", type=int, default=1024)
+    p.add_argument("--fused", action="store_true",
+                   help="the sweep on the device: 2k-deep raw search + on-device collapse. The hub "
+                        "must be a PARALLEL two-language concatenation (both halves encode the same "
+                        "docid stream in the same order); other hubs are refused with an error. "
+                        "Without --fused the host-side collapse handles any hub")
+    p.add_argument("--qrels", help="qrels file for --fused on-device metrics")
+    _add_approx_flag(p)
+    p.set_defaults(fn=cmd_run_bilingual_mix)
 
     p = sub.add_parser(
         "run-rerank",
@@ -370,7 +532,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_common(p)
     p.add_argument("--index", nargs="+", required=True,
-                   help="shard dir with a tokens/ substore (one; the bilingual hub is not ported)")
+                   help="shard dir(s) with tokens/ substores; 2+ dirs = bilingual hub (merge + collapse)")
     _add_query_source_flags(p)
     p.add_argument("--outdir", required=True)
     p.add_argument("--k", type=int, default=100)

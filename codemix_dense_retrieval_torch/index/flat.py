@@ -3,7 +3,8 @@
 Composition:
 
 - **storage**: :class:`~codemix_dense_retrieval_torch.io.shards.ShardStore`
-  (bf16 or int8 rows + docid sidecars, memory-mappable);
+  (bf16 or int8 rows + docid sidecars, memory-mappable), or the bilingual
+  hub's stores end to end (:meth:`DenseFlatIndex.merged`);
 - **device residency**: rows padded and uploaded to one device
   (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.shard_rows`),
   with the per-row scales of an int8 store beside them;
@@ -25,8 +26,9 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from codemix_dense_retrieval_torch.io.shards import ShardStore
+from codemix_dense_retrieval_torch.io.shards import ShardStore, concat_stores
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
+    search_blocks,
     shard_row_sidecar,
     shard_rows,
     sharded_topk_ip,
@@ -91,6 +93,15 @@ class DenseFlatIndex:
     @classmethod
     def load(cls, directory) -> "DenseFlatIndex":
         return cls(ShardStore.open(directory))
+
+    @classmethod
+    def merged(
+        cls, indexes: Sequence["DenseFlatIndex"], lang_tags: Optional[Sequence[str]] = None
+    ) -> "DenseFlatIndex":
+        """The bilingual hub: the indexes' stores end to end with
+        ``base#lang`` derived ids (:func:`~codemix_dense_retrieval_torch.io.shards.concat_stores`;
+        the rows stay in their stores until :meth:`to_device` copies them)."""
+        return cls(concat_stores([ix.store for ix in indexes], lang_tags))
 
     # ---------------- properties ----------------
 
@@ -324,7 +335,9 @@ class DenseFlatIndex:
         row ids with ``return_docids=False``.
 
         ``query_block`` processes queries in fixed-size blocks (0 = one
-        block); a ragged tail block is zero-padded to the block size and its
+        block), cut on a CUDA card so that one block's scores fit its free
+        memory (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.fit_query_block`);
+        a ragged tail block is zero-padded to the block size and its
         results sliced off. Queries are cast to the index dtype before the
         kernel, except over an int8 index, where they stay f32 and are
         quantized on the device.
@@ -368,10 +381,6 @@ class DenseFlatIndex:
             )
         k = k_eff
         n_q = len(q)
-        if query_block and n_q % query_block and n_q > query_block:
-            tail_pad = query_block - (n_q % query_block)
-            q = torch.cat([q, q.new_zeros((tail_pad, q.shape[1]))])
-        blocks = q.split(query_block) if query_block else [q]
         dtype = self._docs_dev.dtype
         if dtype == torch.int8:
             dtype = torch.float32  # the int8 path quantizes queries on the device
@@ -391,26 +400,22 @@ class DenseFlatIndex:
                     "using exact search directly", k, cr, GUARANTEED_CERT_FLOOR,
                 )
                 approx, guaranteed_direct = False, True
-        vals, gids, certs = [], [], []
-        for blk in blocks:
-            if approx:
-                sk, tails, proj, skw = self._sketch
-                probe = probe_bins if probe_bins is not None else skw["probe_by_k"].get(k, skw["probe_bins"])
-                v, g, c = sharded_topk_ip_sketch(
-                    blk.to(dtype), self._docs_dev, self._counts_dev, sk, tails, proj, k,
-                    probe_bins=probe, expand=skw["expand"],
-                    doc_scales=self.search_kwargs.get("doc_scales"), **self._sketch_kernel_kwargs(),
-                )
-                certs.append(c)
-            else:
-                v, g = sharded_topk_ip(
-                    blk.to(dtype), self._docs_dev, self._counts_dev, k, **self.search_kwargs
-                )
-            vals.append(v)
-            gids.append(g)
-        vals_np = torch.cat(vals).cpu().numpy()[:n_q]
-        gids_np = torch.cat(gids).cpu().numpy()[:n_q]
-        self.last_certified = torch.cat(certs).cpu().numpy()[:n_q] if approx else None
+
+        def exact(blk):
+            return sharded_topk_ip(blk.to(dtype), self._docs_dev, self._counts_dev, k, **self.search_kwargs)
+
+        def sketched(blk):
+            sk, tails, proj, skw = self._sketch
+            probe = probe_bins if probe_bins is not None else skw["probe_by_k"].get(k, skw["probe_bins"])
+            return sharded_topk_ip_sketch(
+                blk.to(dtype), self._docs_dev, self._counts_dev, sk, tails, proj, k,
+                probe_bins=probe, expand=skw["expand"],
+                doc_scales=self.search_kwargs.get("doc_scales"), **self._sketch_kernel_kwargs(),
+            )
+
+        out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact)
+        vals_np, gids_np = out[0].cpu().numpy(), out[1].cpu().numpy()
+        self.last_certified = out[2].cpu().numpy() if approx else None
         self.last_guaranteed_direct = guaranteed_direct
         self.last_guaranteed_route = (
             "exact" if guaranteed_direct else ("sketch" if approx == "guaranteed" else None)
@@ -421,8 +426,7 @@ class DenseFlatIndex:
         if approx == "guaranteed" and not self.last_certified.all():
             # escalate only the uncertified queries through exact search
             bad = np.flatnonzero(~self.last_certified)
-            sub = q[torch.from_numpy(bad).to(q.device)].to(dtype)
-            ev, eg = sharded_topk_ip(sub, self._docs_dev, self._counts_dev, k, **self.search_kwargs)
+            ev, eg = search_blocks(q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact)
             vals_np[bad] = ev.cpu().numpy()
             gids_np[bad] = eg.cpu().numpy()
             self.last_certified = np.ones(n_q, bool)

@@ -397,3 +397,78 @@ class ShardStore:
             )
         w.finalize(extra=self.manifest.extra)
         return ShardStore.open(directory)
+
+
+class ConcatStore(ShardStore):
+    """Shard stores joined end to end with no host copy of their rows:
+    :meth:`rows` reads across the parts' own (memory-mapped or in-memory)
+    arrays, so uploading the joined store moves the same bytes as uploading
+    each part. It has no ``vectors`` array: that would be a host copy of
+    the whole hub."""
+
+    def __init__(
+        self,
+        manifest: ShardManifest,
+        parts: Sequence[ShardStore],
+        docids: List[str],
+        derived_ids: List[str],
+        scales: Optional[np.ndarray] = None,
+    ) -> None:
+        self.manifest = manifest
+        self.parts = list(parts)
+        self.docids = docids
+        self.derived_ids = derived_ids
+        self.dir = None
+        self.scales = scales
+        self._starts = np.cumsum([0] + [p.count for p in self.parts])
+
+    @property
+    def vectors(self) -> np.ndarray:
+        raise AttributeError("a ConcatStore keeps its rows in its parts; read them with rows(start, stop)")
+
+    def rows(self, start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+        stop = self.count if stop is None else min(stop, self.count)
+        pieces = []
+        for i, part in enumerate(self.parts):
+            lo, hi = max(start, int(self._starts[i])), min(stop, int(self._starts[i + 1]))
+            if lo < hi:
+                pieces.append(part.rows(lo - int(self._starts[i]), hi - int(self._starts[i])))
+        if not pieces:
+            return storage_to_tensor(np.zeros((0, self.dim), storage_dtype(self.manifest.dtype)),
+                                     self.manifest.dtype)
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def concat_stores(
+    stores: Sequence[ShardStore],
+    lang_tags: Optional[Sequence[str]] = None,
+) -> ShardStore:
+    """The bilingual (or any combined) store: ``stores`` end to end, with
+    derived ids ``base#lang``; ``lang`` is ``"+".join(lang_tags)`` and an
+    int8 store's scales are concatenated. Rows stay in their parts
+    (:class:`ConcatStore`)."""
+    assert stores
+    dim = stores[0].dim
+    dtype = stores[0].manifest.dtype
+    for s in stores[1:]:
+        if s.dim != dim:
+            raise ValueError(f"dim mismatch {s.dim} != {dim}")
+        if s.manifest.dtype != dtype:
+            raise ValueError(f"dtype mismatch {s.manifest.dtype} != {dtype}")
+    if lang_tags is None:
+        lang_tags = [s.manifest.lang or str(i) for i, s in enumerate(stores)]
+    docids: List[str] = []
+    derived: List[str] = []
+    for s, tag in zip(stores, lang_tags):
+        docids.extend(s.docids)
+        derived.extend(f"{d}#{tag}" for d in s.docids)
+    manifest = ShardManifest(
+        dim=dim, dtype=dtype, count=len(docids), files=[],
+        lang="+".join(lang_tags),
+        encoder=stores[0].manifest.encoder,
+        normalized=all(s.manifest.normalized for s in stores),
+    )
+    scales = None
+    if dtype == "int8" and all(s.scales is not None for s in stores):
+        scales = np.concatenate([s.scales for s in stores])
+    return ConcatStore(manifest, stores, docids, derived, scales=scales)

@@ -17,10 +17,58 @@ import torch
 
 from codemix_dense_retrieval_torch.ops import topk as topk_ops
 from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
+from codemix_dense_retrieval_torch.utils.logging import get_logger
+
+# card bytes one query of a block takes per padded index row: its f32 score
+# row and its bin maxima at the smallest bin (G = 8)
+BLOCK_BYTES_PER_ROW = 4 + 4 / 8
+# the share of the card's free memory one block's scores may take; the rest
+# is the top-k tail's
+BLOCK_MEMORY_SHARE = 0.75
 
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def fit_query_block(query_block: int, n_queries: int, rows_per_shard: int, device) -> int:
+    """The query block a search over ``rows_per_shard`` padded rows runs:
+    ``query_block`` (0: all ``n_queries`` in one block), on a CUDA card cut
+    to the largest power of two whose score store and bin maxima
+    (``BLOCK_BYTES_PER_ROW`` per query and row) fit in ``BLOCK_MEMORY_SHARE``
+    of the free memory (the driver's free bytes plus what PyTorch's
+    allocator holds unused). So the CLI's 1024-query default runs at the
+    bilingual hub's size (17.7M x 1024 bf16 rows, 36.2 GB, on an 80 GB
+    card: blocks of 256)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return query_block
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    fit = int(BLOCK_MEMORY_SHARE * free // (BLOCK_BYTES_PER_ROW * rows_per_shard))
+    if min(query_block or n_queries, n_queries) <= fit:
+        return query_block
+    capped = 1 << max(0, fit.bit_length() - 1)
+    get_logger("search").info(
+        "query block %d cut to %d: %d padded rows, %.1f GB free on the card",
+        query_block or n_queries, capped, rows_per_shard, free / 1e9,
+    )
+    return capped
+
+
+def search_blocks(q: torch.Tensor, query_block: int, rows_per_shard: int, search) -> Tuple[torch.Tensor, ...]:
+    """``search(block)`` over the query rows ``q`` in blocks of
+    ``query_block`` rows (0 = one block), cut to the card by
+    :func:`fit_query_block`. A ragged tail block is zero-padded to the block
+    size, so every block has one shape, and its rows are sliced off. Returns
+    each of ``search``'s outputs concatenated over the blocks, cut to
+    ``len(q)`` rows."""
+    n = len(q)
+    query_block = fit_query_block(query_block, n, rows_per_shard, q.device)
+    if query_block and n > query_block and n % query_block:
+        q = torch.cat([q, q.new_zeros((query_block - n % query_block, q.shape[1]))])
+    outs = [search(blk) for blk in (q.split(query_block) if query_block else [q])]
+    return tuple(torch.cat(parts)[:n] for parts in zip(*outs))
 
 
 def shard_rows(

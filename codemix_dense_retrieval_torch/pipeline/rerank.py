@@ -364,11 +364,82 @@ def _encode_or_load_queries(encoder, set_name, qids, texts, batch_size, cache_ro
     return qvecs, qtoks, qlens
 
 
-def run_two_stage_bilingual(*args, **kwargs):
-    raise NotImplementedError(
-        "two-stage search over a bilingual hub is not ported yet: "
-        "ROADMAP queue 1, item 10 (bilingual hub)"
-    )
+def run_two_stage_bilingual(
+    indexes,       # per-language DenseFlatIndex (device-resident)
+    token_stores,  # the matching per-language TokenShardStore
+    encoder,
+    query_sets,
+    outdir,
+    *,
+    k: int = 500,
+    k_dense: Optional[int] = None,
+    batch_size: int = 64,
+    query_block: int = 256,
+    tag: str = "bilingual-twostage",
+    max_queries: int = 0,
+    cache_root=None,
+):
+    """Two-stage search over a bilingual hub, one language at a time: each
+    language's (index, token store) pair is searched two-stage at depth
+    ``k``, and the per-language results merge by (score desc, language
+    order, row id), the tie order a concatenated hub index would give.
+    Dense recall runs per language at the full ``k_dense`` depth, a superset
+    of what a concatenated hub would give each language. Then docids
+    collapse by max score (:func:`~codemix_dense_retrieval_torch.io.trec.collapse_run_max`).
+    Writes ``<set>_raw.trec``, ``<set>_base.trec`` and ``<set>_meta.json``
+    per set; the meta carries each language's effective depths when they
+    differ."""
+    from codemix_dense_retrieval_torch.io.trec import collapse_run_max, write_run
+
+    log = get_logger("rerank")
+    outdir = pathlib.Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    searchers = [TwoStageSearcher(ix, ts) for ix, ts in zip(indexes, token_stores)]
+    out = {}
+    for set_name, rows in query_sets.items():
+        if max_queries:
+            rows = rows[:max_queries]
+        qids = [q for q, _ in rows]
+        texts = [t for _, t in rows]
+        # the queries are shared by the hub's languages: one cache serves all
+        qvecs, qtoks, qlens = _encode_or_load_queries(
+            encoder, set_name, qids, texts, batch_size, cache_root, log
+        )
+        per_lang = []
+        for li, s in enumerate(searchers):
+            sc, ids = s.search(qvecs, qtoks, qlens, k, k_dense=k_dense, query_block=query_block,
+                               return_docids=False)
+            per_lang.append((sc, ids, li))
+        b = len(qids)
+        # merge: concatenate the candidates, sort by (-score, language, row)
+        sc = np.concatenate([p[0] for p in per_lang], axis=1)
+        ids = np.concatenate([p[1] for p in per_lang], axis=1)
+        lang = np.concatenate([np.full_like(p[1], p[2]) for p in per_lang], axis=1)
+        order = np.lexsort((ids, lang, -sc), axis=1)[:, :k]
+        top_sc = np.take_along_axis(sc, order, axis=1)
+        top_docids = np.empty((b, order.shape[1]), dtype=object)
+        lang_sel = np.take_along_axis(lang, order, axis=1)
+        rows_sel = np.take_along_axis(ids, order, axis=1)
+        for li, s in enumerate(searchers):
+            sel = lang_sel == li
+            for qi in range(b):
+                m = sel[qi]
+                top_docids[qi, m] = s.index.docids[rows_sel[qi, m]]
+        raw = outdir / f"{set_name}_raw.trec"
+        write_run(raw, qids, top_docids, top_sc, tag=tag)
+        base = outdir / f"{set_name}_base.trec"
+        collapse_run_max(raw, base, tag=tag)
+        # depth clamps can differ per language (a small index): record each
+        # language's effective depths, not just the first's
+        _write_run_meta(
+            outdir / f"{set_name}_meta.json", tag, len(qids),
+            searchers[0].last_depths
+            if all(s.last_depths == searchers[0].last_depths for s in searchers)
+            else {"per_language": [s.last_depths for s in searchers]},
+        )
+        out[set_name] = base
+        log.info("bilingual two-stage run saved: %s", base)
+    return out
 
 
 def run_two_stage_search(

@@ -247,8 +247,10 @@ def test_two_stage_refuses_misaligned_stores_and_unported_parts(tmp_path):
                  lambda: s.remove(["d1"])):
         with pytest.raises(NotImplementedError, match="deferred item 1"):
             call()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.run_two_stage_bilingual([], [], None, {}, tmp_path)
+    # the bilingual hub checks each language's pair as it builds its searchers
+    with pytest.raises(ValueError, match="desynced"):
+        port.run_two_stage_bilingual([port_ix2, port_ix], [PortTokens.open(tmp_path / "b" / "tok"),
+                                                           PortTokens.open(tmp_path / "tok")], None, {}, tmp_path)
 
 
 def test_run_two_stage_search_trec_equals_jax(tmp_path):
@@ -286,9 +288,12 @@ def test_cli_encode_tokens_then_run_rerank(tmp_path, capsys):
     assert (tmp_path / "qc" / "cm0-20.npz").exists()
     meta = json.loads((tmp_path / "runs" / "cm0-20_meta.json").read_text())
     assert meta["k_dense_effective"] == 12 and meta["n_queries"] == 6
-    with pytest.raises(SystemExit, match="item 10"):
-        main(["run-rerank", "--device", "cpu", "--index", str(tmp_path / "ix" / "xx"),
-              str(tmp_path / "ix" / "xx"), "--queries", str(queries), "--outdir", str(tmp_path / "r2")])
+    # two indexes: the bilingual hub (raw run, collapsed run, meta)
+    main(["run-rerank", "--device", "cpu", "--smoke_dim", "32", "--index", str(tmp_path / "ix" / "xx"),
+          str(tmp_path / "ix" / "xx"), "--queries", str(queries), "--outdir", str(tmp_path / "r2"),
+          "--k", "5", "--k_dense", "12", "--query_cache", str(tmp_path / "qc")])
+    assert json.loads(capsys.readouterr().out) == {"cm0-20": str(tmp_path / "r2" / "cm0-20_base.trec")}
+    assert len((tmp_path / "r2" / "cm0-20_raw.trec").read_text().splitlines()) == 6 * 5
     with pytest.raises(SystemExit, match="not a token store"):
         main(["run-rerank", "--device", "cpu", "--index", str(tmp_path / "ix"), "--queries", str(queries),
               "--outdir", str(tmp_path / "r3")])
