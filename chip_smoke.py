@@ -34,7 +34,18 @@ Phases (a line of JSON after each):
                512 query pairs (plain attention) and 256 passages of
                600-1000 words at a 1024 bucket (kernel B); one tokenized
                batch of 32 passages through the model alone, with kernel B
-               and with plain attention (device time, no tokenizer).
+               and with plain attention (device time, no tokenizer); the
+               encoder's host phase stats at the 1024 bucket.
+ 4b. packed  — 4,096 passages of mMARCO-like lengths (20-200 words, a tenth
+               300-480) encoded packed (pack=True: rows of 256, the leading
+               chunks 512, kernel B on those) and unpacked, and packed with
+               every row at 512; packed embeddings within cosine 0.999 and
+               TOL_PACKED_ABS of the unpacked ones; passages/s, packing
+               efficiency and phase stats; kernel B against its plain version
+               at the packed shape (one forward's rows of 512 with their
+               segment ids); then `encode-corpus --pack --storage_dtype int8
+               --tokens_per_doc 32` through the CLI and `run-mix` over its
+               store (the exact int8 top-k).
  5. search   — the vector-mix run over an 8,841,823 x 1024 bf16 index (one
                mMARCO language): alpha in {0, .25, .5, .75, 1} at k=100 and
                alpha=.5 at k=1000, the two-level route (kernel A bin-major);
@@ -63,12 +74,25 @@ Phases (a line of JSON after each):
                k=1 fast and guaranteed, where planted queries certify: the
                fast sweep's certified rows are the exact sweep's (swaps only
                within ties), the guaranteed ids equal the exact ones.
+ 5e. adaptive — 8,841,823 x 1024 bf16 clustered rows of its own (256
+               centres, row i = normalize(center[a_i] + 0.35/sqrt(d) noise_i),
+               the assignments in random order) and 512 queries made alike:
+               search(approx="adaptive") at k=100 before reorder_rows() (its
+               host seconds and peak resident set), the certified share per
+               probe depth before and after, calibrate_adaptive at k=100 and
+               1000, adaptive against exact search in turns (q/s), guaranteed
+               mode (the adaptive route where calibration measured >= 1.05x),
+               both escalation branches (> B/2 on the random order, <= B/2 at
+               a bisected probe depth); adaptive ids and values equal exact
+               search's everywhere; kernel A on the path.
  6. cli      — `python -m codemix_dense_retrieval_torch run-mix` (run in this
                process) on a BGE-M3-width params.npz checkpoint and a
                131,072-row store: the single-level route (kernel 2, transposed);
                `run-mix --fused --qrels` (ids equal the unfused run's) and
                `run-bilingual-mix --fused --qrels` over that store and a
-               parallel second language (a 262,144-row hub: kernel A).
+               parallel second language (a 262,144-row hub: kernel A);
+               `run-mix --approx adaptive` (kernel A; the run files equal
+               --approx off's byte for byte).
  6b. corpus  — `encode-corpus --storage_dtype int8 --tokens_per_doc 32` on
                2,048 passages of 600-1000 words (cut to the CLI's 512-token
                cap, so plain attention, as in the JAX package) and 512 of a
@@ -77,15 +101,18 @@ Phases (a line of JSON after each):
                --approx guaranteed` (kernel 7; the int8 sketch tier) and
                `run-rerank --k 100 --k_dense 400` (kernel 6), also over both
                languages (the bilingual two-stage), and `run-mix --fused
-               --qrels` over the int8 store (kernel 4 in the fused sweep);
-               the three run-mix runs equal the exact int8 top-k; passages/s.
+               --qrels` over the int8 store (kernel 4 in the fused sweep),
+               `run-mix --approx adaptive` over it (exact search on an int8
+               store) and `run-rerank --approx adaptive` (the same ids);
+               the run-mix runs equal the exact int8 top-k; passages/s.
  6c. twostage — a 131,072-row bf16 index and a 131,072 x 32 x 1024 int8
                token store written by TokenShardWriter, 512 queries of 32
                tokens with one planted document each:
                run_two_stage_search(k=100, k_dense=400), card-resident
                (kernel 6); ids equal a stable top-100 of the plain MaxSim
                over the same candidates (swaps only within 1e-4), RR@10,
-               the memmap path gives the same ids.
+               the memmap path gives the same ids, and so does the dense
+               stage through the adaptive tier (kernel A).
  7. kernels line — per kernel, at the main path's shape: the check against
                its plain version again, max error, time (mean, fastest and
                slowest of 5 timed windows), its bound, the plain version's and
@@ -108,8 +135,8 @@ Phases (a line of JSON after each):
                device metrics x100 equal `evaluate` on the fused runs within
                1e-4, RR@10 = 100 at alpha = .5; kernel A's time per block.
                Then each kernel's launches on all the paths.
-Launch counts are set to 0 just before each path (phases 4, 5, 5b, 5c, 5d,
-6, 6b, 6c, 8 and their fused runs) and read just after it; comparison and
+Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
+5d, 5e, 6, 6b, 6c, 8 and their fused runs) and read just after it; comparison and
 timing launches happen outside those windows. Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
 The last line is the device JSON. Any failed check raises (exit code != 0).
@@ -120,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import pathlib
 import runpy
 import shutil
@@ -159,6 +187,12 @@ KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma"
                 "maxsim_kernel")
 WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma"}
 K_DENSE = 400               # two-stage dense recall depth
+N_CENTERS = 256             # topical clusters of the adaptive phase's rows
+N_PACKED = 4096             # passages of the packed-encode phase
+PACK_BATCH = 256            # its passages per forward (packed: 32 rows)
+# packed vs unpacked BGE-M3 embeddings (bf16 model): the same tokens and
+# positions, summed in another order and attended by another kernel
+TOL_PACKED_ABS = 1e-2
 
 
 def say(tag: str, **fields) -> None:
@@ -209,7 +243,7 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
-    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.index.flat import ADAPTIVE_ROUTE_MARGIN, DenseFlatIndex
     from codemix_dense_retrieval_torch.ops import kernels
     from codemix_dense_retrieval_torch.ops import flash_attention as fa
     from codemix_dense_retrieval_torch.ops import topk
@@ -515,8 +549,12 @@ def main() -> None:
                     "maxsim": f"{TOL_MAXSIM} + {TOL_MAXSIM_REL} |score|"})
 
     # ---------------- phase 4: encoder at BGE-M3 width ----------------
+    from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
+    from codemix_dense_retrieval_torch.models import dialects
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
     from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
+    from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
+    from codemix_dense_retrieval_torch.pipeline.query_cache import load_query_cache
 
     rng = np.random.default_rng(SEED)
 
@@ -545,6 +583,7 @@ def main() -> None:
     t0 = time.perf_counter()
     pv = enc.encode_documents(passages, batch_size=32, max_length=1024, readback_dtype=torch.bfloat16)
     p_s = time.perf_counter() - t0
+    stats_1024 = dict(enc.last_phase_stats)
     path_counts["encode"] = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
     enc.tokenizer.encode_batch(passages, 1024)
@@ -562,7 +601,7 @@ def main() -> None:
     check(cos >= 0.99, f"kernel-path vs plain-path passage cosine {cos}")
     # the device side alone: one tokenized batch of 32 passages at the 1024
     # bucket through the model, with kernel B and with plain attention
-    ids32, mask32 = (torch.from_numpy(x).to(dev) for x in next(enc._batch_inputs(passages[:32], 32, "", 1024)))
+    ids32, mask32 = (x.to(dev) for x in next(enc._batch_inputs(passages[:32], 32, "", 1024)))
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: enc.model(ids32, mask32), 5)
         fwd_plain_ms = cuda_ms(lambda: plain_enc.model(ids32, mask32), 5)
@@ -575,11 +614,183 @@ def main() -> None:
         passages=N_PASSAGES, passages_per_s=round(N_PASSAGES / p_s, 2),
         passage_tokens_bucket=1024, passage_tokenize_s=round(tok_s, 3), passage_encode_s=round(p_s, 3),
         launches=path_counts["encode"], forward_ms_32x1024=fwd_ms, forward_ms_32x1024_plain_attention=fwd_plain_ms,
-        kernel_vs_plain_min_cos=round(cos, 5), max_offdiag_query_cos=round(qcos, 4))
+        kernel_vs_plain_min_cos=round(cos, 5), max_offdiag_query_cos=round(qcos, 4),
+        phase_stats_1024=stats_1024)
+
+    # ---------------- phase 4b: sequence-packed encode ----------------
+    from codemix_dense_retrieval_torch.io.shards import ShardStore
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+    from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
+
+    # mMARCO-like lengths: most passages of 20-200 words, a tenth of 300-480,
+    # so the leading (longest) chunks pack into rows of 512 (kernel B)
+    words_4b = rng.integers(20, 201, N_PACKED)
+    long_4b = rng.random(N_PACKED) < 0.1
+    words_4b[long_4b] = rng.integers(300, 481, int(long_4b.sum()))
+    packed_texts = [" ".join(f"m{w}" for w in rng.integers(0, 50_000, n)) for n in words_4b]
+    _, tmask_4b = enc.tokenizer.encode_batch(packed_texts, 512)
+    tokens_4b = tmask_4b.sum(axis=1)
+    tok_per_word = float((tokens_4b - 2).sum() / words_4b.sum())  # less the bos and eos tokens
+    check(0.99 <= tok_per_word <= 1.01, f"phase 4b words make {tok_per_word} tokens each, not ~1")
+    # the packing the encoder does, chunk by chunk: efficiency and row lengths
+    seq_4b, rpb_4b, pad_4b = enc._packed_setup(PACK_BATCH, None)
+    sorted_4b = [packed_texts[i] for i in enc._length_order(packed_texts)]
+    def packing_of(row_len):
+        """(valid-token share, rows per row length, the segment ids of the
+        forward with the most segments) of the encoder's chunks."""
+        enc._PACK_SEQ_DEFAULT = row_len
+        valid = slots = 0
+        by_len, seg_ids = {}, None
+        for _, _, pk, _ in enc._packed_chunks(sorted_4b, dialects.doc_prefix(enc.name), seq_4b, rpb_4b, 16,
+                                              pad_4b, None):
+            valid += int((pk.segment_ids > 0).sum())
+            slots += pk.ids.size
+            by_len[pk.ids.shape[1]] = by_len.get(pk.ids.shape[1], 0) + pk.n_rows
+            for r0 in range(0, pk.n_rows, rpb_4b):
+                fwd = pk.segment_ids[r0 : r0 + rpb_4b]
+                if pk.ids.shape[1] == 512 and (seg_ids is None or fwd.max(axis=1).sum() > seg_ids.max(axis=1).sum()):
+                    seg_ids = fwd
+        del enc._PACK_SEQ_DEFAULT  # back to the class constant (the JAX package's 256)
+        return valid / slots, by_len, seg_ids
+
+    eff_4b, rows_by_len, _ = packing_of(enc._PACK_SEQ_DEFAULT)
+    eff_512, _, seg_512 = packing_of(512)
+    check(512 in rows_by_len, f"no chunk packed into rows of 512: {rows_by_len}")
+
+    def timed_encode(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = enc.encode_documents(packed_texts, batch_size=PACK_BATCH, **kw)
+        return out, time.perf_counter() - t0, dict(enc.last_phase_stats)
+
+    enc.encode_documents(sorted_4b[:512], batch_size=PACK_BATCH, pack=True)  # warm both paths
+    enc.encode_documents(sorted_4b[:512], batch_size=PACK_BATCH)
+    kernels.reset_launch_counts()
+    pk_emb, pk_s, pk_stats = timed_encode(pack=True)
+    path_counts["encode_packed"] = dict(kernels.LAUNCHES)
+    check(path_counts["encode_packed"]["flash_attention"] > 0, "the packed encode did not launch kernel B")
+    up_emb, up_s, up_stats = timed_encode()
+    # every chunk at rows of 512 (an instance override for the measurement;
+    # the class constant stays the JAX package's 256)
+    enc._PACK_SEQ_DEFAULT = 512
+    kernels.reset_launch_counts()
+    pk512_emb, pk512_s, pk512_stats = timed_encode(pack=True)
+    path_counts["encode_packed_512"] = dict(kernels.LAUNCHES)
+    del enc._PACK_SEQ_DEFAULT
+    check(path_counts["encode_packed_512"]["flash_attention"] > 0, "the rows-of-512 encode did not launch kernel B")
+    agree = {}
+    for name, emb in (("rows_256", pk_emb), ("rows_512", pk512_emb)):
+        check(emb.shape == up_emb.shape and bool(np.isfinite(emb).all()), f"packed {name} embeddings shape/finite")
+        cos_p = float((emb * up_emb).sum(axis=1).min())
+        abs_p = float(np.abs(emb - up_emb).max())
+        agree[name] = {"min_cos": cos_p, "max_abs": abs_p}
+        check(cos_p >= 0.999 and abs_p <= TOL_PACKED_ABS,
+              f"packed ({name}) vs unpacked embeddings: min cos {cos_p}, max abs {abs_p}")
+    # kernel B at the packed shape: one forward's rows of 512 with their
+    # segment ids, against its plain version; pad-segment rows exactly zero
+    seg_b = torch.from_numpy(seg_512).to(dev)
+    lens_b = (seg_b > 0).sum(dim=1, dtype=torch.int32)
+    qkv_b = [torch.randn(len(seg_512), 512, 16, 64, device=dev, generator=g).to(torch.bfloat16).transpose(1, 2)
+             for _ in range(3)]
+    o_b = fa.attention_flash(*qkv_b, lens_b, segment_ids=seg_b)
+    o_bp = fa.attention_flash_plain(*(t.float() for t in qkv_b), lens_b, segment_ids=seg_b)
+    torch.cuda.synchronize()
+    err_packed = (o_b.float() - o_bp).abs().max().item()
+    check(err_packed <= 2e-2, f"B err {err_packed} at the packed shape")
+    dead_b = (seg_b == 0)[:, None, :, None].expand_as(o_b)
+    check(bool((o_b[dead_b] == 0).all()), "B pad-segment rows not 0 at the packed shape")
+    same_seg = (seg_b[:, None, :, None] == seg_b[:, None, None, :]) & (seg_b > 0)[:, None, None, :]
+    packed_b = dict(
+        packed_shape=f"B={len(seg_512)} H=16 S=512 dh=64 bf16, {int(seg_b.max())} segments max, "
+                     f"{float((seg_b > 0).float().mean()):.3f} of tokens valid",
+        packed_max_abs_err=err_packed,
+        packed_ms=kernel_ms(lambda: fa.attention_flash(*qkv_b, lens_b, segment_ids=seg_b), 20),
+        packed_plain_ms=cuda_ms(lambda: fa.attention_flash_plain(*qkv_b, lens_b, segment_ids=seg_b), 3),
+        packed_library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *qkv_b, attn_mask=same_seg), 20),
+    )
+    # q, k, v read and the output written once; every query attends to its
+    # own segment's keys: 4 flops per (query, key, dh) of a segment
+    packed_b["packed_bound_ms"], packed_b["packed_bound_by"] = bound(
+        4 * len(seg_512) * 16 * 512 * 64 * 2,
+        4 * 16 * 64 * float(sum(int((r == v).sum()) ** 2 for r in seg_512 for v in np.unique(r[r > 0]))))
+    del qkv_b, o_b, o_bp, same_seg
+    say("encode_packed", passages=N_PACKED, words="20-200, a tenth 300-480", tokens_per_word=tok_per_word,
+        mean_tokens=float(tokens_4b.mean()), batch_size=PACK_BATCH, rows_per_forward=rpb_4b,
+        pack_seq_default=enc._PACK_SEQ_DEFAULT, packed_rows_by_length=rows_by_len,
+        packing_efficiency={"rows_256": eff_4b, "rows_512": eff_512},
+        packed_passages_per_s=round(N_PACKED / pk_s, 1), unpacked_passages_per_s=round(N_PACKED / up_s, 1),
+        packed_rows512_passages_per_s=round(N_PACKED / pk512_s, 1),
+        phase_stats={"packed": pk_stats, "unpacked": up_stats, "packed_rows512": pk512_stats},
+        packed_vs_unpacked=agree, tolerance={"min_cos": 0.999, "max_abs": TOL_PACKED_ABS},
+        kernel_b_packed=packed_b,
+        launches={"packed": path_counts["encode_packed"], "packed_rows512": path_counts["encode_packed_512"]})
+    del pk_emb, up_emb, pk512_emb
+    # the BGE-M3-width checkpoint and the query TSVs the CLI phases read
+    ckpt = work / "ckpt"
+    ckpt.mkdir()
+    save_params_npz(ckpt / "params.npz", flax_from_state_dict(enc.model.state_dict()))
+    (ckpt / "encoder_config.json").write_text(json.dumps(cfg.to_json_dict(), indent=2))
+    write_queries_tsv(work / "en.tsv", zip(qids, texts_a))
+    write_queries_tsv(work / "zh.tsv", zip(qids, texts_b))
+
+    def run_cli(argv):
+        saved_argv = sys.argv
+        try:
+            sys.argv = argv
+            runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
+        finally:
+            sys.argv = saved_argv
+
+    # encode-corpus --pack through the CLI (int8 rows, a 32-token store),
+    # then run-mix over its store: the exact int8 top-k
+    pack_tsv = work / "corpus_pack.tsv"
+    pack_tsv.write_text("".join(f"p{i}\t{t}\n" for i, t in enumerate(packed_texts)))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "encode-corpus", "--checkpoint", str(ckpt),
+             "--corpus_tsv", f"pk={pack_tsv}", "--storage_dtype", "int8", "--pack",
+             "--out", str(work / "corpus_pack"), "--batch", "4096", "--enc_batch", str(PACK_BATCH),
+             "--tokens_per_doc", str(TD), "--seed", str(SEED)])
+    pack_cli_s = time.perf_counter() - t0
+    path_counts["corpus_pack_cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_pack_cli"]["flash_attention"] > 0, "encode-corpus --pack did not launch kernel B")
+    store_pk = ShardStore.open(work / "corpus_pack" / "pk")
+    tok_pk = TokenShardStore.open(work / "corpus_pack" / "pk" / "tokens")
+    check(store_pk.count == N_PACKED and store_pk.manifest.dtype == "int8" and store_pk.scales.shape == (N_PACKED,),
+          "encode-corpus --pack int8 store shape / scales")
+    check(tok_pk.docids == store_pk.docids and bool((tok_pk.lengths == np.minimum(tokens_4b, TD)).all()),
+          "encode-corpus --pack token store alignment / lengths")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus_pack" / "pk"), "--query_tsv", f"en={work / 'en.tsv'}",
+             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "corpus_pack_runs"), "--k", "100",
+             "--qblock", "256", "--cm_alphas", "0.5", "--query_cache", str(work / "qcache_pk"),
+             "--seed", str(SEED)])
+    pack_run_s = time.perf_counter() - t0
+    path_counts["corpus_pack_run"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_pack_run"]["bin_scores_int8_transposed"] > 0,
+          "run-mix over the packed int8 store did not launch kernel 4")
+    _, pva = load_query_cache(work / "qcache_pk" / "en" / "queries.npz", expected_qids=qids)
+    _, pvb = load_query_cache(work / "qcache_pk" / "zh" / "queries.npz", expected_qids=qids)
+    pq8, pqs8 = quantize_rows(mix_and_renorm(torch.from_numpy(pva).to(dev), torch.from_numpy(pvb).to(dev), 0.5))
+    want_pk = topk._stable_topk(int8_ip_scores(pq8, pqs8, store_pk.rows().to(dev),
+                                               torch.from_numpy(store_pk.scales).to(dev)), 100)[1].cpu().numpy()
+    got_pk = {}
+    with open(work / "corpus_pack_runs" / "cm-alpha-0.5.trec") as fh:
+        for line in fh:
+            qid, _, doc, _, _, _ = line.split()
+            got_pk.setdefault(qid, []).append(int(doc.split("#")[0][1:]))
+    check(len(got_pk) == N_QUERIES and np.array_equal(np.array([got_pk[q] for q in qids]), want_pk),
+          "run-mix over the packed int8 store differs from the exact int8 top-k")
+    say("corpus_pack_cli", passages=N_PACKED, storage_dtype="int8", tokens_per_doc=TD, pack=True,
+        encode_corpus_s=round(pack_cli_s, 2), passages_per_s=round(N_PACKED / pack_cli_s, 1),
+        run_mix_s=round(pack_run_s, 2), ids_equal_exact_int8_topk=True,
+        launches={"encode_corpus": path_counts["corpus_pack_cli"], "run_mix": path_counts["corpus_pack_run"]})
 
     # ---------------- phase 5: vector-mix run at full size ----------------
     from codemix_dense_retrieval_torch.cli import main as cli_main
-    from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
     from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
 
     mix05 = mix_and_renorm(qa_t.to(dev), qb_t.to(dev), 0.5)
@@ -731,8 +942,6 @@ def main() -> None:
         trec_write_python_s=round(python_w_s, 3), launches=path_counts["fused"])
 
     # ---------------- phase 5b: the same run over the int8 index ----------------
-    from codemix_dense_retrieval_torch.io.shards import ShardStore
-
     t0 = time.perf_counter()
     host8 = torch.empty((N_ROWS, DIM), dtype=torch.int8)
     scales8 = torch.empty(N_ROWS, dtype=torch.float32)
@@ -1018,37 +1227,185 @@ def main() -> None:
     del sk5, tl5, q_sk, q_tl, col5
     torch.cuda.empty_cache()
 
-    # ---------------- phase 6: CLI at full width ----------------
-    from codemix_dense_retrieval_torch.io.shards import ShardStore
-    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
-    from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
+    # ---------------- phase 5e: the adaptive tier at full size ----------------
+    # clustered rows of its own (18.1 GB more on the card: phases 6-8 still
+    # need the phase-5 index): the JAX bench recipe, 256 unit centres and
+    # row i = normalize(center[a_i] + 0.35/sqrt(d) noise_i), the assignments
+    # in random order, as a user's index arrives
+    import threading
 
-    ckpt = work / "ckpt"
-    ckpt.mkdir()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    save_params_npz(ckpt / "params.npz", flax_from_state_dict(enc.model.state_dict()))
-    (ckpt / "encoder_config.json").write_text(json.dumps(cfg.to_json_dict(), indent=2))
+    ge = torch.Generator(device=dev).manual_seed(SEED + 6)
+    centers = torch.randn(N_CENTERS, DIM, device=dev, generator=ge)
+    centers /= centers.norm(dim=1, keepdim=True)
+    assign = torch.randint(0, N_CENTERS, (N_ROWS,), device=dev, generator=ge)
+    host5e = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        x = centers[assign[c0:c1]] + (0.35 / DIM ** 0.5) * torch.randn(c1 - c0, DIM, device=dev, generator=ge)
+        host5e[c0:c1].copy_((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    x = centers[torch.randint(0, N_CENTERS, (N_QUERIES,), device=dev, generator=ge)]
+    x = x + (0.35 / DIM ** 0.5) * torch.randn(N_QUERIES, DIM, device=dev, generator=ge)
+    q5e = (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+    del x, assign
+    index5e = DenseFlatIndex.build(host5e, docids).to_device()
+    del host5e  # the store holds the rows; reorder_rows replaces it
+    gen5e_s = time.perf_counter() - t0
+    q_blk = q5e[:256]  # one query block: the escalation branch is per block
+
+    def search5e(q, k, **kw):
+        return index5e.search(q, k, return_docids=False, query_block=256, **kw)
+
+    adaptive_counts = []
+
+    def adaptive5e(q, k, **kw):
+        """An adaptive search, its launches counted apart from the exact
+        searches it is compared with."""
+        kernels.reset_launch_counts()
+        out = search5e(q, k, approx="adaptive", **kw)
+        adaptive_counts.append(dict(kernels.LAUNCHES))
+        return out, dict(index5e.last_adaptive_stats)
+
+    def same5e(got, want, label):
+        check(np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0]),
+              f"adaptive ids or values differ from exact search: {label}")
+
+    grid5e = {k: sorted({-(-k // 8) * f for f in (1, 2, 4, 8, 16)} | {int(k * x) for x in (0.9, 0.95, 1.0)})
+              for k in (100, 1000)}
+
+    def cert_grid():
+        """Certified share of the first block at each probe depth."""
+        return {k: {p: adaptive5e(q_blk, k, probe_bins=p)[1]["certified_frac"] for p in grid5e[k]} for k in grid5e}
+
+    # 1. before the reorder: the default probe, and the > B/2 branch
+    ex_pre = search5e(q5e, 100)
+    ad_pre, st_pre = adaptive5e(q5e, 100)
+    same5e(ad_pre, ex_pre, "k=100 before the reorder")
+    grid_pre = cert_grid()
+    br_exact, st_br_exact = adaptive5e(q_blk, 100)
+    check(st_br_exact.get("escalated", 0) > 128, f"random row order: {st_br_exact} (> B/2 branch not taken)")
+    same5e(br_exact, (ex_pre[0][:256], ex_pre[1][:256]), "the > B/2 branch")
+    # 2. the reorder, its host seconds and the process's peak resident set
+    rss = {"before": 0, "peak": 0}
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss_now():
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * page
+
+    sampling = threading.Event()
+
+    def sample_rss():
+        while not sampling.is_set():
+            rss["peak"] = max(rss["peak"], rss_now())
+            time.sleep(0.05)
+
+    rss["before"] = rss_now()
+    sampler = threading.Thread(target=sample_rss)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        perm5e = index5e.reorder_rows()
+    finally:
+        sampling.set()
+        sampler.join()
+    reorder_s = time.perf_counter() - t0
+    check(np.array_equal(np.sort(perm5e), np.arange(N_ROWS)) and index5e.mutation_epoch == 1,
+          "reorder_rows did not return a permutation")
+    grid_post = cert_grid()
+    # 3. calibration at both depths (first 256 queries as the sample)
+    cal5e = {k: index5e.calibrate_adaptive(q_blk, k) for k in (100, 1000)}
+    # 4. adaptive against exact search of the 512 queries, in turns
+    qps5e, stats5e, exact5e = {}, {}, {}
+    for k in (100, 1000):
+        runs = {"exact": [], "adaptive": []}
+        for mode in ("exact", "adaptive", "adaptive", "exact"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "exact":
+                out = search5e(q5e, k)
+            else:
+                out, stats5e[k] = adaptive5e(q5e, k)
+            runs[mode].append((time.perf_counter() - t0, out))
+        ex = runs["exact"][0][1]
+        for _, out in runs["adaptive"] + runs["exact"][1:]:
+            same5e(out, ex, f"k={k} after the reorder")
+        qps5e[k] = {m: round(N_QUERIES * len(r) / sum(t for t, _ in r), 1) for m, r in runs.items()}
+        exact5e[k] = ex
+    # docids follow perm: the exact top-100 before and after the reorder have
+    # the same scores and name the same passages, order free only among
+    # equal scores (and at the k-th score, which may tie with row 101)
+    moved = np.asarray(docids, dtype=object)[ex_pre[1]] != index5e.docids[exact5e[100][1]]
+    tied = ex_pre[0] == ex_pre[0][:, -1:]
+    tied[:, 1:] |= ex_pre[0][:, 1:] == ex_pre[0][:, :-1]
+    tied[:, :-1] |= ex_pre[0][:, :-1] == ex_pre[0][:, 1:]
+    follow = {"score_rows_differ": int((exact5e[100][0] != ex_pre[0]).any(axis=1).sum()),
+              "rows_reordered_within_ties": int((moved & tied).any(axis=1).sum()),
+              "rows_moved_beyond_ties": int((moved & ~tied).any(axis=1).sum())}
+    check(follow["score_rows_differ"] == 0 and follow["rows_moved_beyond_ties"] == 0,
+          f"the exact top-100 changed with the row order: {follow}")
+    # 5. guaranteed mode: the adaptive route where calibration measured >= 1.05x
+    routes = {}
+    for k in (100, 1000):
+        kernels.reset_launch_counts()
+        g_out = search5e(q5e, k, approx="guaranteed")
+        adaptive_counts.append(dict(kernels.LAUNCHES))
+        routes[k] = index5e.last_guaranteed_route
+        check(np.array_equal(g_out[1], exact5e[k][1]), f"guaranteed ids differ from exact search at k={k}")
+        if cal5e[k]["speedup"] >= ADAPTIVE_ROUTE_MARGIN:
+            check(routes[k] == "adaptive", f"calibrated speedup {cal5e[k]['speedup']} but route {routes[k]}")
+    index5e._sketch = None
+    # 6. the <= B/2 branch: a probe depth that leaves some, at most half, of
+    # the block uncertified (bisection between a probe that certifies less
+    # than half and the calibrated one)
+    lo, hi, br_tail = -(-100 // 8), max(cal5e[100]["probe_bins"], 2 * -(-100 // 8)), None
+    for _ in range(12):
+        mid = (lo + hi) // 2
+        out, st = adaptive5e(q_blk, 100, probe_bins=mid)
+        esc = st.get("escalated", 0)
+        if 0 < esc <= 128:
+            br_tail = (mid, st, out)
+            break
+        lo, hi = (mid, hi) if esc > 128 else (lo, mid)
+        if hi - lo <= 1:
+            break
+    check(br_tail is not None, "no probe depth left 1..128 of 256 queries uncertified")
+    same5e(br_tail[2], (exact5e[100][0][:256], exact5e[100][1][:256]), "the <= B/2 branch")
+    path_counts["adaptive"] = {kk: sum(c[kk] for c in adaptive_counts) for kk in adaptive_counts[0]}
+    check(path_counts["adaptive"]["bin_scores_bin_major"] > 0, "the adaptive tier did not launch kernel A")
+    # the reorder's own effect at equal probe depths, and what a user sees:
+    # the default probe before it against the calibrated one after it
+    check(any(grid_post[k][p] > grid_pre[k][p] for k in grid5e for p in grid5e[k]),
+          f"the reorder raised the certified share at no probe depth: {grid_pre} -> {grid_post}")
+    check(stats5e[100]["certified_frac"] > st_pre["certified_frac"],
+          f"certified share {st_pre['certified_frac']} before the reorder, {stats5e[100]['certified_frac']} after")
+    say("adaptive", rows=N_ROWS, centers=N_CENTERS, noise="0.35/sqrt(d)", row_order="random assignments",
+        gen_s=round(gen5e_s, 2), card_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        certified_frac_before_k100_default_probe=st_pre,
+        reorder_s=round(reorder_s, 2), reorder_steps_s=index5e.last_reorder_stats,
+        host_rss_gb={"before": round(rss["before"] / 1e9, 2), "peak": round(rss["peak"] / 1e9, 2)},
+        certified_by_probe={"before": grid_pre, "after": grid_post},
+        exact_top100_across_the_reorder=follow,
+        calibration=cal5e, queries_per_s=qps5e, stats_after=stats5e, guaranteed_routes=routes,
+        branch_exact=st_br_exact, branch_tail={"probe_bins": br_tail[0], **br_tail[1]},
+        ids_and_values_equal_exact=True, launches=path_counts["adaptive"])
+    del index5e, ex_pre, ad_pre, br_exact, exact5e, runs, out, g_out, br_tail, moved, tied
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 6: CLI at full width ----------------
+    t0 = time.perf_counter()
     small = torch.empty((SMALL_ROWS, DIM), dtype=torch.bfloat16)
     for c0 in range(0, SMALL_ROWS, 1 << 16):
         x = torch.randn(1 << 16, DIM, device=dev, generator=gi)
         small[c0 : c0 + (1 << 16)].copy_((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
     ShardStore.build(small, [f"s{i}" for i in range(SMALL_ROWS)], lang="xx").save(work / "small")
-    write_queries_tsv(work / "en.tsv", zip(qids, texts_a))
-    write_queries_tsv(work / "zh.tsv", zip(qids, texts_b))
     write_s = time.perf_counter() - t0
     del enc
     argv = ["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
             "--index", str(work / "small"), "--query_tsv", f"en={work / 'en.tsv'}",
             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "cli_runs"), "--k", "100",
             "--qblock", "256", "--cm_alphas", "0", "0.5", "1", "--seed", str(SEED)]
-
-    def run_cli(argv):
-        saved_argv = sys.argv
-        try:
-            sys.argv = argv
-            runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
-        finally:
-            sys.argv = saved_argv
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1073,9 +1430,25 @@ def main() -> None:
     _, soids = oracle_topk(q05.float(), small_dev._docs_dev, SMALL_ROWS, 100)
     cli_ov = overlap(cli_ids("0.5"), soids.cpu().numpy())
     check(cli_ov >= 0.999, f"CLI alpha=0.5 oracle overlap {cli_ov}")
+    # run-mix --approx adaptive over the same store: the probed cover on
+    # kernel A (bin-major at every size), escalation on kernel 2; the run
+    # files are --approx off's byte for byte
+    ad_argv = [a if a != str(work / "cli_runs") else str(work / "cli_adaptive") for a in argv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli([*ad_argv, "--approx", "adaptive"])
+    cli_ad_s = time.perf_counter() - t0
+    path_counts["cli_adaptive"] = dict(kernels.LAUNCHES)
+    check(path_counts["cli_adaptive"]["bin_scores_bin_major"] > 0, "run-mix --approx adaptive did not launch kernel A")
+    for label in ("0", "0.5", "1"):
+        name = f"cm-alpha-{label}.trec"
+        check((work / "cli_adaptive" / name).read_bytes() == (work / "cli_runs" / name).read_bytes(),
+              f"run-mix --approx adaptive {name} differs from --approx off's")
+    cli_ad_meta = json.loads((work / "cli_adaptive" / "cm-alpha-0.5_meta.json").read_text())
     say("cli", checkpoint="params.npz + encoder_config.json (BGE-M3 width, f32)", store_rows=SMALL_ROWS,
         write_s=round(write_s, 2), run_s=round(cli_s, 2), overlap_k100=cli_ov,
-        launches=path_counts["cli"])
+        launches=path_counts["cli"], adaptive_run_s=round(cli_ad_s, 2), adaptive_runs_byte_equal=True,
+        adaptive_meta=cli_ad_meta, adaptive_launches=path_counts["cli_adaptive"])
 
     def run_cli_json(argv):
         """run_cli, and the JSON the command printed."""
@@ -1139,7 +1512,6 @@ def main() -> None:
         launches={"run_mix": path_counts["cli_fused"], "run_bilingual_mix": path_counts["cli_bilingual_fused"]})
 
     # ---------------- phase 6b: encode-corpus (int8) + run-mix over it ----------------
-    from codemix_dense_retrieval_torch.pipeline.query_cache import load_query_cache
 
     corpus_tsv = work / "corpus.tsv"
     corpus_tsv.write_text("".join(f"c{i}\t{sentence('p', 600, 1000, 50_000)}\n" for i in range(N_CORPUS)))
@@ -1179,8 +1551,19 @@ def main() -> None:
     check(len(got8) == N_QUERIES and all(len(v) == 100 for v in got8.values()), "corpus run shape")
     check(bool((np.array([got8[q] for q in qids]) == want8.cpu().numpy()).all()),
           "run-mix over the int8 store differs from the exact int8 top-k")
-    from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
-
+    # --approx adaptive over the int8 store: exact search (kernel 4), the same ids
+    kernels.reset_launch_counts()
+    run_cli(["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), "--query_tsv", f"en={work / 'en.tsv'}",
+             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "corpus_adaptive_runs"), "--k", "100",
+             "--qblock", "256", "--cm_alphas", "0.5", "--query_cache", str(work / "qcache"),
+             "--approx", "adaptive", "--seed", str(SEED)])
+    path_counts["corpus_cli_adaptive"] = dict(kernels.LAUNCHES)
+    check(path_counts["corpus_cli_adaptive"]["bin_scores_int8_transposed"] > 0,
+          "run-mix --approx adaptive over the int8 store did not launch kernel 4")
+    check((work / "corpus_adaptive_runs" / "cm-alpha-0.5.trec").read_bytes()
+          == (work / "corpus_runs" / "cm-alpha-0.5.trec").read_bytes(),
+          "run-mix --approx adaptive over the int8 store differs from the exact run")
     tok8 = TokenShardStore.open(work / "corpus" / "xx" / "tokens")
     check(tok8.count == N_CORPUS and tok8.tokens_per_doc == TD and tok8.docids == store8.docids
           and bool((tok8.lengths == TD).all()), "encode-corpus token store shape / alignment")
@@ -1242,6 +1625,18 @@ def main() -> None:
     rerank_meta = json.loads((work / "rerank_runs" / "en_meta.json").read_text())
     check(rerank_meta["k_dense_effective"] == K_DENSE and rerank_meta["k_effective"] == 100,
           f"run-rerank depths {rerank_meta}")
+    # run-rerank --approx adaptive: the dense stage through the adaptive tier
+    # (exact search over this int8 store), the same ids
+    kernels.reset_launch_counts()
+    run_cli(["codemix_dense_retrieval_torch", "run-rerank", "--checkpoint", str(ckpt),
+             "--index", str(work / "corpus" / "xx"), "--queries", str(work / "en.tsv"),
+             "--outdir", str(work / "rerank_adaptive"), "--k", "100", "--k_dense", str(K_DENSE),
+             "--qblock", "256", "--approx", "adaptive", "--seed", str(SEED)])
+    path_counts["rerank_cli_adaptive"] = dict(kernels.LAUNCHES)
+    check(path_counts["rerank_cli_adaptive"]["maxsim"] > 0, "run-rerank --approx adaptive did not launch kernel 6")
+    check(np.array_equal(corpus_run_ids(work / "rerank_adaptive" / "en.trec"),
+                         corpus_run_ids(work / "rerank_runs" / "en.trec")),
+          "run-rerank --approx adaptive ids differ from --approx off's")
     # the bilingual two-stage: each language's two-stage search, merged and collapsed
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1267,7 +1662,9 @@ def main() -> None:
         guaranteed_launches=path_counts["corpus_grt"], run_mix_fused_s=round(corpus_fused_s, 2),
         fused_ids_equal_exact_int8_topk=True, fused_rr10=corpus_fused["0.5"]["RR@10"],
         fused_launches=path_counts["corpus_cli_fused"], run_rerank_s=round(rerank_cli_s, 2),
-        run_rerank_launches=path_counts["rerank_cli"])
+        run_rerank_launches=path_counts["rerank_cli"], adaptive_ids_equal_exact=True,
+        adaptive_launches=path_counts["corpus_cli_adaptive"],
+        run_rerank_adaptive_ids_equal=True, run_rerank_adaptive_launches=path_counts["rerank_cli_adaptive"])
     del cd8
 
     # ---------------- phase 6c: two-stage search at scale ----------------
@@ -1333,6 +1730,15 @@ def main() -> None:
     check(path_counts["two_stage"]["bin_scores_transposed"] > 0,
           "the two-stage dense stage did not launch kernel 2 (transposed)")
     got6, _ = run_table(runs6["twostage"], 100, doc_int=lambda d: int(d[1:]))
+    # the dense stage through the adaptive tier (kernel A on this bf16 index): the same ids
+    kernels.reset_launch_counts()
+    runs6a = run_two_stage_search(index6, store6, None, {"twostage": [(q, "") for q in qids]}, work / "ts_adaptive",
+                                  k=100, k_dense=K_DENSE, query_block=256, cache_root=work / "qc6", approx="adaptive")
+    path_counts["two_stage_adaptive"] = dict(kernels.LAUNCHES)
+    check(path_counts["two_stage_adaptive"]["bin_scores_bin_major"] > 0
+          and path_counts["two_stage_adaptive"]["maxsim"] > 0, "the adaptive two-stage run missed kernel A or 6")
+    check(np.array_equal(run_table(runs6a["twostage"], 100, doc_int=lambda d: int(d[1:]))[0], got6),
+          "the two-stage run with the adaptive dense stage differs from the exact one")
     # the same searcher card-resident (timed warm) and through the memmap path
     res = TwoStageSearcher(index6, store6)
     check(res.device_resident, "a 4.3 GB token store should be card-resident under the 6 GiB budget")
@@ -1385,7 +1791,8 @@ def main() -> None:
         generate_and_write_s=round(gen6_s, 2), run_two_stage_search_s=round(run6_s, 2),
         resident_queries_per_s=round(N_QUERIES / res_s, 1), memmap_queries_per_s=round(N_QUERIES / mm_s, 1),
         memmap_ids_equal_resident=True, ids_equal_plain_topk=ts_eq, ids_equal_up_to_ties=ts_tie,
-        tie_tol=TIE_TOL_MAXSIM, rr10=agg6["RR@10"], launches=path_counts["two_stage"])
+        tie_tol=TIE_TOL_MAXSIM, rr10=agg6["RR@10"], launches=path_counts["two_stage"],
+        adaptive_dense_stage_ids_equal=True, adaptive_launches=path_counts["two_stage_adaptive"])
     k6 = msim.maxsim_scores(q256, qm256, dt256, dm256)
     p6 = msim.maxsim_scores_plain(q256, qm256, dt256, dm256)
     torch.cuda.synchronize()
@@ -1608,7 +2015,9 @@ def main() -> None:
         launches=total("flash_attention"), max_abs_err=max(errs["flash_bf16"], err_main), **ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         shape=f"B={bsz} H={h} S={seq} dh={dh} bf16 mean_len={lens.float().mean().item():.1f}",
+        **packed_b,
     ))
+    entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"], err_packed)
     del q, k, v, small_dev, docs_s, d8_s, ds8_s, col_s
     torch.cuda.empty_cache()
 

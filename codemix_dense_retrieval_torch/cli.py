@@ -24,10 +24,13 @@ evaluate                  evaluate a TREC run against qrels
 Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
 Corpus and query TSVs, index and token-store directories, TREC runs and
 eval artifacts keep the same on-disk formats. ``--approx fast|guaranteed``
-searches through the sketch tier. Options whose paths are not ported yet
-(``--approx adaptive``, ``--dp`` > 1, ``--shards`` > 1, ``--weight_quant``,
-``--pack``) exit with an error that names the ROADMAP item; ``--fused
---approx adaptive`` exits with the JAX package's error.
+searches through the sketch tier, ``--approx adaptive`` through the
+probed-exact tier (``run-rerank`` takes ``--approx`` for its dense stage,
+which the JAX CLI does not); ``encode-corpus --pack`` packs passages into
+shared rows. Options whose paths are not ported yet (``--dp`` > 1,
+``--shards`` > 1, ``--weight_quant``) exit with an error that names the
+ROADMAP item; ``--fused --approx adaptive`` exits with the JAX package's
+error.
 """
 
 from __future__ import annotations
@@ -64,24 +67,18 @@ _FUSED_ADAPTIVE = (
 def _reject_unported(args) -> None:
     if getattr(args, "fused", False) and getattr(args, "approx", "off") == "adaptive":
         raise SystemExit(_FUSED_ADAPTIVE)
-    if getattr(args, "approx", "off") == "adaptive":
-        raise SystemExit(
-            "[ERROR] --approx adaptive is not ported yet (ROADMAP queue 1, item 15: "
-            "adaptive probed-exact tier)"
-        )
     if args.dp > 1:
         raise SystemExit("[ERROR] --dp > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.shards > 1:
         raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.weight_quant:
         raise SystemExit("[ERROR] --weight_quant is not ported yet (ROADMAP: quantization)")
-    if getattr(args, "pack", False):
-        raise SystemExit("[ERROR] --pack is not ported yet (ROADMAP: sequence packing)")
 
 
 def _approx_mode(args):
-    """--approx {off,fast,guaranteed} -> the DenseFlatIndex.search value."""
-    return {"off": False, "fast": True, "guaranteed": "guaranteed"}[getattr(args, "approx", "off")]
+    """--approx {off,fast,guaranteed,adaptive} -> the DenseFlatIndex.search value."""
+    return {"off": False, "fast": True, "guaranteed": "guaranteed", "adaptive": "adaptive"}[
+        getattr(args, "approx", "off")]
 
 
 def _build_encoder(args):
@@ -192,6 +189,7 @@ def cmd_encode_corpus(args) -> None:
         force=args.force,
         tokens_per_doc=args.tokens_per_doc,
         token_dtype=args.token_dtype,
+        pack=args.pack,
     )
     print(json.dumps({lang: str(d) for lang, d in dirs.items()}, indent=2))
 
@@ -236,7 +234,7 @@ def cmd_run_rerank(args) -> None:
     if args.max_queries:
         sets = {k: v[: args.max_queries] for k, v in sets.items()}
     common = dict(k=args.k, k_dense=args.k_dense or None, batch_size=args.enc_batch,
-                  query_block=args.qblock, cache_root=args.query_cache)
+                  query_block=args.qblock, cache_root=args.query_cache, approx=_approx_mode(args))
     if len(indexes) == 1:
         runs = run_two_stage_search(indexes[0], stores[0], encoder, sets, args.outdir, **common)
     else:
@@ -439,7 +437,8 @@ def _add_approx_flag(p) -> None:
     p.add_argument("--approx", choices=["off", "fast", "guaranteed", "adaptive"], default="off",
                    help="search tier: 'fast' = PCA sketch, approximate (certificate rate in the "
                         "meta); 'guaranteed' escalates uncertified queries to exact search, so the "
-                        "run files equal exact output; 'adaptive' is not ported yet")
+                        "run files equal exact output; 'adaptive' = probed-exact cover (always exact, "
+                        "fastest on cluster-ordered indexes; not supported inside --fused)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -466,7 +465,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokens_per_doc", type=int, default=0,
                    help="also write a token store of this many tokens per doc (two-stage MaxSim)")
     p.add_argument("--token_dtype", default="int8", help="storage dtype of the token store")
-    p.add_argument("--pack", action="store_true", help="not ported yet")
+    p.add_argument("--pack", action="store_true",
+                   help="sequence-packed encode: short passages share device rows under a "
+                        "block-diagonal attention mask")
     p.add_argument("--force", action="store_true")
     p.set_defaults(fn=cmd_encode_corpus)
 
@@ -540,6 +541,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--qblock", type=int, default=256)
     p.add_argument("--max_queries", type=int, default=0)
     p.add_argument("--query_cache", help="dir for per-set dense+token query embedding caches")
+    _add_approx_flag(p)
     p.set_defaults(fn=cmd_run_rerank)
 
     sub.add_parser(

@@ -13,7 +13,11 @@ Composition:
 - **sketch tier** (:meth:`DenseFlatIndex.enable_sketch`, ``search(approx=True
   | "guaranteed")``): a PCA sketch sidecar on the device, probed by kernel 7,
   with a per-query exactness certificate
-  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_sketch`).
+  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_sketch`);
+- **adaptive tier** (``search(approx="adaptive")``): the probed-exact cover
+  over kernel A with escalation, always exact
+  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_adaptive`),
+  cheap once :meth:`DenseFlatIndex.reorder_rows` has cluster-ordered the rows.
 
 The row id -> docid remap is a host lookup into the docid table.
 """
@@ -21,17 +25,19 @@ The row id -> docid remap is a host lookup into the docid table.
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from codemix_dense_retrieval_torch.io.shards import ShardStore, concat_stores
+from codemix_dense_retrieval_torch.io.shards import ShardManifest, ShardStore, concat_stores, storage_dtype
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
     search_blocks,
     shard_row_sidecar,
     shard_rows,
     sharded_topk_ip,
+    sharded_topk_ip_adaptive,
     sharded_topk_ip_sketch,
 )
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, resolve_device
@@ -42,10 +48,11 @@ from codemix_dense_retrieval_torch.utils.logging import get_logger
 # sketch pass that certifies (almost) nothing still pays the full exact
 # escalation on top
 GUARANTEED_CERT_FLOOR = 0.05
-# the adaptive tier's keys in sketch.npz, written by the JAX package's
-# calibrate_adaptive; the port keeps them when it rewrites the file
-_ADAPTIVE_KEYS = ("a_ks", "a_probe_vals", "a_speedup_vals", "a_cert_vals")
-_ADAPTIVE_DTYPES = (np.int64, np.int64, np.float32, np.float32)
+# guaranteed mode routes through the (always exact) adaptive probed cover
+# when calibrate_adaptive measured at least this speedup over exact search
+ADAPTIVE_ROUTE_MARGIN = 1.05
+# the kernel-geometry kwargs the adaptive tier takes from to_device
+_ADAPTIVE_KERNEL_KWARGS = ("bin_size", "super_size", "tile_n")
 
 
 class DenseFlatIndex:
@@ -66,11 +73,20 @@ class DenseFlatIndex:
         self._counts_dev: Optional[torch.Tensor] = None
         self._rows_per_shard = 0
         self.search_kwargs: dict = {}
+        self._pad_multiple = 1024
         self._sketch = None  # (sketch, tails, proj, settings) on the device
-        self._adaptive_cache: dict = {}  # a_* keys of sketch.npz, kept on rewrite
+        # calibrate_adaptive's operating points per clamped k: probe depth,
+        # measured speedup over exact search, certificate rate (the a_* keys
+        # of sketch.npz, in the JAX package's format)
+        self._adaptive_cal: dict = {"probe_by_k": {}, "speedup_by_k": {}, "cert_by_k": {}}
         self.last_certified: Optional[np.ndarray] = None
+        self.last_adaptive_stats: Optional[dict] = None
+        self.last_reorder_stats: Optional[dict] = None
         self.last_guaranteed_direct = False
         self.last_guaranteed_route: Optional[str] = None
+        # bumped when the row order changes (reorder_rows): consumers of
+        # row-aligned sidecars compare it to see that their mapping is stale
+        self.mutation_epoch = 0
 
     # ---------------- constructors ----------------
 
@@ -142,6 +158,7 @@ class DenseFlatIndex:
         if self.store.manifest.dtype == "int8" and self.store.scales is None:
             raise ValueError("int8 store has no scales.bin; it cannot be searched")
         self.device = resolve_device(device)
+        self._pad_multiple = pad_multiple
         self._docs_dev, self._counts_dev, self._rows_per_shard = shard_rows(
             self.store, self.device, pad_multiple=pad_multiple
         )
@@ -183,13 +200,12 @@ class DenseFlatIndex:
             self.to_device()
         sketch_dim = min(sketch_dim, self.dim)
         proj_np, probe_by_k, cert_by_k = None, {}, {}
-        self._adaptive_cache = {}
         cache_path = (self.store.dir / "sketch.npz") if (cache and self.store.dir) else None
         if cache_path is not None and cache_path.exists():
+            # the adaptive operating points do not depend on sketch_dim
+            self.load_adaptive_calibration()
             try:
                 z = np.load(cache_path, allow_pickle=False)
-                if int(z["count"]) == self.store.count and _ADAPTIVE_KEYS[0] in z.files:
-                    self._adaptive_cache = {kk: np.asarray(z[kk]) for kk in _ADAPTIVE_KEYS}
                 if "proj" in z.files and (
                     z["proj"].shape == (self.dim, sketch_dim)
                     and int(z["count"]) == self.store.count
@@ -233,23 +249,73 @@ class DenseFlatIndex:
         if path is None:
             return
         probe_by_k, cert_by_k = skw["probe_by_k"], skw.get("cert_by_k", {})
-        adaptive = {
-            kk: np.asarray(self._adaptive_cache.get(kk, np.zeros(0, dt)), dt)
-            for kk, dt in zip(_ADAPTIVE_KEYS, _ADAPTIVE_DTYPES)
-        }
-        # temp + atomic replace: a torn sketch.npz would break restarts
-        tmp = path.with_name(path.stem + ".tmp.npz")
-        np.savez(
-            tmp,
+        self._write_npz(
+            path,
             proj=proj.cpu().numpy().astype(np.float32),
-            count=np.int64(self.store.count),
             probe_ks=np.asarray(sorted(probe_by_k), np.int64),
             probe_vals=np.asarray([probe_by_k[pk] for pk in sorted(probe_by_k)], np.int64),
             cert_ks=np.asarray(sorted(cert_by_k), np.int64),
             cert_vals=np.asarray([cert_by_k[ck] for ck in sorted(cert_by_k)], np.float32),
-            **adaptive,
+        )
+
+    def _write_npz(self, path, **arrays) -> None:
+        """``sketch.npz`` with ``arrays``, the row count and the adaptive
+        operating points (``a_*``), written to a temp file and atomically
+        replaced: a torn file would break restarts."""
+        acal = self._adaptive_cal
+        a_ks = sorted(acal["probe_by_k"])
+        tmp = path.with_name(path.stem + ".tmp.npz")
+        np.savez(
+            tmp,
+            **arrays,
+            count=np.int64(self.store.count),
+            a_ks=np.asarray(a_ks, np.int64),
+            a_probe_vals=np.asarray([acal["probe_by_k"][ak] for ak in a_ks], np.int64),
+            a_speedup_vals=np.asarray([acal["speedup_by_k"].get(ak, 0.0) for ak in a_ks], np.float32),
+            a_cert_vals=np.asarray([acal["cert_by_k"].get(ak, 0.0) for ak in a_ks], np.float32),
         )
         os.replace(tmp, path)
+
+    def load_adaptive_calibration(self) -> bool:
+        """Load :meth:`calibrate_adaptive`'s operating points from this
+        index directory's ``sketch.npz`` (written by either package) without
+        building a sketch sidecar; True when points were loaded."""
+        if not self.store.dir:
+            return False
+        path = self.store.dir / "sketch.npz"
+        if not path.exists():
+            return False
+        try:
+            z = np.load(path, allow_pickle=False)
+            if int(z["count"]) != self.store.count or "a_ks" not in z.files:
+                return False
+            for ak, pv, sv, cv in zip(z["a_ks"], z["a_probe_vals"], z["a_speedup_vals"], z["a_cert_vals"]):
+                self._adaptive_cal["probe_by_k"][int(ak)] = int(pv)
+                self._adaptive_cal["speedup_by_k"][int(ak)] = float(sv)
+                self._adaptive_cal["cert_by_k"][int(ak)] = float(cv)
+            return True
+        except Exception:  # a corrupt or truncated cache holds no points
+            return False
+
+    def _save_adaptive_cal(self) -> None:
+        """Persist the adaptive operating points: with a sketch armed they
+        ride its cache; otherwise ``sketch.npz`` keeps its other keys (a
+        projection, probe depths) and gets the ``a_*`` ones, and
+        :meth:`enable_sketch` treats a file without ``proj`` as a miss."""
+        if self._sketch is not None and self._sketch[3].get("cache_path"):
+            self._save_sketch_cache()
+            return
+        if not self.store.dir:
+            return
+        path = self.store.dir / "sketch.npz"
+        extra = {}
+        if path.exists():
+            try:
+                z = np.load(path, allow_pickle=False)
+                extra = {kk: np.asarray(z[kk]) for kk in z.files if not kk.startswith("a_") and kk != "count"}
+            except Exception:  # an unreadable file: rewrite it with the points alone
+                extra = {}
+        self._write_npz(path, **extra)
 
     def _sketch_kernel_kwargs(self) -> dict:
         """The ``to_device(**search_kwargs)`` entries the sketch path takes."""
@@ -319,6 +385,185 @@ class DenseFlatIndex:
         self._save_sketch_cache()
         return {"probe_bins": probe, "recall": recall, "certified_frac": cert_frac}
 
+    # ---------------- adaptive tier ----------------
+
+    def _adaptive_kernel_kwargs(self) -> dict:
+        return {kk: vv for kk, vv in self.search_kwargs.items() if kk in _ADAPTIVE_KERNEL_KWARGS}
+
+    def calibrate_adaptive(
+        self,
+        queries,
+        k: int,
+        *,
+        max_probe_factor: int = 64,
+        iters: int = 2,
+    ) -> Optional[dict]:
+        """Pick the FASTEST measured probe depth for ``search(approx="adaptive")``
+        at depth ``k`` on sample queries. The adaptive tier is exact by
+        construction, so wall time is the only objective: a doubling sweep
+        over probe depths (each timed as the median of ``iters`` calls after
+        a warm-up, the card synchronized), keeping the best, stopping once
+        everything certifies. Remembers the probe depth (used by later
+        adaptive searches), the speedup over this index's exact search and
+        the certificate rate; ``search(approx="guaranteed")`` routes through
+        the adaptive tier when the speedup clears ``ADAPTIVE_ROUTE_MARGIN``.
+        Persisted in ``sketch.npz``. Returns ``None`` on an int8 store
+        (adaptive search runs exact search there)."""
+        from codemix_dense_retrieval_torch.ops.sketch import DEFAULT_BIN_SIZE
+
+        if self._docs_dev is None:
+            self.to_device()
+        if self._is_int8():
+            return None
+        k = min(k, self.count, self._rows_per_shard)
+        bin_size = self._adaptive_kernel_kwargs().get("bin_size", DEFAULT_BIN_SIZE)
+        min_bins = -(-k // bin_size)
+        max_bins = self._rows_per_shard // bin_size
+
+        def timed(fn):
+            fn()  # warm
+            ts = []
+            for _ in range(max(1, iters)):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                fn()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                ts.append(time.perf_counter() - t0)
+            ts.sort()
+            return ts[len(ts) // 2]
+
+        t_exact = timed(lambda: self.search(queries, k, return_docids=False))
+        best = None  # (t, probe, cert)
+        factor = 1
+        while factor <= max_probe_factor:
+            probe = min(min_bins * factor, max_bins)
+            t = timed(lambda: self.search(queries, k, return_docids=False, approx="adaptive", probe_bins=probe))
+            cert = float(self.last_adaptive_stats["certified_frac"])
+            if best is None or t < best[0]:
+                best = (t, probe, cert)
+            if cert >= 0.999 or probe >= max_bins or t > 2.0 * best[0]:
+                break
+            factor *= 2
+        t_best, probe, cert = best
+        speedup = t_exact / t_best
+        self._adaptive_cal["probe_by_k"][k] = probe
+        self._adaptive_cal["speedup_by_k"][k] = speedup
+        self._adaptive_cal["cert_by_k"][k] = cert
+        self._save_adaptive_cal()
+        return {"probe_bins": probe, "speedup": speedup, "certified_frac": cert,
+                "exact_s": t_exact, "adaptive_s": t_best}
+
+    def _project_rows(self, proj: np.ndarray, chunk: int = 1_000_000) -> np.ndarray:
+        """(N, ds) f32 sketch ``rows @ proj`` of the live rows (dequantized
+        for int8), on the host. On the card each chunk is projected there in
+        f32 (TF32 off) and only the sketch crosses to the host; on the CPU
+        it is the host numpy product, in the JAX package's 1M-row chunks."""
+        from codemix_dense_retrieval_torch.ops.sketch import full_f32
+
+        n = self.count
+        scales = self.search_kwargs.get("doc_scales")
+        proj_dev = torch.from_numpy(proj).to(self.device)
+        out = np.empty((n, proj.shape[1]), np.float32)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            rows = self._docs_dev[lo:hi].to(torch.float32)
+            if scales is not None:
+                rows = rows * scales[lo:hi, None]
+            if self.device.type == "cpu":
+                out[lo:hi] = rows.numpy() @ proj
+            else:
+                with full_f32():
+                    out[lo:hi] = (rows @ proj_dev).cpu().numpy()
+        return out
+
+    def reorder_rows(self, *, sketch_dim: int = 64, sample: int = 131072) -> np.ndarray:
+        """Cluster-pack the rows so sketch-space neighbours share bins
+        (:func:`~codemix_dense_retrieval_torch.ops.sketch.cluster_bisect_order`):
+        the clustering is the row order. Search results are unchanged, but
+        the adaptive and sketch tiers concentrate each query's top-k into
+        few bins, so ``approx="adaptive"`` certificates fire. Row ids change
+        and ``mutation_epoch`` is bumped. Returns ``perm`` (``new_rows ==
+        old_rows[perm]``), the JAX package's permutation for the same store.
+
+        No f32 copy of the index is made on the host: the projection is fit
+        on the :func:`~codemix_dense_retrieval_torch.ops.sketch.sample_index`
+        rows (the armed sketch's projection when there is one), the rows are
+        projected where they lie (:meth:`_project_rows`), the (N, ds) sketch
+        is ordered on the host, and the rows are permuted one chunk at a time
+        from the device copy into the new store, which is then uploaded. An
+        int8 store is rebuilt from its dequantized rows, as the JAX package
+        does (the per-row quantizer gives the same bytes back). The host
+        seconds of each step land in ``last_reorder_stats``."""
+        from codemix_dense_retrieval_torch.ops.quant import quantize_rows
+        from codemix_dense_retrieval_torch.ops.sketch import cluster_bisect_order, fit_sketch, sample_index
+
+        if self._docs_dev is None:
+            self.to_device()
+        stats = self.last_reorder_stats = {}
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            stats[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        store, n = self.store, self.count
+        scales = self.search_kwargs.get("doc_scales")
+        if self._sketch is not None:
+            proj = self._sketch[2].cpu().numpy().astype(np.float32)
+        else:
+            idx = torch.from_numpy(sample_index(n, sample)).to(self.device)
+            rows = self._docs_dev.index_select(0, idx).to(torch.float32)
+            if scales is not None:
+                rows = rows * scales.index_select(0, idx)[:, None]
+            proj = fit_sketch(rows.cpu().numpy(), min(sketch_dim, self.dim), sample=sample)
+            del rows
+        lap("fit_s")
+        sketch = self._project_rows(proj)
+        lap("project_s")
+        perm = cluster_bisect_order(sketch)
+        del sketch
+        lap("order_s")
+        new_vals = np.empty((n, self.dim), storage_dtype(store.manifest.dtype))
+        new_scales = np.empty(n, np.float32) if scales is not None else None
+        for lo in range(0, n, 262_144):
+            p = torch.from_numpy(perm[lo : lo + 262_144]).to(self.device)
+            chunk = self._docs_dev.index_select(0, p)
+            if scales is not None:
+                chunk, sc = quantize_rows(chunk.to(torch.float32) * scales.index_select(0, p)[:, None])
+                new_scales[lo : lo + len(p)] = sc.cpu().numpy()
+            chunk = chunk.cpu()
+            if chunk.dtype == torch.bfloat16:
+                chunk = chunk.view(torch.int16)
+            new_vals[lo : lo + len(p)] = chunk.numpy().view(new_vals.dtype)
+        derived = store.derived_ids
+        self.store = ShardStore(
+            ShardManifest(dim=self.dim, dtype=store.manifest.dtype, count=n, files=[],
+                          lang=store.manifest.lang, encoder=store.manifest.encoder,
+                          normalized=store.manifest.normalized),
+            new_vals,
+            np.asarray(store.docids, dtype=object)[perm].tolist(),
+            np.asarray(derived, dtype=object)[perm].tolist() if derived is not store.docids else None,
+            scales=new_scales,
+        )
+        self._docids = np.asarray(self.store.derived_ids, dtype=object)
+        self.mutation_epoch += 1
+        lap("permute_s")
+        kwargs = {kk: vv for kk, vv in self.search_kwargs.items() if kk != "doc_scales"}
+        # the old rows and scales leave the card before the new ones arrive
+        self._docs_dev = self.search_kwargs = scales = chunk = None
+        self.to_device(self.device, pad_multiple=self._pad_multiple, **kwargs)
+        if self._sketch is not None:
+            sproj, skw = self._sketch[2], self._sketch[3]
+            self._sketch = None
+            self._sketch = (*self._project_sketch(sproj), sproj, skw)
+        lap("upload_s")
+        return perm
+
     # ---------------- search ----------------
 
     def search(
@@ -349,15 +594,19 @@ class DenseFlatIndex:
         search, so the results are always exact; when :meth:`calibrate_sketch`
         measured a certificate rate below ``GUARANTEED_CERT_FLOOR`` at this
         depth it runs exact search directly (``last_guaranteed_direct``).
-        ``probe_bins`` overrides the sketch's probe depth for this call.
-        ``approx="adaptive"`` (the probed-exact tier) is not ported and
-        raises."""
-        if approx == "adaptive":
-            raise NotImplementedError(
-                "approx='adaptive' (the adaptive probed-exact tier) is not ported yet: "
-                "ROADMAP queue 1, item 15"
-            )
-        if approx not in (False, True, "guaranteed"):
+        When :meth:`calibrate_adaptive` measured the adaptive tier at least
+        ``ADAPTIVE_ROUTE_MARGIN`` times faster than exact search at this
+        depth, guaranteed mode runs it instead (``last_guaranteed_route ==
+        "adaptive"``).
+
+        ``approx="adaptive"`` runs the probed-exact cover with true bin-max
+        certificates and the escalation tail: always exact, priced at the
+        probe when certificates fire (a row-order property: see
+        :meth:`reorder_rows`); per-call stats in ``last_adaptive_stats``. An
+        int8 store runs exact search instead (``last_adaptive_stats`` None).
+        ``probe_bins`` overrides the probe depth of the adaptive and sketch
+        tiers for this call."""
+        if approx not in (False, True, "guaranteed", "adaptive"):
             raise ValueError(
                 f"approx must be True/False/'adaptive'/'guaranteed', got {approx!r}"
             )
@@ -384,13 +633,27 @@ class DenseFlatIndex:
         dtype = self._docs_dev.dtype
         if dtype == torch.int8:
             dtype = torch.float32  # the int8 path quantizes queries on the device
+        if approx == "adaptive" and not self._is_int8():
+            return self._search_adaptive(q, k, query_block, probe_bins, return_docids)
+        if approx == "adaptive":
+            # int8: exact search, whose results are trivially certified
+            approx = False
+            self.last_adaptive_stats = None
+            adaptive_fallback = True
+        else:
+            adaptive_fallback = False
         guaranteed_direct = False
+        if approx == "guaranteed" and not self._is_int8():
+            sp = self._adaptive_cal["speedup_by_k"].get(k)
+            if sp is not None and sp >= ADAPTIVE_ROUTE_MARGIN:
+                get_logger("index").info(
+                    "guaranteed search k=%d: routing through the adaptive tier (calibrated speedup %.2fx)",
+                    k, sp,
+                )
+                out = self._search_adaptive(q, k, query_block, probe_bins, return_docids)
+                self.last_guaranteed_route = "adaptive"
+                return out
         if approx:
-            # The JAX package may route guaranteed mode through its adaptive
-            # tier when calibrate_adaptive measured that faster; both routes
-            # give the exact results, and the port has no adaptive tier yet
-            # (ROADMAP queue 1, item 15), so it always takes the sketch with
-            # escalation here.
             if self._sketch is None:
                 self.enable_sketch()
             cr = self._sketch[3].get("cert_by_k", {}).get(k)
@@ -420,7 +683,7 @@ class DenseFlatIndex:
         self.last_guaranteed_route = (
             "exact" if guaranteed_direct else ("sketch" if approx == "guaranteed" else None)
         )
-        if guaranteed_direct:
+        if guaranteed_direct or adaptive_fallback:
             # exact results are the guarantee: an all-True certificate vector
             self.last_certified = np.ones(n_q, bool)
         if approx == "guaranteed" and not self.last_certified.all():
@@ -430,6 +693,38 @@ class DenseFlatIndex:
             vals_np[bad] = ev.cpu().numpy()
             gids_np[bad] = eg.cpu().numpy()
             self.last_certified = np.ones(n_q, bool)
+        if not return_docids:
+            return vals_np, gids_np
+        return vals_np, self._docids[gids_np]
+
+    def _search_adaptive(self, q: torch.Tensor, k: int, query_block: int, probe_bins: Optional[int],
+                         return_docids: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """``search(approx="adaptive")`` over a float index: the calibrated
+        probe depth unless ``probe_bins`` is given, the query blocks of
+        :func:`~codemix_dense_retrieval_torch.parallel.sharded_search.search_blocks`,
+        stats over the blocks in ``last_adaptive_stats``."""
+        if probe_bins is None:
+            probe_bins = self._adaptive_cal["probe_by_k"].get(k)
+        block_stats = []
+
+        def adaptive(blk):
+            vals, gids, st = sharded_topk_ip_adaptive(
+                blk.to(self._docs_dev.dtype), self._docs_dev, self._counts_dev, k,
+                probe_bins=probe_bins, **self._adaptive_kernel_kwargs(),
+            )
+            block_stats.append(st)
+            return vals, gids
+
+        vals, gids = search_blocks(q, query_block, self._rows_per_shard, adaptive)
+        vals_np, gids_np = vals.cpu().numpy(), gids.cpu().numpy()
+        self.last_certified = np.ones(len(q), bool)  # exact by construction
+        self.last_adaptive_stats = {
+            "certified_frac": float(np.mean([st["certified_frac"] for st in block_stats])),
+            "escalated": int(sum(st.get("escalated", 0) for st in block_stats)),
+            "probe_bins": block_stats[0]["probe_bins"],
+        }
+        self.last_guaranteed_direct = False
+        self.last_guaranteed_route = None
         if not return_docids:
             return vals_np, gids_np
         return vals_np, self._docids[gids_np]

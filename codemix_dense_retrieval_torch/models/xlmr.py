@@ -2,7 +2,9 @@
 multilingual-E5 and LaBSE-style embedding models.
 
 embeddings -> N post-LN transformer layers (exact GELU) -> pooling
-(cls | mean | last_token) -> L2 norm. Parameter names follow the JAX
+(cls | mean | last_token) -> L2 norm; the packed forward
+(:meth:`XLMREncoder.packed_embeddings`) runs several passages per row under
+a block-diagonal mask and pools each segment. Parameter names follow the JAX
 package's Flax tree (``embeddings.word_embeddings``, ``layers.<i>.q``, ...),
 so :mod:`~codemix_dense_retrieval_torch.models.convert` maps one onto the
 other leaf by leaf. Attention goes through
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,8 +103,12 @@ class XLMREmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        pos = position_ids_from_input_ids(input_ids, self.cfg.pad_token_id)
+    def forward(self, input_ids: torch.Tensor, position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``position_ids`` default to RoBERTa's (from the pad convention);
+        packed rows pass their per-segment positions."""
+        pos = position_ids if position_ids is not None else position_ids_from_input_ids(
+            input_ids, self.cfg.pad_token_id
+        )
         x = (
             self.word_embeddings(input_ids)
             + self.position_embeddings(pos)
@@ -125,11 +131,13 @@ class XLMRLayer(nn.Module):
         self.ffn_out = nn.Linear(cfg.intermediate_size, h)
         self.ffn_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         c = self.cfg
         attn = multi_head_attention(
             self.q(x), self.k(x), self.v(x), attention_mask,
-            num_heads=c.num_heads, use_flash=c.use_flash,
+            num_heads=c.num_heads, use_flash=c.use_flash, segment_ids=segment_ids,
         )
         x = self.attn_ln(x + self.attn_out(attn))
         y = self.ffn_out(nn.functional.gelu(self.ffn_in(x), approximate="none"))
@@ -175,6 +183,56 @@ class XLMREncoder(nn.Module):
         x = self.hidden_states(input_ids, attention_mask)
         pooled = pool_and_normalize(x, attention_mask, self.cfg.pooling, self.cfg.normalize)
         return pooled, normalize_tokens(x, attention_mask)
+
+    def _packed_hidden(
+        self, input_ids: torch.Tensor, segment_ids: torch.Tensor, position_ids: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(f32 last hidden layer, valid-token mask) of packed rows:
+        per-segment positions, attention that never crosses a segment."""
+        mask = (segment_ids > 0).to(torch.int32)
+        x = self.embeddings(input_ids, position_ids)
+        for layer in self.layers:
+            x = layer(x, mask, segment_ids=segment_ids)
+        return x.to(torch.float32), mask
+
+    def packed_embeddings(
+        self,
+        input_ids: torch.Tensor,     # (B, S) packed rows
+        segment_ids: torch.Tensor,   # (B, S) int32; 0 = pad, 1..M = sequences
+        position_ids: torch.Tensor,  # (B, S) per-segment RoBERTa positions
+        seg_starts: torch.Tensor,    # (B, M) first token of each slot
+        seg_lengths: torch.Tensor,   # (B, M) tokens per slot (0 = empty)
+        *,
+        max_segments: int,
+    ) -> torch.Tensor:
+        """Sequence-packed forward: several passages share a row under a
+        block-diagonal attention mask. Returns per-SEGMENT pooled f32
+        embeddings (B, max_segments, d), empty slots exact zeros; callers
+        unpack with the packer's (row, slot) placement. Equal to the unpacked
+        forward up to float reassociation: positions restart per segment,
+        attention stays inside a segment and pooling reduces one segment."""
+        c = self.cfg
+        x, _ = self._packed_hidden(input_ids, segment_ids, position_ids)
+        return pool_segments(x, segment_ids, seg_starts, seg_lengths, c.pooling, c.normalize, max_segments)
+
+    def packed_embed_with_tokens(
+        self,
+        input_ids: torch.Tensor,
+        segment_ids: torch.Tensor,
+        position_ids: torch.Tensor,
+        seg_starts: torch.Tensor,
+        seg_lengths: torch.Tensor,
+        *,
+        max_segments: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed :meth:`embed_with_tokens`: one backbone pass -> (per-segment
+        pooled (B, M, d) f32, per-token normalized (B, S, d) f32 with pad
+        tokens zeroed); callers cut each segment's token block out of its
+        row with the packer's (start, length) table."""
+        c = self.cfg
+        x, mask = self._packed_hidden(input_ids, segment_ids, position_ids)
+        pooled = pool_segments(x, segment_ids, seg_starts, seg_lengths, c.pooling, c.normalize, max_segments)
+        return pooled, normalize_tokens(x, mask)
 
 
 def normalize_tokens(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
@@ -222,3 +280,36 @@ def pool_and_normalize(
             torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12
         )
     return pooled
+
+
+def pool_segments(
+    hidden_f32: torch.Tensor,   # (B, S, d) f32
+    segment_ids: torch.Tensor,  # (B, S) int32, 0 = pad
+    seg_starts: torch.Tensor,   # (B, M)
+    seg_lengths: torch.Tensor,  # (B, M)
+    pooling: str,
+    normalize: bool,
+    max_segments: int,
+) -> torch.Tensor:
+    """Per-SEGMENT pooling of packed rows -> (B, M, d) f32, empty slots
+    exact zeros. Mean pooling is a one-hot segment matrix times the hidden
+    states (no scatter, no loop over segments)."""
+    x = hidden_f32
+    b, _, d = x.shape
+    starts = seg_starts.to(torch.int64)
+    if pooling == "cls":
+        pooled = torch.gather(x, 1, starts[:, :, None].expand(b, max_segments, d))
+    elif pooling == "mean":
+        slot = torch.arange(1, max_segments + 1, device=x.device, dtype=segment_ids.dtype)
+        sel = (segment_ids[:, None, :] == slot[None, :, None]).to(torch.float32)
+        pooled = torch.einsum("bms,bsd->bmd", sel, x) / torch.clamp(
+            seg_lengths[:, :, None].to(torch.float32), min=1e-9
+        )
+    elif pooling == "last_token":
+        idx = starts + torch.clamp(seg_lengths.to(torch.int64) - 1, min=0)
+        pooled = torch.gather(x, 1, idx[:, :, None].expand(b, max_segments, d))
+    else:
+        raise ValueError(f"unknown pooling {pooling!r}")
+    if normalize:
+        pooled = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12)
+    return pooled * (seg_lengths > 0)[:, :, None].to(torch.float32)

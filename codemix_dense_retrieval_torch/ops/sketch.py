@@ -6,6 +6,8 @@ exactness certificate.
    package's). Store the sketch ``S = bf16(X P)`` and per-row tail norms
    ``t_x = ||x - P f32(S_x)||``, computed against the ROUNDED stored sketch,
    so the storage rounding sits inside the bound (:func:`sketch_rows`).
+   :func:`cluster_bisect_order` turns a sketch into a row order that puts
+   sketch-space neighbours into the same bins (``reorder_rows``).
 2. **Probe**: kernel 7 (:func:`binub`) computes the bin maxima of the score
    UPPER BOUND ``ub(x) = s_q . s_x + ||q_tail|| * t_x >= q . x``
    (Cauchy-Schwarz on the orthogonal complement), reading ``ds/d`` of the
@@ -29,6 +31,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -84,19 +88,89 @@ def full_f32():
 # build side
 # --------------------------------------------------------------------------
 
+def cluster_bisect_order(sketch: np.ndarray, leaf: int = DEFAULT_BIN_SIZE) -> np.ndarray:
+    """Variance-guided recursive bisection order over sketch space (host
+    numpy; the JAX package's permutation for the same sketch).
+
+    Returns ``perm`` such that ``rows[perm]`` places sketch-space neighbours
+    in contiguous ``leaf``-row blocks: the clustering IS the row order, so
+    after the reorder each bin of the bin-max kernels is a tight sketch-space
+    cell, a query's top-k falls into few bins and the probed cover's
+    certificates fire. Each level splits every block at its median along the
+    block's maximum-variance dimension among the ``min(ds, 32)`` leading
+    (PCA-ordered) ones, about ``log2(n / leaf)`` levels.
+
+    The JAX package's arithmetic, laid out for speed: per-block moments come
+    from f32 running sums over the block-sorted sketch (the same sequential
+    sums, one contiguous row per dimension, the dimensions on a thread pool),
+    and its ``np.lexsort((key, block))`` is one stable argsort of a 64-bit
+    (block, key) code, which orders rows alike (``-0.0`` and ``0.0`` tie in
+    both; the sketch has no NaN)."""
+    sketch = np.ascontiguousarray(np.asarray(sketch, np.float32))
+    n, ds = sketch.shape
+    order = np.arange(n, dtype=np.int64)
+    if n <= leaf:
+        return order
+    dv = min(ds, 32)
+    cols = np.ascontiguousarray(sketch[:, :dv].T)  # (dv, n)
+    so = np.empty_like(cols)   # the block-sorted sketch
+    cs = np.empty_like(cols)   # its running sums
+    cs2 = np.empty_like(cols)  # and running sums of squares
+    levels = int(math.ceil(math.log2(n / leaf)))
+    bounds = np.array([0, n], dtype=np.int64)
+
+    def moments(j: int) -> None:
+        np.take(cols[j], order, out=so[j])
+        np.cumsum(so[j], out=cs[j])
+        np.cumsum(so[j] * so[j], out=cs2[j])
+
+    with ThreadPoolExecutor(max_workers=min(dv, os.cpu_count() or 1)) as pool:
+        for _ in range(levels):
+            list(pool.map(moments, range(dv)))
+            starts = bounds[:-1]
+            sizes = np.diff(bounds)
+            cnt = sizes.astype(np.float64)[:, None]
+            ends = bounds[1:] - 1
+            sums = cs[:, ends].T.astype(np.float64)
+            sqs = cs2[:, ends].T.astype(np.float64)
+            sums[1:] -= cs[:, ends[:-1]].T
+            sqs[1:] -= cs2[:, ends[:-1]].T
+            var = sqs / cnt - (sums / cnt) ** 2
+            dsel = var.argmax(axis=1)  # split dim per block
+            rowblock = np.repeat(np.arange(len(starts), dtype=np.uint64), sizes)
+            key = (so[dsel[rowblock.astype(np.int64)], np.arange(n)] + np.float32(0)).view(np.uint32)
+            # f32 order as unsigned order: negatives reversed below positives
+            key = np.where(key & np.uint32(0x80000000), ~key, key | np.uint32(0x80000000))
+            order = order[np.argsort((rowblock << np.uint64(32)) | key, kind="stable")]
+            mids = starts + sizes // 2
+            bounds = np.unique(np.concatenate([bounds, mids]))
+            if np.all(np.diff(bounds) <= leaf):
+                break
+    return order
+
+
+def sample_index(n: int, sample: int, seed: int = 0) -> np.ndarray:
+    """The sorted rows :func:`fit_sketch` fits on: all ``n`` when
+    ``n <= sample``, else ``sample`` drawn without replacement."""
+    if n <= sample:
+        return np.arange(n)
+    idx = np.random.default_rng(seed).choice(n, size=sample, replace=False)
+    idx.sort()
+    return idx
+
+
 def fit_sketch(
     rows: np.ndarray, sketch_dim: int, *, sample: int = 131072, seed: int = 0
 ) -> np.ndarray:
     """Fit an orthonormal (d, ds) projection by uncentered PCA on a row
-    sample: top eigenvectors of ``E[x x^T]``. Deterministic."""
+    sample (:func:`sample_index`): top eigenvectors of ``E[x x^T]``.
+    Deterministic."""
     rows = np.asarray(rows)
     n, d = rows.shape
     if not 0 < sketch_dim <= d:
         raise ValueError(f"sketch_dim={sketch_dim} not in (0, {d}]")
     if n > sample:
-        idx = np.random.default_rng(seed).choice(n, size=sample, replace=False)
-        idx.sort()
-        rows = rows[idx]
+        rows = rows[sample_index(n, sample, seed)]
     x = rows.astype(np.float32)
     cov = (x.T @ x) / max(1, len(x))
     eigvals, eigvecs = np.linalg.eigh(cov.astype(np.float64))

@@ -583,6 +583,57 @@ def _topk_from_bins_two_level_bm(
     return vals, torch.gather(cand_idx, 1, pos)
 
 
+def _topk_from_bins_two_level_bm_probed(
+    scores_bm: torch.Tensor,   # (B, N) bin-major scores
+    binmax_bm: torch.Tensor,   # (B, nb) bin-major bin maxima
+    k: int,
+    bin_size: int,
+    super_size: int,
+    probe_bins: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-level tail over ``probe_bins`` bins instead of k, with the
+    true maximum over every unselected bin: returns ``(vals, ids, unsel)``.
+    ``vals[:, k-1] > unsel`` certifies the probe (every row outside the
+    probed bins scores strictly below the k-th candidate); ties at the
+    boundary fail the strict comparison and escalate. The bound composes
+    over shards: merged k-th > max of the shards' ``unsel``."""
+    b, nb = binmax_bm.shape
+    bin_ids, unsel = _select_bins_two_level(
+        binmax_bm, probe_bins, super_size, return_unselected_bound=True
+    )
+    kb = bin_ids.shape[1]
+    cand = torch.gather(
+        scores_bm.reshape(b, nb, bin_size), 1,
+        bin_ids[:, :, None].expand(b, kb, bin_size),
+    ).reshape(b, kb * bin_size).to(torch.float32)
+    cand_idx = _expand_ids(bin_ids, bin_size)
+    vals, pos = _stable_topk(cand, k)
+    return vals, torch.gather(cand_idx, 1, pos), unsel
+
+
+def topk_full_tail_bm(
+    scores_bm: torch.Tensor,   # (B, N) bin-major scores (retained phase 1)
+    binmax_bm: torch.Tensor,   # (B, nb)
+    qsel: torch.Tensor,        # (B_esc,) query rows to escalate
+    k: int,
+    bin_size: int,
+    super_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Escalation tail of the probed cover: the full two-level selection for
+    the query rows ``qsel`` on the RETAINED phase-1 scores, so kernel A is
+    not run again. The selected bins are read where they lie in the score
+    store (``kb * bin_size`` elements per query); no row of the store is
+    copied (a (B_esc, N) copy is 4.5 GB for 128 queries at 8.8M rows).
+    Results equal :func:`_topk_from_bins_two_level_bm` on those rows."""
+    nb = binmax_bm.shape[1]
+    bin_ids = _select_bins_two_level(binmax_bm.index_select(0, qsel), k, super_size)
+    cand = scores_bm.view(scores_bm.shape[0], nb, bin_size)[qsel[:, None], bin_ids]
+    cand = cand.reshape(len(qsel), -1).to(torch.float32)
+    cand_idx = _expand_ids(bin_ids, bin_size)
+    vals, pos = _stable_topk(cand, k)
+    return vals, torch.gather(cand_idx, 1, pos)
+
+
 # --------------------------------------------------------------------------
 # public API
 # --------------------------------------------------------------------------
@@ -630,6 +681,52 @@ def topk_ip_bins_two_level(
             )
             return _topk_from_bins_two_level(scores_t, bin_max_t, k, bin_size, super_size)
     return _by_query_chunks(queries, tile_b, run)
+
+
+def topk_ip_bins_two_level_probed(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    *,
+    probe_bins: int,
+    bin_size: Optional[int] = None,
+    super_size: Optional[int] = None,
+    tile_n: int = 1024,
+    n_valid: Optional[Rows] = None,
+    score_dtype: torch.dtype = torch.float32,
+    keep_scores: bool = False,
+):
+    """Certified probed-exact deep-k: kernel A's bin-major scores at every
+    shard size, then the two-level cover over only ``probe_bins`` bins,
+    certified per query against the true unselected-bin maxima
+    (:func:`_topk_from_bins_two_level_bm_probed`).
+
+    Returns ``(vals, ids, cert, unsel)``, or with ``keep_scores=True``
+    ``(vals, ids, cert, unsel, scores_bm, binmax_bm)``, so the caller can
+    escalate uncertified queries through :func:`topk_full_tail_bm` without
+    running kernel A again. The whole batch is one launch, since the
+    escalation reads its score store."""
+    if bin_size is None:
+        bin_size = _auto_bin_size_two_level(k)
+    if probe_bins * bin_size < k:
+        raise ValueError(
+            f"probe_bins={probe_bins} x bin_size={bin_size} < k={k}: "
+            "the probed cover cannot hold k candidates"
+        )
+    if super_size is None:
+        super_size = _auto_super_size(k)
+    (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
+    scores_bm, binmax_bm = bin_scores(
+        queries, docs, n_valid, bin_size, layout="bin_major", score_dtype=score_dtype
+    )
+    nb = binmax_bm.shape[1]
+    vals, ids, unsel = _topk_from_bins_two_level_bm_probed(
+        scores_bm, binmax_bm, k, bin_size, super_size, min(probe_bins, nb)
+    )
+    cert = vals[:, k - 1] > unsel
+    if keep_scores:
+        return vals, ids, cert, unsel, scores_bm, binmax_bm
+    return vals, ids, cert, unsel
 
 
 def topk_ip_bins(

@@ -200,6 +200,85 @@ def sharded_topk_ip(
     return _merge_two_key(vals, gids, k)
 
 
+def sharded_topk_ip_adaptive(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    counts: torch.Tensor,
+    k: int,
+    *,
+    probe_bins: Optional[int] = None,
+    expand: float = 2.0,
+    bin_size: int = 8,
+    super_size: Optional[int] = None,
+    tile_n: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Always-exact adaptive top-k over a padded shard: the probed two-level
+    cover (kernel A bin-major at every shard size,
+    :func:`~codemix_dense_retrieval_torch.ops.topk.topk_ip_bins_two_level_probed`)
+    certifies each query against the true unselected-bin maxima, and only
+    the uncertified queries escalate:
+
+    - at most B/2 escalated: the full selection tail on the retained scores
+      (:func:`~codemix_dense_retrieval_torch.ops.topk.topk_full_tail_bm`),
+      with no second kernel-A pass;
+    - more than B/2: the retained scores are freed first, then
+      :func:`sharded_topk_ip` runs the escalated queries in the caller's
+      query dtype (one score store at a time on the card).
+
+    The certificate composes over shards: the merged k-th value against the
+    largest of the shards' unselected bounds. The JAX package pads the
+    escalated set to a power of two for XLA's compile cache; eager PyTorch
+    has no such cache, so the port does not. Returns (values (B, k) f32,
+    global ids (B, k) int64, stats ``certified_frac``, ``probe_bins`` and,
+    when a query escalated, ``escalated``); results equal
+    :func:`sharded_topk_ip`'s for every query. The probed cover scores its
+    whole batch in one launch (the escalation reads that score store), so
+    there is no ``tile_b``."""
+    from codemix_dense_retrieval_torch.ops.sketch import _default_probe_bins
+
+    shard_id = 0
+    rows_per_shard = docs.shape[0]
+    if k > rows_per_shard:
+        raise ValueError(
+            f"k={k} > rows_per_shard={rows_per_shard}; lower k or use fewer shards"
+        )
+    if docs.dtype == torch.int8:
+        raise NotImplementedError(
+            "adaptive probed-exact search supports bf16/f32 indexes; "
+            "int8 indexes use the fixed cover (sharded_topk_ip) or the "
+            "int8 sketch tier"
+        )
+    if super_size is None:
+        super_size = topk_ops._auto_super_size(k)
+    nb_local = rows_per_shard // bin_size
+    if probe_bins is None:
+        probe_bins = _default_probe_bins(k, bin_size, nb_local, expand)
+    probe_bins = max(min(probe_bins, nb_local), -(-k // bin_size))
+    vals, idx, _, unsel, scores_bm, binmax_bm = topk_ops.topk_ip_bins_two_level_probed(
+        queries, docs, k, probe_bins=probe_bins, bin_size=bin_size, super_size=super_size,
+        tile_n=tile_n, n_valid=counts[:1], keep_scores=True,
+    )
+    vals, gids = _merge_two_key(vals, idx + shard_id * rows_per_shard, k)
+    cert = (vals[:, k - 1] > unsel).cpu().numpy()
+    b = len(cert)
+    stats = {"certified_frac": float(cert.mean()), "probe_bins": probe_bins}
+    if cert.all():
+        return vals, gids, stats
+    bad = np.flatnonzero(~cert)
+    qsel = torch.from_numpy(bad).to(queries.device)
+    if len(bad) <= b // 2:
+        ev, eidx = topk_ops.topk_full_tail_bm(scores_bm, binmax_bm, qsel, k, bin_size, super_size)
+        del scores_bm, binmax_bm
+        ev, eg = _merge_two_key(ev, eidx + shard_id * rows_per_shard, k)
+    else:
+        del scores_bm, binmax_bm  # freed BEFORE the exact path's score store
+        ev, eg = sharded_topk_ip(queries.index_select(0, qsel), docs, counts, k, tile_n=tile_n)
+    vals[qsel] = ev
+    gids[qsel] = eg
+    stats["escalated"] = int(len(bad))
+    return vals, gids, stats
+
+
 def sharded_topk_ip_sketch(
     queries: torch.Tensor,
     docs: torch.Tensor,

@@ -15,9 +15,9 @@
   ``<lang>/tokens`` for the two-stage MaxSim rerank, written from the same
   backbone pass as the dense rows; each store resumes on its own, and a
   language whose dense store is finished gets its token store backfilled;
-- the root ``docids.txt`` and ``meta.json``.
-
-Sequence packing (``pack``) is not ported yet and raises.
+- the root ``docids.txt`` and ``meta.json``;
+- ``pack=True``: sequence-packed encode (short passages share device rows,
+  :meth:`~codemix_dense_retrieval_torch.models.encoder.TextEncoder.encode_documents`).
 """
 
 from __future__ import annotations
@@ -237,11 +237,6 @@ def encode_corpus(
     (``token_dtype``) at ``<lang>/tokens``: one backbone pass gives the
     dense row and the token block. Each store skips only its own rows
     already written, so a crash between the two appends heals on restart."""
-    if pack:
-        raise NotImplementedError(
-            "pack=True (sequence-packed encode) is not ported yet: "
-            "ROADMAP queue 1, item 11 (sequence packing)"
-        )
     out_root = pathlib.Path(out_root)
     out_root.mkdir(parents=True, exist_ok=True)
     selection = selection or SelectionState(rel_ids=set())
@@ -352,11 +347,11 @@ def encode_corpus(
                     break
                 continue
             if tok_writer is None:
-                vecs = encoder.encode_documents(keep_texts, batch_size=enc_batch, readback_dtype=readback)
+                vecs = encoder.encode_documents(keep_texts, batch_size=enc_batch, readback_dtype=readback, pack=pack)
                 toks = lens = None
             else:
                 vecs, toks, lens = encoder.encode_documents_with_tokens(
-                    keep_texts, batch_size=enc_batch, max_tokens=tokens_per_doc
+                    keep_texts, batch_size=enc_batch, max_tokens=tokens_per_doc, pack=pack
                 )
             # each store skips only its own rows already written
             dense_new = [i for i, d in enumerate(keep_ids) if d not in already_written]

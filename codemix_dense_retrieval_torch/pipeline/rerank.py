@@ -162,13 +162,17 @@ class TwoStageSearcher:
         _check_row_alignment(index, token_store)
         if index.device is None:
             index.to_device()
+        # the row order the token store follows; reorder_rows (and the
+        # mutations of ROADMAP item 8) bump the index's epoch
+        self._index_epoch = index.mutation_epoch
         self.index = index
         self.tokens = token_store
         self.device = index.device
         # ship only the unique candidate blocks of a query block when that
         # is fewer bytes; the results are the same
         self.dedupe = dedupe
-        # sketch-tier dense stage (True / "guaranteed"), passed to the index
+        # the dense stage's search tier (True / "guaranteed" / "adaptive"),
+        # passed to the index
         self.approx = approx
         # effective depths of the most recent search() (k_dense may clamp)
         self.last_depths: dict = {}
@@ -249,6 +253,11 @@ class TwoStageSearcher:
         """Top-``k`` by MaxSim among the dense stage's top-``k_dense``
         (default ``max(4*k, 100)``, ColBERTv2's rerank depth). Returns
         (scores (B, k) f32, docids object / global row ids)."""
+        if self.index.mutation_epoch != self._index_epoch:
+            raise ValueError(
+                "dense index mutated since this TwoStageSearcher was built: dense row ids would "
+                "score the WRONG token blocks; rebuild the searcher (token-store mutation is not supported)"
+            )
         if k_dense is None:
             k_dense = max(4 * k, 100)
         k_dense = max(k_dense, k)
@@ -378,6 +387,7 @@ def run_two_stage_bilingual(
     tag: str = "bilingual-twostage",
     max_queries: int = 0,
     cache_root=None,
+    approx=False,
 ):
     """Two-stage search over a bilingual hub, one language at a time: each
     language's (index, token store) pair is searched two-stage at depth
@@ -394,7 +404,7 @@ def run_two_stage_bilingual(
     log = get_logger("rerank")
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    searchers = [TwoStageSearcher(ix, ts) for ix, ts in zip(indexes, token_stores)]
+    searchers = [TwoStageSearcher(ix, ts, approx=approx) for ix, ts in zip(indexes, token_stores)]
     out = {}
     for set_name, rows in query_sets.items():
         if max_queries:
@@ -456,6 +466,7 @@ def run_two_stage_search(
     tag: str = "twostage",
     max_queries: int = 0,
     cache_root=None,
+    approx=False,
 ):
     """Encode (or load from the cache) and two-stage search each query set;
     one ``<set>.trec`` and ``<set>_meta.json`` per set, the dense runners'
@@ -465,7 +476,7 @@ def run_two_stage_search(
     log = get_logger("rerank")
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    searcher = TwoStageSearcher(index, token_store)
+    searcher = TwoStageSearcher(index, token_store, approx=approx)
     out = {}
     for set_name, rows in query_sets.items():
         if max_queries:

@@ -196,12 +196,20 @@ def test_hf_source_without_datasets_says_what_to_do(monkeypatch):
 @pytest.mark.parametrize("kw,item", [pytest.param({"pack": True}, "sequence packing",
                                                   id="kw1-sequence packing")])
 def test_unported_options_raise_naming_the_roadmap(encoders, tmp_path, kw, item):
+    """Sequence packing is ported: ``pack=True`` no longer raises, and its
+    store holds the unpacked encode's docids and rows (the packed forward
+    sums in another order: rtol 5e-4 / atol 5e-5, as the JAX suite)."""
     _, enc = encoders
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        port.encode_corpus(enc, {"xx": port.SyntheticCorpusSource(4)}, tmp_path, **kw)
+    got = port.encode_corpus(enc, {"xx": port.SyntheticCorpusSource(12)}, tmp_path / "packed",
+                             storage_dtype="float32", **kw)
+    want = port.encode_corpus(enc, {"xx": port.SyntheticCorpusSource(12)}, tmp_path / "plain",
+                              storage_dtype="float32")
+    a, b = PortStore.open(got["xx"]), PortStore.open(want["xx"])
+    assert a.docids == b.docids and a.count == 12
+    np.testing.assert_allclose(np.asarray(a.vectors), np.asarray(b.vectors), rtol=5e-4, atol=5e-5)
 
 
-@pytest.mark.parametrize("flag", [pytest.param(["--pack"], id="flag1")])
+@pytest.mark.parametrize("flag", [pytest.param(["--weight_quant", "int8"], id="flag1")])
 def test_cli_encode_corpus_refuses_unported_flags(tmp_path, flag):
     from codemix_dense_retrieval_torch.cli import main
 

@@ -36,7 +36,8 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(res["modules"]) >= 25
+    assert len(res["modules"]) >= 26
+    assert "codemix_dense_retrieval_torch.models.packing" in res["modules"]
     assert res["bad"] == []
 
 
@@ -96,6 +97,18 @@ def _entry_index_search():
     DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).search(np.ones((1, 8)), 2)
 
 
+def _entry_index_adaptive_search():
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).search(np.ones((1, 8)), 2, approx="adaptive")
+
+
+def _entry_index_reorder_rows():
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).reorder_rows()
+
+
 def _entry_runner(tmp_path):
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
@@ -127,9 +140,18 @@ def _entry_encode_corpus_cli(tmp_path):
           "--out", str(tmp_path / "ix"), "--smoke_dim", "16"])
 
 
+def _entry_encode_corpus_pack_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+
+    (tmp_path / "c.tsv").write_text("d1\tsome passage\n")
+    main(["encode-corpus", "--corpus_tsv", f"xx={tmp_path / 'c.tsv'}", "--pack",
+          "--out", str(tmp_path / "ix"), "--smoke_dim", "16"])
+
+
 @pytest.mark.parametrize("entry", [
     _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
-    _entry_index_search, _entry_runner, _entry_cli, _entry_encode_corpus_cli,
+    _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_runner, _entry_cli,
+    _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()

@@ -93,10 +93,16 @@ def test_dim_mismatch_raises():
 
 
 def test_approx_is_refused():
+    """An unknown approx value is refused; "adaptive" (ported) gives the
+    exact results."""
     docs, qs, ids = _data(6, n=64)
     port = PortIndex.build(docs, ids).to_device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search(qs, 5, approx="adaptive")
+    with pytest.raises(ValueError, match="approx must be"):
+        port.search(qs, 5, approx="approximately")
+    ev, ed = port.search(qs, 5)
+    av, ad = port.search(qs, 5, approx="adaptive")
+    np.testing.assert_array_equal(ad, ed)
+    np.testing.assert_array_equal(av, ev)
 
 
 def test_queries_are_cast_to_the_index_dtype():

@@ -312,10 +312,19 @@ def test_index_guaranteed_is_exact_on_isotropic_data():
 
 @pytest.mark.parametrize("approx, err", [("adaptive", NotImplementedError), ("yes-please", ValueError)])
 def test_index_refuses_the_adaptive_tier_and_bad_values(approx, err):
+    """The adaptive tier refuses an int8 shard (the index runs exact search
+    there instead), and the index refuses an unknown approx value."""
+    from codemix_dense_retrieval_torch.parallel.sharded_search import sharded_topk_ip_adaptive
+
     rng = np.random.default_rng(11)
     docs = _anisotropic(rng, 1024, 32)
+    if err is NotImplementedError:
+        dv, _ = quantize_rows_np(docs)
+        with pytest.raises(err, match="int8"):
+            sharded_topk_ip_adaptive(_t(docs[:4]), _t(dv), torch.tensor([1024], dtype=torch.int32), 5)
+        return
     ix = PortIndex.build(docs, [str(i) for i in range(1024)]).to_device("cpu", pad_multiple=256)
-    with pytest.raises(err, match="item 15" if err is NotImplementedError else "guaranteed"):
+    with pytest.raises(err, match="guaranteed"):
         ix.search(docs[:4], 5, approx=approx)
 
 
@@ -390,7 +399,7 @@ def test_sketch_cache_is_shared_by_both_packages(tmp_path, monkeypatch):
     PortIndex.build(docs[:4000], [f"d{i}" for i in range(4000)]).save(tmp_path / "idx2")
     (tmp_path / "idx2" / "sketch.npz").write_bytes((tmp_path / "idx" / "sketch.npz").read_bytes())
     fresh = PortIndex.load(tmp_path / "idx2").to_device("cpu", pad_multiple=256).enable_sketch(sketch_dim=24)
-    assert fresh._sketch[3]["probe_by_k"] == {} and fresh._adaptive_cache == {}
+    assert fresh._sketch[3]["probe_by_k"] == {} and fresh._adaptive_cal["probe_by_k"] == {}
 
 
 def test_sharded_sketch_search_int8_needs_scales():
