@@ -134,10 +134,33 @@ Phases (a line of JSON after each):
                equal a stable collapsed top-500 of kernel A's own scores; the
                device metrics x100 equal `evaluate` on the fused runs within
                1e-4, RR@10 = 100 at alpha = .5; kernel A's time per block.
+ 9. serve    — SearchService + make_server in this process on 127.0.0.1 (an
+               ephemeral port), the phase-4 encoder behind a recorder of the
+               query embeddings, http.client clients, every request with its
+               own timeout. 9a: the phase-5 rows uploaded anew (8,841,823 x
+               1024 bf16, kernel A), warmup, provoked 400s, mixed traffic (512
+               single queries from 64 client threads and 8 requests of 64 at
+               k in {10, 100, 1000}: q/s, p50 / p99 latency, mean coalesced
+               batch), served ids and scores equal to one direct search of the
+               recorded embeddings; /add of 256 query texts as documents (in
+               the capacity; the docid table's seconds), /add of 1,024 passages
+               of 600-1000 words (kernel B; grows the index: its seconds and
+               the card peak), each added document at rank 1, /remove of all,
+               then the replies of before the adds. 9b: the phase-6 store
+               (131,072 rows, kernel 2) served exact, guaranteed (kernel 7,
+               the exact ids up to ties) and fast at k = 1 (certified rows
+               equal exact) around an /add that grows it and a /remove; the
+               phase-6b int8 store with its token store served two-stage
+               (kernels 4 and 6) through /add and a /remove with a swap chain,
+               equal to a direct TwoStageSearcher.search; the int8 store
+               served exact through /add and /remove (the exact int8 top-k),
+               /save into a snapshot root and /reload (the same ids).
                Then each kernel's launches on all the paths.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
-5d, 5e, 6, 6b, 6c, 8 and their fused runs) and read just after it; comparison and
-timing launches happen outside those windows. Every TREC run of the paths is
+5d, 5e, 6, 6b, 6c, 8, each service of 9 and their fused runs) and read just
+after it; comparison and timing launches happen outside those windows (in
+phase 9 the direct searches run while the service is idle, their launches
+taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
 The last line is the device JSON. Any failed check raises (exit code != 0).
 """
@@ -145,6 +168,7 @@ The last line is the device JSON. Any failed check raises (exit code != 0).
 from __future__ import annotations
 
 import contextlib
+import http.client
 import io
 import json
 import os
@@ -1224,7 +1248,7 @@ def main() -> None:
         shape=f"B=256 N={nb5} ds=128 G=8 bf16 sketch, bin-major upper-bound maxima",
     )]
     index._sketch = None
-    del sk5, tl5, q_sk, q_tl, col5
+    del sk5, tl5, q_sk, q_tl, col5, docs5  # the rows stay with the index until phase 7
     torch.cuda.empty_cache()
 
     # ---------------- phase 5e: the adaptive tier at full size ----------------
@@ -1401,7 +1425,6 @@ def main() -> None:
         small[c0 : c0 + (1 << 16)].copy_((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
     ShardStore.build(small, [f"s{i}" for i in range(SMALL_ROWS)], lang="xx").save(work / "small")
     write_s = time.perf_counter() - t0
-    del enc
     argv = ["codemix_dense_retrieval_torch", "run-mix", "--checkpoint", str(ckpt),
             "--index", str(work / "small"), "--query_tsv", f"en={work / 'en.tsv'}",
             f"zh={work / 'zh.tsv'}", "--outdir", str(work / "cli_runs"), "--k", "100",
@@ -2173,6 +2196,391 @@ def main() -> None:
           f"hub RR@10 at alpha=.5: evaluate {host_metrics['0.5']['RR@10']}, device {hub_metrics['0.5']['RR@10']}")
     del hub, host2, mixh, qblk
     torch.cuda.empty_cache()
+
+    # ---------------- phase 9: serving ----------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from codemix_dense_retrieval_torch.serving import SearchService, make_server
+
+    t9 = time.perf_counter()
+
+    class Recorder:
+        """The phase-4 encoder behind a service, keeping each query batch it
+        embeds (texts, dense rows, token blocks) so that replies can be
+        searched again directly while the service is idle."""
+
+        def __init__(self, inner):
+            self.inner, self.log, self.tok_log, self.encode_s = inner, [], [], 0.0
+
+        def encode_queries(self, texts, batch_size=64):
+            t0 = time.perf_counter()
+            q = self.inner.encode_queries(texts, batch_size=batch_size)
+            self.encode_s += time.perf_counter() - t0
+            self.log.append((list(texts), q))
+            return q
+
+        def encode_queries_tokens(self, texts, batch_size=64):
+            t, ln = self.inner.encode_queries_tokens(texts, batch_size=batch_size)
+            self.tok_log.append((list(texts), t, ln))
+            return t, ln
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def rows(self, texts):
+            """The dense rows the service searched for ``texts`` (each text
+            embedded once since the log was cleared)."""
+            got = {}
+            for ts, q in self.log:
+                for t, row in zip(ts, q):
+                    check(t not in got, f"text embedded twice in one window: {t[:40]!r}")
+                    got[t] = row
+            return np.stack([got[t] for t in texts])
+
+    class TimedIndex:
+        """The index behind the dense service, with its searches' seconds
+        (the consumer's card work besides the encode)."""
+
+        def __init__(self, inner):
+            self.inner, self.search_s, self.searches = inner, 0.0, 0
+
+        def search(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = self.inner.search(*args, **kw)
+            self.search_s += time.perf_counter() - t0
+            self.searches += 1
+            return out
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    serve_counts = {}
+
+    @contextlib.contextmanager
+    def serving(index, label, **kw):
+        """SearchService + make_server on 127.0.0.1, an ephemeral port, a
+        server thread; launches counted from start to stop under ``label``.
+        Stops both and fails the run if the consumer recorded an error."""
+        rec = Recorder(enc)
+        svc = SearchService(rec, index, **kw)
+        srv = make_server(svc, host="127.0.0.1", port=0, info={"model": "BAAI/bge-m3", "docs": index.count})
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        kernels.reset_launch_counts()
+        try:
+            yield svc, srv.server_address[1], rec
+        finally:
+            serve_counts[label] = dict(kernels.LAUNCHES)
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+            th.join(timeout=30)
+        health = svc.stats.snapshot()
+        check(health["errors"] == 0, f"serving {label}: {health['errors']} failed batches")
+
+    def call(port, path, body=None, expect=200):
+        """One HTTP request with its own timeout; fails the run on any status
+        but ``expect``. Returns (reply, seconds)."""
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        try:
+            if body is None:
+                conn.request("GET", path)
+            else:
+                conn.request("POST", path, body=json.dumps(body), headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = json.loads(resp.read())
+        finally:
+            conn.close()
+        check(resp.status == expect, f"{path}: status {resp.status}, not {expect}: {data}")
+        return data, time.perf_counter() - t0
+
+    def uncounted(fn, *args, **kw):
+        """A direct search to compare replies with, run while the service is
+        idle; its launches are kept out of the window."""
+        saved = dict(kernels.LAUNCHES)
+        try:
+            return fn(*args, **kw)
+        finally:
+            kernels.LAUNCHES.update(saved)
+
+    def same_up_to_ties(got, want_ids, want_scores, label):
+        """Served ids (rows of docid strings) against an exact search of the
+        same embeddings at a depth >= theirs: equal, or swapped only where
+        the exact scores lie within TIE_TOL (sketch-certified rows rank by the
+        rescore's products). Returns the rows that differ within ties."""
+        ties = 0
+        for g, wi, ws in zip(got, want_ids, want_scores):
+            w = [str(x) for x in wi[: len(g)]]
+            if g == w:
+                continue
+            pos = {str(d): j for j, d in enumerate(wi)}
+            check(all(d in pos and abs(ws[pos[d]] - ws[j]) <= TIE_TOL for j, d in enumerate(g)),
+                  f"{label}: served ids differ from exact search beyond ties: {g[:5]} vs {w[:5]}")
+            ties += 1
+        return ties
+
+    def reply_ids(results):
+        return [[h["docid"] for h in (r["hits"] if isinstance(r, dict) else r)] for r in results]
+
+    def reply_scores(results):
+        return [[h["score"] for h in (r["hits"] if isinstance(r, dict) else r)] for r in results]
+
+    # 9a. dense serving over the phase-5 rows, uploaded anew
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index9 = DenseFlatIndex.build(host, docids).to_device()
+    torch.cuda.synchronize()
+    upload9_s = time.perf_counter() - t0
+    cap9 = index9._rows_per_shard
+    singles = [(t, 10) for t in texts_a]  # 512 single-query requests at k = 10
+    bigs = [(texts_b[i * 64 : (i + 1) * 64], (10, 100, 1000)[i % 3]) for i in range(8)]  # 8 x 64 queries
+    timed9 = TimedIndex(index9)
+    with serving(timed9, "serve_dense", max_batch=256, max_wait_s=0.005, max_k=1000) as (svc, port, rec):
+        warm = svc.warmup()
+        health0, _ = call(port, "/healthz")
+        for bad in ({"queries": []}, {"queries": ["x"], "k": 5000}):
+            call(port, "/search", bad, expect=400)
+        call(port, "/add", {"docs": []}, expect=400)
+        # mixed traffic: the 8 batch requests spread among the singles
+        jobs = [([t], k) for t, k in singles]
+        for i, job in enumerate(bigs):
+            jobs.insert(i * 65 + 32, job)
+        rec.log.clear()
+        stats0 = svc.stats.snapshot()
+        rec.encode_s = timed9.search_s = timed9.searches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=64) as pool:
+            futs = [pool.submit(call, port, "/search", {"queries": q, "k": k}) for q, k in jobs]
+            done = [f.result(timeout=600) for f in futs]
+        traffic_s = time.perf_counter() - t0
+        stats1 = svc.stats.snapshot()
+        consumer = {"encode_s": rec.encode_s, "search_s": timed9.search_s, "searches": timed9.searches}
+        # the same encode with the service idle: 57 queries, the traffic's mean batch
+        idle = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            enc.encode_queries(texts_a[:57], batch_size=64)
+            idle.append(time.perf_counter() - t0)
+        consumer["encode_idle_ms_57_queries"] = float(np.median(idle[1:]) * 1e3)
+        # served ids and scores equal one direct search of the same
+        # embeddings (the service idle: its futures have all resolved)
+        all_texts = [t for q, _ in jobs for t in q]
+        direct_s, direct_d = uncounted(index9.search, rec.rows(all_texts), 1000, query_block=256)
+        off = 0
+        for (q, k), (reply, _) in zip(jobs, done):
+            rows = slice(off, off + len(q))
+            check(reply_ids(reply["results"]) == [[str(x) for x in row[:k]] for row in direct_d[rows]],
+                  f"served ids differ from direct search at k={k}")
+            check(reply_scores(reply["results"]) == [[float(x) for x in row[:k]] for row in direct_s[rows]],
+                  f"served scores differ from direct search at k={k}")
+            off += len(q)
+        lat_single = np.array([s for (q, _), (_, s) in zip(jobs, done) if len(q) == 1])
+        lat_big = np.array([s for (q, _), (_, s) in zip(jobs, done) if len(q) > 1])
+        # what the batch bucket costs: a search of 129 queries against the
+        # same 129 zero-padded to 256 (the service's bucket), idle service
+        q129 = rec.rows(all_texts)[:129]
+        q256 = np.concatenate([q129, np.zeros((127, DIM), np.float32)])
+        bucket_ms = {}
+        for kk in (10, 1000):
+            for name, qq in (("b129", q129), ("b256_padded", q256), ("b256_padded_again", q256), ("b129_again", q129)):
+                uncounted(index9.search, qq, kk)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    uncounted(index9.search, qq, kk)
+                bucket_ms[f"k{kk}_{name}"] = (time.perf_counter() - t0) / 3 * 1e3
+        # the reference block, then /add (in the capacity: the query texts as
+        # documents), /add that grows (1,024 long passages: kernel B), /search,
+        # /remove, /search
+        probe = texts_a[:256]
+        before, _ = call(port, "/search", {"queries": probe, "k": 10})
+        qdocs = [{"docid": f"qdoc{i}", "text": t} for i, t in enumerate(probe)]
+        add1, add1_s = call(port, "/add", {"docs": qdocs})
+        check(add1["results"] == {"added": 256, "count": N_ROWS + 256} and index9._rows_per_shard == cap9,
+              f"in-capacity add: {add1['results']}, rows {index9._rows_per_shard}")
+        long_docs = [{"docid": f"long{i}", "text": sentence("s", 600, 1000, 50_000)} for i in range(1024)]
+        flash0 = kernels.LAUNCHES["flash_attention"]
+        add2_s = []
+        for c0 in range(0, 1024, 256):
+            r, sec = call(port, "/add", {"docs": long_docs[c0 : c0 + 256]})
+            add2_s.append(sec)
+        check(r["results"]["count"] == N_ROWS + 1280, f"grow adds: {r['results']}")
+        check(kernels.LAUNCHES["flash_attention"] > flash0, "the long-passage adds did not launch kernel B")
+        grows = index9.mutation_stats["grows"]
+        check(len(grows) == 1 and grows[0]["from_rows"] == cap9 and index9._rows_per_shard > cap9,
+              f"the grow step: {grows}")
+        rec.log.clear()
+        after, _ = call(port, "/search", {"queries": probe, "k": 10})
+        top1 = [row[0] for row in reply_ids(after["results"])]
+        check(top1 == [f"qdoc{i}" for i in range(256)],
+              f"added query documents not at rank 1: {sum(a != f'qdoc{i}' for i, a in enumerate(top1))} of 256")
+        _, direct_after = uncounted(index9.search, rec.rows(probe), 10)
+        check(reply_ids(after["results"]) == [[str(x) for x in row] for row in direct_after],
+              "served ids after the grow differ from direct search")
+        rm, rm_s = call(port, "/remove", {"docids": [d["docid"] for d in qdocs + long_docs] + ["never-there"]})
+        check(rm["results"] == {"removed": 1280, "count": N_ROWS}, f"remove: {rm['results']}")
+        again, _ = call(port, "/search", {"queries": probe, "k": 10})
+        check(again["results"] == before["results"], "after /remove the replies differ from those before the adds")
+        health1, _ = call(port, "/healthz")
+        check(health1["stats"]["errors"] == 0, f"/healthz errors {health1['stats']}")
+    peak9 = torch.cuda.max_memory_allocated()
+    check(serve_counts["serve_dense"]["bin_scores_bin_major"] > 0, "dense serving did not launch kernel A")
+    n_traffic = sum(len(q) for q, _ in jobs)
+    batches = stats1["batches"] - stats0["batches"]
+    say("serve", smi=smi, rows=N_ROWS, rows_padded=cap9, upload_s=round(upload9_s, 2), max_batch=256,
+        max_wait_ms=5, warmup=warm, healthz_docs=health0["docs"],
+        traffic={"requests": len(jobs), "single_requests": len(singles), "batch_requests": len(bigs),
+                 "queries": n_traffic, "client_threads": 64, "seconds": round(traffic_s, 3)},
+        queries_per_s=round(n_traffic / traffic_s, 1),
+        latency_ms={"single_p50": float(np.percentile(lat_single, 50) * 1e3),
+                    "single_p99": float(np.percentile(lat_single, 99) * 1e3),
+                    "batch64_p50": float(np.percentile(lat_big, 50) * 1e3),
+                    "batch64_p99": float(np.percentile(lat_big, 99) * 1e3)},
+        batches=batches, mean_coalesced_batch=(stats1["batched_queries"] - stats0["batched_queries"]) / batches,
+        consumer_in_traffic=consumer, batch_bucket_search_ms=bucket_ms,
+        served_equal_direct_search=True, add_in_capacity_s=round(add1_s, 3),
+        add_grow_request_s=[round(x, 3) for x in add2_s], grow=grows[0],
+        row_of_s=round(index9.mutation_stats["row_of_s"], 3), rows_after_grow=index9._rows_per_shard,
+        remove_s=round(rm_s, 3), added_at_rank1=256, after_remove_equal_before=True,
+        card_peak_gb=round(peak9 / 1e9, 2), stats=health1["stats"], launches=serve_counts["serve_dense"])
+    del index9, direct_s, direct_d, direct_after, long_docs
+    torch.cuda.empty_cache()
+
+    # 9b. the small stores: the sketch tier, two-stage, int8, snapshots
+    probe = texts_a[:256]
+    small9 = DenseFlatIndex.load(work / "small").to_device()
+    small9.enable_sketch(sketch_dim=128)
+    with serving(small9, "serve_exact") as (svc, port, rec):
+        exact9, _ = call(port, "/search", {"queries": probe, "k": 10})
+        _, want = uncounted(small9.search, rec.rows(probe), 10)
+        check(reply_ids(exact9["results"]) == [[str(x) for x in row] for row in want],
+              "exact serving over the small store differs from direct search")
+    grt_ties = 0
+    with serving(small9, "serve_guaranteed", approx="guaranteed") as (svc, port, rec):
+        for step in ("before", "after"):
+            if step == "after":
+                call(port, "/add", {"docs": [{"docid": f"sq{i}", "text": t} for i, t in enumerate(probe[:64])]})
+            rec.log.clear()
+            grt, _ = call(port, "/search", {"queries": probe, "k": 10})
+            check(all(r["certified"] for r in grt["results"]), "a guaranteed reply row is not certified")
+            want_s, want = uncounted(small9.search, rec.rows(probe), 20)
+            grt_ties += same_up_to_ties(reply_ids(grt["results"]), want, want_s, f"guaranteed serving, {step} the add")
+        check([r[0] for r in reply_ids(grt["results"])[:64]] == [f"sq{i}" for i in range(64)],
+              "added documents not at rank 1 (guaranteed)")
+    small_rows = small9._rows_per_shard
+    fast_cert, fast_ties = [], 0
+    with serving(small9, "serve_fast", approx="fast") as (svc, port, rec):
+        for step in ("added", "removed"):
+            if step == "removed":
+                call(port, "/remove", {"docids": [f"sq{i}" for i in range(64)]})
+            rec.log.clear()
+            fast, _ = call(port, "/search", {"queries": probe, "k": 1})
+            want_s, want = uncounted(small9.search, rec.rows(probe), 20)
+            cert = [r["certified"] for r in fast["results"]]
+            check(all(isinstance(c, bool) for c in cert), "fast replies carry no certified flag")
+            rows = [i for i, c in enumerate(cert) if c]
+            fast_ties += same_up_to_ties([reply_ids(fast["results"])[i] for i in rows], want[rows], want_s[rows],
+                                         f"certified fast rows, {step}")
+            fast_cert.append(len(rows))
+    check(fast_cert[0] > 0, "no fast reply certified at k = 1 with the query documents added")
+    del small9
+
+    # two-stage over the encode-corpus int8 store and its token store, with
+    # headroom for the adds (card-resident blocks, kernels 4 and 6)
+    from codemix_dense_retrieval_torch.pipeline.rerank import TwoStageSearcher
+
+    ts9 = TwoStageSearcher(DenseFlatIndex.load(work / "corpus" / "xx").to_device(pad_multiple=4096),
+                           TokenShardStore.open(work / "corpus" / "xx" / "tokens"))
+    check(ts9.device_resident, "the encode-corpus token store is not card-resident")
+
+    def two_stage_equal(svc_rec, reply, label):
+        texts_, q = svc_rec.log[-1]
+        _, qt, ql = svc_rec.tok_log[-1]
+        check(texts_ == probe, f"two-stage {label}: the recorded batch is not the request")
+        sc, ids = uncounted(ts9.search, q, qt, ql, 100, k_dense=K_DENSE)
+        check(reply_ids(reply["results"]) == [[str(x) for x in row] for row in ids]
+              and reply_scores(reply["results"]) == [[float(x) for x in row] for row in sc],
+              f"two-stage serving {label} differs from a direct TwoStageSearcher.search")
+
+    with serving(ts9, "serve_two_stage", index_search_kwargs={"k_dense": K_DENSE}) as (svc, port, rec):
+        r0, _ = call(port, "/search", {"queries": probe, "k": 100})
+        two_stage_equal(rec, r0, "before the add")
+        call(port, "/add", {"docs": [{"docid": f"tq{i}", "text": t} for i, t in enumerate(probe[:64])]})
+        r1, _ = call(port, "/search", {"queries": probe, "k": 100})
+        two_stage_equal(rec, r1, "after the add")
+        check([r[0] for r in reply_ids(r1["results"])[:64]] == [f"tq{i}" for i in range(64)],
+              "added documents not at rank 1 (two-stage)")
+        n0 = ts9.count
+        chain = ["tq62", str(ts9.index.docids[3]), str(ts9.index.docids[0]), "tq5", "ghost"]
+        rm, _ = call(port, "/remove", {"docids": chain})
+        check(rm["results"]["removed"] == 4 and ts9.count == n0 - 4, f"two-stage remove {rm['results']}")
+        swaps = ts9.index.last_swaps
+        check(swaps[:2] == [(n0 - 1, n0 - 2), (n0 - 2, 3)], f"no swap chain in {swaps}")
+        r2, _ = call(port, "/search", {"queries": probe, "k": 100})
+        two_stage_equal(rec, r2, "after the remove")
+    del ts9
+
+    # an int8 store: /add (grows), /remove, the exact int8 top-k; /save, /reload.
+    # First the card's quantizer, which /add and to_store run: the host
+    # quantizer's bytes, and quantize(dequantize(q, s)) == (q, s) on the card
+    from codemix_dense_retrieval_torch.ops.quant import dequantize, quantize_rows_np
+
+    xq = torch.randn(1 << 16, DIM, device=dev, generator=gi)
+    xq *= torch.exp2(torch.randint(-40, 40, (1 << 16, 1), device=dev, generator=gi).float())
+    xq[:4] = 0.0
+    cq, cs = quantize_rows(xq)
+    hq, hs = quantize_rows_np(xq.cpu().numpy())
+    rq, rs = quantize_rows(dequantize(cq, cs))
+    check(np.array_equal(cq.cpu().numpy(), hq) and np.array_equal(cs.cpu().numpy(), hs),
+          "the card's quantize_rows differs from the host quantizer")
+    check(torch.equal(rq, cq) and torch.equal(rs, cs), "quantize(dequantize(q, s)) != (q, s) on the card")
+    del xq, cq, cs, rq, rs
+    i8 = DenseFlatIndex.load(work / "corpus" / "xx").to_device()
+
+    def int8_topk_ids(rows, k):
+        """Docids of the exact int8 top-k of the live rows (plain scores)."""
+        n = i8.count
+        q8, qs8 = quantize_rows(torch.from_numpy(rows).to(dev))
+        sc = int8_ip_scores(q8, qs8, i8._docs_dev[:n], i8.search_kwargs["doc_scales"][:n])
+        return [[str(i8.docids[j]) for j in row] for row in topk._stable_topk(sc, k)[1].cpu().numpy()]
+
+    snap_root = work / "snapshots"
+    snap_root.mkdir()
+    with serving(i8, "serve_int8", snapshot_root=str(snap_root)) as (svc, port, rec):
+        call(port, "/add", {"docs": [{"docid": f"iq{i}", "text": t} for i, t in enumerate(probe[:64])]})
+        check(i8.mutation_stats["grows"], "the int8 add did not grow the 2,048-row store")
+        for step in ("add", "remove"):
+            if step == "remove":
+                call(port, "/remove", {"docids": [f"iq{i}" for i in range(0, 64, 2)] + [str(i8.docids[7])]})
+            rec.log.clear()
+            r8, _ = call(port, "/search", {"queries": probe, "k": 100})
+            check(reply_ids(r8["results"]) == uncounted(int8_topk_ids, rec.rows(probe), 100),
+                  f"int8 serving after /{step} differs from the exact int8 top-k")
+        saved, _ = call(port, "/save", {"dir": "snap"})
+        check(saved["results"]["count"] == i8.count, f"/save {saved['results']}")
+        call(port, "/save", {"dir": "../outside"}, expect=400)
+        reloaded, _ = call(port, "/reload", {"dir": "snap"})
+        check(reloaded["results"] == {"reloaded": str((snap_root / "snap").resolve()), "count": i8.count},
+              f"/reload {reloaded['results']}")
+        check(svc.index is not i8 and svc.index.device == i8.device, "/reload did not swap the index")
+        r9, _ = call(port, "/search", {"queries": probe, "k": 100})
+        check(reply_ids(r9["results"]) == reply_ids(r8["results"]), "ids changed across /save and /reload")
+    del i8
+    for label, kname in (("serve_exact", "bin_scores_transposed"), ("serve_guaranteed", "binub"),
+                         ("serve_fast", "binub"), ("serve_two_stage", "maxsim"),
+                         ("serve_two_stage", "bin_scores_int8_transposed"),
+                         ("serve_int8", "bin_scores_int8_transposed")):
+        check(serve_counts[label][kname] > 0, f"{label} did not launch {kname}")
+    path_counts.update(serve_counts)
+    say("serve_small", smi=smi, store_rows=SMALL_ROWS, rows_after_add=small_rows,
+        guaranteed_equal_exact=True, guaranteed_rows_swapped_within_ties=grt_ties,
+        fast_k1_certified={"with_added_docs": fast_cert[0], "after_remove": fast_cert[1]},
+        fast_certified_equal_exact=True, fast_rows_swapped_within_ties=fast_ties,
+        two_stage={"docs": 2048, "k": 100, "k_dense": K_DENSE, "swap_chain": swaps[:2], "equal_direct": True},
+        quantizer_card_equals_host=True, int8_equal_exact_topk=True, save_reload_ids_equal=True,
+        launches={k: v for k, v in serve_counts.items() if k != "serve_dense"},
+        phase_s=round(time.perf_counter() - t9, 2))
+    del enc
 
     # each kernel's launches over all the paths
     entries.extend(late_entries)

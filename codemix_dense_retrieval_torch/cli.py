@@ -18,6 +18,8 @@ run-bilingual-mix         vector-mix alpha sweep over a bilingual hub
                           collapse on the device; parallel hubs only)
 run-rerank                two-stage search: dense recall + MaxSim rerank
                           (two or more ``--index``: the bilingual hub)
+serve                     online HTTP search with request coalescing
+                          (``--token_store``: two-stage serving)
 evaluate                  evaluate a TREC run against qrels
 ========================  ==============================================
 
@@ -409,6 +411,56 @@ def cmd_run_bilingual_mix(args) -> None:
     print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
 
 
+def cmd_serve(args) -> None:
+    """Online search: load the encoder and the index (one store, or several
+    merged into a hub) and serve the coalescing HTTP endpoint
+    (:mod:`~codemix_dense_retrieval_torch.serving`) until interrupted."""
+    from codemix_dense_retrieval_torch.serving import SearchService, make_server
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    index = _load_hub(args)
+    mode = False if args.approx == "off" else args.approx
+    if mode in ("fast", "guaranteed"):
+        index.enable_sketch(sketch_dim=args.sketch_dim, probe_bins=args.probe_bins or None)
+    search_kwargs = {}
+    if mode == "adaptive":
+        # no sidecar, but the persisted operating points apply
+        index.load_adaptive_calibration()
+        if args.probe_bins:
+            search_kwargs["probe_bins"] = args.probe_bins
+    if args.token_store:
+        # two-stage serving; the dense stage stays exact (guaranteed or
+        # adaptive), so the candidate pool is exact serving's
+        from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
+        from codemix_dense_retrieval_torch.pipeline.rerank import TwoStageSearcher
+
+        index = TwoStageSearcher(
+            index, TokenShardStore.open(args.token_store),
+            approx="adaptive" if mode == "adaptive" else ("guaranteed" if mode else False),
+        )
+        if args.k_dense:
+            search_kwargs["k_dense"] = args.k_dense
+    service = SearchService(
+        encoder, index, default_k=args.k, max_k=args.max_k, max_batch=args.max_batch,
+        max_wait_s=args.max_wait_ms / 1000.0, encode_batch=args.enc_batch,
+        approx=mode if not args.token_store else False, snapshot_root=args.snapshot_root,
+        index_search_kwargs=search_kwargs,
+    )
+    if args.warm:
+        print(json.dumps({"warmup": service.warmup()}), flush=True)
+    server = make_server(service, host=args.host, port=args.port, info={"model": args.encoder, "docs": index.count})
+    host, port = server.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}", "docs": index.count}), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.close()
+
+
 # ---------------------------------------------------------------------------
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -543,6 +595,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--query_cache", help="dir for per-set dense+token query embedding caches")
     _add_approx_flag(p)
     p.set_defaults(fn=cmd_run_rerank)
+
+    p = sub.add_parser("serve", help="online HTTP search endpoint with request coalescing "
+                                     "(GET /healthz, POST /search {queries, k})")
+    _add_common(p)
+    p.add_argument("--index", nargs="+", required=True,
+                   help="shard dir(s); several merge into one base#lang hub index")
+    p.add_argument("--lang_tags", nargs="+")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--k", type=int, default=10, help="default result depth")
+    p.add_argument("--max_k", type=int, default=1000)
+    p.add_argument("--max_batch", type=int, default=256, help="max coalesced queries per device batch")
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="max wait after the first request before dispatch")
+    p.add_argument("--approx", nargs="?", const="fast", default="off",
+                   choices=["off", "fast", "guaranteed", "adaptive"],
+                   help="serve through a search tier: 'fast' = PCA sketch (each result row becomes "
+                        "{hits, certified}); 'guaranteed' escalates uncertified queries to exact search; "
+                        "'adaptive' = probed-exact cover (always exact). Bare --approx means 'fast'.")
+    p.add_argument("--sketch_dim", type=int, default=128, help="sketch dimensionality for --approx")
+    p.add_argument("--probe_bins", type=int, default=0, help="bins probed for --approx (0 = auto)")
+    p.add_argument("--snapshot_root",
+                   help="enable POST /save and /reload, restricted to this directory (unset: disabled)")
+    p.add_argument("--token_store",
+                   help="serve two-stage: dense recall + MaxSim rerank against this token store "
+                        "(encode-corpus --tokens_per_doc); with --approx the dense stage runs guaranteed")
+    p.add_argument("--k_dense", type=int, default=0, help="two-stage dense recall depth (0 = max(4k, 100))")
+    p.add_argument("--warm", action="store_true",
+                   help="drive every (batch, k) serving bucket before accepting traffic (the kernels' "
+                        "first-use build and the card's allocations)")
+    p.set_defaults(fn=cmd_serve)
 
     sub.add_parser(
         "evaluate", help="evaluate a TREC run (all evaluate.py flags)", add_help=False,

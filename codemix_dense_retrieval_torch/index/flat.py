@@ -17,7 +17,10 @@ Composition:
 - **adaptive tier** (``search(approx="adaptive")``): the probed-exact cover
   over kernel A with escalation, always exact
   (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_adaptive`),
-  cheap once :meth:`DenseFlatIndex.reorder_rows` has cluster-ordered the rows.
+  cheap once :meth:`DenseFlatIndex.reorder_rows` has cluster-ordered the rows;
+- **online mutation** (:meth:`DenseFlatIndex.add`, :meth:`~DenseFlatIndex.remove`,
+  :meth:`~DenseFlatIndex.rebalance`): rows written into the padded capacity
+  on the device, the valid-row count updated after them.
 
 The row id -> docid remap is a host lookup into the docid table.
 """
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardManifest, ShardStore, concat_stores, storage_dtype
+from codemix_dense_retrieval_torch.ops.quant import quantize_rows
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
+    _ceil_to,
     search_blocks,
     shard_row_sidecar,
     shard_rows,
@@ -53,6 +58,17 @@ GUARANTEED_CERT_FLOOR = 0.05
 ADAPTIVE_ROUTE_MARGIN = 1.05
 # the kernel-geometry kwargs the adaptive tier takes from to_device
 _ADAPTIVE_KERNEL_KWARGS = ("bin_size", "super_size", "tile_n")
+
+
+def swap_sources(swaps: Sequence[Tuple[int, int]], dst: np.ndarray) -> np.ndarray:
+    """The pre-batch row each of the rows ``dst`` holds after the ordered
+    (src, dst) moves ``swaps``: a chain (a hole filled from a row that was
+    itself filled earlier in the batch) resolves to its first source, so one
+    gather and one scatter replay the moves."""
+    origin: dict = {}
+    for src, d in swaps:
+        origin[d] = origin.get(src, src)
+    return np.asarray([origin[int(d)] for d in dst], np.int64)
 
 
 class DenseFlatIndex:
@@ -84,9 +100,17 @@ class DenseFlatIndex:
         self.last_reorder_stats: Optional[dict] = None
         self.last_guaranteed_direct = False
         self.last_guaranteed_route: Optional[str] = None
-        # bumped when the row order changes (reorder_rows): consumers of
-        # row-aligned sidecars compare it to see that their mapping is stale
+        # the host side of online mutation (docids and row of each docid),
+        # made at the first add/remove/rebalance; the device rows are the truth
+        self._mutable: Optional[dict] = None
+        # bumped by every add, remove, rebalance and reorder_rows: consumers
+        # of row-aligned sidecars compare it to see that their mapping is stale
         self.mutation_epoch = 0
+        # ordered (src, dst) row moves of the most recent remove() batch
+        self.last_swaps: list = []
+        # host seconds of the mutation steps: the docid table of the first
+        # mutation (row_of_s) and each grow (grows: from/to rows, seconds)
+        self.mutation_stats: dict = {"row_of_s": None, "grows": []}
 
     # ---------------- constructors ----------------
 
@@ -123,6 +147,9 @@ class DenseFlatIndex:
 
     @property
     def count(self) -> int:
+        """Live row count (follows online add/remove)."""
+        if self._mutable is not None:
+            return self._mutable["count"]
         return self.store.count
 
     @property
@@ -133,9 +160,6 @@ class DenseFlatIndex:
     def docids(self) -> np.ndarray:
         """Derived docid per row."""
         return self._docids
-
-    def to_store(self) -> ShardStore:
-        return self.store
 
     def save(self, directory) -> None:
         self.to_store().save(directory)
@@ -171,6 +195,268 @@ class DenseFlatIndex:
 
     def _is_int8(self) -> bool:
         return self.store.manifest.dtype == "int8"
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---------------- online mutation ----------------
+    #
+    # FAISS's IndexIDMap adds and removes rows of a live index. Here the rows
+    # sit in a capacity-padded device tensor masked by the valid-row count:
+    # an add writes at the count, a remove swaps the last valid row into the
+    # hole and lowers the count (no tombstones), and a full index grows with
+    # headroom. The device rows (with an int8 index's scale sidecar) are the
+    # only copy of the live rows; the host keeps the docid of each row and
+    # the row of each docid. Positions equal the JAX package's on a
+    # one-shard mesh, and with them the (score desc, row asc) tie order.
+    # An int8 row moves as its bytes: for codes and scales made by the
+    # per-row quantizer that equals the JAX package's re-quantization of
+    # the dequantized row (quantize(dequantize(q, s)) == (q, s)).
+
+    def _ensure_mutable(self) -> None:
+        """Upload the index if it is not on a device, and make the docid
+        table of the first mutation (its host seconds in
+        ``mutation_stats["row_of_s"]``)."""
+        if self._docs_dev is None:
+            self.to_device()
+        if self._mutable is not None:
+            return
+        t0 = time.perf_counter()
+        n = self.store.count
+        docids = np.empty(self._rows_per_shard, dtype=object)
+        docids[:n] = self._docids[:n]
+        self._mutable = {
+            "count": n,
+            "docids": docids,
+            "row_of": dict(zip(map(str, docids[:n].tolist()), range(n))),
+        }
+        self._docids = docids
+        self.mutation_stats["row_of_s"] = time.perf_counter() - t0
+
+    def _refresh_counts(self) -> None:
+        """The valid-row count on the device, enqueued after the row writes
+        it unmasks."""
+        self._counts_dev = torch.tensor([self._mutable["count"]], dtype=torch.int32, device=self.device)
+
+    def _resketch(self, positions: torch.Tensor) -> None:
+        """Sketch and tail rows of the effective rows at ``positions``
+        (dequantized for int8) into the armed sketch sidecar."""
+        if self._sketch is None:
+            return
+        from codemix_dense_retrieval_torch.ops.sketch import sketch_rows, sketch_rows_int8
+
+        sk, tails, proj, _ = self._sketch
+        rows = self._docs_dev.index_select(0, positions)
+        if self._is_int8():
+            new_sk, new_tails = sketch_rows_int8(
+                rows, self.search_kwargs["doc_scales"].index_select(0, positions), proj
+            )
+        else:
+            new_sk, new_tails = sketch_rows(rows, proj)
+        sk.index_copy_(0, positions, new_sk.to(sk.dtype))
+        tails.index_copy_(0, positions, new_tails)
+
+    def _reproject_sketch(self) -> None:
+        """Re-project an armed sketch over the whole (new) row layout."""
+        if self._sketch is not None:
+            proj, skw = self._sketch[2], self._sketch[3]
+            self._sketch = None  # the old sidecar leaves before the new one is made
+            self._sketch = (*self._project_sketch(proj), proj, skw)
+
+    def _write_rows(self, positions: torch.Tensor, rows: torch.Tensor) -> None:
+        """Write f32 ``rows`` at ``positions`` in the index dtype: an int8
+        index quantizes them on the device (bit-identical to the JAX
+        package's host quantizer) and writes their scales."""
+        if self._is_int8():
+            q, scales = quantize_rows(rows)
+            self._docs_dev.index_copy_(0, positions, q)
+            self.search_kwargs["doc_scales"].index_copy_(0, positions, scales)
+        else:
+            self._docs_dev.index_copy_(0, positions, rows.to(self._docs_dev.dtype))
+        self._resketch(positions)
+
+    def _move_rows(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy the rows ``src`` (with their scales) to ``dst``; the gather
+        completes before the scatter, so chains resolved to their pre-batch
+        sources move in one step."""
+        self._docs_dev.index_copy_(0, dst, self._docs_dev.index_select(0, src))
+        if self._is_int8():
+            scales = self.search_kwargs["doc_scales"]
+            scales.index_copy_(0, dst, scales.index_select(0, src))
+        self._resketch(dst)
+
+    def _relayout(self, capacity: int) -> None:
+        """The live rows in a ``capacity``-row layout: the valid prefix
+        copied on the device into a new tensor when the capacity changes,
+        zero rows after it (an int8 index's pad scales 1.0, what the
+        quantizer gives a zero row), the count refreshed and the sketch
+        re-projected: the JAX package's re-upload of its mirror."""
+        n = self._mutable["count"]
+        scales = self.search_kwargs.get("doc_scales")
+        if capacity != self._rows_per_shard:
+            old, self._docs_dev = self._docs_dev, None
+            self._docs_dev = torch.empty((capacity, self.dim), dtype=old.dtype, device=self.device)
+            self._docs_dev[:n].copy_(old[:n])
+            del old
+            if scales is not None:
+                new = torch.empty(capacity, dtype=torch.float32, device=self.device)
+                new[:n].copy_(scales[:n])
+                self.search_kwargs["doc_scales"] = scales = new
+            docids = np.empty(capacity, dtype=object)
+            docids[:n] = self._mutable["docids"][:n]
+            self._mutable["docids"] = self._docids = docids
+            self._rows_per_shard = capacity
+        self._docs_dev[n:].zero_()
+        if scales is not None:
+            scales[n:].fill_(1.0)
+        self._refresh_counts()
+        self._reproject_sketch()
+
+    def _grow(self, extra: int) -> None:
+        """Regrow to ``int(1.5 * live rows) + extra`` rows, rounded up to
+        1024 (the JAX package's headroom); the seconds, card synchronized,
+        land in ``mutation_stats["grows"]``."""
+        n = self._mutable["count"]
+        capacity = _ceil_to(max(1, int(1.5 * n) + extra), 1024)
+        from_rows = self._rows_per_shard
+        t0 = time.perf_counter()
+        self._relayout(capacity)
+        self._sync()
+        self.mutation_stats["grows"].append(
+            {"from_rows": from_rows, "to_rows": capacity, "seconds": time.perf_counter() - t0}
+        )
+
+    def add(self, vectors, docids: Sequence[str]) -> np.ndarray:
+        """Add rows to the live index (FAISS ``add_with_ids``): f32 rows
+        (numpy or a tensor on any device) written after the live rows, the
+        index regrown when its capacity is spent. A docid already present,
+        or twice in the batch, raises before anything changes. Returns the
+        row positions assigned (row-aligned sidecars, the two-stage token
+        blocks, write theirs there)."""
+        self._ensure_mutable()
+        m = self._mutable
+        if not isinstance(vectors, torch.Tensor):
+            vectors = torch.from_numpy(np.asarray(vectors, np.float32))
+        vectors = vectors.detach()
+        if vectors.ndim == 1:
+            vectors = vectors[None]
+        docids = [str(x) for x in docids]
+        if len(docids) != len(vectors):
+            raise ValueError(f"{len(vectors)} rows vs {len(docids)} docids")
+        # an in-batch duplicate would strand its first copy as a row no
+        # remove can reach
+        seen: set = set()
+        dup = [x for x in docids if x in seen or seen.add(x)]
+        if dup:
+            raise ValueError(f"duplicate docids within the batch: {dup[:5]}")
+        dup = [x for x in docids if x in m["row_of"]]
+        if dup:
+            raise ValueError(f"docids already present: {dup[:5]}")
+        if vectors.shape[1] != self.dim:
+            raise ValueError(f"row dim {vectors.shape[1]} != index dim {self.dim}")
+        if len(vectors) > self._rows_per_shard - m["count"]:
+            self._grow(len(vectors))
+        positions = np.arange(m["count"], m["count"] + len(vectors), dtype=np.int64)
+        m["docids"][positions] = docids
+        m["row_of"].update(zip(docids, positions.tolist()))
+        m["count"] += len(vectors)
+        self.mutation_epoch += 1
+        self.last_swaps = []
+        # the rows first, then the count that unmasks them: a search between
+        # the two never scores an unwritten row as valid
+        self._write_rows(torch.from_numpy(positions).to(self.device), vectors.to(self.device, torch.float32))
+        self._refresh_counts()
+        return positions
+
+    def remove(self, docids: Sequence[str]) -> int:
+        """Remove rows by docid (FAISS ``remove_ids``); returns how many were
+        removed. Unknown docids are ignored. Each hole takes the last valid
+        row, so the count mask stays exact; ``last_swaps`` journals the
+        (src, dst) moves in order."""
+        self._ensure_mutable()
+        m = self._mutable
+        touched: dict = {}
+        removed = 0
+        self.last_swaps = []
+        for did in map(str, docids):
+            pos = m["row_of"].pop(did, None)
+            if pos is None:
+                continue
+            removed += 1
+            last = m["count"] - 1
+            if pos != last:
+                moved = m["docids"][last]
+                m["docids"][pos] = moved
+                m["row_of"][str(moved)] = pos
+                touched[pos] = None
+                self.last_swaps.append((int(last), int(pos)))
+            m["docids"][last] = None
+            m["count"] -= 1
+            touched.pop(last, None)  # past the count now
+        if removed:
+            self.mutation_epoch += 1
+            # the moved rows first, then the lower count: a search between
+            # the two sees at worst a still-counted copy of a live row
+            if touched:
+                dst = np.fromiter(touched, np.int64)
+                src = swap_sources(self.last_swaps, dst)
+                self._move_rows(torch.from_numpy(src).to(self.device), torch.from_numpy(dst).to(self.device))
+            self._refresh_counts()
+        return removed
+
+    def rebalance(self) -> "DenseFlatIndex":
+        """Even the live rows out across shards. With one shard the rows
+        stay where they are: the pad past them is cleared and an armed
+        sketch re-projected, as the JAX package's re-upload on a one-shard
+        mesh does. ``mutation_epoch`` is bumped."""
+        self._ensure_mutable()
+        self.mutation_epoch += 1
+        self._relayout(self._rows_per_shard)
+        return self
+
+    def to_store(self) -> ShardStore:
+        """The live rows as a host ShardStore (the store itself while the
+        index is unmutated): read back from the device 262,144 rows at a
+        time, docids as the live table names them. ``save`` writes it."""
+        if self._mutable is None:
+            return self.store
+        n = self._mutable["count"]
+        vals, scales = self._rows_to_host(n)
+        man = self.store.manifest
+        return ShardStore(
+            ShardManifest(dim=self.dim, dtype=man.dtype, count=n, files=[], lang=man.lang,
+                          encoder=man.encoder, normalized=man.normalized),
+            vals, [str(x) for x in self._mutable["docids"][:n]], scales=scales,
+        )
+
+    def _rows_to_host(
+        self, n: int, perm: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Device rows ``perm`` (default: the first ``n``) in the host
+        storage dtype, with their scales for int8, 262,144 rows at a time.
+        int8 rows are rebuilt from their dequantized values, as the JAX
+        package does (the per-row quantizer gives the same bytes back)."""
+        scales = self.search_kwargs.get("doc_scales")
+        vals = np.empty((n, self.dim), storage_dtype(self.store.manifest.dtype))
+        out_scales = np.empty(n, np.float32) if scales is not None else None
+        for lo in range(0, n, 262_144):
+            hi = min(lo + 262_144, n)
+            if perm is None:
+                chunk = self._docs_dev[lo:hi]
+                sc = None if scales is None else scales[lo:hi]
+            else:
+                p = torch.from_numpy(perm[lo:hi]).to(self.device)
+                chunk = self._docs_dev.index_select(0, p)
+                sc = None if scales is None else scales.index_select(0, p)
+            if sc is not None:
+                chunk, sc = quantize_rows(chunk.to(torch.float32) * sc[:, None])
+                out_scales[lo:hi] = sc.cpu().numpy()
+            chunk = chunk.cpu()
+            if chunk.dtype == torch.bfloat16:
+                chunk = chunk.view(torch.int16)
+            vals[lo:hi] = chunk.numpy().view(vals.dtype)
+        return vals, out_scales
 
     # ---------------- sketch tier ----------------
 
@@ -208,7 +494,7 @@ class DenseFlatIndex:
                 z = np.load(cache_path, allow_pickle=False)
                 if "proj" in z.files and (
                     z["proj"].shape == (self.dim, sketch_dim)
-                    and int(z["count"]) == self.store.count
+                    and int(z["count"]) == self.count
                 ):
                     proj_np = np.asarray(z["proj"], np.float32)
                     probe_by_k = {int(a): int(b) for a, b in zip(z["probe_ks"], z["probe_vals"])}
@@ -268,7 +554,7 @@ class DenseFlatIndex:
         np.savez(
             tmp,
             **arrays,
-            count=np.int64(self.store.count),
+            count=np.int64(self.count),
             a_ks=np.asarray(a_ks, np.int64),
             a_probe_vals=np.asarray([acal["probe_by_k"][ak] for ak in a_ks], np.int64),
             a_speedup_vals=np.asarray([acal["speedup_by_k"].get(ak, 0.0) for ak in a_ks], np.float32),
@@ -287,7 +573,7 @@ class DenseFlatIndex:
             return False
         try:
             z = np.load(path, allow_pickle=False)
-            if int(z["count"]) != self.store.count or "a_ks" not in z.files:
+            if int(z["count"]) != self.count or "a_ks" not in z.files:
                 return False
             for ak, pv, sv, cv in zip(z["a_ks"], z["a_probe_vals"], z["a_speedup_vals"], z["a_cert_vals"]):
                 self._adaptive_cal["probe_by_k"][int(ak)] = int(pv)
@@ -424,12 +710,10 @@ class DenseFlatIndex:
             fn()  # warm
             ts = []
             for _ in range(max(1, iters)):
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sync()
                 t0 = time.perf_counter()
                 fn()
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sync()
                 ts.append(time.perf_counter() - t0)
             ts.sort()
             return ts[len(ts) // 2]
@@ -486,6 +770,8 @@ class DenseFlatIndex:
         few bins, so ``approx="adaptive"`` certificates fire. Row ids change
         and ``mutation_epoch`` is bumped. Returns ``perm`` (``new_rows ==
         old_rows[perm]``), the JAX package's permutation for the same store.
+        A mutated index is reordered from its live rows and docids, and
+        leaves mutation behind (the new store is its rows).
 
         No f32 copy of the index is made on the host: the projection is fit
         on the :func:`~codemix_dense_retrieval_torch.ops.sketch.sample_index`
@@ -496,7 +782,6 @@ class DenseFlatIndex:
         int8 store is rebuilt from its dequantized rows, as the JAX package
         does (the per-row quantizer gives the same bytes back). The host
         seconds of each step land in ``last_reorder_stats``."""
-        from codemix_dense_retrieval_torch.ops.quant import quantize_rows
         from codemix_dense_retrieval_torch.ops.sketch import cluster_bisect_order, fit_sketch, sample_index
 
         if self._docs_dev is None:
@@ -506,8 +791,7 @@ class DenseFlatIndex:
 
         def lap(name):
             nonlocal t0
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             stats[name] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
@@ -528,39 +812,31 @@ class DenseFlatIndex:
         perm = cluster_bisect_order(sketch)
         del sketch
         lap("order_s")
-        new_vals = np.empty((n, self.dim), storage_dtype(store.manifest.dtype))
-        new_scales = np.empty(n, np.float32) if scales is not None else None
-        for lo in range(0, n, 262_144):
-            p = torch.from_numpy(perm[lo : lo + 262_144]).to(self.device)
-            chunk = self._docs_dev.index_select(0, p)
-            if scales is not None:
-                chunk, sc = quantize_rows(chunk.to(torch.float32) * scales.index_select(0, p)[:, None])
-                new_scales[lo : lo + len(p)] = sc.cpu().numpy()
-            chunk = chunk.cpu()
-            if chunk.dtype == torch.bfloat16:
-                chunk = chunk.view(torch.int16)
-            new_vals[lo : lo + len(p)] = chunk.numpy().view(new_vals.dtype)
-        derived = store.derived_ids
+        new_vals, new_scales = self._rows_to_host(n, perm)
+        if self._mutable is not None:
+            # the live table: derived ids, which the JAX package's to_store
+            # writes as the docids
+            docids, derived = self._mutable["docids"][:n][perm].tolist(), None
+        else:
+            docids = np.asarray(store.docids, dtype=object)[perm].tolist()
+            derived = (np.asarray(store.derived_ids, dtype=object)[perm].tolist()
+                       if store.derived_ids is not store.docids else None)
         self.store = ShardStore(
             ShardManifest(dim=self.dim, dtype=store.manifest.dtype, count=n, files=[],
                           lang=store.manifest.lang, encoder=store.manifest.encoder,
                           normalized=store.manifest.normalized),
-            new_vals,
-            np.asarray(store.docids, dtype=object)[perm].tolist(),
-            np.asarray(derived, dtype=object)[perm].tolist() if derived is not store.docids else None,
-            scales=new_scales,
+            new_vals, docids, derived, scales=new_scales,
         )
         self._docids = np.asarray(self.store.derived_ids, dtype=object)
+        self._mutable = None
+        self.last_swaps = []
         self.mutation_epoch += 1
         lap("permute_s")
         kwargs = {kk: vv for kk, vv in self.search_kwargs.items() if kk != "doc_scales"}
         # the old rows and scales leave the card before the new ones arrive
-        self._docs_dev = self.search_kwargs = scales = chunk = None
+        self._docs_dev = self.search_kwargs = scales = None
         self.to_device(self.device, pad_multiple=self._pad_multiple, **kwargs)
-        if self._sketch is not None:
-            sproj, skw = self._sketch[2], self._sketch[3]
-            self._sketch = None
-            self._sketch = (*self._project_sketch(sproj), sproj, skw)
+        self._reproject_sketch()
         lap("upload_s")
         return perm
 

@@ -45,6 +45,44 @@ def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
+def token_blocks(
+    token_embs,              # (n, T, token_dim) f32 tensor (any device) or numpy
+    lengths: Sequence[int],  # valid tokens per doc
+    tokens_per_doc: int,
+    token_dim: int,
+    dtype_name: str,
+) -> Tuple[np.ndarray, torch.Tensor, Optional[torch.Tensor]]:
+    """Token blocks as a store keeps them, made on the tensor's own device (a
+    numpy array is a CPU tensor): (lengths (n,) int32 clamped to the kept
+    tokens, blocks (n, Td, d) in the stored dtype, per-token scales (n, Td)
+    f32 for int8, else None). Each block is cut or zero-padded to
+    ``tokens_per_doc`` and zeroed past its length; per-token quantization is
+    per-row :func:`~codemix_dense_retrieval_torch.ops.quant.quantize_rows` of
+    the (n * Td, d) tokens, bit-identical to the JAX package's numpy
+    quantizer. The writer and the two-stage searcher's ``add`` share it."""
+    if not isinstance(token_embs, torch.Tensor):
+        token_embs = torch.from_numpy(np.asarray(token_embs))
+    n, t, d = token_embs.shape
+    if d != token_dim:
+        raise ValueError(f"token dim {d} != store token_dim {token_dim}")
+    td = tokens_per_doc
+    # clamp to both the store's Td and the batch's token axis t: a length
+    # past t would mark zero-padded slots valid, and a valid all-zero
+    # token floors every query token's max at 0
+    keep = min(t, td)
+    lengths = np.minimum(np.asarray(lengths, np.int32), keep)
+    valid = torch.arange(td)[None, :] < torch.from_numpy(lengths)[:, None]
+    # tokens past a doc's length are zeroed, so their int8 scales stay
+    # exactly 1.0
+    block = torch.zeros((n, td, d), dtype=torch.float32, device=token_embs.device)
+    block[:, :keep] = token_embs[:, :keep].to(torch.float32)
+    block *= valid.to(block.device)[..., None]
+    if dtype_name == "int8":
+        q, scales = quantize_rows(block.reshape(n * td, d))
+        return lengths, q.reshape(n, td, d), scales.reshape(n, td)
+    return lengths, block.to(TORCH_DTYPES[dtype_name]), None
+
+
 class TokenShardWriter:
     """Streaming writer of fixed-``tokens_per_doc`` token blocks."""
 
@@ -126,37 +164,19 @@ class TokenShardWriter:
         derived_ids: Optional[Sequence[str]] = None,
     ) -> None:
         """Append token blocks. They are padded, masked and quantized on the
-        tensor's own device (a numpy array is a CPU tensor), so from the card
-        only the stored bytes cross to the host: int8 rows and their scales,
-        or bf16 rows. Per-token quantization is per-row
-        :func:`~codemix_dense_retrieval_torch.ops.quant.quantize_rows` of the
-        (n * Td, d) tokens, bit-identical to the JAX package's numpy writer."""
-        if not isinstance(token_embs, torch.Tensor):
-            token_embs = torch.from_numpy(np.asarray(token_embs))
-        n, t, d = token_embs.shape
-        if d != self.token_dim:
-            raise ValueError(f"token dim {d} != store token_dim {self.token_dim}")
-        td = self.tokens_per_doc
-        # clamp to both the store's Td and the batch's token axis t: a length
-        # past t would mark zero-padded slots valid, and a valid all-zero
-        # token floors every query token's max at 0
-        keep = min(t, td)
-        lengths = np.minimum(np.asarray(lengths, np.int32), keep)
-        valid = torch.arange(td)[None, :] < torch.from_numpy(lengths)[:, None]
-        # pad/truncate every block to the store's Td; tokens past a doc's
-        # length are zeroed, so their int8 scales stay exactly 1.0
-        block = torch.zeros((n, td, d), dtype=torch.float32, device=token_embs.device)
-        block[:, :keep] = token_embs[:, :keep].to(torch.float32)
-        block *= valid.to(block.device)[..., None]
+        tensor's own device (:func:`token_blocks`), so from the card only the
+        stored bytes cross to the host: int8 rows and their scales, or bf16
+        rows."""
+        lengths, blocks, scales = token_blocks(
+            token_embs, lengths, self.tokens_per_doc, self.token_dim, self.dtype_name
+        )
+        n, td, d = blocks.shape
         with open(self.dir / "lengths.bin", "ab") as fh:
             fh.write(np.ascontiguousarray(lengths, np.int32).tobytes())
-        if self.dtype_name == "int8":
-            q, scales = quantize_rows(block.reshape(n * td, d))
+        if scales is not None:
             with open(self.dir / "token_scales.bin", "ab") as fh:
                 fh.write(scales.cpu().numpy().astype(np.float32, copy=False).tobytes())
-            flat = q.reshape(n, td * d)  # already int8: stored as it is
-        else:
-            flat = block.reshape(n, td * d).to(TORCH_DTYPES[self.dtype_name])
+        flat = blocks.reshape(n, td * d)  # already in the stored dtype
         self._inner.append(flat, docids, derived_ids)
 
     def finalize(self, extra=None) -> None:

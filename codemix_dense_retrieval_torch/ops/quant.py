@@ -33,10 +33,13 @@ def quantize_rows_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric quantization on ``x``'s device -> (int8 values,
-    f32 scales); bit-identical to :func:`quantize_rows_np`."""
+    f32 scales); bit-identical to :func:`quantize_rows_np`, so
+    ``quantize_rows(dequantize(q, s)) == (q, s)`` as on the host."""
     x = x.to(torch.float32)
     amax = x.abs().amax(dim=1)
-    scales = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a tensor divisor: on CUDA, division by a Python scalar multiplies by
+    # its reciprocal, which differs from a true division in the last bit
+    scales = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
     q = torch.round(x / scales[:, None]).clamp_(-127, 127).to(torch.int8)
     return q, scales
 

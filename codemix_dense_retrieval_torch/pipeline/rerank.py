@@ -11,6 +11,10 @@
 3. rerank: int8 blocks are dequantized to bf16 on the device and scored by
    kernel 6 (:func:`~codemix_dense_retrieval_torch.ops.maxsim.maxsim_rerank`);
    ties go to the lower row id, as in the dense stage.
+
+A card-resident searcher also mutates online (:meth:`TwoStageSearcher.add`,
+:meth:`~TwoStageSearcher.remove`, :meth:`~TwoStageSearcher.save`): the token
+blocks follow the dense index's row positions.
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex, swap_sources
 from codemix_dense_retrieval_torch.io.shards import TORCH_DTYPES, storage_dtype, storage_to_tensor
-from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
+from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore, TokenShardWriter, token_blocks
 from codemix_dense_retrieval_torch.ops.maxsim import maxsim_rerank
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
@@ -159,12 +163,18 @@ class TwoStageSearcher:
                 f"index count {index.count} != token store count {token_store.count} "
                 "(not the same corpus?)"
             )
+        # a mutated (or reordered) index's row ids no longer map to token
+        # store rows; mutations go through this searcher's add/remove, which
+        # mirror them onto the resident token blocks
+        if index.mutation_epoch:
+            raise ValueError(
+                "dense index was mutated (add/remove) before this TwoStageSearcher was built: "
+                "its row ids no longer align with the token store; rebuild both from the same corpus"
+            )
         _check_row_alignment(index, token_store)
         if index.device is None:
             index.to_device()
-        # the row order the token store follows; reorder_rows (and the
-        # mutations of ROADMAP item 8) bump the index's epoch
-        self._index_epoch = index.mutation_epoch
+        self._index_epoch = 0
         self.index = index
         self.tokens = token_store
         self.device = index.device
@@ -217,22 +227,108 @@ class TwoStageSearcher:
         self._lengths_dev = torch.from_numpy(np.asarray(ts.lengths, np.int32)).to(self.device)
 
     def save(self, directory) -> None:
-        raise NotImplementedError(
-            "TwoStageSearcher.save is not ported yet: it needs DenseFlatIndex.add/remove "
-            "(ROADMAP queue 1, deferred item 1: online mutation)"
-        )
+        """Persist the live two-stage corpus: the dense index under
+        ``directory`` and the token store under ``directory/tokens`` (the
+        encode-corpus layout). Once mutated, the card-resident blocks are
+        read back in the dense side's live row order, 4,096 at a time,
+        dequantized for the writer (whose per-token quantizer gives the same
+        codes and scales back)."""
+        directory = pathlib.Path(directory)
+        self.index.save(directory)
+        ts = self.tokens
+        w = TokenShardWriter(directory / "tokens", token_dim=ts.token_dim,
+                             tokens_per_doc=ts.tokens_per_doc, dtype=ts.dtype)
+        if self._index_epoch == 0 or not self.device_resident:
+            ids = list(self.index.docids[: ts.count])
+            all_lens = np.asarray(ts.lengths, np.int32)
+            for start in range(0, ts.count, 65536):
+                rows = np.arange(start, min(start + 65536, ts.count))
+                blocks, _ = ts.gather(rows)
+                w.append(blocks, all_lens[rows], [str(x) for x in ids[start : start + len(rows)]])
+            w.finalize()
+            return
+        n = self.index.count
+        docids = self.index.docids
+        lens = self._lengths_dev[:n].cpu().numpy()
+        for start in range(0, n, 4096):
+            rows = slice(start, min(start + 4096, n))
+            blocks = self._tok_dev[rows].to(torch.float32)
+            if self._scales_dev is not None:
+                blocks = blocks * self._scales_dev[rows][..., None]
+            w.append(blocks, lens[rows], [str(x) for x in docids[rows]])
+        w.finalize()
 
-    def add(self, vectors, docids, token_embs, lengths):
-        raise NotImplementedError(
-            "TwoStageSearcher.add is not ported yet: it needs DenseFlatIndex.add "
-            "(ROADMAP queue 1, deferred item 1: online mutation)"
-        )
+    # ---------------- online mutation (card-resident store) ----------------
+    #
+    # The memmap token store is read-only, so two-stage mutation needs the
+    # card-resident blocks, padded to the dense index's capacity: adds write
+    # new blocks at the positions the dense add assigned, removes replay the
+    # dense side's swap journal (index.last_swaps), so both stay row-aligned.
 
-    def remove(self, docids):
-        raise NotImplementedError(
-            "TwoStageSearcher.remove is not ported yet: it needs DenseFlatIndex.remove "
-            "(ROADMAP queue 1, deferred item 1: online mutation)"
+    def _mutation_capacity(self) -> int:
+        if not self.device_resident:
+            raise ValueError(
+                "two-stage mutation requires the device-resident token store (the memmap "
+                "store is read-only); construct with device_resident=True"
+            )
+        cap = self.index._rows_per_shard
+        pad = cap - self._tok_dev.shape[0]
+        if pad > 0:  # zero blocks, scales 1.0 (a zero token's), length 0
+            tok, sc, ln = self._tok_dev, self._scales_dev, self._lengths_dev
+            self._tok_dev = torch.cat([tok, tok.new_zeros((pad, *tok.shape[1:]))])
+            if sc is not None:
+                self._scales_dev = torch.cat([sc, sc.new_ones((pad, sc.shape[1]))])
+            self._lengths_dev = torch.cat([ln, ln.new_zeros(pad)])
+        return cap
+
+    def add(self, vectors, docids, token_embs, lengths) -> np.ndarray:
+        """Two-stage ``add_with_ids``: dense rows and token blocks (n, T,
+        token_dim), numpy or a tensor on any device (the encoder's stay on
+        the card) land at the same positions; the blocks are cut to
+        ``tokens_per_doc``, masked past ``lengths`` and quantized where they
+        lie. Raises before anything changes if the add would regrow the
+        dense index: the resident token layout cannot follow a regrow, so
+        build over an index with headroom."""
+        cap = self._mutation_capacity()
+        n_new = len(vectors)
+        if n_new > cap - self.index.count:
+            raise ValueError(
+                f"add of {n_new} rows would regrow the dense index (spare capacity "
+                f"{cap - self.index.count}); rebuild the searcher over a roomier index instead"
+            )
+        ts = self.tokens
+        if not isinstance(token_embs, torch.Tensor):
+            token_embs = torch.from_numpy(np.asarray(token_embs, np.float32))
+        lengths, blocks, scales = token_blocks(
+            token_embs.to(self.device), lengths, ts.tokens_per_doc, ts.token_dim, ts.dtype
         )
+        positions = self.index.add(vectors, docids)
+        pos = torch.from_numpy(positions).to(self.device)
+        self._tok_dev.index_copy_(0, pos, blocks)
+        if scales is not None:
+            self._scales_dev.index_copy_(0, pos, scales)
+        self._lengths_dev.index_copy_(0, pos, torch.from_numpy(lengths).to(self.device))
+        self.count = self.index.count
+        self._index_epoch = self.index.mutation_epoch
+        return positions
+
+    def remove(self, docids) -> int:
+        """Two-stage ``remove_ids``: the dense side swap-deletes, and its
+        (src, dst) journal replays on the resident blocks with chains
+        resolved to their pre-batch sources, one gather and one scatter."""
+        self._mutation_capacity()
+        removed = self.index.remove(docids)
+        if removed and self.index.last_swaps:
+            dst = np.fromiter(dict.fromkeys(d for _, d in self.index.last_swaps), np.int64)
+            src = torch.from_numpy(swap_sources(self.index.last_swaps, dst)).to(self.device)
+            dst = torch.from_numpy(dst).to(self.device)
+            for t in (self._tok_dev, self._scales_dev, self._lengths_dev):
+                if t is not None:
+                    t.index_copy_(0, dst, t.index_select(0, src))
+        if removed:
+            self.count = self.index.count
+            self._index_epoch = self.index.mutation_epoch
+        return removed
 
     def _to_device(self, arr: np.ndarray, dtype_name: Optional[str] = None) -> torch.Tensor:
         t = storage_to_tensor(arr, dtype_name) if dtype_name else torch.from_numpy(np.ascontiguousarray(arr))

@@ -412,7 +412,7 @@ def test_cli_commands_take_approx_adaptive(corpus_stores, command, tmp_path):
 def test_two_stage_searcher_refuses_a_reordered_index(corpus_stores):
     """reorder_rows bumps mutation_epoch: a two-stage searcher built before
     it refuses to score token blocks by stale row ids, and one built after
-    it refuses the desynced token store, as the JAX package does."""
+    it refuses the reordered index, as the JAX package does."""
     from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
     from codemix_dense_retrieval_torch.pipeline.rerank import TwoStageSearcher
 
@@ -426,5 +426,5 @@ def test_two_stage_searcher_refuses_a_reordered_index(corpus_stores):
     ix.reorder_rows(sketch_dim=8)
     with pytest.raises(ValueError, match="mutated since this TwoStageSearcher was built"):
         searcher.search(q, qt, np.array([1]), 5, k_dense=10)
-    with pytest.raises(ValueError, match="row orders desynced"):
+    with pytest.raises(ValueError, match="dense index was mutated"):
         TwoStageSearcher(ix, tokens)

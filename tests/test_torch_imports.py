@@ -7,6 +7,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -109,6 +110,12 @@ def _entry_index_reorder_rows():
     DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).reorder_rows()
 
 
+def _entry_index_add():
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 8), np.float32), list("abcd")).add(np.ones((1, 8), np.float32), ["e"])
+
+
 def _entry_runner(tmp_path):
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
@@ -132,6 +139,14 @@ def _entry_cli(tmp_path):
     ])
 
 
+def _entry_serve_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    DenseFlatIndex.build(np.ones((4, 16), np.float32), list("abcd")).save(tmp_path / "ix")
+    main(["serve", "--index", str(tmp_path / "ix"), "--smoke_dim", "16", "--port", "0"])
+
+
 def _entry_encode_corpus_cli(tmp_path):
     from codemix_dense_retrieval_torch.cli import main
 
@@ -150,8 +165,8 @@ def _entry_encode_corpus_pack_cli(tmp_path):
 
 @pytest.mark.parametrize("entry", [
     _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
-    _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_runner, _entry_cli,
-    _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
+    _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_index_add,
+    _entry_runner, _entry_cli, _entry_serve_cli, _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()
@@ -166,3 +181,52 @@ def test_cpu_is_taken_only_when_named(no_cuda):
     assert next(enc.model.parameters()).device.type == "cpu"
     out = enc.encode_queries(["a b c", "d"])
     assert out.shape == (2, 16) and np.isfinite(out).all()
+
+
+def test_serve_cli_on_the_cpu_answers_healthz(tmp_path):
+    """``serve --device cpu`` in a process of its own: it prints its
+    ``serving`` line, ``GET /healthz`` answers 200, and it ends on SIGINT."""
+    import http.client
+    import queue
+    import signal
+    import threading
+    import urllib.parse
+
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+
+    rows = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
+    DenseFlatIndex.build(rows, [f"d{i}" for i in range(64)]).save(tmp_path / "ix")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "codemix_dense_retrieval_torch", "serve", "--device", "cpu", "--port", "0",
+         "--smoke_dim", "16", "--index", str(tmp_path / "ix"), "--verbosity", "0"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        info = None
+        deadline = time.monotonic() + 120
+        while info is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                line = lines.get(timeout=1)
+            except queue.Empty:
+                continue
+            if line.startswith("{") and "serving" in line:
+                info = json.loads(line)
+        assert info is not None, proc.stderr.read() if proc.poll() is not None else "no serving line in 120 s"
+        assert info["docs"] == 64
+        url = urllib.parse.urlparse(info["serving"])
+        conn = http.client.HTTPConnection(url.hostname, url.port, timeout=30)
+        try:
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+        finally:
+            conn.close()
+        assert resp.status == 200 and body["ok"] and body["docs"] == 64
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

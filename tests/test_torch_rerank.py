@@ -248,10 +248,15 @@ def test_two_stage_refuses_misaligned_stores_and_unported_parts(tmp_path):
         port.TwoStageSearcher(short, PortTokens.open(tmp_path / "tok"))
     _, port_ix2, _ = _pair(tmp_path / "b", "int8")
     s = port.TwoStageSearcher(port_ix2, PortTokens.open(tmp_path / "b" / "tok"))
-    for call in (lambda: s.save(tmp_path / "x"), lambda: s.add(None, None, None, None),
-                 lambda: s.remove(["d1"])):
-        with pytest.raises(NotImplementedError, match="deferred item 1"):
-            call()
+    # online mutation, ported since, refuses what the JAX package refuses: an
+    # add that would regrow the dense index (64 rows in a capacity of 64) and
+    # the read-only memmap store
+    with pytest.raises(ValueError, match="would regrow the dense index"):
+        s.add(np.zeros((1, 32), np.float32), ["new"], np.zeros((1, 8, 32), np.float32), [8])
+    mm = port.TwoStageSearcher(port_ix2, PortTokens.open(tmp_path / "b" / "tok"), device_resident=False)
+    with pytest.raises(ValueError, match="device-resident"):
+        mm.remove(["d1"])
+    assert s.count == 64 and port_ix2.mutation_epoch == 0
     # the bilingual hub checks each language's pair as it builds its searchers
     with pytest.raises(ValueError, match="desynced"):
         port.run_two_stage_bilingual([port_ix2, port_ix], [PortTokens.open(tmp_path / "b" / "tok"),
