@@ -156,9 +156,50 @@ Phases (a line of JSON after each):
                served exact through /add and /remove (the exact int8 top-k),
                /save into a snapshot root and /reload (the same ids).
                Then each kernel's launches on all the paths.
+10. dtypes   — store dtypes and encoder families. 10a: Qwen3-Embedding-0.6B
+               at its published widths (28 layers, d=1024, 16 query heads
+               over 8 KV heads of 128), seeded random init on the card,
+               written as an HF-format dir (config.json + pytorch_model.bin)
+               and loaded by registry.load_encoder (bf16, kernel B causal at
+               every length): 512 queries, the same through a plain-attention
+               copy of the model (use_flash=False, within TOL_PACKED_ABS),
+               the 2,048 phase-6b passages at the 1024 bucket and the same
+               packed, the 512 query texts packed into rows of 256 (many
+               segments a row, per-segment RoPE) against their unpacked
+               encode (within TOL_PACKED_ABS), unit norms; kernel B's causal
+               GQA dh=128 instance against its plain version at S = 16-512
+               (ragged lengths; packed segment ids) and at 1024, timed there
+               beside SDPA. 10b: `encode-corpus --storage_dtype
+               float32|float16 --token_dtype <same> --tokens_per_doc 32` with
+               that checkpoint over the phase-6b corpus, `run-mix` exact,
+               `--approx guaranteed` (the exact ids; exact against a plain
+               top-k of the store up to ties) and `--fused --qrels` (the
+               exact ids), the fused bilingual hub over the store and a
+               parallel second language of its dtype (against a plain
+               per-document max over both), and `run-rerank` over each
+               (kernels 2 and 6 in f32 and f16). 10c: the f16 and f32
+               instances of A, 2, 5 and the f32 one of 7 at phase 3's tile
+               edges (1-257 queries, ragged n_valid, G 8 and 16, d = 96);
+               then 8,841,823 x 1024 rows
+               made in f32 on the card (full mantissas, phase 5's planted
+               rows), an f32 index: exact search at k=100 and 1000 (512
+               queries) equal to the plain f32 top-k up to ties, the fused
+               alpha sweep (the exact ids at alpha = .5) and the adaptive
+               tier at k = 1 and 100 (the exact results), the rescore
+               search (kernel 5), the sketch tier guaranteed (exact ids) and
+               the f32 sketch tier of ops.sketch (kernel 7 over f32);
+               kernels A, 5, 2 and 7 in f32 against their plain versions
+               within TOL_F32 and timed; then the same rows in f16 (search,
+               fused sweep, adaptive tier, rescore; kernels A, 5, 2 in f16,
+               within 1e-4); kernel 6 over f16 and f32 doc
+               tokens at the two-stage shape. 10d: GTE-multilingual-base and
+               jina-embeddings-v3 at full width, random init: 256 queries
+               and 256 passages each, jina-v3's query and passage embeddings
+               of the same texts differ (task adapters), GTE refuses
+               pack=True.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
-5d, 5e, 6, 6b, 6c, 8, each service of 9 and their fused runs) and read just
-after it; comparison and timing launches happen outside those windows (in
+5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
+runs) and read just after it; comparison and timing launches happen outside those windows (in
 phase 9 the direct searches run while the service is idle, their launches
 taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
@@ -168,6 +209,7 @@ The last line is the device JSON. Any failed check raises (exit code != 0).
 from __future__ import annotations
 
 import contextlib
+import gc
 import http.client
 import io
 import json
@@ -190,11 +232,19 @@ N_QUERIES = 512
 N_PASSAGES = 256
 ALPHAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 (and f16) tensor-core peak
+TF32_FLOPS = 494.7e12       # H100 SXM dense tf32 tensor-core peak; f32-faithful
+                            # work counts three tf32 passes (hi.hi + hi.lo + lo.hi)
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak
 # kernel 7 vs its plain version: the same exact bf16 products, summed in f32
 # in another order (|ub| < 1.5 here, so a few f32 ulps)
 TOL_BINUB = 1e-6
+# the f32 instances (3xTF32) vs their plain f32 versions on unit rows at
+# d = 1024 with full f32 mantissas: summation order plus the tf32 split's
+# ~3 * 2^-22 of sum |x_i y_i|. One tf32 pass or bf16 operands would miss it
+# by ~1e-3
+TOL_F32 = 2e-6
+N_QWEN_QUERIES = 512        # phase 10a
 # kernel 6 vs its plain version: |kernel - plain| <= TOL_MAXSIM + TOL_MAXSIM_REL
 # * |plain|. The f32 query split into bf16 hi + lo keeps it to ~2^-16
 # relative, the tensor cores' f32 accumulation does not round to nearest,
@@ -214,8 +264,9 @@ K_DENSE = 400               # two-stage dense recall depth
 N_CENTERS = 256             # topical clusters of the adaptive phase's rows
 N_PACKED = 4096             # passages of the packed-encode phase
 PACK_BATCH = 256            # its passages per forward (packed: 32 rows)
-# packed vs unpacked BGE-M3 embeddings (bf16 model): the same tokens and
-# positions, summed in another order and attended by another kernel
+# packed vs unpacked BGE-M3 and Qwen3 embeddings (bf16 models): the same
+# tokens and positions, summed in another order and attended by another
+# kernel; also Qwen3's kernel-B path against its plain-attention copy
 TOL_PACKED_ABS = 1e-2
 
 
@@ -1381,9 +1432,13 @@ def main() -> None:
             check(routes[k] == "adaptive", f"calibrated speedup {cal5e[k]['speedup']} but route {routes[k]}")
     index5e._sketch = None
     # 6. the <= B/2 branch: a probe depth that leaves some, at most half, of
-    # the block uncertified (bisection between a probe that certifies less
-    # than half and the calibrated one)
-    lo, hi, br_tail = -(-100 // 8), max(cal5e[100]["probe_bins"], 2 * -(-100 // 8)), None
+    # the block uncertified (bisection between the post-reorder grid's
+    # probes on either side of half certified; the calibrated depth follows
+    # the timer, and timing noise can put it below the transition)
+    over = sorted(p for p, c in grid_post[100].items() if c >= 0.5)
+    hi = over[0] if over else max(grid_post[100])
+    lo = max([p for p in grid_post[100] if p < hi] or [-(-100 // 8)])
+    br_tail = None
     for _ in range(12):
         mid = (lo + hi) // 2
         out, st = adaptive5e(q_blk, 100, probe_bins=mid)
@@ -2443,7 +2498,7 @@ def main() -> None:
         row_of_s=round(index9.mutation_stats["row_of_s"], 3), rows_after_grow=index9._rows_per_shard,
         remove_s=round(rm_s, 3), added_at_rank1=256, after_remove_equal_before=True,
         card_peak_gb=round(peak9 / 1e9, 2), stats=health1["stats"], launches=serve_counts["serve_dense"])
-    del index9, direct_s, direct_d, direct_after, long_docs
+    del index9, timed9, direct_s, direct_d, direct_after, long_docs
     torch.cuda.empty_cache()
 
     # 9b. the small stores: the sketch tier, two-stage, int8, snapshots
@@ -2581,6 +2636,731 @@ def main() -> None:
         launches={k: v for k, v in serve_counts.items() if k != "serve_dense"},
         phase_s=round(time.perf_counter() - t9, 2))
     del enc
+
+    # ---------------- phase 10: store dtypes and encoder families ----------------
+    t10 = time.perf_counter()
+    del host  # phase 10 makes rows of its own, with full f32 mantissas
+    gc.collect()  # what earlier phases left in reference cycles, before 10c's 36 GB
+    torch.cuda.empty_cache()
+    card_gb_10 = torch.cuda.memory_allocated() / 1e9
+    from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder
+    from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
+    from codemix_dense_retrieval_torch.models.registry import load_encoder
+    from codemix_dense_retrieval_torch.models.xlmr import init_random_
+
+    # 10a. Qwen3-Embedding-0.6B at its published widths (28 layers, d=1024,
+    # 16 query heads over 8 KV heads of 128, FFN 3072, vocab 151,669), random
+    # init on the card from a seeded generator, written as an HF-format
+    # directory (config.json + pytorch_model.bin: the card's machine has no
+    # safetensors) and loaded through the registry (bf16, kernel B causal)
+    qcfg = Qwen3Config.embedding_0p6b()
+    with torch.device("meta"):
+        qmodel = Qwen3Encoder(qcfg)
+    qmodel = qmodel.to_empty(device=dev)
+    init_random_(qmodel, torch.Generator(device=dev).manual_seed(SEED + 10))
+    qdir = work / "qwen3"
+    qdir.mkdir()
+    (qdir / "config.json").write_text(json.dumps({
+        "model_type": "qwen3", "vocab_size": qcfg.vocab_size, "hidden_size": qcfg.hidden_size,
+        "num_hidden_layers": qcfg.num_layers, "num_attention_heads": qcfg.num_heads,
+        "num_key_value_heads": qcfg.num_kv_heads, "head_dim": qcfg.head_dim,
+        "intermediate_size": qcfg.intermediate_size, "rms_norm_eps": qcfg.rms_norm_eps,
+        "rope_theta": qcfg.rope_theta, "max_position_embeddings": qcfg.max_position_embeddings,
+        "tie_word_embeddings": True}))
+    torch.save({f"model.{k}": v.to(torch.bfloat16).cpu() for k, v in qmodel.state_dict().items()},
+               qdir / "pytorch_model.bin")
+    del qmodel
+    qwen = "Qwen/Qwen3-Embedding-0.6B"
+    t0 = time.perf_counter()
+    qenc = load_encoder(qwen, str(qdir))
+    qload_s = time.perf_counter() - t0
+    check(type(qenc.model).__name__ == "Qwen3Encoder" and qenc.cfg.use_flash
+          and qenc.cfg.dtype == torch.bfloat16 and qenc.cfg.num_kv_heads == 8, "Qwen3 load")
+    qenc.length_buckets = buckets  # to the 1024 bucket
+    g10k = torch.Generator(device=dev).manual_seed(SEED + 13)  # kernel operands of phase 10
+    corpus_texts = [line.split("\t", 1)[1] for line in corpus_tsv.read_text().splitlines()]
+    qenc.encode_queries(texts_a[:8])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    qq = qenc.encode_queries(texts_a[:N_QWEN_QUERIES], batch_size=128)
+    qq_s = time.perf_counter() - t0
+    path_counts["qwen3_queries"] = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    qp = qenc.encode_documents(corpus_texts, batch_size=32, max_length=1024)
+    qp_s = time.perf_counter() - t0
+    path_counts["qwen3_passages"] = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    qpk = qenc.encode_documents(corpus_texts, batch_size=32, max_length=1024, pack=True)
+    qpk_s = time.perf_counter() - t0
+    path_counts["qwen3_packed"] = dict(kernels.LAUNCHES)
+    for label in ("qwen3_queries", "qwen3_passages", "qwen3_packed"):
+        check(path_counts[label]["flash_attention_causal"] > 0, f"{label} did not launch kernel B causal")
+    for name, x, rows in (("queries", qq, N_QWEN_QUERIES), ("passages", qp, N_CORPUS),
+                          ("packed", qpk, N_CORPUS)):
+        check(x.shape == (rows, DIM) and bool(np.isfinite(x).all()), f"Qwen3 {name} shape/finite")
+        check(bool(np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=2e-2)), f"Qwen3 {name} not unit norm")
+    q_cos = float((qp * qpk).sum(axis=1).min())
+    q_abs = float(np.abs(qp - qpk).max())
+    check(q_cos >= 0.999 and q_abs <= TOL_PACKED_ABS,
+          f"Qwen3 packed vs unpacked: min cos {q_cos}, max abs {q_abs}")
+    # the same weights with plain attention (use_flash=False: the KV heads
+    # repeated, a torch.matmul softmax) on the same queries, at their buckets
+    qplain = load_encoder(qwen, str(qdir), use_flash=False)
+    qplain.length_buckets = buckets
+    check(not qplain.cfg.use_flash, "Qwen3 plain-attention load")
+    kernels.reset_launch_counts()
+    qq_plain = qplain.encode_queries(texts_a[:N_QWEN_QUERIES], batch_size=128)
+    check(kernels.LAUNCHES["flash_attention_causal"] == 0, "the plain-attention Qwen3 launched kernel B")
+    del qplain
+    torch.cuda.empty_cache()
+    qk_cos = float((qq * qq_plain).sum(axis=1).min())
+    qk_abs = float(np.abs(qq - qq_plain).max())
+    check(qk_cos >= 0.999 and qk_abs <= TOL_PACKED_ABS,
+          f"Qwen3 queries, kernel B vs plain attention: min cos {qk_cos}, max abs {qk_abs}")
+    # short texts packed: the 512 query texts (as passages, no query prompt)
+    # share rows of 256, up to 16 segments a row, positions restarting at 0
+    # in each (PACKED_POS = "zero") under the causal-within-segment mask;
+    # against the same texts unpacked
+    qtexts = texts_a[:N_QWEN_QUERIES]
+    kernels.reset_launch_counts()
+    qs_pk = qenc.encode_documents(qtexts, batch_size=128, pack=True)
+    path_counts["qwen3_packed_short"] = dict(kernels.LAUNCHES)
+    check(path_counts["qwen3_packed_short"]["flash_attention_causal"] > 0,
+          "the packed short-text encode did not launch kernel B causal")
+    qs_up = qenc.encode_documents(qtexts, batch_size=128)
+    seq_s, rpb_s, pad_s = qenc._packed_setup(128, None)
+    segs_per_row, row_lens = [], set()
+    for _, _, pk, _ in qenc._packed_chunks([qtexts[i] for i in qenc._length_order(qtexts)],
+                                           dialects.doc_prefix(qenc.name), seq_s, rpb_s, 16, pad_s, None):
+        segs_per_row += [int(r.max()) for r in pk.segment_ids if r.max() > 0]
+        row_lens.add(int(pk.ids.shape[1]))
+    check(sum(segs_per_row) == N_QWEN_QUERIES and np.mean(segs_per_row) >= 4,
+          f"packed short texts: {np.mean(segs_per_row)} segments a row")
+    ps_cos = float((qs_pk * qs_up).sum(axis=1).min())
+    ps_abs = float(np.abs(qs_pk - qs_up).max())
+    check(qs_pk.shape == (N_QWEN_QUERIES, DIM) and bool(np.isfinite(qs_pk).all()), "Qwen3 packed short shape")
+    check(ps_cos >= 0.999 and ps_abs <= TOL_PACKED_ABS,
+          f"Qwen3 packed short texts vs unpacked: min cos {ps_cos}, max abs {ps_abs}")
+    # kernel B's Qwen3 instance (causal, 16 query heads over 8 KV heads, dh =
+    # 128) against its plain version at the query buckets (S = 16 and 64 sit
+    # below one 128-row tile): ragged lengths, and rows packed as the packer
+    # lays them out (contiguous segments, a pad tail) whose pad rows are 0
+    rng10 = np.random.default_rng(SEED + 14)
+    err_bq_s = {}
+    for sb in (16, 64, 128, 256, 512):
+        bb = 8
+        qkv = [torch.randn(bb, sb, nh, 128, device=dev, generator=g10k).to(torch.bfloat16).transpose(1, 2)
+               for nh in (16, 8, 8)]
+        lens_r = rng10.integers(1, sb + 1, bb).astype(np.int32)
+        lens_r[0] = sb
+        seg = np.zeros((bb, sb), np.int32)
+        for r in range(bb):
+            pos, sid, fill = 0, 1, sb if r == 0 else int(rng10.integers(1, sb + 1))
+            while pos < fill:
+                n_ = min(int(rng10.integers(1, max(2, sb // 4) + 1)), fill - pos)
+                seg[r, pos : pos + n_] = sid
+                pos, sid = pos + n_, sid + 1
+        seg_t = torch.from_numpy(seg).to(dev)
+        for tag, lens_, seg_ in (("ragged", torch.from_numpy(lens_r).to(dev), None),
+                                 ("packed", (seg_t > 0).sum(dim=1, dtype=torch.int32), seg_t)):
+            o_ = fa.attention_flash(*qkv, lens_, causal=True, segment_ids=seg_)
+            op_ = fa.attention_flash_plain(*(t.float() for t in qkv), lens_, causal=True, segment_ids=seg_)
+            torch.cuda.synchronize()
+            err_bq_s[f"S{sb}_{tag}"] = (o_.float() - op_).abs().max().item()
+            check(err_bq_s[f"S{sb}_{tag}"] <= 2e-2, f"B causal GQA err {err_bq_s[f'S{sb}_{tag}']} S={sb} {tag}")
+            if seg_ is not None:
+                check(bool((o_[(seg_ == 0)[:, None, :, None].expand_as(o_)] == 0).all()),
+                      f"B causal pad-segment rows not 0 at S={sb}")
+    del qkv, o_, op_, seg_t
+    # and at the 1024 bucket with full lengths, timed beside SDPA with the KV
+    # heads repeated
+    bq, hq, kvq, sq, dq = 32, 16, 8, 1024, 128
+    qb_ = torch.randn(bq, sq, hq, dq, device=dev, generator=g10k).to(torch.bfloat16).transpose(1, 2)
+    kb_ = torch.randn(bq, sq, kvq, dq, device=dev, generator=g10k).to(torch.bfloat16).transpose(1, 2)
+    vb_ = torch.randn(bq, sq, kvq, dq, device=dev, generator=g10k).to(torch.bfloat16).transpose(1, 2)
+    lens_q = torch.full((bq,), sq, dtype=torch.int32, device=dev)
+    err_bq = (fa.attention_flash(qb_, kb_, vb_, lens_q, causal=True).float()
+              - fa.attention_flash_plain(qb_.float(), kb_.float(), vb_.float(), lens_q, causal=True)
+              ).abs().max().item()
+    check(err_bq <= 2e-2, f"B causal GQA err {err_bq}")
+    k_rep, v_rep = kb_.repeat_interleave(hq // kvq, dim=1), vb_.repeat_interleave(hq // kvq, dim=1)
+    b_ms, b_by = bound(2 * bq * sq * hq * dq * 2 + 2 * bq * sq * kvq * dq * 2, 4 * bq * hq * sq * sq * dq / 2)
+    late_entries.append(dict(
+        name="flash_attention[causal]", route="cuda",
+        source="codemix_dense_retrieval_torch/csrc/flash_attention.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/flash_attention.py:249", launches=None,
+        max_abs_err=max(err_bq, *err_bq_s.values()),
+        **kernel_ms(lambda: fa.attention_flash(qb_, kb_, vb_, lens_q, causal=True), 20),
+        plain_ms=cuda_ms(lambda: fa.attention_flash_plain(qb_, kb_, vb_, lens_q, causal=True), 3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qb_, k_rep, v_rep, is_causal=True), 20),
+        shape=f"B={bq} H={hq} KVH={kvq} S={sq} dh={dq} bf16 causal (Qwen3-Embedding-0.6B)",
+    ))
+    del qb_, kb_, vb_, k_rep, v_rep, qenc
+    torch.cuda.empty_cache()
+    say("qwen3", config="Qwen3-Embedding-0.6B (28L, d=1024, 16/8 heads of 128, FFN 3072, vocab 151669) "
+        "random init bf16, HF-format dir", load_s=round(qload_s, 2),
+        queries=N_QWEN_QUERIES, queries_per_s=round(N_QWEN_QUERIES / qq_s, 1), passages=N_CORPUS,
+        passages_per_s=round(N_CORPUS / qp_s, 1), packed_passages_per_s=round(N_CORPUS / qpk_s, 1),
+        packed_vs_unpacked={"min_cos": q_cos, "max_abs": q_abs},
+        queries_kernel_vs_plain_attention={"min_cos": qk_cos, "max_abs": qk_abs},
+        packed_short_texts={"texts": N_QWEN_QUERIES, "row_lengths": sorted(row_lens), "rows": len(segs_per_row),
+                            "mean_segments_per_row": float(np.mean(segs_per_row)),
+                            "max_segments_per_row": max(segs_per_row), "min_cos": ps_cos, "max_abs": ps_abs},
+        tolerance={"min_cos": 0.999, "max_abs": TOL_PACKED_ABS},
+        kernel_b_causal_max_abs_err={**err_bq_s, "S1024": err_bq}, kernel_b_tolerance=2e-2,
+        launches={k: path_counts[k] for k in ("qwen3_queries", "qwen3_passages", "qwen3_packed",
+                                              "qwen3_packed_short")})
+
+    # 10b. the CLI over f32 and f16 stores: encode-corpus with the Qwen3
+    # checkpoint (rows and a 32-token store of the dtype), run-mix exact and
+    # guaranteed (kernel 2; kernel 7 over the bf16 sketch), run-rerank
+    # (kernel 6 over the f32 / f16 token store)
+    def trec_ids(path, k=100):
+        got = {}
+        with open(path) as fh:
+            for line in fh:
+                qid, _, doc, _, score, _ = line.split()
+                got.setdefault(qid, []).append((int(doc.split("#")[0][1:]), float(score)))
+        check(len(got) == N_QUERIES and all(len(v) == k for v in got.values()), f"{path} shape")
+        return (np.array([[d for d, _ in got[q]] for q in qids]),
+                np.array([[v for _, v in got[q]] for q in qids]))
+
+    cli10 = {}
+    for sdt in ("float32", "float16"):
+        sfx = kernels.dtype_suffix(getattr(torch, sdt))
+        root = work / f"corpus_{sdt}"
+        common = ["--encoder", qwen, "--checkpoint", str(qdir), "--seed", str(SEED)]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_cli(["codemix_dense_retrieval_torch", "encode-corpus", *common, "--corpus_tsv", f"xx={corpus_tsv}",
+                 "--storage_dtype", sdt, "--token_dtype", sdt, "--tokens_per_doc", str(TD),
+                 "--out", str(root), "--batch", "512", "--enc_batch", "32"])
+        enc_s = time.perf_counter() - t0
+        path_counts[f"qwen3_corpus_{sdt}"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"qwen3_corpus_{sdt}"]["flash_attention_causal"] > 0,
+              f"encode-corpus ({sdt}) did not launch kernel B causal")
+        store10 = ShardStore.open(root / "xx")
+        tok10 = TokenShardStore.open(root / "xx" / "tokens")
+        check(store10.count == N_CORPUS and store10.manifest.dtype == sdt and tok10.dtype == sdt
+              and tok10.count == N_CORPUS, f"encode-corpus {sdt} store / token store")
+        runs10 = {}
+        for mode in ("off", "guaranteed"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            run_cli(["codemix_dense_retrieval_torch", "run-mix", *common, "--index", str(root / "xx"),
+                     "--query_tsv", f"en={work / 'en.tsv'}", f"zh={work / 'zh.tsv'}",
+                     "--outdir", str(root / f"runs_{mode}"), "--k", "100", "--qblock", "256",
+                     "--cm_alphas", "0.5", "--query_cache", str(root / "qcache"), "--approx", mode])
+            runs10[mode] = (time.perf_counter() - t0, trec_ids(root / f"runs_{mode}" / "cm-alpha-0.5.trec"))
+            path_counts[f"qwen3_run_mix_{sdt}_{mode}"] = dict(kernels.LAUNCHES)
+            check(path_counts[f"qwen3_run_mix_{sdt}_{mode}"][f"bin_scores_transposed{sfx}"] > 0,
+                  f"run-mix {mode} over the {sdt} store did not launch kernel 2 ({sdt})")
+        check(path_counts[f"qwen3_run_mix_{sdt}_guaranteed"]["binub"] > 0,
+              f"run-mix guaranteed over the {sdt} store did not launch kernel 7")
+        check(np.array_equal(runs10["guaranteed"][1][0], runs10["off"][1][0]),
+              f"run-mix --approx guaranteed over the {sdt} store differs from the exact run")
+        # the exact run against a plain top-k of the store's rows (f32 products
+        # of the dtype's values): rank by rank the same score, within the TREC
+        # file's 4 decimals and TIE_TOL (so ids differ only among ties)
+        _, va10 = load_query_cache(root / "qcache" / "en" / "queries.npz", expected_qids=qids)
+        _, vb10 = load_query_cache(root / "qcache" / "zh" / "queries.npz", expected_qids=qids)
+        mq10 = mix_and_renorm(torch.from_numpy(va10).to(dev), torch.from_numpy(vb10).to(dev), 0.5)
+        rows10 = store10.rows().to(dev)
+        wv10, wi10 = topk._stable_topk(mq10.to(rows10.dtype).float() @ rows10.float().T, 100)
+        gi10, gv10 = runs10["off"][1]
+        gap10 = float(np.abs(gv10 - wv10.cpu().numpy()).max())
+        check(gap10 <= 5e-5 + TIE_TOL, f"run-mix over the {sdt} store: rank-wise score gap {gap10} to the plain top-k")
+        # run-mix --fused --qrels (the sweep on the card, qrels: the exact
+        # run's top-1): the exact run's ids, RR@10 = 100
+        top1 = {}
+        with open(root / "runs_off" / "cm-alpha-0.5.trec") as fh:
+            for line in fh:
+                top1.setdefault(line.split()[0], line.split()[2])
+        (root / "qrels.tsv").write_text("".join(f"{q}\t{top1[q]}\t1\n" for q in qids))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fused10 = run_cli_json(["codemix_dense_retrieval_torch", "run-mix", *common, "--index", str(root / "xx"),
+                                "--query_tsv", f"en={work / 'en.tsv'}", f"zh={work / 'zh.tsv'}",
+                                "--outdir", str(root / "runs_fused"), "--k", "100", "--qblock", "256",
+                                "--cm_alphas", "0.5", "--query_cache", str(root / "qcache"), "--fused",
+                                "--qrels", str(root / "qrels.tsv")])
+        fused10_s = time.perf_counter() - t0
+        path_counts[f"qwen3_run_mix_{sdt}_fused"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"qwen3_run_mix_{sdt}_fused"][f"bin_scores_transposed{sfx}"] > 0,
+              f"run-mix --fused over the {sdt} store did not launch kernel 2 ({sdt})")
+        check(np.array_equal(trec_ids(root / "runs_fused" / "cm-alpha-0.5.trec")[0], gi10)
+              and fused10["0.5"]["RR@10"] == 100.0,
+              f"run-mix --fused over the {sdt} store differs from the exact run")
+        # the fused bilingual hub: the store and a parallel second language
+        # of its dtype (row i = normalize(row_i + 0.3 u_i), the same docids),
+        # k = 100 over a 200-deep raw search collapsed on the card; rank-wise
+        # the plain top-k of each document's larger score of the two
+        u = torch.randn(rows10.shape, device=dev, generator=g10k)
+        y = rows10.float() + 0.3 * u / u.norm(dim=1, keepdim=True)
+        rows_yy = (y / y.norm(dim=1, keepdim=True)).to(rows10.dtype)
+        del u, y
+        hub10 = DenseFlatIndex.merged([
+            DenseFlatIndex.build(rows10.cpu(), store10.docids, dtype=sdt, lang="xx"),
+            DenseFlatIndex.build(rows_yy.cpu(), store10.docids, dtype=sdt, lang="yy")]).to_device()
+        check(hub10._docs_dev.dtype == rows10.dtype, f"the {sdt} hub's rows")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hub_runs, hub_m = run_bilingual_vector_mix_fused(hub10, qids, va10, vb10, [0.5], root / "hub", k=100,
+                                                         qrels={q: {top1[q].split("#")[0]: 1} for q in qids},
+                                                         query_block=256)
+        hub10_s = time.perf_counter() - t0
+        path_counts[f"qwen3_hub_fused_{sdt}"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"qwen3_hub_fused_{sdt}"][f"bin_scores_transposed{sfx}"] > 0,
+              f"the fused hub over {sdt} stores did not launch kernel 2 ({sdt})")
+        qh = mq10.to(rows10.dtype).float()
+        hv10, hi10 = topk._stable_topk(torch.maximum(qh @ rows10.float().T, qh @ rows_yy.float().T), 100)
+        hgi, hgv = trec_ids(hub_runs[0.5])
+        hub_gap = float(np.abs(hgv - hv10.cpu().numpy()).max())
+        check(hub_gap <= 5e-5 + TIE_TOL, f"the fused hub over {sdt} stores: rank-wise score gap {hub_gap}")
+        hi10_np = hi10.cpu().numpy()
+        del hub10, rows_yy, qh, hv10, hi10
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_cli(["codemix_dense_retrieval_torch", "run-rerank", *common, "--index", str(root / "xx"),
+                 "--queries", str(work / "en.tsv"), "--outdir", str(root / "rerank"), "--k", "100",
+                 "--k_dense", str(K_DENSE), "--qblock", "256"])
+        rr_s = time.perf_counter() - t0
+        path_counts[f"qwen3_rerank_{sdt}"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"qwen3_rerank_{sdt}"][f"maxsim{sfx}"] > 0,
+              f"run-rerank over the {sdt} token store did not launch kernel 6 ({sdt})")
+        trec_ids(root / "rerank" / "en.trec")
+        cli10[sdt] = dict(encode_corpus_s=round(enc_s, 2), run_mix_s=round(runs10["off"][0], 2),
+                          run_mix_guaranteed_s=round(runs10["guaranteed"][0], 2), run_rerank_s=round(rr_s, 2),
+                          exact_overlap_plain=overlap(gi10, wi10.cpu().numpy()), max_rank_score_gap=gap10,
+                          guaranteed_ids_equal_exact=True, run_mix_fused_s=round(fused10_s, 2),
+                          fused_ids_equal_exact=True, fused_rr10=fused10["0.5"]["RR@10"],
+                          hub_fused_s=round(hub10_s, 2), hub_rows=2 * N_CORPUS, hub_max_rank_score_gap=hub_gap,
+                          hub_overlap_plain=overlap(hgi, hi10_np), hub_rr10=hub_m["0.5"]["RR@10"])
+        del rows10, mq10, wv10, wi10
+    say("store_dtypes_cli", encoder=qwen, docs=N_CORPUS, tokens_per_doc=TD, queries=N_QUERIES, **cli10)
+
+    # 10c. f32 and f16 stores at full size: 8,841,823 x 1024 unit Gaussian
+    # rows made on the card in f32 (full mantissas; each query's planted row
+    # near its alpha = .5 mix, made as in phase 5), one host copy (36.2 GB), the
+    # f32 index (36.2 GB on the card) beside nothing else: fit_query_block
+    # keeps the 256-query block (10.2 GB of scores and bin maxima)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_gb_10c = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    # first the new instances at phase 3's tile edges: 1, 7, 64, 100, 130
+    # and 257 queries, ragged n_valid (a device int for 7 and 130) and
+    # n_valid = 1000, G = 8 and 16, d = 1024 and 96 (half a chunk), f32 and
+    # bf16 scores, kernel 7 at ds = 96, 128 and 512; f32 operands with full
+    # mantissas, held to TOL_F32 (f16 to 1e-4, bf16 scores to one ulp)
+    edge10 = {}
+
+    def edge(name, err):
+        edge10[name] = max(edge10.get(name, 0.0), err)
+
+    def check_new(q, docs, nv, n_valid, g_, layout, sdt, tol, label):
+        s_, bm_ = topk.bin_scores(q, docs, nv, g_, layout=layout, score_dtype=sdt)
+        s2_, bm2_ = topk.bin_scores_plain(q, docs, nv, g_, layout=layout, score_dtype=sdt)
+        torch.cuda.synchronize()
+        if layout == "transposed":
+            s_, s2_, bm_, bm2_ = s_.T, s2_.T, bm_.T, bm2_.T
+        a_, r_ = s_[:, :n_valid].float(), s2_[:, :n_valid].float()
+        diff = (a_ - r_).abs()
+        lim = tol if sdt == torch.float32 else torch.maximum(a_.abs(), r_.abs()) * 2.0 ** -7 + tol
+        check(bool((diff <= lim).all()), f"{label} scores: max diff {diff.max().item()}")
+        check(bool((s_[:, n_valid:].float() == torch.tensor(topk.NEG_INF).to(sdt).float()).all()),
+              f"{label} pad scores")
+        bdiff = (bm_ - bm2_).abs().max().item()
+        check(bdiff <= tol and bool((bm_[:, -(-n_valid // g_):] == topk.NEG_INF).all()),
+              f"{label} bin maxima: max diff {bdiff}")
+        return max(bdiff, diff.max().item() if sdt == torch.float32 else 0.0)
+
+    for dt, tol, label in ((torch.float16, 1e-4, "f16"), (torch.float32, TOL_F32, "f32")):
+        n_e = 16_384 + 16 * 7
+        docs_e, docs_96 = unit(n_e).to(dt), unit(4096, 96).to(dt)
+        for b in (1, 7, 64, 100, 130, 257):
+            q_e, q_96 = unit(b).to(dt), unit(b, 96).to(dt)
+            nv_e = n_e - 77
+            nv_arg = torch.tensor([nv_e], dtype=torch.int32, device=dev) if b in (7, 130) else nv_e
+            for g_ in (8, 16):
+                for layout in topk.LAYOUTS:
+                    for sdt in (torch.float32, torch.bfloat16):
+                        edge(f"bin_scores[{layout}_{label}]", check_new(
+                            q_e, docs_e, nv_arg, nv_e, g_, layout, sdt, tol,
+                            f"{layout} {label} b={b} G={g_} {sdt}"))
+                edge(f"bin_scores[bin_major_{label}]", check_new(
+                    q_e, docs_e, 1000, 1000, g_, "bin_major", torch.float32, tol, f"nv=1000 {label} b={b}"))
+                edge(f"bin_scores[bin_major_{label}]", check_new(
+                    q_96, docs_96, 4096 - 40, 4096 - 40, g_, "bin_major", torch.float32, tol,
+                    f"d=96 {label} b={b}"))
+                bmo, bmo2 = topk.binmax_only(q_e, docs_e, nv_arg, g_), topk.binmax_only_plain(q_e, docs_e, nv_e, g_)
+                torch.cuda.synchronize()
+                err_o = (bmo - bmo2).abs().max().item()
+                check(err_o <= tol, f"binmax_only {label} b={b} G={g_}: {err_o}")
+                edge(f"binmax_only[{label}]", err_o)
+    for ds_ in (96, 128, 512):
+        d_sk = torch.randn(8192, ds_, device=dev, generator=g10k) * 0.1
+        d_tl = torch.rand(8192, device=dev, generator=g10k)
+        for b in (1, 7, 257):
+            q_sk_ = torch.randn(b, ds_, device=dev, generator=g10k) * 0.1
+            q_tl_ = torch.rand(b, device=dev, generator=g10k)
+            for nv7 in (8192 - 13, 1000):
+                u7 = sk.binub(q_sk_, q_tl_, d_sk, d_tl, 8, nv7)
+                u72 = sk.binub_plain(q_sk_, q_tl_, d_sk, d_tl, 8, nv7)
+                torch.cuda.synchronize()
+                err7e = (u7 - u72).abs().max().item()
+                check(err7e <= TOL_F32, f"7 (f32) ds={ds_} b={b} nv={nv7}: {err7e}")
+                edge("binub[f32]", err7e)
+    del docs_e, docs_96, d_sk, d_tl
+    t0 = time.perf_counter()
+    host32 = torch.empty((N_ROWS, DIM), dtype=torch.float32)
+    g10 = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        c1 = min(c0 + (1 << 20), N_ROWS)
+        x = torch.randn(c1 - c0, DIM, device=dev, generator=g10)
+        host32[c0:c1].copy_(x / x.norm(dim=1, keepdim=True))
+    noise = torch.randn(N_QUERIES, DIM, device=dev, generator=g10)
+    near10 = mix05 + 0.5 * noise / noise.norm(dim=1, keepdim=True)
+    host32[planted] = (near10 / near10.norm(dim=1, keepdim=True)).cpu()
+    del x, noise, near10
+    gen32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx32 = DenseFlatIndex.build(host32, docids, dtype="float32").to_device()
+    torch.cuda.synchronize()
+    up32_s = time.perf_counter() - t0
+    del host32
+    d32, nv32 = idx32._docs_dev, idx32._counts_dev[:1]
+    nb32 = d32.shape[0]
+    check(d32.dtype == torch.float32 and idx32._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS, "f32 index")
+    q32 = mix05.float().contiguous()
+
+    def full_size_search(idx, q, label):
+        """Exact search at k = 100 and 1000 (512 queries, 256-query blocks)
+        against the plain f32 top-k of the index dtype's values: (overlap at
+        k = 1000, largest rank-wise score gap, seconds)."""
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        v100, i100 = idx.search(q, 100, query_block=256, return_docids=False)
+        v1000, i1000 = idx.search(q, 1000, query_block=256, return_docids=False)
+        sec = time.perf_counter() - t0
+        path_counts[label] = dict(kernels.LAUNCHES)
+        qd = q.to(idx._docs_dev.dtype).float()
+        wv, wi = oracle_topk(qd, idx._docs_dev, N_ROWS, 1000)
+        wv, wi = wv.cpu().numpy(), wi.cpu().numpy()
+        gap = max(float(np.abs(v100 - wv[:, :100]).max()), float(np.abs(v1000 - wv).max()))
+        check(gap <= TIE_TOL, f"{label}: rank-wise score gap {gap} to the plain top-k")
+        return overlap(i1000, wi), overlap(i100, wi[:, :100]), gap, sec
+
+    def tiers(idx, label):
+        """The fused alpha sweep (the phase-5 query pairs, k = 100) and the
+        adaptive tier (k = 1, where the planted rows certify, and k = 100)
+        over the index: the fused ids at alpha = .5 and the adaptive values
+        and ids equal exact search's on q32."""
+        sfx = kernels.dtype_suffix(idx._docs_dev.dtype)
+        exact = {k_: idx.search(q32, k_, query_block=256, return_docids=False) for k_ in (1, 100)}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, f_ids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, idx._docs_dev, idx._counts_dev, 100,
+                                           search_kwargs=idx.search_kwargs, query_block=256)
+        f_ids = f_ids.cpu().numpy()
+        out = {"fused_s": round(time.perf_counter() - t0, 2)}
+        path_counts[f"fused_{label}"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"fused_{label}"][f"bin_scores_bin_major{sfx}"] > 0,
+              f"the fused sweep over the {label} index did not launch kernel A ({label})")
+        check(np.array_equal(f_ids[ALPHAS.index(0.5)], exact[100][1]),
+              f"the fused sweep over the {label} index differs from exact search at alpha = .5")
+        out["fused_ids_equal_exact"] = True
+        for k_ in (1, 100):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            av, ai = idx.search(q32, k_, query_block=256, approx="adaptive", return_docids=False)
+            out[f"adaptive_k{k_}_s"] = round(time.perf_counter() - t0, 2)
+            path_counts[f"adaptive_{label}_k{k_}"] = dict(kernels.LAUNCHES)
+            check(path_counts[f"adaptive_{label}_k{k_}"][f"bin_scores_bin_major{sfx}"] > 0,
+                  f"the adaptive tier over the {label} index did not launch kernel A ({label})")
+            check(np.array_equal(ai, exact[k_][1]) and np.array_equal(av, exact[k_][0]),
+                  f"the adaptive tier over the {label} index differs from exact search at k = {k_}")
+            out[f"adaptive_k{k_}"] = dict(idx.last_adaptive_stats)
+        out["adaptive_equal_exact"] = True
+        return out
+
+    ov32 = full_size_search(idx32, q32, "search_f32")
+    check(path_counts["search_f32"]["bin_scores_bin_major_f32"] > 0, "f32 search did not launch kernel A (f32)")
+    tiers32 = tiers(idx32, "f32")
+    # the rescore search (kernel 5) at k = 100 and 1000
+    kernels.reset_launch_counts()
+    qd32 = q32[:256].contiguous()
+    rv5, ri5 = topk.topk_ip(qd32, d32, 100, method="bins_rescore", n_valid=nv32)
+    rv5k, ri5k = topk.topk_ip_rescore_two_level(qd32, d32, 1000, n_valid=nv32)
+    path_counts["rescore_f32"] = dict(kernels.LAUNCHES)
+    check(path_counts["rescore_f32"]["binmax_only_f32"] > 0, "f32 rescore did not launch kernel 5 (f32)")
+    wv5, wi5 = oracle_topk(qd32, d32, N_ROWS, 1000)
+    gap5 = max(float((rv5 - wv5[:, :100]).abs().max()), float((rv5k - wv5).abs().max()))
+    check(gap5 <= TIE_TOL, f"f32 rescore: rank-wise score gap {gap5} to the plain top-k")
+    ov5 = overlap(ri5k.cpu().numpy(), wi5.cpu().numpy())
+    del rv5, ri5, rv5k, ri5k, wv5, wi5
+    # the sketch tier over the f32 index (its sketch stays bf16), guaranteed:
+    # the exact ids
+    t0 = time.perf_counter()
+    idx32.enable_sketch(sketch_dim=128, cache=False)
+    sk_build_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    ev32, ei32 = idx32.search(q32, 100, query_block=256, return_docids=False)
+    path_counts["sketch_f32_exact"] = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gv32, gi32 = idx32.search(q32, 100, query_block=256, approx="guaranteed", return_docids=False)
+    grt32_s = time.perf_counter() - t0
+    path_counts["sketch_f32_guaranteed"] = dict(kernels.LAUNCHES)
+    check(path_counts["sketch_f32_guaranteed"]["binub"] > 0, "the f32 index's sketch tier did not launch kernel 7")
+    check(np.array_equal(gi32, ei32), "guaranteed search over the f32 index differs from exact search")
+    # the f32 sketch tier (ops.sketch with an f32 sidecar, the JAX package's
+    # HIGHEST-precision tier): kernel 7 over f32 operands; certified queries
+    # return the exact ids
+    _, _, proj32, _ = idx32._sketch
+    idx32._sketch = None
+    torch.cuda.empty_cache()
+    sk32, tl32 = sk.sketch_rows(d32, proj32, torch.float32)
+    kernels.reset_launch_counts()
+    fv32, fi32, fc32 = sk.topk_ip_sketch(q32, d32, sk32, tl32, proj32, 100, n_valid=nv32)
+    path_counts["sketch_f32_sidecar"] = dict(kernels.LAUNCHES)
+    check(path_counts["sketch_f32_sidecar"]["binub_f32"] > 0, "the f32 sketch tier did not launch kernel 7 (f32)")
+    fc32 = fc32.cpu().numpy()
+    check(bool((fi32.cpu().numpy()[fc32] == ei32[fc32]).all()), "certified f32-sketch queries differ from exact")
+    del fv32, fi32
+    # kernel 7 (f32 sketch) against its plain version and timed
+    q_sk32, q_tl32, _ = _sketch_with_err(q32[:256], proj32, torch.float32)
+    ub = sk.binub(q_sk32, q_tl32, sk32, tl32, 8, nv32)
+    ub2 = sk.binub_plain(q_sk32, q_tl32, sk32, tl32, 8, nv32)
+    torch.cuda.synchronize()
+    err7f = (ub - ub2).abs().max().item()
+    check(err7f <= TOL_F32, f"7 (f32) err {err7f} at the main shape")
+    del ub, ub2
+    col32 = torch.arange(nb32, device=dev)
+
+    def lib_binub32():
+        s = torch.matmul(q_sk32, sk32.T)
+        s.addr_(q_tl32, tl32)
+        return s.masked_fill_(col32 >= nv32, -torch.inf).view(256, nb32 // 8, 8).amax(dim=2)
+
+    b_ms, b_by = bound(256 * 128 * 4 + 256 * 4 + nb32 * 128 * 4 + nb32 * 4 + 256 * nb32 // 8 * 4,
+                       3 * 2 * 256 * nb32 * 128, TF32_FLOPS)
+    late_entries.append(dict(
+        name="binub[f32]", route="cuda", source="codemix_dense_retrieval_torch/csrc/bin_scores_f32.cu",
+        replaces="codemix_dense_retrieval_tpu/ops/sketch.py:310", launches=None,
+        max_abs_err=max(err7f, edge10["binub[f32]"]),
+        **kernel_ms(lambda: sk.binub(q_sk32, q_tl32, sk32, tl32, 8, nv32), 5),
+        plain_ms=cuda_ms(lambda: sk.binub_plain(q_sk32, q_tl32, sk32, tl32, 8, nv32), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_binub32, 3),
+        shape=f"B=256 N={nb32} ds=128 G=8 f32 sketch (3xTF32), bin-major upper-bound maxima",
+    ))
+    del sk32, tl32, q_sk32, q_tl32
+    torch.cuda.empty_cache()
+
+    def float_entries(docs, nv, dt, label, source, tol, peak, passes):
+        """Kernels A and 5 (at the full size) and 2 (on its first 131,072
+        rows) over the index dtype ``dt``: each against its plain version at
+        tolerance ``tol``, timed beside its plain version and one PyTorch
+        call; ``passes`` tensor-core passes at ``peak`` bound the work."""
+        esz = torch.finfo(dt).bits // 8
+        nb = docs.shape[0]
+        q = q32[:256].to(dt).contiguous()
+        col = torch.arange(nb, device=dev)
+        err_a = bin_kernel_err(lambda: topk.bin_scores(q, docs, nv, 8, layout="bin_major"),
+                               lambda: topk.bin_scores_plain(q, docs, nv, 8, layout="bin_major"),
+                               nv, "bin_major", tol, f"A ({label})")
+
+        def lib_bm():
+            s = torch.matmul(q, docs.T).float().masked_fill_(col >= nv, -torch.inf)
+            return s.view(256, nb // 8, 8).amax(dim=2)
+
+        lib_a = cuda_ms(lib_bm, 3)
+        b_ms, b_by = bound(256 * DIM * esz + nb * DIM * esz + 256 * nb * 4 + 256 * nb // 8 * 4,
+                           passes * 2 * 256 * nb * DIM, peak)
+        out = [dict(
+            name=f"bin_scores[bin_major_{label}]", route="cuda", source=source,
+            replaces="codemix_dense_retrieval_tpu/ops/topk.py:492", launches=None, max_abs_err=err_a,
+            **kernel_ms(lambda: topk.bin_scores(q, docs, nv, 8, layout="bin_major"), 5),
+            plain_ms=cuda_ms(lambda: topk.bin_scores_plain(q, docs, nv, 8, layout="bin_major"), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_a,
+            shape=f"B=256 N={nb} d={DIM} G=8 {label}, f32 scores",
+        )]
+        bm5_ = topk.binmax_only(q, docs, nv, 8)
+        bm5p_ = topk.binmax_only_plain(q, docs, nv, 8)
+        torch.cuda.synchronize()
+        err_5 = (bm5_ - bm5p_).abs().max().item()
+        check(err_5 <= tol, f"5 ({label}) err {err_5} at the main shape")
+        del bm5_, bm5p_
+        b_ms, b_by = bound(256 * DIM * esz + nb * DIM * esz + 256 * nb // 8 * 4,
+                           passes * 2 * 256 * nb * DIM, peak)
+        out.append(dict(
+            name=f"binmax_only[{label}]", route="cuda", source=source,
+            replaces="codemix_dense_retrieval_tpu/ops/topk.py:710", launches=None, max_abs_err=err_5,
+            **kernel_ms(lambda: topk.binmax_only(q, docs, nv, 8), 5),
+            plain_ms=cuda_ms(lambda: topk.binmax_only_plain(q, docs, nv, 8), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_a,
+            shape=f"B=256 N={nb} d={DIM} G=8 {label}, bin-major maxima only",
+        ))
+        ds_ = docs[:SMALL_ROWS]
+        ns = SMALL_ROWS
+        col_t = torch.arange(ns, device=dev)[:, None]
+        err_2 = bin_kernel_err(lambda: topk.bin_scores(q, ds_, ns, 16, layout="transposed"),
+                               lambda: topk.bin_scores_plain(q, ds_, ns, 16, layout="transposed"),
+                               torch.tensor(ns), "transposed", tol, f"2 ({label})")
+
+        def lib_tr():
+            s = torch.matmul(ds_, q.T).float().masked_fill_(col_t >= ns, -torch.inf)
+            return s.view(ns // 16, 16, 256).amax(dim=1)
+
+        b_ms, b_by = bound(256 * DIM * esz + ns * DIM * esz + 256 * ns * 4 + 256 * ns // 16 * 4,
+                           passes * 2 * 256 * ns * DIM, peak)
+        out.append(dict(
+            name=f"bin_scores[transposed_{label}]", route="cuda", source=source,
+            replaces="codemix_dense_retrieval_tpu/ops/topk.py:389", launches=None, max_abs_err=err_2,
+            **kernel_ms(lambda: topk.bin_scores(q, ds_, ns, 16, layout="transposed"), 20),
+            plain_ms=cuda_ms(lambda: topk.bin_scores_plain(q, ds_, ns, 16, layout="transposed"), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_tr, 20),
+            shape=f"B=256 N={ns} d={DIM} G=16 {label}, f32 scores",
+        ))
+        return out
+
+    f32_entries = float_entries(d32, nv32, torch.float32, "f32",
+                                "codemix_dense_retrieval_torch/csrc/bin_scores_f32.cu", TOL_F32, TF32_FLOPS, 3)
+    # the f16 store: the same rows rounded to f16 (one 18.1 GB host copy)
+    t0 = time.perf_counter()
+    host16 = torch.empty((N_ROWS, DIM), dtype=torch.float16)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        host16[c0 : c0 + (1 << 20)].copy_(d32[c0 : min(c0 + (1 << 20), N_ROWS)].half())
+    del d32, nv32, idx32, col32
+    torch.cuda.empty_cache()
+    idx16 = DenseFlatIndex.build(host16, docids, dtype="float16").to_device()
+    torch.cuda.synchronize()
+    up16_s = time.perf_counter() - t0
+    del host16
+    d16, nv16 = idx16._docs_dev, idx16._counts_dev[:1]
+    ov16 = full_size_search(idx16, q32, "search_f16")
+    check(path_counts["search_f16"]["bin_scores_bin_major_f16"] > 0, "f16 search did not launch kernel A (f16)")
+    tiers16 = tiers(idx16, "f16")
+    kernels.reset_launch_counts()
+    rv5h, _ = topk.topk_ip(q32[:256].half(), d16, 100, method="bins_rescore", n_valid=nv16)
+    path_counts["rescore_f16"] = dict(kernels.LAUNCHES)
+    check(path_counts["rescore_f16"]["binmax_only_f16"] > 0, "f16 rescore did not launch kernel 5 (f16)")
+    del rv5h
+    f16_entries = float_entries(d16, nv16, torch.float16, "f16",
+                                "codemix_dense_retrieval_torch/csrc/bin_scores_f16.cu", 1e-4, BF16_FLOPS, 1)
+    for e in f32_entries + f16_entries:
+        e["max_abs_err"] = max(e["max_abs_err"], edge10.get(e["name"], 0.0))
+    late_entries.extend(f32_entries + f16_entries)
+    del d16, nv16, idx16
+    torch.cuda.empty_cache()
+    say("store_dtypes_full", smi=smi, rows=N_ROWS, dim=DIM, edge_shape_max_abs_err=edge10,
+        card_gb_allocated_at_10=card_gb_10,
+        card_gb_allocated_at_10c=card_gb_10c, card_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        gen_f32_s=round(gen32_s, 2),
+        upload_f32_s=round(up32_s, 2), build_upload_f16_s=round(up16_s, 2),
+        f32={"overlap_k1000": ov32[0], "overlap_k100": ov32[1], "max_rank_score_gap": ov32[2],
+             "search_s": round(ov32[3], 2), "rescore_overlap_k1000": ov5, "rescore_max_gap": gap5,
+             "sketch_build_s": round(sk_build_s, 2), "guaranteed_s": round(grt32_s, 2),
+             "guaranteed_ids_equal_exact": True, "f32_sketch_certified_frac": float(fc32.mean()), **tiers32},
+        f16={"overlap_k1000": ov16[0], "overlap_k100": ov16[1], "max_rank_score_gap": ov16[2],
+             "search_s": round(ov16[3], 2), **tiers16},
+        kernels={e["name"]: {"ms": e["ms"], "bound_ms": e["bound_ms"], "max_abs_err": e["max_abs_err"]}
+                 for e in late_entries[-7:]},
+        launches={k: path_counts[k] for k in ("search_f32", "fused_f32", "adaptive_f32_k100", "rescore_f32",
+                                              "sketch_f32_guaranteed", "sketch_f32_sidecar", "search_f16",
+                                              "fused_f16", "adaptive_f16_k100", "rescore_f16")})
+
+    # kernel 6 over f16 and f32 doc tokens at the two-stage shape (B = 256,
+    # K = 400, Tq = Td = 32, d = 1024)
+    q6 = torch.randn(256, TQ, DIM, device=dev, generator=g10k)
+    q6 /= q6.norm(dim=-1, keepdim=True)
+    qm6 = (torch.rand(256, TQ, device=dev, generator=g10k) < 0.9).to(torch.int32)
+    dm6 = (torch.arange(TD, device=dev) < torch.randint(1, TD + 1, (256, K_DENSE, 1), device=dev,
+                                                         generator=g10k)).to(torch.int32)
+    d6 = torch.empty(256, K_DENSE, TD, DIM, device=dev)
+    for b0 in range(0, 256, 32):
+        x = torch.randn(32, K_DENSE, TD, DIM, device=dev, generator=g10k)
+        d6[b0 : b0 + 32] = x / x.norm(dim=-1, keepdim=True)
+    del x
+    for dt6 in (torch.float16, torch.float32):
+        label = "f16" if dt6 == torch.float16 else "f32"
+        dd = d6.to(dt6)
+        k6 = msim.maxsim_scores(q6, qm6, dd, dm6)
+        p6 = msim.maxsim_scores_plain(q6, qm6, dd, dm6)
+        torch.cuda.synchronize()
+        err6 = (k6 - p6).abs().max().item()
+        check(bool(((k6 - p6).abs() <= TOL_MAXSIM + TOL_MAXSIM_REL * p6.abs()).all()),
+              f"6 ({label}) err {err6} at the main shape")
+        qd6 = q6.to(dt6)
+
+        def lib_maxsim6():
+            s = torch.einsum("bqd,bktd->bkqt", qd6, dd)
+            s = s.masked_fill(dm6[:, :, None, :] == 0, -torch.inf).amax(dim=-1).float()
+            s = torch.where(qm6[:, None, :] > 0, s, 0.0)
+            return torch.where(torch.isfinite(s), s, 0.0).sum(dim=-1)
+
+        esz = dd.element_size()
+        passes, peak = (3, TF32_FLOPS) if dt6 == torch.float32 else (1, BF16_FLOPS)
+        b_ms, b_by = bound(256 * TQ * DIM * 4 + 256 * TQ * 4 + 256 * K_DENSE * TD * DIM * esz
+                           + 256 * K_DENSE * TD * 4 + 256 * K_DENSE * 4,
+                           passes * 2 * 256 * K_DENSE * TQ * TD * DIM, peak)
+        late_entries.append(dict(
+            name=f"maxsim[{label}]", route="cuda", source="codemix_dense_retrieval_torch/csrc/maxsim.cu",
+            replaces="codemix_dense_retrieval_tpu/ops/maxsim.py:132", launches=None, max_abs_err=err6,
+            max_rel_err=((k6 - p6).abs() / p6.abs().clamp(min=1.0)).max().item(),
+            **kernel_ms(lambda: msim.maxsim_scores(q6, qm6, dd, dm6), 5),
+            plain_ms=cuda_ms(lambda: msim.maxsim_scores_plain(q6, qm6, dd, dm6), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_maxsim6, 3),
+            shape=f"B=256 K={K_DENSE} Tq={TQ} Td={TD} d={DIM}, f32 queries, {label} doc tokens "
+                  f"(library: einsum in {label})",
+        ))
+        del dd, k6, p6, qd6
+    del q6, qm6, dm6, d6
+    torch.cuda.empty_cache()
+
+    # 10d. GTE-multilingual-base (12 layers, d=768, 12 heads, FFN 3072, vocab
+    # 250,048, rope 160,000; plain attention) and jina-embeddings-v3 (XLM-R
+    # at d=1024, 24 layers, 16 heads, FFN 4096, rank-4 LoRA over 5 tasks,
+    # non-zero adapters) at full width, random init, bf16
+    fam = {}
+    texts_d = texts_a[:256]
+    passages_d = corpus_texts[:256]
+    gcfg = GTEConfig(dtype=torch.bfloat16)
+    with torch.device("meta"):
+        gmodel = GTEEncoder(gcfg)
+    for name, cfg_d, model_d in (("Alibaba-NLP/gte-multilingual-base", gcfg, gmodel),
+                                 ("jinaai/jina-embeddings-v3", XLMRConfig.jina_v3(dtype=torch.bfloat16), None)):
+        t0 = time.perf_counter()
+        enc_d = TextEncoder(name, cfg_d, model=model_d, seed=SEED + 12)
+        kernels.reset_launch_counts()
+        qv = enc_d.encode_queries(texts_d, batch_size=128)
+        pv_d = enc_d.encode_documents(passages_d, batch_size=32, max_length=512)
+        pq = enc_d.encode_documents(texts_d, batch_size=128)
+        sec = time.perf_counter() - t0
+        for x in (qv, pv_d, pq):
+            check(x.shape == (256, cfg_d.hidden_size) and bool(np.isfinite(x).all())
+                  and bool(np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=2e-2)), f"{name} embeddings")
+        role_gap = float(np.abs(qv - pq).max())
+        fam[name] = dict(model=type(enc_d.model).__name__, seconds=round(sec, 2),
+                         query_task=enc_d._task_id("query"), passage_task=enc_d._task_id("passage"),
+                         same_text_query_vs_passage_max_abs=role_gap)
+        if name.startswith("jinaai"):
+            check(enc_d.cfg.lora_rank == 4 and enc_d.cfg.lora_tasks == 5 and enc_d._task_id("passage") == 1,
+                  "jina-v3 task adapters")
+            check(role_gap > 1e-3, f"jina-v3 query and passage embeddings of the same texts agree ({role_gap})")
+        else:
+            try:
+                enc_d.encode_documents(passages_d[:4], pack=True)
+            except ValueError as e:
+                fam[name]["pack_refused"] = str(e)
+            check("pack_refused" in fam[name], "GTE accepted pack=True")
+        del enc_d
+        torch.cuda.empty_cache()
+    say("families", smi=smi, **fam, phase10_s=round(time.perf_counter() - t10, 2))
 
     # each kernel's launches over all the paths
     entries.extend(late_entries)

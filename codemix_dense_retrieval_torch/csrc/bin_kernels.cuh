@@ -1,15 +1,20 @@
 // The bin-score kernels' templates, shared by bin_scores.cu (kernels A, 2, 5
-// and 7: bf16 operands) and bin_scores_int8.cu (kernel 4: int8 operands).
+// and 7: bf16 operands), bin_scores_f16.cu (A, 2, 5: f16), bin_scores_f32.cu
+// (A, 2, 5, 7: f32, 3xTF32) and bin_scores_int8.cu (kernel 4: int8 operands).
 // Every one computes S = Q . D^T on the tensor cores, an optional epilogue
 // term, rows >= n_valid masked to NEG_INF (float32 min) and the maximum of
 // every run of G consecutive rows ("bin max"); some also store S.
 //
 // Two warp-specialised Hopper kernels on sm90.cuh carry all of them: a
-// producer thread streams 128-byte chunks of the rows (64 bf16 or 128 int8
-// dims; 128-byte swizzle) by TMA into an mbarrier ring, two consumer
-// warpgroups multiply them with wgmma (bf16 -> f32, or s8 -> exact s32), and
-// the blocks are persistent (one per SM), so the next tile's chunks load while
-// the current tile's epilogue runs; rows past N and dims past d read as zeros.
+// producer thread streams 128-byte chunks of the rows (64 bf16 or f16, 32 f32
+// or 128 int8 dims; 128-byte swizzle) by TMA into an mbarrier ring, two
+// consumer warpgroups multiply them with wgmma (bf16 or f16 -> f32, tf32
+// parts -> f32, or s8 -> exact s32), and the blocks are persistent (one per
+// SM), so the next tile's chunks load while the current tile's epilogue runs;
+// rows past N and dims past d read as zeros. f32 operands (SPLIT = 2) are
+// split in shared memory per stage into tf32 hi + lo before three wgmmas, and
+// fold each chunk into a running sum (Operand<float>); their ring is as deep
+// as two stages' bytes allow and their query tiles hold at most 128 queries.
 // Epilogues work on the accumulators in registers. The operand type (Operand
 // below) and the epilogue mode (Epi) are template parameters, so the ring, the
 // consumer loop and the bin-max code exist once:
@@ -65,6 +70,7 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
@@ -88,7 +94,10 @@ inline bool shape_ok(int B, long long N, int D, int G, int dim_multiple) {
 }
 
 // what the operand type fixes: the accumulator (f32, or s32 held as raw
-// 32-bit registers), the tensor-map element type and the wgmma
+// 32-bit registers), the tensor-map element type, the wgmma, SPLIT (2: each
+// stage is split in shared memory before the products, see Operand<float>)
+// and the largest query tile (MAX_NT). mma's `lo` is the descriptor offset
+// of a stage's split-off low parts (f32 only).
 template <typename T>
 struct Operand;
 
@@ -96,9 +105,47 @@ template <>
 struct Operand<__nv_bfloat16> {
   using Acc = float;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int SPLIT = 1, MAX_NT = 256;
   template <int N>
-  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
+                                             int scale_d) {
     sm90::Wgmma<N>::template ss<0>(d, da, db, scale_d);
+  }
+};
+
+// f16 operands: f16 x f16 products are exact in f32, as bf16's are
+template <>
+struct Operand<__half> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static constexpr int SPLIT = 1, MAX_NT = 256;
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
+                                             int scale_d) {
+    sm90::WgmmaF16<N>::ss(d, da, db, scale_d);
+  }
+};
+
+// f32 operands, f32-faithful products on tf32 tensor cores (3xTF32): each
+// stage's values x are split in shared memory (split_stage) into hi =
+// tf32(x), in place, and lo = tf32(x - hi), a stage's length further on;
+// x . y = hi.hi + hi.lo + lo.hi, the three wgmmas below, to ~3 * 2^-22 of
+// sum |x_i y_i| (the dropped lo.lo and lo's rounding are each <= 2^-22 of
+// it). The tensor cores' accumulation does not round to nearest and its
+// error grows with the products added into one fragment, so every 128-byte
+// chunk of d (32 dims) accumulates into a fresh fragment that is then added
+// to a running sum with __fadd_rn; holding both caps the query tile at 128.
+template <>
+struct Operand<float> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int SPLIT = 2, MAX_NT = 128;
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t lo,
+                                             int scale_d) {
+    sm90::WgmmaTF32<N>::ss(d, da + lo, db, scale_d);
+    sm90::WgmmaTF32<N>::ss(d, da, db + lo, 1);
+    sm90::WgmmaTF32<N>::ss(d, da, db, 1);
   }
 };
 
@@ -106,12 +153,38 @@ template <>
 struct Operand<int8_t> {
   using Acc = uint32_t;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int SPLIT = 1, MAX_NT = 256;
   template <int N>
-  static __device__ __forceinline__ void mma(uint32_t (&d)[N / 2], uint64_t da, uint64_t db,
+  static __device__ __forceinline__ void mma(uint32_t (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
                                              int scale_d) {
     sm90::WgmmaS8<N>::ss(d, da, db, scale_d);
   }
 };
+
+// f32 operands: the 256 consumer threads split the `bytes` loaded into a
+// stage (at generic address p) into tf32 hi (in place) and lo (bytes
+// further on), then order the writes before the wgmmas that read them
+__device__ __forceinline__ void split_stage(unsigned char* p, int bytes, int tc) {
+  float4* x = reinterpret_cast<float4*>(p);
+  float4* lo = reinterpret_cast<float4*>(p + bytes);
+  for (int i = tc; i < bytes / 16; i += 256) {
+    const float4 v = x[i];
+    const float4 h = make_float4(sm90::tf32_rna(v.x), sm90::tf32_rna(v.y), sm90::tf32_rna(v.z),
+                                 sm90::tf32_rna(v.w));
+    x[i] = h;
+    lo[i] = make_float4(sm90::tf32_rna(v.x - h.x), sm90::tf32_rna(v.y - h.y),
+                        sm90::tf32_rna(v.z - h.z), sm90::tf32_rna(v.w - h.w));
+  }
+  sm90::fence_proxy_async();
+  sm90::named_sync(2, 256);
+}
+
+// f32 operands: fold a chunk's fragment into the running sum
+template <int R>
+__device__ __forceinline__ void fold_chunk(float (&run)[R], const float (&part)[R], bool first) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) run[i] = first ? part[i] : __fadd_rn(run[i], part[i]);
+}
 
 // an accumulator register read or written as f32: after the rescale pass an
 // s32 accumulator holds the bits of its f32 score
@@ -132,22 +205,22 @@ __device__ __forceinline__ void apply_epi(A& x, float dx, float qx) {
 }
 
 // calls f(NT, G) (as integral_constants) for G and the query tile that holds
-// B queries: the smallest of 64, 128, 256, and 256 past that
-template <typename F>
+// B queries: the smallest of 64, 128, 256 (at most MAX_NT), and MAX_NT past
+// that
+template <int MAX_NT, typename F>
 int by_tile(int G, int B, F&& f) {
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
   using I256 = std::integral_constant<int, 256>;
-  using G8 = std::integral_constant<int, 8>;
-  using G16 = std::integral_constant<int, 16>;
-  if (G == 8) {
-    if (B <= 64) return f(I64{}, G8{});
-    if (B <= 128) return f(I128{}, G8{});
-    return f(I256{}, G8{});
-  }
-  if (B <= 64) return f(I64{}, G16{});
-  if (B <= 128) return f(I128{}, G16{});
-  return f(I256{}, G16{});
+  auto pick = [&](auto g) {
+    if (B <= 64) return f(I64{}, g);
+    if constexpr (MAX_NT >= 256) {
+      if (B > 128) return f(I256{}, g);
+    }
+    return f(I128{}, g);
+  };
+  if (G == 8) return pick(std::integral_constant<int, 8>{});
+  return pick(std::integral_constant<int, 16>{});
 }
 
 // the row-major tensor maps of D (N x d) and Q (B x d): 128-byte boxes of
@@ -195,13 +268,21 @@ __device__ __forceinline__ float rows_max(float x) {
 // the transposed layout (kernels 2 and 4)
 // ---------------------------------------------------------------------------
 
-template <int NT, bool RESCALE>
+constexpr int W_SMEM_MAX = 227 * 1024;  // a block's dynamic shared memory on an H100
+
+// SPLIT = 2 (f32): a stage holds its loaded bytes, then their split-off low
+// parts, and the ring is as deep as fits (2-4 stages)
+template <int NT, bool RESCALE, int SPLIT>
 struct TLayout {
   static constexpr int D_BYTES = T_ROWS * CHUNK_BYTES;
-  static constexpr int STAGE = D_BYTES + NT * CHUNK_BYTES;              // D chunk, then Q chunk
-  static constexpr int QS_OFF = T_STAGES * STAGE;                        // two tiles' q_scale
+  static constexpr int LOAD = D_BYTES + NT * CHUNK_BYTES;               // D chunk, then Q chunk
+  static constexpr int STAGE = SPLIT * LOAD;
+  static constexpr int FIT = (W_SMEM_MAX - 4096) / STAGE;
+  static constexpr int STAGES = SPLIT == 1 || FIT >= T_STAGES ? T_STAGES : FIT;
+  static constexpr int QS_OFF = STAGES * STAGE;                          // two tiles' q_scale
   static constexpr int BAR_OFF = QS_OFF + (RESCALE ? 2 * NT * 4 : 0);  // full[], empty[]
-  static constexpr int BYTES = BAR_OFF + 16 * T_STAGES + 1024;         // + 1024-byte alignment slack
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;           // + 1024-byte alignment slack
+  static_assert(STAGES >= 2 && BYTES <= W_SMEM_MAX, "the transposed ring does not fit");
 };
 
 template <typename T, int NT, int G, typename OutT, int EPI>
@@ -215,17 +296,20 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
   static_assert(std::is_same<T, int8_t>::value == (EPI == EPI_RESCALE), "int8 products are rescaled");
   constexpr bool RESCALE = EPI == EPI_RESCALE;
   constexpr int KC = CHUNK_BYTES / sizeof(T);  // dims per stage
-  using L = TLayout<NT, RESCALE>;
+  constexpr int SPLIT = Operand<T>::SPLIT;
+  using L = TLayout<NT, RESCALE, SPLIT>;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);  // generic address of base
   const uint32_t bar_full = base + L::BAR_OFF;           // + 8 * stage
-  const uint32_t bar_empty = bar_full + 8 * T_STAGES;    // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;      // + 8 * stage
   const int tid = threadIdx.x;
   const int chunks = (D + KC - 1) / KC;
 
   if (tid == 0) {
-    for (int s = 0; s < T_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       sm90::mbar_init(bar_full + 8 * s, 1);
       sm90::mbar_init(bar_empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
@@ -244,9 +328,9 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
         const int qb = static_cast<int>(tile % q_tiles) * NT;
         const int n0 = static_cast<int>(tile / q_tiles) * T_ROWS;
         for (int kc = 0; kc < chunks; ++kc, ++it) {
-          const int st = it % T_STAGES;
-          sm90::mbar_wait(bar_empty + 8 * st, ((it / T_STAGES) & 1) ^ 1);
-          sm90::mbar_expect_tx(bar_full + 8 * st, L::STAGE);
+          const int st = it % STAGES;
+          sm90::mbar_wait(bar_empty + 8 * st, ((it / STAGES) & 1) ^ 1);
+          sm90::mbar_expect_tx(bar_full + 8 * st, L::LOAD);
           const uint32_t dst = base + st * L::STAGE;
           sm90::tma_load_2d(dst, &dmap, bar_full + 8 * st, kc * KC, n0);
           sm90::tma_load_2d(dst + L::D_BYTES, &qmap, bar_full + 8 * st, kc * KC, qb);
@@ -265,8 +349,9 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
     const long long nv = nv_ptr != nullptr ? static_cast<long long>(*nv_ptr) : nv_int;
     const long long nb_total = N / G;
     const bool pair = (B % 2) == 0;  // (row, q) and (row, q + 1) share an aligned pair
-    float* s_qs = reinterpret_cast<float*>(smem_raw + (base - raw) + L::QS_OFF);
+    float* s_qs = reinterpret_cast<float*>(gbase + L::QS_OFF);
     typename Operand<T>::Acc acc[NT / 2];
+    float run[SPLIT == 2 ? NT / 2 : 1];  // f32: the running sum over chunks
     int it = 0, local = 0;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++local) {
       const int qb = static_cast<int>(tile % q_tiles) * NT;
@@ -282,27 +367,38 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
         my_qs = tc < NT && qb + tc < B ? q_aux[qb + tc] : 0.0f;
       }
       for (int kc = 0; kc < chunks; ++kc, ++it) {
-        const int st = it % T_STAGES;
-        sm90::mbar_wait(bar_full + 8 * st, (it / T_STAGES) & 1);
+        const int st = it % STAGES;
+        sm90::mbar_wait(bar_full + 8 * st, (it / STAGES) & 1);
         const uint32_t d_st = base + st * L::STAGE + wg * 64 * CHUNK_BYTES;
         const uint32_t q_st = base + st * L::STAGE + L::D_BYTES;
+        if constexpr (SPLIT == 2) split_stage(gbase + st * L::STAGE, L::LOAD, tc);
         sm90::fence_regs(acc);
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {  // four k steps of 32 bytes
           const uint64_t da = sm90::desc_sw128(d_st + kk * 32, 16, 1024);
           const uint64_t db = sm90::desc_sw128(q_st + kk * 32, 16, 1024);
-          Operand<T>::template mma<NT>(acc, da, db, kc > 0 || kk > 0);
+          Operand<T>::template mma<NT>(acc, da, db, L::LOAD >> 4, SPLIT == 2 ? kk > 0 : kc > 0 || kk > 0);
         }
         sm90::wgmma_commit();
-        if (kc > 0) {  // the previous chunk's products are done: free its stage
+        if constexpr (SPLIT == 2) {  // fold this chunk, then free its stage
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc);
+          fold_chunk(run, acc, kc == 0);
+          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
+        } else if (kc > 0) {  // the previous chunk's products are done: free its stage
           sm90::wgmma_wait<1>();
-          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % T_STAGES));
+          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
         }
       }
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(acc);
-      if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % T_STAGES));
+      if constexpr (SPLIT == 2) {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[i] = run[i];
+      } else {
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+      }
 
       const long long r16 = n0 + wg * 64 + warp * 16;  // this warp's 16 rows
       const long long ra = r16 + g;
@@ -362,7 +458,7 @@ template <typename T, int NT, int G, typename OutT, int EPI>
 int launch_t(const void* q, const void* d, void* scores, void* binmax, const void* nv_ptr,
              long long nv_int, const void* q_aux, const void* d_aux, int B, long long N, int D,
              cudaStream_t stream) {
-  using L = TLayout<NT, EPI == EPI_RESCALE>;
+  using L = TLayout<NT, EPI == EPI_RESCALE, Operand<T>::SPLIT>;
   CUtensorMap dmap, qmap;
   const int rc = make_maps<T>(&dmap, &qmap, q, d, B, N, D, NT);
   if (rc != 0) return rc;
@@ -386,7 +482,7 @@ template <typename T, typename OutT, int EPI>
 int launch_transposed(int G, const void* q, const void* d, void* scores, void* binmax,
                       const void* nv_ptr, long long nv_int, const void* q_aux, const void* d_aux,
                       int B, long long N, int D, cudaStream_t s) {
-  return by_tile(G, B, [&](auto nt, auto g) {
+  return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
     return launch_t<T, decltype(nt)::value, decltype(g)::value, OutT, EPI>(
         q, d, scores, binmax, nv_ptr, nv_int, q_aux, d_aux, B, N, D, s);
   });
@@ -396,36 +492,38 @@ int launch_transposed(int G, const void* q, const void* d, void* scores, void* b
 // the bin-major layout (kernels A, 4, 5 and 7)
 // ---------------------------------------------------------------------------
 
-constexpr int W_SMEM_MAX = 227 * 1024;  // a block's dynamic shared memory on an H100
 constexpr int W_MAX_STAGES = 8;
 constexpr int W_D_CHUNK = T_ROWS * CHUNK_BYTES;  // one chunk of a 128-row D tile: 16 KB
 
 // shared-memory plan, as byte offsets from the 1024-aligned base: resident Q
 // chunks (q_resident) at 0, then the ring of `stages` stages (a D chunk, and
-// a Q chunk after it unless Q is resident), two tiles' per-row epilogue values
+// a Q chunk after it unless Q is resident: load_bytes, then with split = 2
+// (f32) their split-off low parts), two tiles' per-row epilogue values
 // (kernels 7 and 4), the barriers full[stages], empty[stages], q_full, q_empty
 struct WLayout {
-  int stages, stage_bytes, ring_off, dx_off, bar_off, bytes, q_resident;
+  int stages, stage_bytes, load_bytes, ring_off, dx_off, bar_off, bytes, q_resident;
 };
 
 // the plan for NT-query tiles of rows of row_bytes bytes, counted in
-// 128-byte chunks
-inline WLayout w_layout(int nt, long long row_bytes, bool epi) {
+// 128-byte chunks; split = 2 streams Q beside D (no resident Q)
+inline WLayout w_layout(int nt, long long row_bytes, bool epi, int split) {
   const int chunks = static_cast<int>((row_bytes + CHUNK_BYTES - 1) / CHUNK_BYTES);
   const long long q_bytes = static_cast<long long>(chunks) * nt * CHUNK_BYTES;
   const int aux = epi ? 2 * T_ROWS * 4 : 0;  // this tile's and the next one's
   const int fixed = aux + 16 * W_MAX_STAGES + 16 + 1024;  // + 1024-byte alignment slack
   WLayout L{};
-  L.q_resident = q_bytes + 2 * W_D_CHUNK + fixed <= W_SMEM_MAX;
+  L.q_resident = split == 1 && q_bytes + 2 * W_D_CHUNK + fixed <= W_SMEM_MAX;
   if (L.q_resident) {
-    L.stage_bytes = W_D_CHUNK;
+    L.stage_bytes = L.load_bytes = W_D_CHUNK;
     L.ring_off = static_cast<int>(q_bytes);
     L.stages = static_cast<int>((W_SMEM_MAX - fixed - q_bytes) / W_D_CHUNK);
     if (L.stages > W_MAX_STAGES) L.stages = W_MAX_STAGES;
   } else {
-    L.stage_bytes = W_D_CHUNK + nt * CHUNK_BYTES;
+    L.load_bytes = W_D_CHUNK + nt * CHUNK_BYTES;
+    L.stage_bytes = split * L.load_bytes;
     L.ring_off = 0;
-    L.stages = T_STAGES;
+    L.stages = (W_SMEM_MAX - fixed) / L.stage_bytes;
+    if (L.stages > T_STAGES) L.stages = T_STAGES;
   }
   L.dx_off = L.ring_off + L.stages * L.stage_bytes;
   L.bar_off = L.dx_off + aux;
@@ -458,6 +556,8 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
                      const float* __restrict__ q_aux, const float* __restrict__ d_aux,
                      int B, long long N, int D, int q_tiles, long long n_tiles) {
   static_assert(std::is_same<T, int8_t>::value == (EPI == EPI_RESCALE), "int8 products are rescaled");
+  constexpr int SPLIT = Operand<T>::SPLIT;
+  static_assert(SPLIT == 1 || !QRES, "split operands stream Q");
   using S = WSplit<NT>;
   constexpr int MB = S::MB;
   constexpr int NW = S::NW;
@@ -465,6 +565,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);  // generic address of base
   const uint32_t ring = base + L.ring_off;
   const uint32_t bar_full = base + L.bar_off;           // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * L.stages;   // + 8 * stage
@@ -517,7 +618,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
         }
         for (int kc = 0; kc < chunks; ++kc) {
           sm90::mbar_wait(bar_empty + 8 * st, ph ^ 1);
-          sm90::mbar_expect_tx(bar_full + 8 * st, L.stage_bytes);
+          sm90::mbar_expect_tx(bar_full + 8 * st, L.load_bytes);
           const uint32_t dst = ring + st * L.stage_bytes;
           sm90::tma_load_2d(dst, &dmap, bar_full + 8 * st, kc * KC, n0);
           if (!QRES) sm90::tma_load_2d(dst + W_D_CHUNK, &qmap, bar_full + 8 * st, kc * KC, qt * NT);
@@ -542,8 +643,9 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
     const int r_off = S::r_off(wg);
     const long long nv = nv_ptr != nullptr ? static_cast<long long>(*nv_ptr) : nv_int;
     const long long nb_total = N / G;
-    float* s_dx = reinterpret_cast<float*>(smem_raw + (base - raw) + L.dx_off);
+    float* s_dx = reinterpret_cast<float*>(gbase + L.dx_off);
     typename Operand<T>::Acc acc[MB][NW / 2];
+    float run[MB][SPLIT == 2 ? NW / 2 : 1];  // f32: the running sum over chunks
     float qxa[MB], qxb[MB];  // EPI: q_aux of this thread's two queries per m block
     int st = 0, prev = 0, cur_q = -1, q_loads = 0, local = 0;
     uint32_t ph = 0;
@@ -577,6 +679,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
         const uint32_t d_st = stage + r_off * CHUNK_BYTES;
         const uint32_t q_st =
             (QRES ? base + kc * (NT * CHUNK_BYTES) : stage + W_D_CHUNK) + q_off * CHUNK_BYTES;
+        if constexpr (SPLIT == 2) split_stage(gbase + (stage - base), L.load_bytes, tc);
 #pragma unroll
         for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
         sm90::wgmma_fence();
@@ -586,11 +689,20 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
 #pragma unroll
           for (int mb = 0; mb < MB; ++mb) {
             const uint64_t da = sm90::desc_sw128(q_st + mb * 64 * CHUNK_BYTES + kk * 32, 16, 1024);
-            Operand<T>::template mma<NW>(acc[mb], da, db, kc > 0 || kk > 0);
+            Operand<T>::template mma<NW>(acc[mb], da, db, L.load_bytes >> 4,
+                                         SPLIT == 2 ? kk > 0 : kc > 0 || kk > 0);
           }
         }
         sm90::wgmma_commit();
-        if (kc > 0) {  // the previous chunk's products are done: free its stage
+        if constexpr (SPLIT == 2) {  // fold this chunk, then free its stage
+          sm90::wgmma_wait<0>();
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            sm90::fence_regs(acc[mb]);
+            fold_chunk(run[mb], acc[mb], kc == 0);
+          }
+          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
+        } else if (kc > 0) {  // the previous chunk's products are done: free its stage
           sm90::wgmma_wait<1>();
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
         }
@@ -600,10 +712,17 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
           ph ^= 1;
         }
       }
-      sm90::wgmma_wait<0>();
+      if constexpr (SPLIT == 2) {
 #pragma unroll
-      for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
-      if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int i = 0; i < NW / 2; ++i) acc[mb][i] = run[mb][i];
+      } else {
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
+        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
+      }
 
       // epilogue from the fragments: in m block mb, this thread holds queries
       // qa and qa + 8 at rows c, c + 1 (acc[mb][4i .. 4i + 3]: (qa, c),
@@ -722,15 +841,59 @@ template <typename T, typename OutT, int EPI, bool STORE>
 int launch_bin_major(int G, const void* q, const void* d, void* scores, void* binmax,
                      const void* nv_ptr, long long nv_int, const void* q_aux, const void* d_aux,
                      int B, long long N, int D, cudaStream_t s) {
-  return by_tile(G, B, [&](auto nt, auto g) {
+  return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
     constexpr int NT = decltype(nt)::value, GG = decltype(g)::value;
-    const WLayout L = w_layout(NT, static_cast<long long>(D) * sizeof(T), EPI != EPI_NONE);
-    if (L.q_resident)
-      return launch_bm_q<T, NT, GG, OutT, EPI, STORE, true>(L, q, d, scores, binmax, nv_ptr, nv_int,
-                                                            q_aux, d_aux, B, N, D, s);
+    const WLayout L = w_layout(NT, static_cast<long long>(D) * sizeof(T), EPI != EPI_NONE,
+                               Operand<T>::SPLIT);
+    if constexpr (Operand<T>::SPLIT == 1) {
+      if (L.q_resident)
+        return launch_bm_q<T, NT, GG, OutT, EPI, STORE, true>(L, q, d, scores, binmax, nv_ptr,
+                                                              nv_int, q_aux, d_aux, B, N, D, s);
+    }
     return launch_bm_q<T, NT, GG, OutT, EPI, STORE, false>(L, q, d, scores, binmax, nv_ptr, nv_int,
                                                            q_aux, d_aux, B, N, D, s);
   });
+}
+
+// the launchers of kernels A and 2 (bin_scores), 5 (binmax_only) and 7
+// (binub) over operand type T, behind the C interfaces of bin_scores.cu
+// (bf16), bin_scores_f16.cu and bin_scores_f32.cu; each returns
+// cudaGetLastError() (0 = ok) or the tensor-map error
+template <typename T>
+int bin_scores_any(const void* q, const void* d, void* scores, void* binmax, const void* nv_ptr,
+                   long long nv_int, int B, long long N, int D, int G, int bin_major,
+                   int score_bf16, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (!shape_ok(B, N, D, G, 32)) return cudaErrorInvalidValue;
+  if (!bin_major) {
+    if (score_bf16)
+      return launch_transposed<T, bf16, EPI_NONE>(G, q, d, scores, binmax, nv_ptr, nv_int, nullptr,
+                                                  nullptr, B, N, D, s);
+    return launch_transposed<T, float, EPI_NONE>(G, q, d, scores, binmax, nv_ptr, nv_int, nullptr,
+                                                 nullptr, B, N, D, s);
+  }
+  if (score_bf16)
+    return launch_bin_major<T, bf16, EPI_NONE, true>(G, q, d, scores, binmax, nv_ptr, nv_int,
+                                                     nullptr, nullptr, B, N, D, s);
+  return launch_bin_major<T, float, EPI_NONE, true>(G, q, d, scores, binmax, nv_ptr, nv_int,
+                                                    nullptr, nullptr, B, N, D, s);
+}
+
+template <typename T>
+int binmax_only_any(const void* q, const void* d, void* binmax, const void* nv_ptr,
+                    long long nv_int, int B, long long N, int D, int G, cudaStream_t s) {
+  if (!shape_ok(B, N, D, G, 32)) return cudaErrorInvalidValue;
+  return launch_bin_major<T, float, EPI_NONE, false>(G, q, d, nullptr, binmax, nv_ptr, nv_int,
+                                                     nullptr, nullptr, B, N, D, s);
+}
+
+template <typename T>
+int binub_any(const void* q_sketch, const void* q_tail, const void* d_sketch, const void* d_tail,
+              void* binmax, const void* nv_ptr, long long nv_int, int B, long long N, int DS,
+              int G, cudaStream_t s) {
+  if (!shape_ok(B, N, DS, G, 32)) return cudaErrorInvalidValue;
+  return launch_bin_major<T, float, EPI_TAIL, false>(G, q_sketch, d_sketch, nullptr, binmax,
+                                                     nv_ptr, nv_int, q_tail, d_tail, B, N, DS, s);
 }
 
 }  // namespace

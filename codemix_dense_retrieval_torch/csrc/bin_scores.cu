@@ -49,20 +49,8 @@ using bf16 = __nv_bfloat16;
 extern "C" int bin_scores_launch(const void* q, const void* d, void* scores, void* binmax,
                                  const void* nv_ptr, long long nv_int, int B, long long N,
                                  int D, int G, int bin_major, int score_bf16, void* stream) {
-  if (!shape_ok(B, N, D, G, 32)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bin_major) {
-    if (score_bf16)
-      return launch_transposed<bf16, bf16, EPI_NONE>(G, q, d, scores, binmax, nv_ptr, nv_int,
-                                                     nullptr, nullptr, B, N, D, s);
-    return launch_transposed<bf16, float, EPI_NONE>(G, q, d, scores, binmax, nv_ptr, nv_int,
-                                                    nullptr, nullptr, B, N, D, s);
-  }
-  if (score_bf16)
-    return launch_bin_major<bf16, bf16, EPI_NONE, true>(G, q, d, scores, binmax, nv_ptr, nv_int,
-                                                        nullptr, nullptr, B, N, D, s);
-  return launch_bin_major<bf16, float, EPI_NONE, true>(G, q, d, scores, binmax, nv_ptr, nv_int,
-                                                       nullptr, nullptr, B, N, D, s);
+  return bin_scores_any<bf16>(q, d, scores, binmax, nv_ptr, nv_int, B, N, D, G, bin_major,
+                              score_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 5: the bin maxima alone, bin-major (B, N/G); same requirements and
@@ -70,10 +58,8 @@ extern "C" int bin_scores_launch(const void* q, const void* d, void* scores, voi
 extern "C" int binmax_only_launch(const void* q, const void* d, void* binmax, const void* nv_ptr,
                                   long long nv_int, int B, long long N, int D, int G,
                                   void* stream) {
-  if (!shape_ok(B, N, D, G, 32)) return cudaErrorInvalidValue;
-  return launch_bin_major<bf16, float, EPI_NONE, false>(G, q, d, nullptr, binmax, nv_ptr, nv_int,
-                                                        nullptr, nullptr, B, N, D,
-                                                        static_cast<cudaStream_t>(stream));
+  return binmax_only_any<bf16>(q, d, binmax, nv_ptr, nv_int, B, N, D, G,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 7: bin maxima (B, N/G), bin-major, of the sketch upper bound
@@ -83,8 +69,6 @@ extern "C" int binmax_only_launch(const void* q, const void* d, void* binmax, co
 extern "C" int binub_launch(const void* q_sketch, const void* q_tail, const void* d_sketch,
                             const void* d_tail, void* binmax, const void* nv_ptr,
                             long long nv_int, int B, long long N, int DS, int G, void* stream) {
-  if (!shape_ok(B, N, DS, G, 32)) return cudaErrorInvalidValue;
-  return launch_bin_major<bf16, float, EPI_TAIL, false>(G, q_sketch, d_sketch, nullptr, binmax,
-                                                        nv_ptr, nv_int, q_tail, d_tail, B, N, DS,
-                                                        static_cast<cudaStream_t>(stream));
+  return binub_any<bf16>(q_sketch, q_tail, d_sketch, d_tail, binmax, nv_ptr, nv_int, B, N, DS, G,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -38,38 +38,93 @@
 //   so the maximum never needs a finite sentinel;
 // - query tokens past 32 run as further groups, each adding its partial sum
 //   to the same output element in a fixed order (the same warp owns it).
+// f16 and f32 doc tokens (the card-resident token stores of those dtypes)
+// take the same kernel: a stage holds 128 bytes of each token (64 f16 or 32
+// f32 dims), and each doc pair read into registers is split there into bf16
+// parts, exactly for f16 (11 significant bits = 8 + 3, and bf16's exponent
+// range covers f16's) and to ~2^-24 relative for f32 (three parts d1 + d2 +
+// d3). The products are qh.dp for every part p and ql.d1, ql.d2: every term
+// down to ~2^-16 of q.d, the level of the query split's own error, so f16
+// and f32 docs are held to the bf16 instance's tolerance. Bytes bound all
+// three: 2.0 ms (bf16, f16) and 4.0 ms (f32) at the two-stage shape, above
+// their 0.43, 0.86 and 1.07 ms of tensor-core work.
 // Requirements (checked by the Python wrapper): q f32 (B, Tq, d), doc
-// tokens bf16 (B, K, Td, d), masks int32, all contiguous; d % 64 == 0 and
-// d <= 1216 (the staged query group fits in shared memory).
+// tokens bf16, f16 or f32 (B, K, Td, d), masks int32, all contiguous;
+// d % 64 == 0 and d <= 1216 (the staged query group fits in shared memory).
 
 #include <cstdint>
 #include <math_constants.h>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int QG = 32;               // query tokens per staged group (2 m16 tiles)
-constexpr int TDC = 32;              // doc tokens per chunk (4 n8 tiles)
-constexpr int KC = 64;               // dims per stage
-constexpr int LDD = KC + 8;          // bf16 row stride of a stage: conflict-free fragments
-constexpr int STAGE = TDC * LDD;     // bf16 elements per stage
+constexpr int QG = 32;                 // query tokens per staged group (2 m16 tiles)
+constexpr int TDC = 32;                // doc tokens per chunk (4 n8 tiles)
+constexpr int ROW_BYTES = 128 + 16;    // a staged token: 128 bytes + pad, conflict-free fragments
+constexpr int STAGE_BYTES = TDC * ROW_BYTES;
 constexpr int MAX_SMEM = 232448;
 
+// what the doc token type fixes: dims per stage (KC), the bf16 parts a
+// value splits into (PARTS) and the split of the pair at p into part
+// registers (bf16 pairs)
+template <typename TD>
+struct Doc;
+
+template <>
+struct Doc<__nv_bfloat16> {
+  static constexpr int KC = 64, PARTS = 1;
+  static __device__ __forceinline__ void parts(const __nv_bfloat16* p, uint32_t (&r)[PARTS]) {
+    r[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2(float a, float b, float2& rounded) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  rounded = __bfloat1622float2(v);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <>
+struct Doc<__half> {
+  static constexpr int KC = 64, PARTS = 2;
+  static __device__ __forceinline__ void parts(const __half* p, uint32_t (&r)[PARTS]) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(p));
+    float2 h, l;
+    r[0] = bf16x2(x.x, x.y, h);
+    r[1] = bf16x2(x.x - h.x, x.y - h.y, l);
+  }
+};
+
+template <>
+struct Doc<float> {
+  static constexpr int KC = 32, PARTS = 3;
+  static __device__ __forceinline__ void parts(const float* p, uint32_t (&r)[PARTS]) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    float2 h1, h2, h3;
+    r[0] = bf16x2(x.x, x.y, h1);
+    const float2 e = make_float2(x.x - h1.x, x.y - h1.y);
+    r[1] = bf16x2(e.x, e.y, h2);
+    r[2] = bf16x2(e.x - h2.x, e.y - h2.y, h3);
+  }
+};
+
+template <typename TD>
 struct Params {
-  const float* q;           // (B, Tq, D)
-  const int* q_mask;        // (B, Tq)
-  const __nv_bfloat16* d;   // (B, K, Td, D)
-  const int* d_mask;        // (B, K, Td)
-  float* out;               // (B, K)
+  const float* q;     // (B, Tq, D)
+  const int* q_mask;  // (B, Tq)
+  const TD* d;        // (B, K, Td, D)
+  const int* d_mask;  // (B, K, Td)
+  float* out;         // (B, K)
   int B, K, Tq, Td, D, cpb;
 };
 
 __host__ __device__ constexpr int smem_bytes(int D) {
-  return 2 * QG * (D + 8) * 2 + WARPS * 2 * STAGE * 2;
+  return 2 * QG * (D + 8) * 2 + WARPS * 2 * STAGE_BYTES;
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -116,7 +171,13 @@ __device__ __forceinline__ uint2 pack4(float a, float b, float c, float d) {
   return r;
 }
 
-__global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
+template <typename TD>
+__global__ void __launch_bounds__(THREADS) maxsim_kernel(Params<TD> p) {
+  constexpr int KC = Doc<TD>::KC;              // dims per stage
+  constexpr int PARTS = Doc<TD>::PARTS;
+  constexpr int LDD = ROW_BYTES / sizeof(TD);  // element stride of a staged token
+  constexpr int VEC = 16 / sizeof(TD);         // elements per 16-byte copy
+  constexpr int STAGE = TDC * LDD;             // elements per stage
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldq = p.D + 8;
   __nv_bfloat16* sQh = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -125,7 +186,7 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  __nv_bfloat16* sD = sQl + QG * ldq + warp * 2 * STAGE;
+  TD* sD = reinterpret_cast<TD*>(sQl + QG * ldq) + warp * 2 * STAGE;
 
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * p.cpb;
@@ -143,16 +204,16 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
     const int rem = i % per_cand;
     const int tdc = rem / n_kc;
     const int kc = rem % n_kc;
-    __nv_bfloat16* dst = sD + (i & 1) * STAGE;
+    TD* dst = sD + (i & 1) * STAGE;
     const long long cand_base = (static_cast<long long>(b) * p.K + cand) * p.Td;
 #pragma unroll
-    for (int v = lane; v < TDC * KC / 8; v += 32) {
-      const int r = v / (KC / 8);
-      const int cv = v % (KC / 8);
+    for (int v = lane; v < TDC * KC / VEC; v += 32) {
+      const int r = v / (KC / VEC);
+      const int cv = v % (KC / VEC);
       const int tok = tdc * TDC + r;
       const int src_tok = tok < p.Td ? tok : p.Td - 1;
-      const __nv_bfloat16* src = p.d + (cand_base + src_tok) * p.D + kc * KC + cv * 8;
-      cp_async16(dst + r * LDD + cv * 8, src, tok < p.Td ? 16 : 0);
+      const TD* src = p.d + (cand_base + src_tok) * p.D + kc * KC + cv * VEC;
+      cp_async16(dst + r * LDD + cv * VEC, src, tok < p.Td ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -214,7 +275,7 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
         for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[m][n][e] = 0.0f;
-      const __nv_bfloat16* st = sD + (i & 1) * STAGE;
+      const TD* st = sD + (i & 1) * STAGE;
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 16) {
         const int kq = kc * KC + kk + 2 * t;
@@ -234,13 +295,18 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
         }
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
-          const __nv_bfloat16* br = st + (n * 8 + g) * LDD + kk + 2 * t;
-          const uint32_t b0 = ld32(br);
-          const uint32_t b1 = ld32(br + 8);
+          const TD* br = st + (n * 8 + g) * LDD + kk + 2 * t;
+          uint32_t b0[PARTS], b1[PARTS];
+          Doc<TD>::parts(br, b0);
+          Doc<TD>::parts(br + 8, b1);
 #pragma unroll
           for (int m = 0; m < 2; ++m) {
-            mma_bf16(part[m][n], ah[m], b0, b1);
-            mma_bf16(part[m][n], al[m], b0, b1);
+            // the smallest terms first: qh.d3, then ql.d2, qh.d2, ql.d1, qh.d1
+#pragma unroll
+            for (int j = PARTS - 1; j >= 0; --j) {
+              if (j < 2) mma_bf16(part[m][n], al[m], b0[j], b1[j]);
+              mma_bf16(part[m][n], ah[m], b0[j], b1[j]);
+            }
           }
         }
       }
@@ -294,25 +360,39 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(Params p) {
   }
 }
 
-}  // namespace
-
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-extern "C" int maxsim_launch(const void* q, const void* q_mask, const void* d, const void* d_mask,
-                             void* out, int B, int K, int Tq, int Td, int D, void* stream) {
-  if (B <= 0 || B > 65535 || K <= 0 || Tq <= 0 || Td <= 0 || D <= 0 || D % KC != 0)
-    return cudaErrorInvalidValue;
+template <typename TD>
+int launch(const void* q, const void* q_mask, const void* d, const void* d_mask, void* out, int B,
+           int K, int Tq, int Td, int D, cudaStream_t stream) {
   const int smem = smem_bytes(D);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   // candidates per block: about 80, a multiple of the warp count, so each
   // block's query staging is amortised over ~5 MB of doc tokens at d = 1024
   const int chunks = (K + 79) / 80;
   const int per_chunk = (K + chunks - 1) / chunks;
   const int cpb = (per_chunk + WARPS - 1) / WARPS * WARPS;
-  Params p{static_cast<const float*>(q), static_cast<const int*>(q_mask),
-           static_cast<const __nv_bfloat16*>(d), static_cast<const int*>(d_mask),
-           static_cast<float*>(out), B, K, Tq, Td, D, cpb};
-  cudaFuncSetAttribute(maxsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  Params<TD> p{static_cast<const float*>(q), static_cast<const int*>(q_mask),
+               static_cast<const TD*>(d), static_cast<const int*>(d_mask),
+               static_cast<float*>(out), B, K, Tq, Td, D, cpb};
+  cudaError_t err =
+      cudaFuncSetAttribute(maxsim_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((K + cpb - 1) / cpb, B);
-  maxsim_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  maxsim_kernel<TD><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
+// doc_dtype: 0 bf16, 1 f16, 2 f32 doc tokens.
+extern "C" int maxsim_launch(const void* q, const void* q_mask, const void* d, const void* d_mask,
+                             void* out, int B, int K, int Tq, int Td, int D, int doc_dtype,
+                             void* stream) {
+  if (B <= 0 || B > 65535 || K <= 0 || Tq <= 0 || Td <= 0 || D <= 0 || D % 64 != 0)
+    return cudaErrorInvalidValue;
+  if (smem_bytes(D) > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (doc_dtype == 0) return launch<__nv_bfloat16>(q, q_mask, d, d_mask, out, B, K, Tq, Td, D, s);
+  if (doc_dtype == 1) return launch<__half>(q, q_mask, d, d_mask, out, B, K, Tq, Td, D, s);
+  if (doc_dtype == 2) return launch<float>(q, q_mask, d, d_mask, out, B, K, Tq, Td, D, s);
+  return cudaErrorInvalidValue;
 }

@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (flash_attention.cu, bin_kernels.cuh): mbarrier rings, TMA tile loads,
 // shared-memory matrix descriptors for the 128-byte swizzle, warpgroup matrix
-// multiply-accumulate (wgmma, bf16 and s8) and register reallocation, and the
-// host-side tensor-map encoder.
+// multiply-accumulate (wgmma, bf16, f16, tf32 and s8) and register
+// reallocation, and the host-side tensor-map encoder.
 //
 // Conventions:
-// - every TMA tile has a 128-byte inner box (64 bf16 or 128 int8 values) and
-//   CU_TENSOR_MAP_SWIZZLE_128B, landing at a 1024-byte aligned shared address,
-//   so wgmma reads it through a SW128 descriptor: K-major (the contraction dim
-//   contiguous, rows 128 bytes apart, 8-row groups 1024 bytes apart; a k16
-//   bf16 or k32 s8 step inside the 128-byte row adds 32 bytes to the start
-//   address) or MN-major (bf16 only: the output dim contiguous; 8-deep k
-//   groups 1024 bytes apart, 64-wide output chunks `lbo` bytes apart);
+// - every TMA tile has a 128-byte inner box (64 bf16 or f16, 32 f32 or 128
+//   int8 values) and CU_TENSOR_MAP_SWIZZLE_128B, landing at a 1024-byte
+//   aligned shared address, so wgmma reads it through a SW128 descriptor:
+//   K-major (the contraction dim contiguous, rows 128 bytes apart, 8-row
+//   groups 1024 bytes apart; a k16 bf16 or f16, k8 tf32 or k32 s8 step inside
+//   the 128-byte row adds 32 bytes to the start address) or MN-major (bf16
+//   only: the output dim contiguous; 8-deep k groups 1024 bytes apart, 64-wide
+//   output chunks `lbo` bytes apart);
 // - accumulator fragments follow PTX's m64nNk16 f32 layout (m64nNk32 s32 is
 //   the same): in warp w of the warpgroup, lane l holds rows 16 w + l / 4
 //   (+ 8) and columns 8 i + 2 (l % 4) (+ 1) in d[4 i .. 4 i + 3] (row, col),
@@ -333,6 +334,89 @@ struct WgmmaS8<256> {
 
 #undef SM90_IACC8
 
+// d (64 x N f32) += A (64 x K) * B (K x N) with both operands from K-major
+// SW128 descriptors, for the other float operand types of the bin kernels:
+// WgmmaF16 (f16, k16, products exact in f32) and WgmmaTF32 (k8; the tensor
+// cores multiply tf32, 10 fraction bits, so a caller that wants f32 products
+// splits each operand into tf32 parts itself; tf32 wgmma takes no transpose).
+// A k step is 32 bytes of each row in both, as for bf16. scale_d = 0
+// overwrites d instead of adding.
+#define SM90_R32                                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define SM90_R64                                                                               \
+  SM90_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+           "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define SM90_R128                                                                              \
+  SM90_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+           "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "   \
+           "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+           "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "      \
+           "%123, %124, %125, %126, %127"
+#define SM90_ACC8(b)                                                                       \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), \
+      "+f"(d[b + 6]), "+f"(d[b + 7])
+#define SM90_ACC32 SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+#define SM90_ACC64 SM90_ACC32, SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
+#define SM90_ACC128                                                                          \
+  SM90_ACC64, SM90_ACC8(64), SM90_ACC8(72), SM90_ACC8(80), SM90_ACC8(88), SM90_ACC8(96),     \
+      SM90_ACC8(104), SM90_ACC8(112), SM90_ACC8(120)
+// one specialisation: NAME<N>::ss with the accumulator of NR registers, the
+// register list REGS, the descriptors as operands DA, DB and scale_d as SC
+// (operand numbers as strings), the instruction INSTR and its trailing
+// immediates TAIL
+#define SM90_WGMMA_SS(NAME, N, NR, REGS, ACC, DA, DB, SC, INSTR, TAIL)                      \
+  template <>                                                                                \
+  struct NAME<N> {                                                                           \
+    static __device__ __forceinline__ void ss(float (&d)[NR], uint64_t da, uint64_t db,     \
+                                              int scale_d) {                                 \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n" INSTR " {" REGS "}, %" DA \
+                   ", %" DB ", p" TAIL ";\n}\n"                                              \
+                   : ACC                                                                     \
+                   : "l"(da), "l"(db), "r"(scale_d));                                        \
+    }                                                                                        \
+  };
+
+template <int N>
+struct WgmmaF16;
+SM90_WGMMA_SS(WgmmaF16, 64, 32, SM90_R32, SM90_ACC32, "32", "33", "34",
+              "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16", ", 1, 1, 0, 0")
+SM90_WGMMA_SS(WgmmaF16, 128, 64, SM90_R64, SM90_ACC64, "64", "65", "66",
+              "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16", ", 1, 1, 0, 0")
+SM90_WGMMA_SS(WgmmaF16, 256, 128, SM90_R128, SM90_ACC128, "128", "129", "130",
+              "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16", ", 1, 1, 0, 0")
+
+template <int N>
+struct WgmmaTF32;
+SM90_WGMMA_SS(WgmmaTF32, 64, 32, SM90_R32, SM90_ACC32, "32", "33", "34",
+              "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32", ", 1, 1")
+SM90_WGMMA_SS(WgmmaTF32, 128, 64, SM90_R64, SM90_ACC64, "64", "65", "66",
+              "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32", ", 1, 1")
+SM90_WGMMA_SS(WgmmaTF32, 256, 128, SM90_R128, SM90_ACC128, "128", "129", "130",
+              "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32", ", 1, 1")
+
+#undef SM90_WGMMA_SS
+#undef SM90_ACC128
+#undef SM90_ACC64
+#undef SM90_ACC32
+#undef SM90_ACC8
+#undef SM90_R128
+#undef SM90_R64
+#undef SM90_R32
+
+// x rounded to tf32 (10 fraction bits, to nearest, ties away), as f32 bits
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// orders this thread's generic-proxy shared-memory writes before later reads
+// by the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- host: tensor maps ----
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -366,9 +450,9 @@ inline int sm_count() {
   return n;
 }
 
-// tensor map of `rank` dims (innermost first) of `dtype` elements (BFLOAT16
-// or UINT8), with byte strides of dims 1.. and a box whose inner extent is 128
-// bytes (64 bf16 or 128 int8 values), 128-byte swizzle, out-of-range elements
+// tensor map of `rank` dims (innermost first) of `dtype` elements (BFLOAT16,
+// FLOAT16, FLOAT32 or UINT8), with byte strides of dims 1.. and a box whose
+// inner extent is 128 bytes, 128-byte swizzle, out-of-range elements
 // read as zero. Returns 0 or a cudaError_t.
 inline int make_tma(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {

@@ -1,13 +1,16 @@
-"""Weight carry for the XLM-R encoder family.
+"""Weight carry for every encoder family (XLM-R with or without jina-v3's
+task LoRA, Qwen3, GTE).
 
 - :func:`params_from_flax` maps the JAX package's Flax parameter tree
-  (numpy leaves) onto :class:`~codemix_dense_retrieval_torch.models.xlmr.XLMREncoder`'s
-  state dict: a Dense ``kernel`` (in, out) becomes ``Linear.weight``
-  (out, in), a LayerNorm ``scale`` becomes ``weight``, an Embed
-  ``embedding`` becomes ``weight``. :func:`flax_from_state_dict` is the
-  inverse, for writing the ``params.npz`` checkpoint format.
+  (numpy leaves) onto the port module's state dict, leaf by leaf: a Dense
+  ``kernel`` (in, out) becomes ``Linear.weight`` (out, in), a LayerNorm
+  ``scale`` and an Embed ``embedding`` become ``weight``, ``layer_<i>``
+  becomes ``layers.<i>``; biases, RMSNorm weights and LoRA factors keep
+  their names and layouts. :func:`flax_from_state_dict` is the inverse, for
+  writing the ``params.npz`` checkpoint format.
 - :func:`convert_xlmr_state_dict` maps an HF ``XLMRobertaModel`` state dict
-  straight into the module.
+  (jina-v3's parametrized LoRA adapters included) straight into the module;
+  the Qwen3 and GTE converters live beside their modules.
 - :func:`load_state_dict` reads local safetensors / torch checkpoints;
   :func:`load_params_npz` / :func:`save_params_npz` the flat ``params.npz``
   (names ``params/layer_0/q/kernel``, ...) next to ``encoder_config.json``.
@@ -24,9 +27,13 @@ import torch
 
 from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
 
-_DENSE = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
 _NORMS = ("attn_ln", "ffn_ln")
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
+# the modules whose 2-D ``weight`` is an Embed table or a LayerNorm scale in
+# the Flax tree (any other 2-D weight is a Dense kernel, a 1-D one an RMSNorm
+# weight)
+_FLAX_EMBEDS = {*_EMBEDS, "embed_tokens"}
+_FLAX_LAYER_NORMS = {"LayerNorm", *_NORMS, "emb_ln", "mlp_ln"}
 
 # HF XLMRobertaModel module path of each port layer module
 _HF_LAYER = {
@@ -47,60 +54,55 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.require(np.asarray(x), np.float32, ["W"]))
 
 
-def _num_layers(names) -> int:
-    return len({n.split(".")[1] for n in names if n.startswith("layers.")})
-
-
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax XLMREncoder params (``{"params": {...}}`` or the inner dict,
-    numpy or array leaves) -> this package's XLMREncoder state dict (f32)."""
+    """Flax encoder params of any family (``{"params": {...}}`` or the inner
+    dict, numpy or array leaves) -> the port module's state dict (f32)."""
     p = tree["params"] if "params" in tree else tree
-    emb = p["embeddings"]
     sd: Dict[str, torch.Tensor] = {}
-    for name in _EMBEDS:
-        sd[f"embeddings.{name}.weight"] = _t(emb[name]["embedding"])
-    sd["embeddings.LayerNorm.weight"] = _t(emb["LayerNorm"]["scale"])
-    sd["embeddings.LayerNorm.bias"] = _t(emb["LayerNorm"]["bias"])
-    i = 0
-    while f"layer_{i}" in p:
-        layer = p[f"layer_{i}"]
-        if "kernel" not in layer["q"]:
-            raise NotImplementedError("LoRA-nested (jina-v3) parameter trees are not ported yet")
-        for name in _DENSE:
-            sd[f"layers.{i}.{name}.weight"] = _t(layer[name]["kernel"]).T.contiguous()
-            sd[f"layers.{i}.{name}.bias"] = _t(layer[name]["bias"])
-        for name in _NORMS:
-            sd[f"layers.{i}.{name}.weight"] = _t(layer[name]["scale"])
-            sd[f"layers.{i}.{name}.bias"] = _t(layer[name]["bias"])
-        i += 1
+
+    def walk(node: Mapping, path: str) -> None:
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                name = f"layers.{key[len('layer_'):]}" if key.startswith("layer_") else key
+                walk(val, f"{path}{name}.")
+            elif key == "kernel":
+                sd[f"{path}weight"] = _t(val).T.contiguous()
+            elif key in ("embedding", "scale"):
+                sd[f"{path}weight"] = _t(val)
+            else:  # bias, an RMSNorm weight, LoRA factors
+                sd[f"{path}{key}"] = _t(val)
+
+    walk(p, "")
     return sd
 
 
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of :func:`params_from_flax`: state dict -> ``{"params": tree}``
     with float32 numpy leaves."""
-    def np32(t):
-        return t.detach().to("cpu", torch.float32).numpy()
-
-    emb = {name: {"embedding": np32(sd[f"embeddings.{name}.weight"])} for name in _EMBEDS}
-    emb["LayerNorm"] = {
-        "scale": np32(sd["embeddings.LayerNorm.weight"]),
-        "bias": np32(sd["embeddings.LayerNorm.bias"]),
-    }
-    params: Dict = {"embeddings": emb}
-    for i in range(_num_layers(sd)):
-        layer: Dict = {}
-        for name in _DENSE:
-            layer[name] = {
-                "kernel": np.ascontiguousarray(np32(sd[f"layers.{i}.{name}.weight"]).T),
-                "bias": np32(sd[f"layers.{i}.{name}.bias"]),
-            }
-        for name in _NORMS:
-            layer[name] = {
-                "scale": np32(sd[f"layers.{i}.{name}.weight"]),
-                "bias": np32(sd[f"layers.{i}.{name}.bias"]),
-            }
-        params[f"layer_{i}"] = layer
+    params: Dict = {}
+    for name, t in sd.items():
+        parts = name.split(".")
+        path, leaf = [], parts[-1]
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "layers":
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if path[-1] in _FLAX_EMBEDS:
+                leaf = "embedding"
+            elif path[-1] in _FLAX_LAYER_NORMS:
+                leaf = "scale"
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
     return {"params": params}
 
 
@@ -112,16 +114,36 @@ def convert_xlmr_state_dict(
     """Map an HF ``XLMRobertaModel`` state dict onto this package's
     XLMREncoder state dict. ``prefix`` strips a leading module path (e.g.
     ``"roberta."`` or ``"0.auto_model."``). Both sides use torch's (out, in)
-    Linear layout, so nothing is transposed."""
-    if cfg.lora_rank:
-        raise NotImplementedError("task-LoRA checkpoints are not ported yet")
+    Linear layout, so base weights are not transposed. With ``cfg.lora_rank``
+    each projection nests under ``base`` and its jina-v3 adapters
+    (``parametrizations.weight.0.lora_A`` (tasks, r, in) and ``lora_B``
+    (tasks, out, r)) become ``lora_a`` (tasks, in, r) and ``lora_b`` (tasks,
+    r, out), zeros where the checkpoint has none."""
     sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    lora = bool(cfg.lora_rank)
 
-    def dense_weight(hf_name):
+    def dense(out, name, hf_name):
         key = f"{hf_name}.weight"
         if key not in sd:
+            # torch parametrization moves the frozen weight (jina-v3)
             key = f"{hf_name}.parametrizations.weight.original"
-        return _t(sd[key])
+        w = _t(sd[key])
+        if not lora:
+            out[f"{name}.weight"] = w
+            out[f"{name}.bias"] = _t(sd[f"{hf_name}.bias"])
+            return
+        out[f"{name}.base.weight"] = w
+        out[f"{name}.base.bias"] = _t(sd[f"{hf_name}.bias"])
+        if not cfg.lora_tasks:
+            return
+        la = f"{hf_name}.parametrizations.weight.0.lora_A"
+        lb = f"{hf_name}.parametrizations.weight.0.lora_B"
+        if la in sd and lb in sd:
+            out[f"{name}.lora_a"] = _t(sd[la]).permute(0, 2, 1).contiguous()
+            out[f"{name}.lora_b"] = _t(sd[lb]).permute(0, 2, 1).contiguous()
+        else:
+            out[f"{name}.lora_a"] = torch.zeros(cfg.lora_tasks, w.shape[1], cfg.lora_rank)
+            out[f"{name}.lora_b"] = torch.zeros(cfg.lora_tasks, cfg.lora_rank, w.shape[0])
 
     out: Dict[str, torch.Tensor] = {}
     for name in _EMBEDS:
@@ -133,9 +155,9 @@ def convert_xlmr_state_dict(
             hf_name = f"encoder.layer.{i}.{hf}"
             if name in _NORMS:
                 out[f"layers.{i}.{name}.weight"] = _t(sd[f"{hf_name}.weight"])
+                out[f"layers.{i}.{name}.bias"] = _t(sd[f"{hf_name}.bias"])
             else:
-                out[f"layers.{i}.{name}.weight"] = dense_weight(hf_name)
-            out[f"layers.{i}.{name}.bias"] = _t(sd[f"{hf_name}.bias"])
+                dense(out, f"layers.{i}.{name}", hf_name)
     return out
 
 

@@ -8,7 +8,10 @@ order (per-token document embeddings stay on the device, for the token
 store's writer). ``pack=True`` packs short passages into shared rows
 (:mod:`~codemix_dense_retrieval_torch.models.packing`). Each call leaves
 its host phase times in ``last_phase_stats``. Family dialects apply their
-query / passage prompt prefixes.
+query / passage prompt prefixes, and jina-v3's task adapters their
+per-role task (:meth:`TextEncoder._task_id`). The model is any encoder
+family's module (XLM-R by default; ``model=`` a Qwen3 or GTE module), all
+with one ``(ids, mask, task_id)`` call contract.
 """
 
 from __future__ import annotations
@@ -37,21 +40,31 @@ from codemix_dense_retrieval_torch.models.tokenizer import (
     bucket_length,
     load_tokenizer,
 )
-from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig, XLMREncoder, init_random_
+from codemix_dense_retrieval_torch.models.xlmr import (
+    JINA_V3_TASKS,
+    XLMRConfig,
+    XLMREncoder,
+    init_random_,
+)
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
 
 
-def build_model(cfg: XLMRConfig, device: torch.device, params=None, seed: int = 0) -> XLMREncoder:
-    """XLMREncoder on ``device`` in ``cfg.dtype``, loaded from ``params`` (a
-    state dict, or a Flax-layout tree) or, without them, randomly
-    initialized from a ``torch.Generator`` seeded with ``seed``."""
-    with torch.device("meta"):
-        model = XLMREncoder(cfg)
+def build_model(
+    cfg, device: torch.device, params=None, seed: int = 0, model: Optional[torch.nn.Module] = None
+) -> torch.nn.Module:
+    """The encoder module (``model``, an XLMREncoder of ``cfg`` by default) on
+    ``device`` in ``cfg.dtype``, loaded from ``params`` (a state dict, or a
+    Flax-layout tree) or, without them, randomly initialized from a
+    ``torch.Generator`` seeded with ``seed``. A ``model`` built under
+    ``torch.device("meta")`` gets its storage here, on ``device`` alone."""
+    if model is None:
+        with torch.device("meta"):
+            model = XLMREncoder(cfg)
     model = model.to_empty(device=device)
     if params is None:
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
     else:
-        if "params" in params or "embeddings" in params:
+        if "params" in params or not all(isinstance(v, torch.Tensor) for v in params.values()):
             params = params_from_flax(params)
         model.load_state_dict(params, strict=True)
     return model.to(cfg.dtype).eval()
@@ -65,10 +78,11 @@ class TextEncoder:
     def __init__(
         self,
         name: str,
-        cfg: XLMRConfig,
+        cfg,
         params: Optional[Mapping] = None,
         tokenizer=None,
         *,
+        model: Optional[torch.nn.Module] = None,
         seed: int = 0,
         length_buckets: Sequence[int] = DEFAULT_BUCKETS,
         mesh=None,
@@ -82,7 +96,7 @@ class TextEncoder:
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
-        self.model = build_model(cfg, self.device, params, seed)
+        self.model = build_model(cfg, self.device, params, seed, model)
         if tokenizer is None:
             tokenizer = HashTokenizer(
                 vocab_size=cfg.vocab_size, max_length=cfg.max_position_embeddings - 2
@@ -295,6 +309,7 @@ class TextEncoder:
         prefix: str,
         max_length: Optional[int],
         readback_dtype: Optional[torch.dtype] = None,
+        task_id: int = 0,
     ) -> np.ndarray:
         order = self._length_order(texts)
         texts = [texts[i] for i in order]
@@ -302,7 +317,7 @@ class TextEncoder:
 
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
-                emb = self.model(self._dev(ids), self._dev(mask))
+                emb = self.model(self._dev(ids), self._dev(mask), task_id=task_id)
                 if readback_dtype is not None:
                     emb = emb.to(readback_dtype)
                 yield self._host_f32, self._start_readback(emb)
@@ -313,10 +328,21 @@ class TextEncoder:
             return np.zeros((0, self.cfg.hidden_size), np.float32)
         return np.concatenate(outs)[self._inverse(order)]
 
+    def _task_id(self, role: str) -> int:
+        """The LoRA task of a role for jina-v3 (``"query"``: retrieval.query,
+        else retrieval.passage, the reference's task kwargs); 0 (task 0, or
+        no adapters) otherwise."""
+        if getattr(self.cfg, "lora_rank", 0) and dialects.detect_encoder_family(self.name) == "jina-v3":
+            return JINA_V3_TASKS.index("retrieval.query" if role == "query" else "retrieval.passage")
+        return 0
+
     def encode_queries(
         self, texts: Sequence[str], batch_size: int = 64, max_length: Optional[int] = None
     ) -> np.ndarray:
-        return self._encode(texts, batch_size, dialects.query_prefix(self.name), max_length)
+        return self._encode(
+            texts, batch_size, dialects.query_prefix(self.name), max_length,
+            task_id=self._task_id("query"),
+        )
 
     def encode_documents(
         self,
@@ -329,14 +355,15 @@ class TextEncoder:
         """``readback_dtype`` (e.g. ``torch.bfloat16``) casts on the device
         before the device -> host copy; the returned array is always f32.
         ``pack=True`` routes through sequence packing (:meth:`_encode_packed`)."""
+        task = self._task_id("passage")
         if pack:
             return self._encode_packed(
                 texts, batch_size, dialects.doc_prefix(self.name), max_length,
-                readback_dtype=readback_dtype,
+                readback_dtype=readback_dtype, task_id=task,
             )
         return self._encode(
             texts, batch_size, dialects.doc_prefix(self.name), max_length,
-            readback_dtype=readback_dtype,
+            readback_dtype=readback_dtype, task_id=task,
         )
 
     # ------------------------------------------------------------------
@@ -371,8 +398,12 @@ class TextEncoder:
         thread. A chunk's row length is ``_PACK_SEQ_DEFAULT`` grown to the
         bucket of its longest passage (texts are length-sorted, so only the
         leading chunks pay longer rows), and its row count is padded to a
-        whole number of forwards."""
+        whole number of forwards. Decoder embedders (``PACKED_POS =
+        "zero"``, Qwen3) restart positions at 0 in each segment; XLM-R
+        numbers them from pad_id + 1 (the packer's default)."""
         chunk_texts = rows_per_batch * 16
+        pos_kw = (dict(pos_offset=0, pos_pad=0)
+                  if getattr(self.model, "PACKED_POS", "roberta") == "zero" else {})
 
         def prep(start: int):
             t0 = time.perf_counter()
@@ -383,7 +414,9 @@ class TextEncoder:
                 min(self._PACK_SEQ_DEFAULT, seq_len),
                 bucket_length(int(lens.max()) if len(lens) else 1, self.length_buckets),
             )
-            packed = pack_sequences([ids[i, : lens[i]] for i in range(len(chunk))], row_s, pad_id, max_segments)
+            packed = pack_sequences(
+                [ids[i, : lens[i]] for i in range(len(chunk))], row_s, pad_id, max_segments, **pos_kw
+            )
             packed = pad_rows_to(packed, -(-packed.n_rows // rows_per_batch) * rows_per_batch, pad_id=pad_id)
             pl = packed.placement
             host = {
@@ -401,14 +434,17 @@ class TextEncoder:
 
         return self._prefetch(range(0, len(texts), chunk_texts), prep, stats)
 
-    def _packed_forward(self, host: dict, n_rows: int, rows_per_batch: int, max_segments: int, method: str):
+    def _packed_forward(
+        self, host: dict, n_rows: int, rows_per_batch: int, max_segments: int, method: str,
+        task_id: int,
+    ):
         """The packed forward over a chunk's rows, ``rows_per_batch`` at a
         time; each output concatenated over the chunk."""
         outs = []
         for r0 in range(0, n_rows, rows_per_batch):
             args = [self._dev(host[kk][r0 : r0 + rows_per_batch])
                     for kk in ("ids", "segment_ids", "position_ids", "seg_starts", "seg_lengths")]
-            out = getattr(self.model, method)(*args, max_segments=max_segments)
+            out = getattr(self.model, method)(*args, task_id=task_id, max_segments=max_segments)
             outs.append(out if isinstance(out, tuple) else (out,))
         return [torch.cat(parts) if len(parts) > 1 else parts[0] for parts in zip(*outs)]
 
@@ -420,6 +456,7 @@ class TextEncoder:
         max_length: Optional[int],
         readback_dtype: Optional[torch.dtype] = None,
         max_segments: int = 16,
+        task_id: int = 0,
     ) -> np.ndarray:
         """Sequence-packed encode: short passages share device rows under a
         block-diagonal attention mask, so the forward computes almost no pad
@@ -444,7 +481,9 @@ class TextEncoder:
             for start, _, packed, host in self._packed_chunks(
                 texts, prefix, seq_len, rpb, max_segments, pad_id, stats
             ):
-                (pooled,) = self._packed_forward(host, packed.n_rows, rpb, max_segments, "packed_embeddings")
+                (pooled,) = self._packed_forward(
+                    host, packed.n_rows, rpb, max_segments, "packed_embeddings", task_id
+                )
                 sel = pooled.reshape(-1, pooled.shape[-1]).index_select(0, self._dev(host["slots"]))
                 if readback_dtype is not None:
                     sel = sel.to(readback_dtype)
@@ -462,6 +501,7 @@ class TextEncoder:
         max_length: Optional[int],
         max_tokens: Optional[int] = None,
         max_segments: int = 16,
+        task_id: int = 0,
     ) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
         """Packed :meth:`encode_documents_with_tokens`: one packed backbone
         pass per chunk; the pooled slots are compacted and read back as in
@@ -480,7 +520,7 @@ class TextEncoder:
                 texts, prefix, seq_len, rpb, max_segments, pad_id, stats
             ):
                 pooled, tok = self._packed_forward(
-                    host, packed.n_rows, rpb, max_segments, "packed_embed_with_tokens"
+                    host, packed.n_rows, rpb, max_segments, "packed_embed_with_tokens", task_id
                 )
                 d = pooled.shape[-1]
                 sel = pooled.reshape(-1, d).index_select(0, self._dev(host["slots"]))
@@ -535,6 +575,7 @@ class TextEncoder:
         prefix: str,
         max_length: Optional[int],
         max_tokens: Optional[int] = None,
+        task_id: int = 0,
     ) -> Tuple[torch.Tensor, np.ndarray]:
         """Per-token embeddings for multi-vector serving: (tokens (n, T, d)
         f32 on the encoder's device, valid-token lengths (n,) int32). With
@@ -549,7 +590,7 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                t = self.model.token_embeddings(self._dev(ids), self._dev(mask))
+                t = self.model.token_embeddings(self._dev(ids), self._dev(mask), task_id=task_id)
                 yield (lambda block: block), (t[:, :max_tokens].contiguous(),)
 
         with torch.inference_mode():
@@ -574,8 +615,11 @@ class TextEncoder:
         first tokens of each passage there. ``pack=True`` routes through
         sequence packing (:meth:`_encode_packed_with_tokens`)."""
         prefix = dialects.doc_prefix(self.name)
+        task = self._task_id("passage")
         if pack:
-            return self._encode_packed_with_tokens(texts, batch_size, prefix, max_length, max_tokens)
+            return self._encode_packed_with_tokens(
+                texts, batch_size, prefix, max_length, max_tokens, task_id=task
+            )
         order = self._length_order(texts)
         texts = [texts[i] for i in order]
         toks, lengths = [], []
@@ -584,7 +628,7 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                dv, tv = self.model.embed_with_tokens(self._dev(ids), self._dev(mask))
+                dv, tv = self.model.embed_with_tokens(self._dev(ids), self._dev(mask), task_id=task)
                 toks.append(tv[:, :max_tokens].contiguous())
                 yield self._host_f32, self._start_readback(dv)
 
@@ -601,7 +645,10 @@ class TextEncoder:
         self, texts: Sequence[str], batch_size: int = 64, max_length: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(tokens (n, T, d) f32 on the host, lengths (n,) int32)."""
-        toks, lens = self._encode_tokens(texts, batch_size, dialects.query_prefix(self.name), max_length)
+        toks, lens = self._encode_tokens(
+            texts, batch_size, dialects.query_prefix(self.name), max_length,
+            task_id=self._task_id("query"),
+        )
         return toks.cpu().numpy(), lens
 
     def encode_documents_tokens(
@@ -615,7 +662,8 @@ class TextEncoder:
         for the token store's writer; ``max_tokens`` as in
         :meth:`encode_documents_with_tokens`."""
         return self._encode_tokens(
-            texts, batch_size, dialects.doc_prefix(self.name), max_length, max_tokens
+            texts, batch_size, dialects.doc_prefix(self.name), max_length, max_tokens,
+            task_id=self._task_id("passage"),
         )
 
     @property

@@ -1,7 +1,19 @@
-"""Encoder registry: ``load_encoder(name, checkpoint_dir)`` builds a
-TextEncoder for the XLM-R family (BGE-M3, multilingual-E5, LaBSE-class)
-from a converted (``params.npz``) or HF-format checkpoint directory, or a
-tiny random-init model without one (smoke mode)."""
+"""Encoder registry: one entry point for every encoder family.
+
+``load_encoder(name, checkpoint_dir)`` dispatches on the encoder family
+(name substring, the dialects' detection) and the checkpoint's
+``config.json`` ``model_type``, as the JAX package's registry does:
+
+- XLM-R family (``xlm-roberta``): BGE-M3, multilingual-E5, LaBSE-class;
+- Qwen3-Embedding (``qwen3``): decoder, last-token pooling;
+- GTE-multilingual (``new``): RoPE post-LN encoder;
+- jina-embeddings-v3: XLM-R with task-LoRA adapters.
+
+Without a checkpoint it builds a tiny random-init model of the family
+(smoke mode); with one, an HF-format directory (``config.json`` + weights)
+or a pre-converted one (``params.npz`` + ``encoder_config.json``, XLM-R
+family only, as in the JAX package).
+"""
 
 from __future__ import annotations
 
@@ -13,19 +25,9 @@ import torch
 
 from codemix_dense_retrieval_torch.models import dialects
 from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+from codemix_dense_retrieval_torch.models.tokenizer import load_tokenizer
 from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
-
-_OTHER_FAMILIES = ("qwen3", "gte", "jina-v3")
-
-
-def _reject_other_family(name: str, model_type: str = "xlm-roberta") -> None:
-    family = dialects.detect_encoder_family(name)
-    if family in _OTHER_FAMILIES or model_type in ("qwen3", "new"):
-        raise NotImplementedError(
-            f"encoder family {family!r} (model_type {model_type!r}) is not ported yet: "
-            "Qwen3, GTE and jina-v3 are ROADMAP queue 1, other encoder families"
-        )
 
 
 def load_encoder(
@@ -39,34 +41,106 @@ def load_encoder(
     weight_quant: Optional[str] = None,
     device: DeviceLike = None,
 ) -> TextEncoder:
-    """Build a TextEncoder for an XLM-R-family encoder.
+    """Build a TextEncoder for any supported family.
 
     The compute dtype defaults to bf16 on the card and f32 on the CPU; the
     flash kernel is used on the card. Without ``checkpoint_dir``: a tiny
-    random-init model of the family's pooling."""
+    random-init model of the family."""
     dev = resolve_device(device)
+    family = dialects.detect_encoder_family(name)
     if dtype is None:
         dtype = default_dtype(dev)
     if use_flash is None:
         use_flash = dev.type == "cuda"
+    kw = dict(seed=seed, mesh=mesh, weight_quant=weight_quant, device=dev)
     if checkpoint_dir is None:
-        _reject_other_family(name)
-        return _random_init(name, dtype, use_flash, seed, dev, mesh, weight_quant)
+        return _random_init(name, family, dtype, use_flash, **kw)
+
     d = pathlib.Path(checkpoint_dir)
-    model_type = "xlm-roberta"
-    if not (d / "params.npz").exists():
-        model_type = json.loads((d / "config.json").read_text()).get("model_type", model_type)
-    _reject_other_family(name, model_type)
-    return TextEncoder.from_checkpoint(
-        name, d, dtype=dtype, use_flash=use_flash, seed=seed, mesh=mesh,
-        weight_quant=weight_quant, device=dev,
+    if (d / "params.npz").exists():
+        # pre-converted: the XLM-R family (jina-v3's LoRA tree included)
+        return TextEncoder.from_checkpoint(name, d, dtype=dtype, use_flash=use_flash, **kw)
+    hf_cfg = json.loads((d / "config.json").read_text())
+    model_type = hf_cfg.get("model_type", "xlm-roberta")
+    from codemix_dense_retrieval_torch.models.convert import load_state_dict
+
+    sd = load_state_dict(d)
+
+    if model_type == "qwen3" or family == "qwen3":
+        from codemix_dense_retrieval_torch.models.qwen3 import (
+            Qwen3Config,
+            Qwen3Encoder,
+            convert_qwen3_state_dict,
+        )
+
+        cfg = Qwen3Config.from_hf_config(hf_cfg, dtype=dtype, use_flash=use_flash)
+        params = convert_qwen3_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
+        return _build(name, cfg, params, Qwen3Encoder, d, **kw)
+
+    if model_type == "new" or family == "gte":
+        from codemix_dense_retrieval_torch.models.gte import (
+            GTEConfig,
+            GTEEncoder,
+            convert_gte_state_dict,
+        )
+
+        cfg = GTEConfig.from_hf_config(hf_cfg, dtype=dtype)
+        prefix = _detect_prefix(sd, "embeddings.word_embeddings.weight")
+        params = convert_gte_state_dict(sd, cfg, prefix=prefix)
+        return _build(name, cfg, params, GTEEncoder, d, **kw)
+
+    # XLM-R family (jina-v3's task LoRA included)
+    from codemix_dense_retrieval_torch.models.convert import convert_xlmr_state_dict, detect_prefix
+    from codemix_dense_retrieval_torch.models.xlmr import XLMREncoder
+
+    extra = {}
+    if family == "jina-v3":
+        extra = dict(lora_rank=hf_cfg.get("lora_rank", 4), lora_tasks=5)
+    cfg = XLMRConfig.from_hf_config(
+        hf_cfg, pooling=dialects.default_pooling(name), dtype=dtype, use_flash=use_flash, **extra
     )
+    params = convert_xlmr_state_dict(sd, cfg, prefix=detect_prefix(sd))
+    return _build(name, cfg, params, XLMREncoder, d, **kw)
 
 
-def _random_init(name, dtype, use_flash, seed, device, mesh=None, weight_quant=None) -> TextEncoder:
-    """Smoke-mode random-init encoder of the family's pooling (tiny)."""
+def _build(name, cfg, params, module_cls, d: pathlib.Path, **kw) -> TextEncoder:
+    """TextEncoder of ``module_cls(cfg)`` (built on the meta device, so its
+    storage is allocated once, on the target) with the checkpoint's
+    tokenizer."""
+    with torch.device("meta"):
+        model = module_cls(cfg)
+    tok = load_tokenizer(d, cfg.max_position_embeddings - 2, vocab_size=cfg.vocab_size)
+    return TextEncoder(name, cfg, params, tok, model=model, **kw)
+
+
+def _detect_prefix(sd, marker: str) -> str:
+    for key in sd:
+        if key.endswith(marker):
+            return key[: -len(marker)]
+    raise KeyError(f"no {marker} in state dict")
+
+
+def _random_init(name, family, dtype, use_flash, **kw) -> TextEncoder:
+    """Smoke-mode random-init encoder of the family's shape (tiny). The tiny
+    Qwen3 and GTE models attend plainly, as in the JAX package (Qwen3's
+    tiny head dim is 16, which kernel B does not take)."""
+    if family == "qwen3":
+        from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
+
+        cfg = Qwen3Config.tiny(vocab_size=30_000, dtype=dtype)
+        with torch.device("meta"):
+            model = Qwen3Encoder(cfg)
+        return TextEncoder(name, cfg, model=model, **kw)
+    if family == "gte":
+        from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder
+
+        cfg = GTEConfig.tiny(vocab_size=30_000, dtype=dtype)
+        with torch.device("meta"):
+            model = GTEEncoder(cfg)
+        return TextEncoder(name, cfg, model=model, **kw)
+    extra = dict(lora_rank=4, lora_tasks=5) if family == "jina-v3" else {}
     cfg = XLMRConfig.tiny(
         vocab_size=30_000, hidden_size=64, num_heads=4, intermediate_size=256,
-        pooling=dialects.default_pooling(name), dtype=dtype, use_flash=use_flash,
+        pooling=dialects.default_pooling(name), dtype=dtype, use_flash=use_flash, **extra,
     )
-    return TextEncoder(name, cfg, seed=seed, mesh=mesh, weight_quant=weight_quant, device=device)
+    return TextEncoder(name, cfg, **kw)

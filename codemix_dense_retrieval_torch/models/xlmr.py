@@ -4,8 +4,10 @@ multilingual-E5 and LaBSE-style embedding models.
 embeddings -> N post-LN transformer layers (exact GELU) -> pooling
 (cls | mean | last_token) -> L2 norm; the packed forward
 (:meth:`XLMREncoder.packed_embeddings`) runs several passages per row under
-a block-diagonal mask and pools each segment. Parameter names follow the JAX
-package's Flax tree (``embeddings.word_embeddings``, ``layers.<i>.q``, ...),
+a block-diagonal mask and pools each segment. With ``lora_rank`` > 0 every
+projection is a :class:`LoraDense` (jina-embeddings-v3's task adapters,
+chosen per call by ``task_id``). Parameter names follow the JAX package's
+Flax tree (``embeddings.word_embeddings``, ``layers.<i>.q``, ...),
 so :mod:`~codemix_dense_retrieval_torch.models.convert` maps one onto the
 other leaf by leaf. Attention goes through
 :func:`~codemix_dense_retrieval_torch.ops.flash_attention.multi_head_attention`
@@ -39,8 +41,7 @@ class XLMRConfig:
     normalize: bool = True
     dtype: torch.dtype = torch.float32  # compute dtype (bfloat16 on the card)
     use_flash: bool = True
-    # Jina-v3 task-LoRA fields, kept so the JAX package's encoder_config.json
-    # loads; rank > 0 is not ported yet
+    # jina-v3 task-LoRA: rank 0 = plain projections
     lora_rank: int = 0
     lora_tasks: int = 0
     lora_alpha: float = 1.0
@@ -54,6 +55,14 @@ class XLMRConfig:
     def me5_large(cls, **kw) -> "XLMRConfig":
         """multilingual-e5-large: XLM-R-large, 512 window, mean pooling."""
         return cls(max_position_embeddings=514, pooling="mean", **kw)
+
+    @classmethod
+    def jina_v3(cls, **kw) -> "XLMRConfig":
+        """jina-embeddings-v3: XLM-R backbone + 5-task LoRA (r=4), mean
+        pooling. Task ids follow JINA_V3_TASKS."""
+        defaults = dict(pooling="mean", lora_rank=4, lora_tasks=5)
+        defaults.update(kw)
+        return cls(**defaults)
 
     @classmethod
     def tiny(cls, **kw) -> "XLMRConfig":
@@ -117,31 +126,77 @@ class XLMREmbeddings(nn.Module):
         return self.LayerNorm(x)
 
 
+# jina-embeddings-v3 task-adapter order (index = task id)
+JINA_V3_TASKS = (
+    "retrieval.query",
+    "retrieval.passage",
+    "separation",
+    "classification",
+    "text-matching",
+)
+
+
+class LoraDense(nn.Module):
+    """A Linear layer (``base``) with per-task low-rank adaptation: task t
+    adds ``alpha / rank * (x @ lora_a[t]) @ lora_b[t]`` to the frozen base
+    projection, with ``lora_a`` (tasks, in, rank) and ``lora_b`` (tasks,
+    rank, out) as in the JAX package's tree; no adapters without tasks.
+    ``task_id`` None is task 0."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int, num_tasks: int,
+                 alpha: float = 1.0) -> None:
+        super().__init__()
+        self.rank, self.alpha = rank, alpha
+        self.base = nn.Linear(in_features, out_features)
+        self.lora_a = self.lora_b = None
+        if rank and num_tasks:
+            self.lora_a = nn.Parameter(torch.zeros(num_tasks, in_features, rank))
+            self.lora_b = nn.Parameter(torch.zeros(num_tasks, rank, out_features))
+
+    def forward(self, x: torch.Tensor, task_id: Optional[int] = None) -> torch.Tensor:
+        out = self.base(x)
+        if self.lora_a is None:
+            return out
+        t = 0 if task_id is None else int(task_id)
+        return out + (self.alpha / self.rank) * ((x @ self.lora_a[t]) @ self.lora_b[t])
+
+
 class XLMRLayer(nn.Module):
     def __init__(self, cfg: XLMRConfig) -> None:
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.q = nn.Linear(h, h)
-        self.k = nn.Linear(h, h)
-        self.v = nn.Linear(h, h)
-        self.attn_out = nn.Linear(h, h)
+
+        def dense(n_in, n_out):
+            if cfg.lora_rank:
+                return LoraDense(n_in, n_out, cfg.lora_rank, cfg.lora_tasks, cfg.lora_alpha)
+            return nn.Linear(n_in, n_out)
+
+        self.q = dense(h, h)
+        self.k = dense(h, h)
+        self.v = dense(h, h)
+        self.attn_out = dense(h, h)
         self.attn_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
-        self.ffn_in = nn.Linear(h, cfg.intermediate_size)
-        self.ffn_out = nn.Linear(cfg.intermediate_size, h)
+        self.ffn_in = dense(h, cfg.intermediate_size)
+        self.ffn_out = dense(cfg.intermediate_size, h)
         self.ffn_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
+    def _dense(self, layer: nn.Module, x: torch.Tensor, task_id: Optional[int]) -> torch.Tensor:
+        return layer(x, task_id) if isinstance(layer, LoraDense) else layer(x)
+
     def forward(
-        self, x: torch.Tensor, attention_mask: torch.Tensor, segment_ids: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, attention_mask: torch.Tensor, task_id: Optional[int] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         c = self.cfg
         attn = multi_head_attention(
-            self.q(x), self.k(x), self.v(x), attention_mask,
+            self._dense(self.q, x, task_id), self._dense(self.k, x, task_id),
+            self._dense(self.v, x, task_id), attention_mask,
             num_heads=c.num_heads, use_flash=c.use_flash, segment_ids=segment_ids,
         )
-        x = self.attn_ln(x + self.attn_out(attn))
-        y = self.ffn_out(nn.functional.gelu(self.ffn_in(x), approximate="none"))
-        return self.ffn_ln(x + y)
+        x = self.attn_ln(x + self._dense(self.attn_out, attn, task_id))
+        y = nn.functional.gelu(self._dense(self.ffn_in, x, task_id), approximate="none")
+        return self.ffn_ln(x + self._dense(self.ffn_out, y, task_id))
 
 
 class XLMREncoder(nn.Module):
@@ -150,49 +205,52 @@ class XLMREncoder(nn.Module):
 
     def __init__(self, cfg: XLMRConfig) -> None:
         super().__init__()
-        if cfg.lora_rank:
-            raise NotImplementedError(
-                "task-LoRA (jina-embeddings-v3) is not ported yet (ROADMAP queue 1, other families)"
-            )
         self.cfg = cfg
         self.embeddings = XLMREmbeddings(cfg)
         self.layers = nn.ModuleList(XLMRLayer(cfg) for _ in range(cfg.num_layers))
 
-    def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def hidden_states(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, task_id: Optional[int] = None
+    ) -> torch.Tensor:
         x = self.embeddings(input_ids)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, task_id)
         return x
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        x = self.hidden_states(input_ids, attention_mask)
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, task_id: Optional[int] = None
+    ) -> torch.Tensor:
+        x = self.hidden_states(input_ids, attention_mask, task_id)
         return pool_and_normalize(x, attention_mask, self.cfg.pooling, self.cfg.normalize)
 
-    def token_embeddings(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def token_embeddings(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, task_id: Optional[int] = None
+    ) -> torch.Tensor:
         """Per-token L2-normalized f32 embeddings (B, S, d) for multi-vector
         (ColBERT / BGE-M3 colbert-head) late interaction; pad tokens zeroed.
         Feed into :mod:`~codemix_dense_retrieval_torch.ops.maxsim`."""
-        return normalize_tokens(self.hidden_states(input_ids, attention_mask), attention_mask)
+        return normalize_tokens(self.hidden_states(input_ids, attention_mask, task_id), attention_mask)
 
     def embed_with_tokens(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, task_id: Optional[int] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One backbone pass -> (pooled sentence embedding, per-token
         normalized embeddings), so the dense index and the token store are
         built together without a second forward."""
-        x = self.hidden_states(input_ids, attention_mask)
+        x = self.hidden_states(input_ids, attention_mask, task_id)
         pooled = pool_and_normalize(x, attention_mask, self.cfg.pooling, self.cfg.normalize)
         return pooled, normalize_tokens(x, attention_mask)
 
     def _packed_hidden(
-        self, input_ids: torch.Tensor, segment_ids: torch.Tensor, position_ids: torch.Tensor
+        self, input_ids: torch.Tensor, segment_ids: torch.Tensor, position_ids: torch.Tensor,
+        task_id: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(f32 last hidden layer, valid-token mask) of packed rows:
         per-segment positions, attention that never crosses a segment."""
         mask = (segment_ids > 0).to(torch.int32)
         x = self.embeddings(input_ids, position_ids)
         for layer in self.layers:
-            x = layer(x, mask, segment_ids=segment_ids)
+            x = layer(x, mask, task_id, segment_ids=segment_ids)
         return x.to(torch.float32), mask
 
     def packed_embeddings(
@@ -202,6 +260,7 @@ class XLMREncoder(nn.Module):
         position_ids: torch.Tensor,  # (B, S) per-segment RoBERTa positions
         seg_starts: torch.Tensor,    # (B, M) first token of each slot
         seg_lengths: torch.Tensor,   # (B, M) tokens per slot (0 = empty)
+        task_id: Optional[int] = None,
         *,
         max_segments: int,
     ) -> torch.Tensor:
@@ -212,7 +271,7 @@ class XLMREncoder(nn.Module):
         forward up to float reassociation: positions restart per segment,
         attention stays inside a segment and pooling reduces one segment."""
         c = self.cfg
-        x, _ = self._packed_hidden(input_ids, segment_ids, position_ids)
+        x, _ = self._packed_hidden(input_ids, segment_ids, position_ids, task_id)
         return pool_segments(x, segment_ids, seg_starts, seg_lengths, c.pooling, c.normalize, max_segments)
 
     def packed_embed_with_tokens(
@@ -222,6 +281,7 @@ class XLMREncoder(nn.Module):
         position_ids: torch.Tensor,
         seg_starts: torch.Tensor,
         seg_lengths: torch.Tensor,
+        task_id: Optional[int] = None,
         *,
         max_segments: int,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -230,7 +290,7 @@ class XLMREncoder(nn.Module):
         tokens zeroed); callers cut each segment's token block out of its
         row with the packer's (start, length) table."""
         c = self.cfg
-        x, mask = self._packed_hidden(input_ids, segment_ids, position_ids)
+        x, mask = self._packed_hidden(input_ids, segment_ids, position_ids, task_id)
         pooled = pool_segments(x, segment_ids, seg_starts, seg_lengths, c.pooling, c.normalize, max_segments)
         return pooled, normalize_tokens(x, mask)
 
@@ -242,9 +302,11 @@ def normalize_tokens(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torc
     return t * attention_mask.to(torch.float32)[..., None]
 
 
-def init_random_(model: XLMREncoder, generator: torch.Generator, std: float = 0.02) -> None:
-    """Seeded random init in place: normal(0, std) for every matrix and
-    embedding, zero biases, unit LayerNorm scales."""
+def init_random_(model: nn.Module, generator: torch.Generator, std: float = 0.02) -> None:
+    """Seeded random init in place, for any encoder family: normal(0, std)
+    for every matrix, embedding and LoRA adapter (both factors, so a random
+    jina-v3 model's task choice shows; the JAX package starts ``lora_b`` at
+    zero), zero biases, unit norm scales."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Linear, nn.Embedding)):
@@ -254,6 +316,11 @@ def init_random_(model: XLMREncoder, generator: torch.Generator, std: float = 0.
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, LoraDense) and module.lora_a is not None:
+                module.lora_a.normal_(0.0, std, generator=generator)
+                module.lora_b.normal_(0.0, std, generator=generator)
+            elif hasattr(module, "weight") and module.weight.ndim == 1:  # RMSNorm
+                module.weight.fill_(1.0)
 
 
 def pool_and_normalize(

@@ -145,7 +145,8 @@ def attention_flash(
     takes bf16 (the TMA + wgmma kernel) or f32 (a SIMT kernel), all alike,
     dh 64 or 128, strides as :func:`check_strided_operand` allows, int32
     ``lengths`` (B,) and int32 ``segment_ids`` (B, S). The output has q's
-    shape and dtype, in (B, S, H, dh) storage."""
+    shape and dtype, in (B, S, H, dh) storage. Causal launches (the Qwen3
+    encoder's) count under ``flash_attention_causal``."""
     if q.device.type == "cpu":
         return attention_flash_plain(q, k, v, lengths, causal=causal, segment_ids=segment_ids)
     if q.device.type != "cuda":
@@ -186,7 +187,7 @@ def attention_flash(
         stream,
     )
     kernels.check(rc, "flash_attention")
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.LAUNCHES["flash_attention_causal" if causal else "flash_attention"] += 1
     return out
 
 

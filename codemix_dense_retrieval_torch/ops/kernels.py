@@ -11,17 +11,27 @@ runs with ``-Xptxas -v``, and its log is kept beside the library
 spill bytes and ptxas's warnings out of it (C7518: wgmma serialised).
 ``bin_scores.cu`` holds kernel A (bin-major), kernel 2 (its transposed
 layout), kernel 5 (``binmax_only``) and kernel 7 (``binub``, the sketch
-tier's upper-bound bin maxima), ``bin_scores_int8.cu`` kernel 4 (both
-layouts), ``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the
-two-stage rerank's MaxSim). The bin-score kernels (A, 2, 4, 5, 7) are two
-templates in ``bin_kernels.cuh``, instantiated per operand type and
-epilogue; they and kernel B are built on ``sm90.cuh`` (TMA, mbarrier rings,
-wgmma).
+tier's upper-bound bin maxima) over bf16 operands, ``bin_scores_f16.cu``
+kernels A, 2 and 5 over f16 and ``bin_scores_f32.cu`` kernels A, 2, 5 and 7
+over f32 (3xTF32), ``bin_scores_int8.cu`` kernel 4 (both layouts),
+``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the two-stage
+rerank's MaxSim, bf16, f16 or f32 doc tokens). The bin-score kernels (A, 2,
+4, 5, 7) are two templates in ``bin_kernels.cuh``, instantiated per operand
+type and epilogue; they and kernel B are built on ``sm90.cuh`` (TMA,
+mbarrier rings, wgmma). Each operand type of the bin-score kernels is a
+source of its own with the same C entry points, picked by the dtype's
+name suffix, while ``maxsim.cu`` takes its doc dtype as an argument: every
+bin-score source instantiates dozens of wgmma kernels (layout x epilogue x
+tile x bin size), and one source per type lets :func:`build_kernels` run
+their ``nvcc`` side by side instead of one after another.
 
-``LAUNCHES`` holds one plain integer per kernel entry: each wrapper adds one
-where it launches its kernel, and nowhere else. Kernels A and 4 count their
-two layouts apart, since each layout stands for a TPU kernel or a route of
-its own.
+``LAUNCHES`` holds one plain integer per kernel instance: each wrapper adds
+one where it launches its kernel, and nowhere else. Kernels A and 4 count
+their two layouts apart, since each layout stands for a TPU kernel or a
+route of its own; the f16 and f32 instances of kernels A, 2, 5, 6 and 7
+count under their own names (suffix ``_f16`` / ``_f32``: :func:`dtype_suffix`),
+and kernel B's causal instance (the Qwen3 encoder's) under
+``flash_attention_causal``.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
     "bin_scores": "bin_scores.cu",
+    "bin_scores_f16": "bin_scores_f16.cu",
+    "bin_scores_f32": "bin_scores_f32.cu",
     "bin_scores_int8": "bin_scores_int8.cu",
     "flash_attention": "flash_attention.cu",
     "maxsim": "maxsim.cu",
@@ -53,13 +65,34 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "bin_scores_bin_major": 0,
     "bin_scores_transposed": 0,
+    "bin_scores_bin_major_f16": 0,
+    "bin_scores_transposed_f16": 0,
+    "bin_scores_bin_major_f32": 0,
+    "bin_scores_transposed_f32": 0,
     "bin_scores_int8_bin_major": 0,
     "bin_scores_int8_transposed": 0,
     "binmax_only": 0,
+    "binmax_only_f16": 0,
+    "binmax_only_f32": 0,
     "binub": 0,
+    "binub_f32": 0,
     "flash_attention": 0,
+    "flash_attention_causal": 0,
     "maxsim": 0,
+    "maxsim_f16": 0,
+    "maxsim_f32": 0,
 }
+
+_SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16", "torch.float32": "_f32"}
+
+
+def dtype_suffix(dtype) -> str:
+    """The name suffix of a kernel instance over operands of ``dtype`` (a
+    torch dtype): "" for bf16, "_f16", "_f32"; a ValueError for others."""
+    try:
+        return _SUFFIX[str(dtype)]
+    except KeyError:
+        raise ValueError(f"no kernel instance takes {dtype} operands (bf16, f16 or f32)") from None
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -53,8 +53,11 @@ def maxsim_scores_plain(
 
 _MAXSIM_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
+# the kernel's doc token dtype codes
+_DOC_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def _maxsim_lib():
@@ -75,8 +78,9 @@ def maxsim_scores(
     against their candidates ``d_tokens`` (B, K, Td, d), with masks (B, Tq)
     and (B, K, Td). CPU tensors take :func:`maxsim_scores_plain`; CUDA
     tensors launch the kernel (``csrc/maxsim.cu``), which takes f32 queries
-    (split into bf16 hi + lo inside), bf16 doc tokens, d % 64 == 0 and
-    d <= 1216, B <= 65,535."""
+    (split into bf16 hi + lo inside), bf16, f16 or f32 doc tokens (split
+    into bf16 parts inside; int8 stores are dequantized to bf16 by the
+    caller), d % 64 == 0 and d <= 1216, B <= 65,535."""
     if q_tokens.device.type == "cpu" and d_tokens.device.type == "cpu":
         return maxsim_scores_plain(q_tokens, q_mask, d_tokens, d_mask)
     dev = d_tokens.device
@@ -85,11 +89,10 @@ def maxsim_scores(
             f"maxsim needs q_tokens and d_tokens on one CUDA device (or both on the CPU), "
             f"got {q_tokens.device} and {d_tokens.device}"
         )
-    if d_tokens.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"maxsim on CUDA takes bf16 doc tokens, got {d_tokens.dtype} (int8 stores are "
-            "dequantized to bf16 by the caller; f32 token stores on the card are a ROADMAP "
-            "item: queue 1, deferred item 6)"
+    if d_tokens.dtype not in _DOC_DTYPES:
+        raise ValueError(
+            f"maxsim on CUDA takes bf16, f16 or f32 doc tokens, got {d_tokens.dtype} "
+            "(int8 stores are dequantized to bf16 by the caller)"
         )
     b, tq, d = q_tokens.shape
     _, k, td, d2 = d_tokens.shape
@@ -111,10 +114,10 @@ def maxsim_scores(
         raise ValueError("q_tokens and d_tokens must be 16-byte aligned")
     rc = _maxsim_lib()(
         q.data_ptr(), qm.data_ptr(), dt.data_ptr(), dm.data_ptr(), out.data_ptr(),
-        b, k, tq, td, d, torch.cuda.current_stream(dev).cuda_stream,
+        b, k, tq, td, d, _DOC_DTYPES[dt.dtype], torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(rc, "maxsim")
-    kernels.LAUNCHES["maxsim"] += 1
+    kernels.LAUNCHES["maxsim" + kernels.dtype_suffix(dt.dtype)] += 1
     return out
 
 

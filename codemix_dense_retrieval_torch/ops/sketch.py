@@ -292,8 +292,8 @@ _BINUB_ARGTYPES = [
 ]
 
 
-def _binub_lib():
-    fn = kernels.load("bin_scores").binub_launch
+def _binub_lib(dtype: torch.dtype):
+    fn = kernels.load("bin_scores" + kernels.dtype_suffix(dtype)).binub_launch
     if fn.argtypes is None:
         fn.argtypes = _BINUB_ARGTYPES
         fn.restype = ctypes.c_int
@@ -312,19 +312,19 @@ def binub(
     bound ``q_sketch . d_sketch + q_tail * d_tail`` with rows at or past
     ``n_valid`` (an int or a one-element int32 tensor on the sketch's device)
     set to ``NEG_INF``. CPU tensors take :func:`binub_plain`; CUDA tensors
-    launch the kernel (``csrc/bin_scores.cu``), which takes bf16 sketches,
+    launch the kernel instance of the sketch dtype (``csrc/bin_scores.cu``
+    bf16, ``bin_scores_f32.cu`` f32: f32-faithful 3xTF32 products, as the
+    JAX package runs its f32 sketch at ``Precision.HIGHEST``), which takes
     ds % 32 == 0, N % G == 0 and G in {8, 16}."""
     if q_sketch.device.type == "cpu" and d_sketch.device.type == "cpu":
         return binub_plain(q_sketch, q_tail, d_sketch, d_tail, bin_size, n_valid)
-    if d_sketch.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"binub on CUDA takes a bf16 sketch, got {d_sketch.dtype} (f32 sketch "
-            "sidecars on the card are a ROADMAP item: queue 1, deferred item 6)"
-        )
+    dt = d_sketch.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"binub on CUDA takes a bf16 or f32 sketch, got {dt}")
     b, ds = q_sketch.shape
     n = d_sketch.shape[0]
-    if q_sketch.device != d_sketch.device or q_sketch.dtype != torch.bfloat16:
-        raise ValueError("q_sketch must be bf16 on the doc sketch's CUDA device")
+    if q_sketch.device != d_sketch.device or q_sketch.dtype != dt:
+        raise ValueError(f"q_sketch must be {dt} on the doc sketch's CUDA device")
     if d_sketch.ndim != 2 or d_sketch.shape[1] != ds:
         raise ValueError(f"sketches {tuple(q_sketch.shape)} x {tuple(d_sketch.shape)} do not contract")
     if bin_size not in (8, 16) or ds % 32 or n % bin_size or b == 0:
@@ -341,13 +341,13 @@ def binub(
             raise ValueError(f"{label} must be contiguous and 16-byte aligned")
     nv_ptr, nv_int = _n_valid_arg(n_valid, d_sketch)
     out = torch.empty((b, n // bin_size), dtype=torch.float32, device=d_sketch.device)
-    rc = _binub_lib()(
+    rc = _binub_lib(dt)(
         q_sketch.data_ptr(), q_tail.data_ptr(), d_sketch.data_ptr(), d_tail.data_ptr(),
         out.data_ptr(), nv_ptr, nv_int, b, n, ds, bin_size,
         torch.cuda.current_stream(d_sketch.device).cuda_stream,
     )
     kernels.check(rc, "binub")
-    kernels.LAUNCHES["binub"] += 1
+    kernels.LAUNCHES["binub" + kernels.dtype_suffix(dt)] += 1
     return out
 
 

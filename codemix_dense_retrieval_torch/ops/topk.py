@@ -129,21 +129,24 @@ def bin_scores_plain(
     return _mask_bin_max(scores, n_valid, bin_size, layout, score_dtype)
 
 
+#: the index dtypes kernels A, 2 and 5 take on the card
+FLOAT_INDEX_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def _cuda_operands(
-    name: str, queries: torch.Tensor, docs: torch.Tensor, dtype: torch.dtype,
+    name: str, queries: torch.Tensor, docs: torch.Tensor, dtypes: Sequence[torch.dtype],
     bin_size: int, dim_multiple: int,
 ) -> Tuple[int, int, int]:
-    """Validate a bin kernel's operands on the card; returns (B, d, N)."""
+    """Validate a bin kernel's operands on the card (the index one of
+    ``dtypes``, the queries of the index dtype); returns (B, d, N)."""
     if docs.device.type != "cuda" or queries.device != docs.device:
         raise ValueError(
             f"{name}: queries on {queries.device}, docs on {docs.device}; "
             "both must be on the same CUDA device (or both on the CPU)"
         )
-    if docs.dtype != dtype:
-        raise NotImplementedError(
-            f"{name} on CUDA takes a {dtype} index, got {docs.dtype} "
-            "(other index dtypes on the card are a ROADMAP item)"
-        )
+    dtype = docs.dtype
+    if dtype not in dtypes:
+        raise ValueError(f"{name} on CUDA takes a {' / '.join(map(str, dtypes))} index, got {dtype}")
     if queries.dtype != dtype:
         raise ValueError(f"{name}: queries must be {dtype} like the index, got {queries.dtype}")
     if queries.ndim != 2 or docs.ndim != 2 or queries.shape[1] != docs.shape[1]:
@@ -180,9 +183,8 @@ _BIN_SCORES_ARGTYPES = [
 ]
 
 
-def _bin_scores_lib():
-    lib = kernels.load("bin_scores")
-    fn = lib.bin_scores_launch
+def _bin_scores_lib(dtype: torch.dtype):
+    fn = kernels.load("bin_scores" + kernels.dtype_suffix(dtype)).bin_scores_launch
     if fn.argtypes is None:
         fn.argtypes = _BIN_SCORES_ARGTYPES
         fn.restype = ctypes.c_int
@@ -205,15 +207,17 @@ def bin_scores(
     ``layout="bin_major"`` (kernel A) returns (scores (B, N) ``score_dtype``,
     binmax (B, N/G) f32); ``"transposed"`` (kernel 2) returns (N, B) and
     (N/G, B). CPU tensors take :func:`bin_scores_plain`; CUDA tensors launch
-    the kernel (``csrc/bin_scores.cu``), which takes bf16 rows and queries,
-    d % 32 == 0, N % G == 0 and G in {8, 16}."""
+    the kernel instance of the index dtype (``csrc/bin_scores.cu`` bf16,
+    ``bin_scores_f16.cu``, ``bin_scores_f32.cu``: f32-faithful 3xTF32), which
+    takes queries of the index dtype, d % 32 == 0, N % G == 0 and G in
+    {8, 16}."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if queries.device.type == "cpu" and docs.device.type == "cpu":
         return bin_scores_plain(
             queries, docs, n_valid, bin_size, layout=layout, score_dtype=score_dtype
         )
-    b, dim, n = _cuda_operands("bin_scores", queries, docs, torch.bfloat16, bin_size, 32)
+    b, dim, n = _cuda_operands("bin_scores", queries, docs, FLOAT_INDEX_DTYPES, bin_size, 32)
     if score_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"score_dtype must be float32 or bfloat16, got {score_dtype}")
     nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
@@ -222,13 +226,13 @@ def bin_scores(
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=docs.device)
     binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=docs.device)
     stream = torch.cuda.current_stream(docs.device).cuda_stream
-    rc = _bin_scores_lib()(
+    rc = _bin_scores_lib(docs.dtype)(
         queries.data_ptr(), docs.data_ptr(), scores.data_ptr(), binmax.data_ptr(),
         nv_ptr, nv_int, b, n, dim, bin_size, int(bin_major),
         int(score_dtype == torch.bfloat16), stream,
     )
     kernels.check(rc, "bin_scores")
-    kernels.LAUNCHES[f"bin_scores_{layout}"] += 1
+    kernels.LAUNCHES[f"bin_scores_{layout}{kernels.dtype_suffix(docs.dtype)}"] += 1
     return scores, binmax
 
 
@@ -308,7 +312,7 @@ def bin_scores_int8(
             q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
             layout=layout, score_dtype=score_dtype,
         )
-    b, dim, n = _cuda_operands("bin_scores_int8", q_vals, d_vals, torch.int8, bin_size, 64)
+    b, dim, n = _cuda_operands("bin_scores_int8", q_vals, d_vals, (torch.int8,), bin_size, 64)
     _check_scales("q_scales", q_scales, q_vals)
     _check_scales("d_scales", d_scales, d_vals)
     if score_dtype not in (torch.float32, torch.bfloat16):
@@ -361,8 +365,8 @@ _BINMAX_ONLY_ARGTYPES = [
 ]
 
 
-def _binmax_only_lib():
-    fn = kernels.load("bin_scores").binmax_only_launch
+def _binmax_only_lib(dtype: torch.dtype):
+    fn = kernels.load("bin_scores" + kernels.dtype_suffix(dtype)).binmax_only_launch
     if fn.argtypes is None:
         fn.argtypes = _BINMAX_ONLY_ARGTYPES
         fn.restype = ctypes.c_int
@@ -375,19 +379,19 @@ def binmax_only(
     """Kernel 5: the bin maxima (B, N/G) f32 of ``queries @ docs.T`` with
     rows at or past ``n_valid`` set to ``NEG_INF``; the score matrix is
     never stored. CPU tensors take :func:`binmax_only_plain`; CUDA tensors
-    launch kernel A with its score store compiled out
-    (``csrc/bin_scores.cu``), with kernel A's requirements."""
+    launch kernel A's instance of the index dtype with its score store
+    compiled out, with kernel A's requirements."""
     if queries.device.type == "cpu" and docs.device.type == "cpu":
         return binmax_only_plain(queries, docs, n_valid, bin_size)
-    b, dim, n = _cuda_operands("binmax_only", queries, docs, torch.bfloat16, bin_size, 32)
+    b, dim, n = _cuda_operands("binmax_only", queries, docs, FLOAT_INDEX_DTYPES, bin_size, 32)
     nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
     binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
-    rc = _binmax_only_lib()(
+    rc = _binmax_only_lib(docs.dtype)(
         queries.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,
         b, n, dim, bin_size, torch.cuda.current_stream(docs.device).cuda_stream,
     )
     kernels.check(rc, "binmax_only")
-    kernels.LAUNCHES["binmax_only"] += 1
+    kernels.LAUNCHES["binmax_only" + kernels.dtype_suffix(docs.dtype)] += 1
     return binmax
 
 

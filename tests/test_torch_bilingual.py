@@ -195,6 +195,34 @@ def test_fused_runs_are_byte_identical_and_prefix_the_unfused(hub_data, tmp_path
         assert {r[0] for r in rows} <= {r[0] for r in by_q[q]}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_fused_and_unfused_hub_runs_over_float_stores_match_jax(hub_data, tmp_path, dtype):
+    """The hub of two f32 (f16) stores: fused and unfused vector-mix runs
+    with the JAX package's lines, printed scores within one unit of the 6th
+    decimal (f32 products of f32 rows round, so the two summation orders
+    may differ in the last bit), metrics within 1e-4."""
+    docs_a, docs_b, ids, rel, primary, secondary, qids = hub_data
+    ref_hub, port_hub = _hubs(docs_a, docs_b, ids, dtype=dtype)
+    assert port_hub._docs_dev.dtype == getattr(torch, dtype)
+    qrels = {q: {ids[r]: 1} for q, r in zip(qids, rel)}
+    _, want_m = ref.run_bilingual_vector_mix_fused(ref_hub, qids, primary, secondary, ALPHAS, tmp_path / "ref_f",
+                                                   k=25, qrels=qrels)
+    _, got_m = port.run_bilingual_vector_mix_fused(port_hub, qids, primary, secondary, ALPHAS,
+                                                   tmp_path / "port_f", k=25, qrels=qrels, query_block=4)
+    for label in want_m:
+        for name, v in want_m[label].items():
+            assert got_m[label][name] == pytest.approx(v, abs=1e-4), (label, name)
+    assert got_m["1"]["RR@10"] > 50
+    for name, mod, hub in (("ref", ref, ref_hub), ("port", port, port_hub)):
+        mod.run_bilingual_vector_mix(hub, qids, primary, secondary, ALPHAS, tmp_path / name, k=25, query_block=4)
+    for a in ("0", "0.25", "0.5", "1"):
+        _assert_close_runs(tmp_path / "ref_f" / f"cm-alpha-{a}_base.trec",
+                           tmp_path / "port_f" / f"cm-alpha-{a}_base.trec")
+        for suffix in ("_raw", "_base"):
+            _assert_close_runs(tmp_path / "ref" / f"cm-alpha-{a}{suffix}.trec",
+                               tmp_path / "port" / f"cm-alpha-{a}{suffix}.trec")
+
+
 def _assert_close_runs(ref_path, port_path):
     """The same (qid, docid, rank) lines; printed scores within one unit of
     the 6th decimal (one f32 ulp apart before printing)."""

@@ -1,9 +1,9 @@
 """pipeline/fused.py: the port's fused alpha sweep (``device="cpu"``) against
 the JAX package's on the same numpy inputs (1-device mesh, Pallas in
-interpret mode): bf16 and int8 indexes, the bilingual collapse, the sketch
-tier and its guaranteed escalation. Ids equal, values and metrics within
-1e-6 (both sum in f32, in another order); the fused ids equal the port's
-unfused run; a small hub clamps k_raw with a warning."""
+interpret mode): bf16, int8, f32 and f16 indexes, the bilingual collapse,
+the sketch tier and its guaranteed escalation. Ids equal, values and
+metrics within 1e-6 (both sum in f32, in another order); the fused ids
+equal the port's unfused run; a small hub clamps k_raw with a warning."""
 
 import logging
 
@@ -67,7 +67,7 @@ def _queries(rng, docs, b, rel):
     return primary, secondary
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32", "float16"])
 def test_sweep_equals_jax_and_the_unfused_run(dtype):
     rng = np.random.default_rng(0)
     n, d, b, k = 1800, 32, 12, 20

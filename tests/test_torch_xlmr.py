@@ -190,12 +190,26 @@ def test_from_checkpoint_reads_the_jax_format(flax_params, tmp_path):
 
 
 def test_position_ids_and_lora_refusal():
+    """Position ids equal the JAX package's; a task-LoRA config (once
+    refused) builds the JAX package's parameter tree, leaf for leaf, and
+    its pooled embeddings match on the carried weights."""
     ids = np.array([[0, 5, 6, 2, 1, 1]], np.int32)
     want = np.asarray(ref_xlmr.position_ids_from_input_ids(jnp.asarray(ids), 1))
     got = port_xlmr.position_ids_from_input_ids(torch.from_numpy(ids), 1).numpy()
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        port_xlmr.XLMREncoder(port_xlmr.XLMRConfig.tiny(lora_rank=4, lora_tasks=5))
+    cfg = dict(TINY, lora_rank=4, lora_tasks=5)
+    mask = (ids != 1).astype(np.int32)
+    params = ref_xlmr.XLMREncoder(ref_xlmr.XLMRConfig.tiny(**cfg, use_flash=False)).init(
+        jax.random.key(0), jnp.asarray(ids), jnp.asarray(mask), 0)
+    sd = port_convert.params_from_flax(params)
+    model = port_xlmr.XLMREncoder(port_xlmr.XLMRConfig.tiny(**cfg, use_flash=False))
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {k: tuple(v.shape) for k, v in sd.items()}
+    model.load_state_dict(sd)
+    want = np.asarray(ref_xlmr.XLMREncoder(ref_xlmr.XLMRConfig.tiny(**cfg, use_flash=False)).apply(
+        params, jnp.asarray(ids), jnp.asarray(mask), 2))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask).long(), task_id=2).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
 def test_registry_random_init_matches_jax_family_shapes():
@@ -215,10 +229,21 @@ def test_registry_random_init_matches_jax_family_shapes():
 @pytest.mark.parametrize("name", ["Qwen/Qwen3-Embedding-0.6B", "Alibaba-NLP/gte-multilingual-base",
                                   "jinaai/jina-embeddings-v3"])
 def test_registry_refuses_unported_families(name):
+    """The three families the registry once refused now load as the JAX
+    package's do: the same module family, config and parameter shapes, and
+    a CPU encode of the random-init model."""
     from codemix_dense_retrieval_torch.models.registry import load_encoder
+    from codemix_dense_retrieval_tpu.models.registry import load_encoder as ref_load
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_encoder(name, device="cpu")
+    got, want = load_encoder(name, device="cpu"), ref_load(name)
+    assert type(got.model).__name__ == type(want.model).__name__
+    for field in ("vocab_size", "hidden_size", "num_layers", "num_heads", "intermediate_size",
+                  "max_position_embeddings", "lora_rank", "lora_tasks"):
+        assert getattr(got.cfg, field, None) == getattr(want.cfg, field, None), (name, field)
+    assert ({k: tuple(v.shape) for k, v in got.model.state_dict().items()}
+            == {k: tuple(v.shape) for k, v in port_convert.params_from_flax(want.params).items()})
+    out = got.encode_documents(["a b", "c d e"])
+    assert out.shape == (2, got.dim) and np.allclose(np.linalg.norm(out, axis=1), 1.0, atol=1e-5)
 
 
 def test_registry_loads_a_converted_checkpoint(flax_params, tmp_path):
