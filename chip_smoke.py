@@ -197,9 +197,29 @@ Phases (a line of JSON after each):
                and 256 passages each, jina-v3's query and passage embeddings
                of the same texts differ (task adapters), GTE refuses
                pack=True.
+11. weight quantization and the tools (phase_11). 11a: BGE-M3 at full
+               width from one seeded f32 init, as a bf16 copy and as
+               TextEncoder(weight_quant="int8" / "nf4") (host quantization
+               seconds, resident bytes, card peak, queries/s and passages/s
+               at the 1024 bucket, kernel B); each quantized encoder equals a
+               bf16 copy of its own dequantized weights (min cos 0.999, max
+               abs TOL_PACKED_ABS); against the bf16 copy int8 keeps the JAX
+               suite's cosine bound at full width, and both modes keep theirs
+               (MIN_COS_WQ) at the suite's depth of 2 layers (NF4 at 24
+               random layers is measured, not bounded). 11b: `convert
+               --weight_quant nf4` of phase 10a's Qwen3 HF dir, `encode-corpus`
+               from the converted dir (rows equal to an in-memory
+               weight_quant="nf4" encoder's, bit for bit) and `run-mix` over
+               its store (kernels 2 and B causal). 11c: `tune` into a store
+               under the work dir (the two-level cover at 262,144 x 1024, k =
+               100 and 1000; the flash crossover at S = 128-1024, dh = 64),
+               Qwen3's causal dh = 128 crossover measured; the pickers and the
+               flash dispatch read the store, and the tuned two-level search
+               gives the default one's ids. 11d: `profile` over a 1,048,576 x
+               1024 bf16 index at k = 100: its Chrome trace names kernel A.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
-runs) and read just after it; comparison and timing launches happen outside those windows (in
+runs, each encoder and command of 11) and read just after it; comparison and timing launches happen outside those windows (in
 phase 9 the direct searches run while the service is idle, their launches
 taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
@@ -268,6 +288,9 @@ PACK_BATCH = 256            # its passages per forward (packed: 32 rows)
 # tokens and positions, summed in another order and attended by another
 # kernel; also Qwen3's kernel-B path against its plain-attention copy
 TOL_PACKED_ABS = 1e-2
+# phase 11: pooled cosine of the int8 / NF4 encoders against their bf16 copy,
+# the JAX suite's bounds (tests/test_weight_quant.py)
+MIN_COS_WQ = {"int8": 0.995, "nf4": 0.95}
 
 
 def say(tag: str, **fields) -> None:
@@ -308,6 +331,273 @@ def bound(nbytes: float, ops: float, peak: float = BF16_FLOPS):
     HBM rate and the operations over ``peak``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_cli(argv) -> None:
+    """``python -m codemix_dense_retrieval_torch <argv[1:]>`` in this process."""
+    saved_argv = sys.argv
+    try:
+        sys.argv = argv
+        runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved_argv
+
+
+def run_cli_json(argv):
+    """run_cli, and the JSON the command printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli(argv)
+    return json.loads(buf.getvalue())
+
+
+def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv, qdir, en_tsv, zh_tsv) -> None:
+    """Phase 11: encoder weight quantization and the tuning / profiling
+    tools (see the module docstring). Adds its paths' launch counts to
+    ``path_counts``; raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from codemix_dense_retrieval_torch.io.shards import ShardStore, storage_to_tensor
+    from codemix_dense_retrieval_torch.models import encoder as encoder_mod
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder, quantize_state_dict
+    from codemix_dense_retrieval_torch.models.registry import load_encoder
+    from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig, XLMREncoder, init_random_
+    from codemix_dense_retrieval_torch.ops import kernels, topk
+    from codemix_dense_retrieval_torch.ops.weight_quant import QuantLinear, quantized_nbytes
+    from codemix_dense_retrieval_torch.utils import autotune
+
+    t11 = time.perf_counter()
+
+    # 11a. BGE-M3 at full width: one seeded f32 random init (on the card,
+    # then to the host), built as a bf16 copy and as int8 / NF4 encoders
+    # (TextEncoder(weight_quant=...) quantizes those f32 weights on the
+    # host), and as a bf16 copy of each mode's dequantized weights, which
+    # the quantized encoder must reproduce (its gap to the bf16 copy is then
+    # the quantization's own); the JAX suite's cosine bounds hold at full
+    # width for int8 and, for both modes, at the suite's depth of 2 layers
+    def init_f32(cfg_):
+        with torch.device("meta"):
+            m = XLMREncoder(cfg_)
+        m = m.to_empty(device=dev)
+        init_random_(m, torch.Generator(device=dev).manual_seed(SEED + 20))
+        sd_ = {k: v.cpu() for k, v in m.state_dict().items()}
+        del m
+        torch.cuda.empty_cache()
+        return sd_
+
+    def encode(enc_, q_texts, p_texts):
+        enc_.encode_queries(q_texts[:8])
+        enc_.encode_documents(p_texts[:2], max_length=1024)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qv_ = enc_.encode_queries(q_texts, batch_size=128)
+        q_s_ = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv_ = enc_.encode_documents(p_texts, batch_size=32, max_length=1024)
+        return qv_, pv_, q_s_, time.perf_counter() - t0
+
+    def agree(a, b):
+        return (float(min((a[0] * b[0]).sum(axis=1).min(), (a[1] * b[1]).sum(axis=1).min())),
+                float(max(np.abs(a[0] - b[0]).max(), np.abs(a[1] - b[1]).max())))
+
+    # the host seconds of the encoder's own quantize_state_dict call
+    quant_s = []
+
+    def timed_quantize(sd_, mode_):
+        t0_ = time.perf_counter()
+        out_ = quantize_state_dict(sd_, mode_)
+        quant_s.append(time.perf_counter() - t0_)
+        return out_
+
+    encoder_mod.quantize_state_dict = timed_quantize
+    sd32 = init_f32(XLMRConfig.bge_m3())
+    bcfg = XLMRConfig.bge_m3(dtype=torch.bfloat16)
+    qtexts = texts_a[:N_QUERIES]
+    wq, ref = {}, {}
+    for mode in ("bf16", "int8", "nf4"):
+        quant_s.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        enc = TextEncoder("BAAI/bge-m3", bcfg, sd32, weight_quant=None if mode == "bf16" else mode,
+                          length_buckets=buckets)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        resident = quantized_nbytes({**dict(enc.model.named_parameters()), **dict(enc.model.named_buffers())})
+        qlayers = [mod for mod in enc.model.modules() if isinstance(mod, QuantLinear)]
+        if mode != "bf16":
+            check(len(qlayers) == 6 * bcfg.num_layers and enc.weight_quant == mode, f"{mode}: quantized layers")
+            check(all(mod.weight.scale.dtype == torch.float32 and mod.codes.device.type == "cuda"
+                      for mod in qlayers), f"{mode}: scales f32, codes on the card")
+            check(len(quant_s) == 1, f"{mode}: the encoder did not quantize once")
+            # the weights the quantized encoder sees, dequantized in f32
+            deq = {f"{n}.weight": mod.weight.dequantize(torch.float32).T.contiguous().cpu()
+                   for n, mod in enc.model.named_modules() if isinstance(mod, QuantLinear)}
+        kernels.reset_launch_counts()
+        qv, pv, q_s, p_s = encode(enc, qtexts, passages)
+        path_counts[f"wq_{mode}"] = dict(kernels.LAUNCHES)
+        check(path_counts[f"wq_{mode}"]["flash_attention"] > 0, f"{mode} passages did not launch kernel B")
+        for name_, x, rows in (("queries", qv, N_QUERIES), ("passages", pv, len(passages))):
+            check(x.shape == (rows, DIM) and bool(np.isfinite(x).all())
+                  and bool(np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=2e-2)), f"{mode} {name_} embeddings")
+        peak = torch.cuda.max_memory_allocated() - base
+        del enc
+        torch.cuda.empty_cache()
+        row = dict(resident_bytes=resident, build_s=round(build_s, 2), queries_per_s=round(N_QUERIES / q_s, 1),
+                   passages_per_s_1024=round(len(passages) / p_s, 1), card_peak_gb=round(peak / 1e9, 3),
+                   kernel_b_launches=path_counts[f"wq_{mode}"]["flash_attention"])
+        if mode == "bf16":
+            ref = {"emb": (qv, pv), "resident": resident, "pps": len(passages) / p_s, "qps": N_QUERIES / q_s}
+        else:
+            cos, gap = agree((qv, pv), ref["emb"])
+            # those weights held in bf16 by an unquantized encoder
+            enc = TextEncoder("BAAI/bge-m3", bcfg, {**sd32, **deq}, length_buckets=buckets)
+            d_cos, d_gap = agree((qv, pv), encode(enc, qtexts, passages)[:2])
+            del enc, deq
+            torch.cuda.empty_cache()
+            check(d_cos >= 0.999 and d_gap <= TOL_PACKED_ABS,
+                  f"{mode} vs its dequantized bf16 copy: min cos {d_cos}, max abs {d_gap}")
+            if mode == "int8":
+                check(cos >= MIN_COS_WQ[mode], f"{mode} vs bf16: min cos {cos} (limit {MIN_COS_WQ[mode]})")
+            row.update(quantize_host_s=round(quant_s[0], 2), vs_bf16_bytes=resident / ref["resident"],
+                       vs_bf16={"min_cos": cos, "max_abs": gap},
+                       vs_dequantized_bf16_copy={"min_cos": d_cos, "max_abs": d_gap},
+                       passages_per_s_vs_bf16=len(passages) / p_s / ref["pps"],
+                       queries_per_s_vs_bf16=N_QUERIES / q_s / ref["qps"])
+        wq[mode] = row
+    encoder_mod.quantize_state_dict = quantize_state_dict
+    del sd32
+    # the JAX suite's depth (2 layers) at BGE-M3's widths
+    sd2 = init_f32(XLMRConfig.bge_m3(num_layers=2))
+    emb2 = {}
+    for mode in ("bf16", "int8", "nf4"):
+        enc = TextEncoder("BAAI/bge-m3", XLMRConfig.bge_m3(num_layers=2, dtype=torch.bfloat16), sd2,
+                          weight_quant=None if mode == "bf16" else mode, length_buckets=buckets)
+        emb2[mode] = encode(enc, qtexts, passages)[:2]
+        del enc
+        if mode != "bf16":
+            wq[mode]["two_layers_vs_bf16"] = dict(zip(("min_cos", "max_abs"), agree(emb2[mode], emb2["bf16"])))
+            check(wq[mode]["two_layers_vs_bf16"]["min_cos"] >= MIN_COS_WQ[mode],
+                  f"2-layer {mode} vs bf16: {wq[mode]['two_layers_vs_bf16']} (limit {MIN_COS_WQ[mode]})")
+    del sd2, emb2
+    torch.cuda.empty_cache()
+    say("weight_quant", smi=smi, config="BGE-M3 (24L, d=1024, FFN 4096, vocab 250002) seeded f32 init, bf16 compute",
+        min_cos_limits=MIN_COS_WQ, **wq)
+
+    # 11b. the pre-quantized checkpoint path on phase 10's Qwen3-0.6B HF dir:
+    # convert --weight_quant nf4, encode-corpus from it, run-mix over its
+    # store; its rows equal an in-memory weight_quant="nf4" encoder's
+    qwen = "Qwen/Qwen3-Embedding-0.6B"
+    cdir = work / "qwen3_nf4"
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "convert", "--encoder", qwen, "--src", str(qdir), "--out", str(cdir),
+             "--weight_quant", "nf4"])
+    convert_s = time.perf_counter() - t0
+    root = work / "corpus_nf4"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "encode-corpus", "--encoder", qwen, "--checkpoint", str(cdir),
+             "--corpus_tsv", f"xx={corpus_tsv}", "--out", str(root), "--batch", "4096", "--enc_batch", "32",
+             "--seed", str(SEED)])
+    corpus_s = time.perf_counter() - t0
+    path_counts["wq_corpus_cli"] = dict(kernels.LAUNCHES)
+    check(path_counts["wq_corpus_cli"]["flash_attention_causal"] > 0, "the NF4 encode-corpus did not launch kernel B")
+    store = ShardStore.open(root / "xx")
+    rows = storage_to_tensor(np.asarray(store.vectors), store.manifest.dtype).float().numpy()
+    texts = [line.split("\t", 1)[1] for line in corpus_tsv.read_text().splitlines()]
+    mem = load_encoder(qwen, str(qdir), weight_quant="nf4")
+    check(mem.weight_quant == "nf4" and type(mem.model).__name__ == "Qwen3Encoder", "in-memory NF4 Qwen3")
+    want = mem.encode_documents(texts, batch_size=32, readback_dtype=torch.bfloat16)
+    del mem
+    torch.cuda.empty_cache()
+    check(store.count == len(texts) and rows.shape == want.shape and np.array_equal(rows, want),
+          f"the converted NF4 checkpoint's rows differ from the in-memory NF4 encoder's "
+          f"(max abs {float(np.abs(rows - want).max()) if rows.shape == want.shape else 'shape'})")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "run-mix", "--encoder", qwen, "--checkpoint", str(cdir),
+             "--index", str(root / "xx"), "--query_tsv", f"en={en_tsv}", f"zh={zh_tsv}",
+             "--outdir", str(root / "runs"), "--k", "100", "--qblock", "256", "--cm_alphas", "0.5"])
+    mix_s = time.perf_counter() - t0
+    path_counts["wq_run_mix"] = dict(kernels.LAUNCHES)
+    check(path_counts["wq_run_mix"]["bin_scores_transposed"] > 0, "run-mix over the NF4 store did not launch kernel 2")
+    check(path_counts["wq_run_mix"]["flash_attention_causal"] > 0, "run-mix's NF4 query encode did not launch kernel B")
+    n_lines = len((root / "runs" / "cm-alpha-0.5.trec").read_text().splitlines())
+    check(n_lines == N_QUERIES * min(100, len(texts)), f"run-mix over the NF4 store wrote {n_lines} lines")
+    say("weight_quant_checkpoint", smi=smi, model="Qwen3-Embedding-0.6B (phase 10a's HF dir, bf16 weights)",
+        params_npz_bytes=(cdir / "params.npz").stat().st_size,
+        hf_bin_bytes=(qdir / "pytorch_model.bin").stat().st_size, convert_s=round(convert_s, 2),
+        encode_corpus_s=round(corpus_s, 2), passages=len(texts), rows_equal_in_memory_nf4=True,
+        run_mix_s=round(mix_s, 2),
+        launches={k: path_counts[k] for k in ("wq_corpus_cli", "wq_run_mix")})
+
+    # 11c. tune into a temporary store (never the user's cache): the
+    # two-level cover at 262,144 x 1024 for k = 100 and 1000 over the full
+    # grid (G 8 / 16, M 4 / 8 / 16, tile_b 256 / 512; 1024 exceeds the
+    # 512-query batch), BGE-M3's flash crossover (dh = 64) stored, Qwen3's
+    # (16 / 8 heads of 128, causal) measured; then the dispatch reads the
+    # store and the tuned two-level search returns the default one's ids
+    saved_env = os.environ.get("CDR_TUNE_FILE")
+    os.environ["CDR_TUNE_FILE"] = str(work / "tuned.json")
+    autotune.invalidate_cache()
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tuned = run_cli_json(["codemix_dense_retrieval_torch", "tune", "--rows", "262144", "--dim", str(DIM),
+                              "--batch", "512", "--ks", "100", "1000", "--iters", "3"])
+        tune_s = time.perf_counter() - t0
+        path_counts["tune"] = dict(kernels.LAUNCHES)
+        check(path_counts["tune"]["bin_scores_bin_major"] > 0, "the tune sweep did not launch kernel A")
+        check(tuned["tune_file"] == str(work / "tuned.json"), "tune wrote another store")
+        t0 = time.perf_counter()
+        qwen_flash = autotune.autotune_flash(heads=16, kv_heads=8, head_dim=128, causal=True)
+        qwen_flash_s = time.perf_counter() - t0
+        for k_ in (100, 1000):
+            check(topk._auto_bin_size_two_level(k_) == tuned[f"topk.bin_size.k{k_}"]
+                  and topk._auto_super_size(k_) == tuned[f"topk.super_size.k{k_}"]
+                  and topk._tuned_tile_b(k_) == tuned[f"topk.tile_b.k{k_}"], f"the pickers ignore the store at k={k_}")
+        check(autotune.get_tuned("flash.min_seq") == tuned["flash.min_seq"], "the flash dispatch ignores the store")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        docs = torch.randn(262_144, DIM, device=dev, generator=gen)
+        docs = (docs / docs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        q = torch.randn(N_QUERIES, DIM, device=dev, generator=gen)
+        q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        for k_ in (100, 1000):
+            v_t, i_t = topk.topk_ip_bins_two_level(q, docs, k_)
+            v_d, i_d = topk.topk_ip_bins_two_level(q, docs, k_, bin_size=8, super_size=8, tile_b=512)
+            check(torch.equal(i_t, i_d), f"tuned two-level ids differ from the default at k={k_}")
+            check(float((v_t - v_d).abs().max()) <= 1e-6, f"tuned two-level scores differ from the default at k={k_}")
+        del docs, q, v_t, i_t, v_d, i_d
+    finally:
+        if saved_env is None:
+            os.environ.pop("CDR_TUNE_FILE", None)
+        else:
+            os.environ["CDR_TUNE_FILE"] = saved_env
+        autotune.invalidate_cache()
+    torch.cuda.empty_cache()
+    say("tune", smi=smi, seconds=round(tune_s, 2), grid="full (no cut): G 8/16 x M 4/8/16 x tile_b 256/512",
+        tuned=tuned, qwen3_causal_dh128=qwen_flash, qwen3_seconds=round(qwen_flash_s, 2),
+        tuned_ids_equal_default=True, launches=path_counts["tune"])
+
+    # 11d. profile: a 1,048,576-row bf16 index at k = 100 (two-level route,
+    # kernel A); the Chrome trace names kernel A's CUDA symbol
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prof = run_cli_json(["codemix_dense_retrieval_torch", "profile", "--docs", "1048576", "--dim", str(DIM),
+                         "--queries", "1024", "--k", "100", "--iters", "5", "--trace_dir", str(work / "prof")])
+    prof_s = time.perf_counter() - t0
+    path_counts["profile"] = dict(kernels.LAUNCHES)
+    check(path_counts["profile"]["bin_scores_bin_major"] > 0, "profile's search did not launch kernel A")
+    trace = json.loads((work / "prof" / "search" / "trace.json").read_text())
+    names = [ev.get("name", "") for ev in trace["traceEvents"] if ev.get("cat") == "kernel"]
+    kernel_a = sorted({n for n in names if "bin_scores_bm_kernel" in n})
+    check(bool(kernel_a), f"the profile trace names no kernel A ({len(names)} kernel events)")
+    say("profile", smi=smi, **prof, seconds=round(prof_s, 2), kernel_events=len(names),
+        kernel_a_events=sum("bin_scores_bm_kernel" in n for n in names), kernel_a_symbol=kernel_a[0][:160] if kernel_a else None,
+        launches=path_counts["profile"])
+    say("phase11", seconds=round(time.perf_counter() - t11, 2))
 
 
 def main() -> None:
@@ -808,14 +1098,6 @@ def main() -> None:
     (ckpt / "encoder_config.json").write_text(json.dumps(cfg.to_json_dict(), indent=2))
     write_queries_tsv(work / "en.tsv", zip(qids, texts_a))
     write_queries_tsv(work / "zh.tsv", zip(qids, texts_b))
-
-    def run_cli(argv):
-        saved_argv = sys.argv
-        try:
-            sys.argv = argv
-            runpy.run_module("codemix_dense_retrieval_torch", run_name="__main__", alter_sys=True)
-        finally:
-            sys.argv = saved_argv
 
     # encode-corpus --pack through the CLI (int8 rows, a 32-token store),
     # then run-mix over its store: the exact int8 top-k
@@ -1527,13 +1809,6 @@ def main() -> None:
         write_s=round(write_s, 2), run_s=round(cli_s, 2), overlap_k100=cli_ov,
         launches=path_counts["cli"], adaptive_run_s=round(cli_ad_s, 2), adaptive_runs_byte_equal=True,
         adaptive_meta=cli_ad_meta, adaptive_launches=path_counts["cli_adaptive"])
-
-    def run_cli_json(argv):
-        """run_cli, and the JSON the command printed."""
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            run_cli(argv)
-        return json.loads(buf.getvalue())
 
     # run-mix --fused --qrels over the same store: the unfused run's ids, and
     # the metrics per alpha (qrels: the f32 oracle's top-1 at alpha = .5)
@@ -3361,6 +3636,12 @@ def main() -> None:
         del enc_d
         torch.cuda.empty_cache()
     say("families", smi=smi, **fam, phase10_s=round(time.perf_counter() - t10, 2))
+
+    # ---------------- phase 11: weight quantization, tune, profile ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv, qdir,
+             work / "en.tsv", work / "zh.tsv")
 
     # each kernel's launches over all the paths
     entries.extend(late_entries)

@@ -20,6 +20,14 @@ run-rerank                two-stage search: dense recall + MaxSim rerank
                           (two or more ``--index``: the bilingual hub)
 serve                     online HTTP search with request coalescing
                           (``--token_store``: two-stage serving)
+cache-queries             pre-encode query TSVs into npz caches
+convert                   convert an HF checkpoint to ``params.npz`` +
+                          ``encoder_config.json`` (``--weight_quant``:
+                          quantized kernels on disk)
+profile                   a ``torch.profiler`` trace of a search workload
+tune                      time the top-k cover and flash dispatch
+                          constants on the card into the tuned store
+                          (``--sketch_index``: calibrate a sketch tier)
 evaluate                  evaluate a TREC run against qrels
 ========================  ==============================================
 
@@ -29,10 +37,11 @@ eval artifacts keep the same on-disk formats. ``--approx fast|guaranteed``
 searches through the sketch tier, ``--approx adaptive`` through the
 probed-exact tier (``run-rerank`` takes ``--approx`` for its dense stage,
 which the JAX CLI does not); ``encode-corpus --pack`` packs passages into
-shared rows. Options whose paths are not ported yet (``--dp`` > 1,
-``--shards`` > 1, ``--weight_quant``) exit with an error that names the
-ROADMAP item; ``--fused --approx adaptive`` exits with the JAX package's
-error.
+shared rows; ``--weight_quant {int8,nf4}`` quantizes the encoder's
+Linear weights (a pre-quantized ``convert`` checkpoint loads quantized
+without it). Options whose paths are not ported yet (``--dp`` > 1,
+``--shards`` > 1) exit with an error that names the ROADMAP item;
+``--fused --approx adaptive`` exits with the JAX package's error.
 """
 
 from __future__ import annotations
@@ -73,8 +82,6 @@ def _reject_unported(args) -> None:
         raise SystemExit("[ERROR] --dp > 1 is not ported yet (ROADMAP: multi-GPU)")
     if args.shards > 1:
         raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
-    if args.weight_quant:
-        raise SystemExit("[ERROR] --weight_quant is not ported yet (ROADMAP: quantization)")
 
 
 def _approx_mode(args):
@@ -89,7 +96,8 @@ def _build_encoder(args):
     if args.checkpoint:
         from codemix_dense_retrieval_torch.models.registry import load_encoder
 
-        return load_encoder(args.encoder, args.checkpoint, seed=args.seed, device=args.device)
+        return load_encoder(args.encoder, args.checkpoint, seed=args.seed, device=args.device,
+                            weight_quant=args.weight_quant)
     log.warning("no --checkpoint: random-init encoder + hash tokenizer (smoke mode)")
     from codemix_dense_retrieval_torch.models.dialects import default_pooling
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
@@ -103,7 +111,7 @@ def _build_encoder(args):
         pooling=default_pooling(args.encoder),
         use_flash=False,
     )
-    return TextEncoder(args.encoder, cfg, seed=args.seed, device=args.device)
+    return TextEncoder(args.encoder, cfg, seed=args.seed, device=args.device, weight_quant=args.weight_quant)
 
 
 def _load_query_sets(args) -> Dict[str, List[Tuple[str, str]]]:
@@ -461,13 +469,143 @@ def cmd_serve(args) -> None:
         service.close()
 
 
+def cmd_cache_queries(args) -> None:
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
+    from codemix_dense_retrieval_torch.pipeline.query_cache import save_query_cache
+    from codemix_dense_retrieval_torch.pipeline.runs import intersect_query_sets
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    tsvs = _parse_lang_path(args.query_tsv)
+    rows_by_lang = {lang: read_queries_tsv(p) for lang, p in tsvs.items()}
+    if len(rows_by_lang) == 2:
+        (la, ra), (lb, rb) = rows_by_lang.items()
+        qids, ta, tb = intersect_query_sets(ra, rb)
+        per_lang = {la: (qids, ta), lb: (qids, tb)}
+    else:
+        per_lang = {lang: ([q for q, _ in rows], [t for _, t in rows]) for lang, rows in rows_by_lang.items()}
+    for lang, (qids, texts) in per_lang.items():
+        vecs = encoder.encode_queries(texts, batch_size=args.enc_batch)
+        out = pathlib.Path(args.cache_root) / lang / "queries.npz"
+        save_query_cache(out, qids, vecs)
+        print(f"{lang}: {out} ({len(qids)} queries)")
+
+
+def cmd_convert(args) -> None:
+    """Convert an HF checkpoint directory of any family to ``params.npz`` +
+    ``encoder_config.json`` (the JAX package's format; its ``convert``
+    takes the XLM-R family only); ``--weight_quant`` stores the Linear
+    kernels quantized (2x / ~4x smaller than f32, loaded quantized)."""
+    from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
+    from codemix_dense_retrieval_torch.models.encoder import checkpoint_config_dict
+    from codemix_dense_retrieval_torch.models.registry import load_hf_family
+    from codemix_dense_retrieval_torch.ops.weight_quant import quantize_tree
+
+    cfg, params, _ = load_hf_family(args.encoder, args.src)
+    tree = flax_from_state_dict(params)
+    if args.weight_quant:
+        tree = quantize_tree(tree, args.weight_quant)
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    save_params_npz(out / "params.npz", tree)
+    (out / "encoder_config.json").write_text(json.dumps(checkpoint_config_dict(cfg), indent=2))
+    tok = pathlib.Path(args.src) / "tokenizer.json"
+    if tok.exists():
+        (out / "tokenizer.json").write_text(tok.read_text(encoding="utf-8"), encoding="utf-8")
+    print(f"converted {args.src} -> {out} ({cfg.num_layers} layers, dim {cfg.hidden_size})")
+
+
+def cmd_profile(args) -> None:
+    """A ``torch.profiler`` trace (``--trace_dir`` or ``CDR_PROFILE_DIR``;
+    a Chrome trace under ``<dir>/search/``) around a search workload over
+    ``--index`` or a synthetic one; prints the timing JSON."""
+    import numpy as np
+
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.utils.profiling import maybe_trace, timed_device_fn
+
+    _reject_unported(args)
+    if args.index:
+        index = DenseFlatIndex.load(args.index)
+    else:
+        rng = np.random.default_rng(args.seed)
+        vecs = rng.standard_normal((args.docs, args.dim), dtype=np.float32)
+        vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+        index = DenseFlatIndex.build(vecs, [str(i) for i in range(args.docs)])
+        del vecs
+    index.to_device(args.device)
+    rng = np.random.default_rng(args.seed + 1)
+    q = rng.standard_normal((args.queries, index.dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    approx = _approx_mode(args)
+    if approx == "adaptive":
+        index.load_adaptive_calibration()
+    elif approx:
+        index.enable_sketch()
+    # the kernels' first-use build and allocations happen outside the trace
+    index.search(q, args.k, return_docids=False, approx=approx)
+    with maybe_trace("search", args.trace_dir):
+        stats = timed_device_fn(
+            lambda: index.search(q, args.k, return_docids=False, approx=approx), iters=args.iters,
+        )
+    if approx and index.last_certified is not None:
+        stats["certified_frac"] = float(index.last_certified.mean())
+    stats.update(
+        queries=args.queries, k=args.k, docs=index.count,
+        qps=round(args.queries / stats["mean_s"], 1) if stats.get("mean_s") else None,
+        trace_dir=args.trace_dir, device=str(index.device),
+    )
+    print(json.dumps(stats))
+
+
+def cmd_tune(args) -> None:
+    """Time the two-level cover's G / M / tile_b per depth and the
+    flash/plain crossover on the card, and persist the winners to the
+    tuned store (``CDR_TUNE_FILE`` or a file per card kind under
+    ``~/.cache``; ``--dry_run`` prints them only). ``--sketch_index``
+    also calibrates that index's sketch tier (and ``--adaptive`` its
+    probed-exact tier) on self-retrieval probes; those operating points
+    persist in the index's ``sketch.npz``."""
+    from codemix_dense_retrieval_torch.utils.autotune import run_autotune, tune_file_path
+
+    _reject_unported(args)
+    update = run_autotune(
+        topk=not args.skip_topk, flash=not args.skip_flash, save=not args.dry_run,
+        rows=args.rows, dim=args.dim, batch=args.batch, ks=tuple(args.ks), iters=args.iters,
+        device=args.device,
+    )
+    update["tune_file"] = None if args.dry_run else str(tune_file_path())
+    if args.sketch_index:
+        import numpy as np
+
+        from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+        from codemix_dense_retrieval_torch.io.shards import storage_to_tensor
+
+        idx = DenseFlatIndex.load(args.sketch_index)
+        idx.to_device(args.device)
+        idx.enable_sketch(sketch_dim=args.sketch_dim)
+        n_probe = min(512, idx.count)
+        stride = max(1, idx.count // n_probe)
+        probes = storage_to_tensor(
+            np.ascontiguousarray(idx.store.vectors[::stride][:n_probe]), idx.store.manifest.dtype
+        ).float().numpy()
+        update["sketch"] = {
+            str(kk): idx.calibrate_sketch(probes, kk, recall_target=args.sketch_recall) for kk in args.ks
+        }
+        if args.adaptive:
+            update["adaptive"] = {str(kk): idx.calibrate_adaptive(probes, kk) for kk in args.ks}
+    print(json.dumps(update))
+
+
 # ---------------------------------------------------------------------------
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder", default="BAAI/bge-m3")
     p.add_argument("--checkpoint", help="converted or HF checkpoint dir")
     p.add_argument("--smoke_dim", type=int, default=64, help="hidden size for random-init smoke mode")
-    p.add_argument("--weight_quant", choices=("int8", "nf4"), help="not ported yet")
+    p.add_argument("--weight_quant", choices=("int8", "nf4"),
+                   help="quantize the encoder's Linear weights on the device (the bitsandbytes "
+                        "load_in_8bit/4bit analog)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--enc_batch", type=int, default=64)
     p.add_argument("--dp", type=int, default=1, help="data-parallel encode devices (only 1)")
@@ -626,6 +764,55 @@ def build_parser() -> argparse.ArgumentParser:
                    help="drive every (batch, k) serving bucket before accepting traffic (the kernels' "
                         "first-use build and the card's allocations)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("cache-queries", help="pre-encode query TSVs into npz caches")
+    _add_common(p)
+    p.add_argument("--query_tsv", nargs="+", required=True, metavar="LANG=PATH")
+    p.add_argument("--cache_root", required=True)
+    p.set_defaults(fn=cmd_cache_queries)
+
+    p = sub.add_parser("convert", help="convert an HF checkpoint to framework params")
+    p.add_argument("--encoder", default="BAAI/bge-m3")
+    p.add_argument("--src", required=True, help="HF checkpoint dir")
+    p.add_argument("--out", required=True)
+    p.add_argument("--weight_quant", choices=("int8", "nf4"),
+                   help="persist Linear kernels quantized (2x/~4x smaller checkpoint; loads quantized)")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("profile", help="capture a torch.profiler trace of a search workload")
+    _add_common(p)
+    p.add_argument("--index", help="shard dir (omit for a synthetic index)")
+    p.add_argument("--docs", type=int, default=100_000)
+    p.add_argument("--dim", type=int, default=1024)
+    p.add_argument("--queries", type=int, default=1024)
+    p.add_argument("--k", type=int, default=100)
+    p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--trace_dir", help="profiler output dir (also CDR_PROFILE_DIR)")
+    _add_approx_flag(p)
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser(
+        "tune",
+        help="time kernel and routing constants on the card (G, M, tile_b per depth, the "
+             "flash/plain crossover) into a per-card-kind store the dispatch reads",
+    )
+    _add_common(p)
+    p.add_argument("--rows", type=int, default=262_144)
+    p.add_argument("--dim", type=int, default=1024)
+    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--ks", type=int, nargs="+", default=[100, 1000])
+    p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--skip_topk", action="store_true")
+    p.add_argument("--skip_flash", action="store_true")
+    p.add_argument("--dry_run", action="store_true", help="print winners without writing the store")
+    p.add_argument("--sketch_index",
+                   help="also calibrate the sketch tier's probe depths on this index dir (self-retrieval "
+                        "probes; operating points persist in its sketch.npz)")
+    p.add_argument("--sketch_dim", type=int, default=128)
+    p.add_argument("--sketch_recall", type=float, default=0.99)
+    p.add_argument("--adaptive", action="store_true",
+                   help="with --sketch_index: also calibrate the adaptive probed-exact tier")
+    p.set_defaults(fn=cmd_tune)
 
     sub.add_parser(
         "evaluate", help="evaluate a TREC run (all evaluate.py flags)", add_help=False,

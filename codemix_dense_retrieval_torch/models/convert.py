@@ -6,14 +6,19 @@ task LoRA, Qwen3, GTE).
   ``kernel`` (in, out) becomes ``Linear.weight`` (out, in), a LayerNorm
   ``scale`` and an Embed ``embedding`` become ``weight``, ``layer_<i>``
   becomes ``layers.<i>``; biases, RMSNorm weights and LoRA factors keep
-  their names and layouts. :func:`flax_from_state_dict` is the inverse, for
-  writing the ``params.npz`` checkpoint format.
+  their names and layouts. A quantized kernel
+  (:class:`~codemix_dense_retrieval_torch.ops.weight_quant.QuantizedTensor`,
+  ``(in, out)``) is carried across as it is, under ``weight``.
+  :func:`flax_from_state_dict` is the inverse, for writing the
+  ``params.npz`` checkpoint format.
 - :func:`convert_xlmr_state_dict` maps an HF ``XLMRobertaModel`` state dict
   (jina-v3's parametrized LoRA adapters included) straight into the module;
   the Qwen3 and GTE converters live beside their modules.
 - :func:`load_state_dict` reads local safetensors / torch checkpoints;
   :func:`load_params_npz` / :func:`save_params_npz` the flat ``params.npz``
-  (names ``params/layer_0/q/kernel``, ...) next to ``encoder_config.json``.
+  (names ``params/layer_0/q/kernel``, ...; a quantized kernel as
+  ``<name>@wq.<kind>.{codes,scale,shape}``, as the JAX package writes it)
+  next to ``encoder_config.json``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
+from codemix_dense_retrieval_torch.ops.weight_quant import QuantizedTensor
 
 _NORMS = ("attn_ln", "ffn_ln")
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
@@ -66,7 +72,7 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 name = f"layers.{key[len('layer_'):]}" if key.startswith("layer_") else key
                 walk(val, f"{path}{name}.")
             elif key == "kernel":
-                sd[f"{path}weight"] = _t(val).T.contiguous()
+                sd[f"{path}weight"] = val if isinstance(val, QuantizedTensor) else _t(val).T.contiguous()
             elif key in ("embedding", "scale"):
                 sd[f"{path}weight"] = _t(val)
             else:  # bias, an RMSNorm weight, LoRA factors
@@ -78,7 +84,7 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of :func:`params_from_flax`: state dict -> ``{"params": tree}``
-    with float32 numpy leaves."""
+    with float32 numpy leaves (quantized kernels as they are)."""
     params: Dict = {}
     for name, t in sd.items():
         parts = name.split(".")
@@ -91,7 +97,10 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
             else:
                 path.append(parts[i])
                 i += 1
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        if isinstance(t, QuantizedTensor):
+            leaf, arr = "kernel", t
+        else:
+            arr = t.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
             if path[-1] in _FLAX_EMBEDS:
                 leaf = "embedding"
@@ -222,37 +231,64 @@ def load_hf_checkpoint(checkpoint_dir, cfg: Optional[XLMRConfig] = None, **cfg_o
     return cfg, convert_xlmr_state_dict(sd, cfg, prefix=detect_prefix(sd))
 
 
-def save_params_npz(path, tree: Dict) -> None:
-    """Flat ``.npz`` checkpoint of a Flax-layout tree (see
-    :func:`flax_from_state_dict`): one entry per leaf named by its path."""
+def flatten_params(tree: Dict) -> Dict[str, np.ndarray]:
+    """A Flax-layout tree as flat ``params.npz`` entries: one per leaf named
+    by its path, in the JAX package's (sorted) order; a quantized kernel as
+    three entries, ``<name>@wq.<kind>.codes``, ``.scale`` and ``.shape``
+    (int64)."""
     arrays: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
-        for key, val in node.items():
+        for key in sorted(node):
+            val = node[key]
             name = f"{prefix}/{key}" if prefix else key
             if isinstance(val, dict):
                 walk(val, name)
+            elif isinstance(val, QuantizedTensor):
+                arrays[f"{name}@wq.{val.kind}.codes"] = np.asarray(val.codes)
+                arrays[f"{name}@wq.{val.kind}.scale"] = np.asarray(val.scale)
+                arrays[f"{name}@wq.{val.kind}.shape"] = np.asarray(val.shape, np.int64)
             else:
                 arrays[name] = np.asarray(val)
 
     walk(tree, "")
-    np.savez(path, **arrays)
+    return arrays
+
+
+def unflatten_params(arrays: Mapping[str, np.ndarray]) -> Dict:
+    """Inverse of :func:`flatten_params`: a nested tree of the arrays,
+    ``@wq.`` entries as :class:`QuantizedTensor` leaves."""
+    params: Dict = {}
+    pending: Dict[str, dict] = {}
+
+    def put(name, val):
+        parts = name.split("/")
+        node = params
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+
+    for name, val in arrays.items():
+        if "@wq." in name:
+            base, tag = name.split("@wq.", 1)
+            kind, part = tag.split(".", 1)
+            pending.setdefault(base, {"kind": kind})[part] = val
+        else:
+            put(name, val)
+    for base, rec in pending.items():
+        put(base, QuantizedTensor(rec["kind"], rec["codes"], rec["scale"],
+                                  tuple(int(x) for x in rec["shape"])))
+    return params
+
+
+def save_params_npz(path, tree: Dict) -> None:
+    """Flat ``.npz`` checkpoint of a Flax-layout tree (see
+    :func:`flax_from_state_dict` and :func:`flatten_params`)."""
+    np.savez(path, **flatten_params(tree))
 
 
 def load_params_npz(path) -> Dict:
-    """Read a flat ``params.npz`` back into a nested tree of numpy leaves.
-    Weight-quantized entries (``@wq.`` names) are not ported yet."""
-    params: Dict = {}
+    """Read a flat ``params.npz`` back into a nested tree of numpy leaves
+    (:func:`unflatten_params`)."""
     with np.load(path) as data:
-        for name in data.files:
-            if "@wq." in name:
-                raise NotImplementedError(
-                    f"{path}: weight-quantized checkpoints are not ported yet "
-                    "(ROADMAP queue 1, quantization)"
-                )
-            parts = name.split("/")
-            node = params
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = data[name]
-    return params
+        return unflatten_params({name: data[name] for name in data.files})

@@ -16,6 +16,7 @@ with one ``(ids, mask, task_id)`` call contract.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import pathlib
@@ -29,11 +30,14 @@ import torch
 
 from codemix_dense_retrieval_torch.models import dialects
 from codemix_dense_retrieval_torch.models.convert import (
+    flax_from_state_dict,
     load_hf_checkpoint,
     load_params_npz,
     params_from_flax,
 )
+from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder
 from codemix_dense_retrieval_torch.models.packing import PackedRows, pack_sequences, pad_rows_to
+from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
 from codemix_dense_retrieval_torch.models.tokenizer import (
     DEFAULT_BUCKETS,
     HashTokenizer,
@@ -46,28 +50,82 @@ from codemix_dense_retrieval_torch.models.xlmr import (
     XLMREncoder,
     init_random_,
 )
+from codemix_dense_retrieval_torch.ops.weight_quant import (
+    MODES,
+    QuantizedTensor,
+    has_quantized,
+    install_quantized_,
+    quantize_tree,
+    quantized_kinds,
+)
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
 
 
 def build_model(
-    cfg, device: torch.device, params=None, seed: int = 0, model: Optional[torch.nn.Module] = None
+    cfg, device: torch.device, params=None, seed: int = 0, model: Optional[torch.nn.Module] = None,
+    weight_quant: Optional[str] = None,
 ) -> torch.nn.Module:
     """The encoder module (``model``, an XLMREncoder of ``cfg`` by default) on
     ``device`` in ``cfg.dtype``, loaded from ``params`` (a state dict, or a
     Flax-layout tree) or, without them, randomly initialized from a
     ``torch.Generator`` seeded with ``seed``. A ``model`` built under
-    ``torch.device("meta")`` gets its storage here, on ``device`` alone."""
+    ``torch.device("meta")`` gets its storage here, on ``device`` alone.
+
+    ``weight_quant`` ("int8" or "nf4") quantizes the f32 weights, before any
+    cast, on the host (:func:`quantize_state_dict`; a random init's weights
+    go to the host once and only the codes come back); the quantized
+    kernels of a pre-quantized checkpoint are taken as they are. Each
+    quantized kernel's ``nn.Linear`` becomes a
+    :class:`~codemix_dense_retrieval_torch.ops.weight_quant.QuantLinear`."""
     if model is None:
         with torch.device("meta"):
             model = XLMREncoder(cfg)
     model = model.to_empty(device=device)
     if params is None:
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
+        if weight_quant:
+            sd = model.state_dict()
+            install_quantized_(model, {**sd, **quantize_state_dict(sd, weight_quant)})
     else:
-        if "params" in params or not all(isinstance(v, torch.Tensor) for v in params.values()):
+        if "params" in params or not all(
+            isinstance(v, (torch.Tensor, QuantizedTensor)) for v in params.values()
+        ):
             params = params_from_flax(params)
-        model.load_state_dict(params, strict=True)
+        if weight_quant and not has_quantized(params):
+            params = {**params, **quantize_state_dict(params, weight_quant)}
+        model.load_state_dict(install_quantized_(model, params), strict=True)
     return model.to(cfg.dtype).eval()
+
+
+def quantize_state_dict(sd: Mapping, mode: str) -> dict:
+    """The quantized kernels of a state dict, ``{"<name>.weight":
+    QuantizedTensor}``: the JAX package's ``quantize_tree`` over the
+    Flax-layout tree of its f32 host copy, so eligibility (2-D, at least
+    65,536 elements, no path component containing "embed") and the codes
+    are decided on ``(in, out)`` kernels, as there."""
+    tree = quantize_tree(flax_from_state_dict(sd), mode)
+    return {k: v for k, v in params_from_flax(tree).items() if isinstance(v, QuantizedTensor)}
+
+
+#: ``encoder_config.json``'s ``model_type`` (absent: XLM-R, the JAX
+#: package's format) -> (config class, module class)
+CONVERTED_FAMILIES = {
+    "xlm-roberta": (XLMRConfig, XLMREncoder),
+    "qwen3": (Qwen3Config, Qwen3Encoder),
+    "new": (GTEConfig, GTEEncoder),
+}
+
+
+def checkpoint_config_dict(cfg) -> dict:
+    """The ``encoder_config.json`` dict of a converted checkpoint: the
+    config's fields with the dtype as a string, plus ``model_type`` for the
+    families other than XLM-R (whose file stays the JAX package's)."""
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(d["dtype"]).replace("torch.", "")
+    for model_type, (cfg_cls, _) in CONVERTED_FAMILIES.items():
+        if type(cfg) is cfg_cls and cfg_cls is not XLMRConfig:
+            d["model_type"] = model_type
+    return d
 
 
 class TextEncoder:
@@ -91,12 +149,25 @@ class TextEncoder:
     ) -> None:
         if mesh is not None:
             raise NotImplementedError("multi-device encoding is not ported yet (ROADMAP queue 1, parallelism)")
-        if weight_quant:
-            raise NotImplementedError("weight quantization is not ported yet (ROADMAP queue 1, quantization)")
+        pre_quantized = params is not None and has_quantized(params)
+        if weight_quant and pre_quantized:
+            # stored kernels pass through, so another requested mode would
+            # measure the stored one: refuse, as the JAX package does
+            kinds = quantized_kinds(params)
+            if kinds != {weight_quant}:
+                raise ValueError(
+                    f"checkpoint is already quantized as {sorted(kinds)}; "
+                    f"requested weight_quant={weight_quant!r} cannot be "
+                    "applied on top (re-convert from the full-precision "
+                    "checkpoint)"
+                )
+        elif weight_quant and weight_quant not in MODES:
+            raise ValueError(f"weight_quant mode must be int8|nf4, got {weight_quant!r}")
+        self.weight_quant = weight_quant or ("pre-quantized" if pre_quantized else None)
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
-        self.model = build_model(cfg, self.device, params, seed, model)
+        self.model = build_model(cfg, self.device, params, seed, model, weight_quant=weight_quant)
         if tokenizer is None:
             tokenizer = HashTokenizer(
                 vocab_size=cfg.vocab_size, max_length=cfg.max_position_embeddings - 2
@@ -119,7 +190,8 @@ class TextEncoder:
         **kw,
     ) -> "TextEncoder":
         """Load either a converted checkpoint (``params.npz`` +
-        ``encoder_config.json``) or an HF checkpoint directory (config.json +
+        ``encoder_config.json``, written by ``convert``; quantized kernels
+        load as they are stored) or an HF checkpoint directory (config.json +
         torch / safetensors weights). The compute dtype follows the device
         (bf16 on the card, f32 on the CPU) unless ``dtype`` is given;
         ``use_flash`` overrides the stored setting."""
@@ -129,9 +201,13 @@ class TextEncoder:
         if (d / "params.npz").exists() and (d / "encoder_config.json").exists():
             cfg_dict = json.loads((d / "encoder_config.json").read_text())
             cfg_dict.pop("dtype", None)
-            if use_flash is not None:
+            cfg_cls, module_cls = CONVERTED_FAMILIES[cfg_dict.pop("model_type", "xlm-roberta")]
+            if use_flash is not None and "use_flash" in cfg_dict:
                 cfg_dict["use_flash"] = use_flash
-            cfg = XLMRConfig(**cfg_dict, dtype=dtype)
+            cfg = cfg_cls(**cfg_dict, dtype=dtype)
+            if module_cls is not XLMREncoder and "model" not in kw:
+                with torch.device("meta"):
+                    kw["model"] = module_cls(cfg)
             params = load_params_npz(d / "params.npz")
         else:
             extra = {} if use_flash is None else {"use_flash": use_flash}

@@ -11,8 +11,10 @@
 
 Without a checkpoint it builds a tiny random-init model of the family
 (smoke mode); with one, an HF-format directory (``config.json`` + weights)
-or a pre-converted one (``params.npz`` + ``encoder_config.json``, XLM-R
-family only, as in the JAX package).
+or a pre-converted one (``params.npz`` + ``encoder_config.json``, written by
+``convert``; the JAX package converts the XLM-R family only, the port any
+family, with ``model_type`` in ``encoder_config.json`` for Qwen3 and GTE).
+``weight_quant`` quantizes the encoder's Linear weights in every family.
 """
 
 from __future__ import annotations
@@ -58,8 +60,20 @@ def load_encoder(
 
     d = pathlib.Path(checkpoint_dir)
     if (d / "params.npz").exists():
-        # pre-converted: the XLM-R family (jina-v3's LoRA tree included)
+        # pre-converted (`convert`): the config file names the family
         return TextEncoder.from_checkpoint(name, d, dtype=dtype, use_flash=use_flash, **kw)
+    cfg, params, module_cls = load_hf_family(name, d, dtype=dtype, use_flash=use_flash)
+    return _build(name, cfg, params, module_cls, d, **kw)
+
+
+def load_hf_family(name: str, checkpoint_dir, *, dtype: torch.dtype = torch.float32,
+                   use_flash: Optional[bool] = None):
+    """(config, f32 state dict, module class) of an HF-format directory,
+    by the family dispatch of :func:`load_encoder`. ``use_flash`` None keeps
+    each config's default."""
+    d = pathlib.Path(checkpoint_dir)
+    family = dialects.detect_encoder_family(name)
+    flash = {} if use_flash is None else {"use_flash": use_flash}
     hf_cfg = json.loads((d / "config.json").read_text())
     model_type = hf_cfg.get("model_type", "xlm-roberta")
     from codemix_dense_retrieval_torch.models.convert import load_state_dict
@@ -73,9 +87,9 @@ def load_encoder(
             convert_qwen3_state_dict,
         )
 
-        cfg = Qwen3Config.from_hf_config(hf_cfg, dtype=dtype, use_flash=use_flash)
+        cfg = Qwen3Config.from_hf_config(hf_cfg, dtype=dtype, **flash)
         params = convert_qwen3_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
-        return _build(name, cfg, params, Qwen3Encoder, d, **kw)
+        return cfg, params, Qwen3Encoder
 
     if model_type == "new" or family == "gte":
         from codemix_dense_retrieval_torch.models.gte import (
@@ -86,8 +100,7 @@ def load_encoder(
 
         cfg = GTEConfig.from_hf_config(hf_cfg, dtype=dtype)
         prefix = _detect_prefix(sd, "embeddings.word_embeddings.weight")
-        params = convert_gte_state_dict(sd, cfg, prefix=prefix)
-        return _build(name, cfg, params, GTEEncoder, d, **kw)
+        return cfg, convert_gte_state_dict(sd, cfg, prefix=prefix), GTEEncoder
 
     # XLM-R family (jina-v3's task LoRA included)
     from codemix_dense_retrieval_torch.models.convert import convert_xlmr_state_dict, detect_prefix
@@ -97,10 +110,9 @@ def load_encoder(
     if family == "jina-v3":
         extra = dict(lora_rank=hf_cfg.get("lora_rank", 4), lora_tasks=5)
     cfg = XLMRConfig.from_hf_config(
-        hf_cfg, pooling=dialects.default_pooling(name), dtype=dtype, use_flash=use_flash, **extra
+        hf_cfg, pooling=dialects.default_pooling(name), dtype=dtype, **flash, **extra
     )
-    params = convert_xlmr_state_dict(sd, cfg, prefix=detect_prefix(sd))
-    return _build(name, cfg, params, XLMREncoder, d, **kw)
+    return cfg, convert_xlmr_state_dict(sd, cfg, prefix=detect_prefix(sd)), XLMREncoder
 
 
 def _build(name, cfg, params, module_cls, d: pathlib.Path, **kw) -> TextEncoder:

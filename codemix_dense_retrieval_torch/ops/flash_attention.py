@@ -22,13 +22,14 @@ from typing import Optional
 import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
+from codemix_dense_retrieval_torch.utils import autotune
 
 _NEG = -1e30
 
-#: flash/plain dispatch crossover (padded length). The JAX package's
-#: measured default, carried over for parity; re-deriving it on the H100 is
-#: a ROADMAP item.
-FLASH_MIN_SEQ = 512
+#: flash/plain dispatch crossover (padded length) where the tuned store
+#: has no ``flash.min_seq``: the JAX package's TPU-measured default, carried
+#: over for parity; re-deriving it on the H100 is a ROADMAP item.
+FLASH_MIN_SEQ = autotune.DEFAULTS["flash.min_seq"]
 
 
 def _valid_mask(lengths, causal, segment_ids, s_q, s_k, device):
@@ -208,9 +209,10 @@ def multi_head_attention(
     The mask is reduced to per-sequence lengths. Dispatch is length-aware:
     the flash kernel takes S > ``flash_min_seq`` (or S >= it for packed
     rows, which are always full); shorter inputs take
-    :func:`attention_xla`."""
+    :func:`attention_xla`. ``flash_min_seq`` defaults to the tuned store's
+    ``flash.min_seq`` (``tune``), else :data:`FLASH_MIN_SEQ`."""
     if flash_min_seq is None:
-        flash_min_seq = FLASH_MIN_SEQ
+        flash_min_seq = int(autotune.get_tuned("flash.min_seq"))
     b, s, d = q.shape
     dh = d // num_heads
 

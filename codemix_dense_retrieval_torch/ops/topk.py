@@ -39,19 +39,15 @@ import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
 from codemix_dense_retrieval_torch.ops.quant import int8_ip_acc_rows, int8_ip_scores, quantize_rows
+from codemix_dense_retrieval_torch.utils import autotune
 
 NEG_INF = float(np.finfo(np.float32).min)
 
-#: Routing and cover constants. They are the JAX package's measured
-#: defaults, carried over for parity; re-deriving them on the H100 is a
-#: ROADMAP item.
+#: Routing constants: the JAX package's measured defaults, carried over for
+#: parity (re-deriving them on the H100 is a ROADMAP item). The cover's G,
+#: M and tile_b come from the tuned store (:mod:`~codemix_dense_retrieval_torch.utils.autotune`).
 FULL_SORT_MAX_ROWS = 16_384     # topk_ip(method="auto"): below -> full sort
 TWO_LEVEL_MIN_ROWS = 262_144    # at or above -> two-level cover
-TUNED_DEFAULTS = {
-    "topk.super_size": 8,
-    "topk.tile_b": 512,
-    "topk.bin_size": 8,
-}
 
 LAYOUTS = ("bin_major", "transposed")
 Rows = Union[int, torch.Tensor]
@@ -68,11 +64,22 @@ def _auto_bin_size(k: int) -> int:
 
 
 def _auto_bin_size_two_level(k: int) -> int:
-    return int(TUNED_DEFAULTS["topk.bin_size"])
+    """Two-level cover bin size G: the tuned store's ``topk.bin_size[.k<k>]``
+    (``tune`` persists it per depth), else 8."""
+    return int(autotune.get_tuned("topk.bin_size", k=k, default=8))
 
 
 def _auto_super_size(k: int) -> int:
-    return int(TUNED_DEFAULTS["topk.super_size"])
+    """Super-bin size M: the tuned store's ``topk.super_size[.k<k>]``."""
+    return int(autotune.get_tuned("topk.super_size", k=k))
+
+
+def _tuned_tile_b(k: int, default: Optional[int] = None) -> int:
+    """Queries per phase-1 launch: the tuned store's ``topk.tile_b[.k<k>]``,
+    else ``default``, else the built-in 512. The JAX package clamps tuned
+    values above 512 on shards under 1.1M rows, a limit of the TPU
+    compiler's scoped VMEM; the card has none, so the port does not."""
+    return int(autotune.get_tuned("topk.tile_b", k=k, default=default))
 
 
 # --------------------------------------------------------------------------
@@ -670,7 +677,7 @@ def topk_ip_bins_two_level(
     if super_size is None:
         super_size = _auto_super_size(k)
     if tile_b is None:
-        tile_b = int(TUNED_DEFAULTS["topk.tile_b"])
+        tile_b = _tuned_tile_b(k)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
     if bin_major:
         def run(q):
@@ -799,7 +806,7 @@ def topk_ip_bins_int8(
     if super_size is None:
         super_size = _auto_super_size(k)
     if tile_b is None:
-        tile_b = 256
+        tile_b = _tuned_tile_b(k, default=256)
     (d_vals, d_scales), n_valid = _prep_shard(
         k, n_valid, tile_n, [d_vals, d_scales],
         chunk=bin_size * super_size if two_level else None,
@@ -965,7 +972,7 @@ def topk_ip_rescore_two_level(
     bin_size: int = 8,
     super_size: Optional[int] = None,
     slack_bins: int = 16,
-    tile_b: int = 512,
+    tile_b: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -978,6 +985,8 @@ def topk_ip_rescore_two_level(
     lower id."""
     if super_size is None:
         super_size = _auto_super_size(k)
+    if tile_b is None:
+        tile_b = _tuned_tile_b(k)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
 
     def run(q):

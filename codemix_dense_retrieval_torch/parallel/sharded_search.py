@@ -17,6 +17,7 @@ import torch
 
 from codemix_dense_retrieval_torch.ops import topk as topk_ops
 from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
+from codemix_dense_retrieval_torch.utils import autotune
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 # card bytes one query of a block takes per padded index row: its f32 score
@@ -117,6 +118,18 @@ def _merge_two_key(vals: torch.Tensor, gids: torch.Tensor, k: int):
 METHODS = ("auto", "full", "bins_xla", "bins_pallas", "bins_two_level")
 
 
+def _resolve_tile_b(tile_b: Optional[int], k: int, default: int) -> int:
+    """``tile_b`` None -> the tuned store's per-depth entry when it holds
+    one (``topk.tile_b.k<k>`` or ``topk.tile_b``), else ``default``, so a
+    card without a store keeps the path's own default."""
+    if tile_b is not None:
+        return int(tile_b)
+    store = autotune.load_tuned()
+    if f"topk.tile_b.k{k}" not in store and "topk.tile_b" not in store:
+        return default
+    return topk_ops._tuned_tile_b(k, default=default)
+
+
 def sharded_topk_ip(
     queries: torch.Tensor,
     docs: torch.Tensor,
@@ -158,7 +171,10 @@ def sharded_topk_ip(
             topk_ops._auto_bin_size_two_level(k)
             if method == "bins_two_level" else topk_ops._auto_bin_size(k)
         )
-    if tile_b is None:
+    if method == "bins_two_level":
+        tile_b = _resolve_tile_b(tile_b, k, 256)
+    elif tile_b is None:
+        # tuned tile_b entries are measured on the two-level cover only
         tile_b = 256
     n_valid = counts[:1]
     if int8_mode and method in ("bins_pallas", "bins_two_level"):

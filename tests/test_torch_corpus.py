@@ -209,7 +209,7 @@ def test_unported_options_raise_naming_the_roadmap(encoders, tmp_path, kw, item)
     np.testing.assert_allclose(np.asarray(a.vectors), np.asarray(b.vectors), rtol=5e-4, atol=5e-5)
 
 
-@pytest.mark.parametrize("flag", [pytest.param(["--weight_quant", "int8"], id="flag1")])
+@pytest.mark.parametrize("flag", [pytest.param(["--dp", "2", "--weight_quant", "int8"], id="flag1")])
 def test_cli_encode_corpus_refuses_unported_flags(tmp_path, flag):
     from codemix_dense_retrieval_torch.cli import main
 

@@ -37,8 +37,10 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(res["modules"]) >= 26
-    assert "codemix_dense_retrieval_torch.models.packing" in res["modules"]
+    assert len(res["modules"]) >= 32
+    for name in ("models.packing", "ops.weight_quant", "models.checkpoint", "utils.autotune",
+                 "utils.profiling", "utils.timing", "utils.seeding", "version"):
+        assert f"codemix_dense_retrieval_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -163,10 +165,38 @@ def _entry_encode_corpus_pack_cli(tmp_path):
           "--out", str(tmp_path / "ix"), "--smoke_dim", "16"])
 
 
+def _entry_quantized_text_encoder():
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+
+    TextEncoder("BAAI/bge-m3", _tiny_cfg(), weight_quant="int8")
+
+
+def _entry_cache_queries_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+
+    write_queries_tsv(tmp_path / "a.tsv", [("q1", "hello")])
+    main(["cache-queries", "--query_tsv", f"en={tmp_path / 'a.tsv'}", "--cache_root", str(tmp_path / "c"),
+          "--smoke_dim", "16", "--weight_quant", "nf4"])
+
+
+def _entry_profile_cli():
+    from codemix_dense_retrieval_torch.cli import main
+
+    main(["profile", "--docs", "64", "--dim", "8", "--queries", "2", "--k", "2"])
+
+
+def _entry_tune_cli():
+    from codemix_dense_retrieval_torch.cli import main
+
+    main(["tune", "--dry_run", "--rows", "2048", "--dim", "8", "--batch", "2", "--ks", "4"])
+
+
 @pytest.mark.parametrize("entry", [
     _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
     _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_index_add,
     _entry_runner, _entry_cli, _entry_serve_cli, _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
+    _entry_quantized_text_encoder, _entry_cache_queries_cli, _entry_profile_cli, _entry_tune_cli,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()

@@ -136,8 +136,8 @@ def test_cli_run_mix_smoke_on_cpu(tmp_path):
     assert (tmp_path / "cache" / "en" / "queries.npz").exists()
 
 
-@pytest.mark.parametrize("flag", [["--weight_quant", "int8"], ["--weight_quant", "nf4"], ["--shards", "2"],
-                                  ["--dp", "2"]])
+@pytest.mark.parametrize("flag", [["--shards", "2", "--weight_quant", "int8"], ["--dp", "2", "--weight_quant", "nf4"],
+                                  ["--shards", "2"], ["--dp", "2"]])
 def test_cli_refuses_unported_options(tmp_path, flag):
     from codemix_dense_retrieval_torch.cli import main
 

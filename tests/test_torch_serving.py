@@ -236,24 +236,26 @@ class TestService:
         """Searches from 32 submitting threads (a switch interval of 1 us)
         interleaved with add/removes: every future resolves, no consumer
         error, no lost stats update, and the index ends at the expected
-        count."""
+        count. The admin operations are enqueued from this thread in round
+        order, so each remove reaches the queue after the add of its docid
+        (the service ignores unknown docids, as the JAX one does)."""
         import sys
         from concurrent.futures import ThreadPoolExecutor
 
         idx = DenseFlatIndex.build(_unit_rows(5, 256), [f"d{i}" for i in range(256)],
                                    dtype="float32").to_device("cpu")
         _, svc = make_service(idx, max_wait_s=0.002)
-        futures = []
+        futures, admin = [], []
         interval = sys.getswitchinterval()
         sys.setswitchinterval(1e-6)
         try:
             with ThreadPoolExecutor(max_workers=32) as pool:
                 for rnd in range(6):
                     futures += [pool.submit(svc.submit, [f"q{rnd}-{j}", f"p{rnd}-{j}"], 5) for j in range(8)]
-                    futures.append(pool.submit(svc.submit_add, [{"docid": f"live-{rnd}", "text": f"fresh {rnd}"}]))
+                    admin.append(svc.submit_add([{"docid": f"live-{rnd}", "text": f"fresh {rnd}"}]))
                     if rnd % 2:
-                        futures.append(pool.submit(svc.submit_remove, [f"live-{rnd - 1}"]))
-                inner = [f.result(WAIT) for f in futures]
+                        admin.append(svc.submit_remove([f"live-{rnd - 1}"]))
+                inner = [f.result(WAIT) for f in futures] + admin
             assert all(f.result(WAIT) for f in inner)
             stats = svc.stats.snapshot()
             assert stats["errors"] == 0 and stats["requests"] == 48 and stats["queries"] == 96
