@@ -217,9 +217,35 @@ Phases (a line of JSON after each):
                flash dispatch read the store, and the tuned two-level search
                gives the default one's ids. 11d: `profile` over a 1,048,576 x
                1024 bf16 index at k = 100: its Chrome trace names kernel A.
+12. the host tools (phase_12). 12a: `analyze`'s card part: 512 EN, ZH
+               and CM (each pair's words swapped at a cut) query texts
+               through phase 6's checkpoint, the host metrics of
+               analyze_triplets (line metrics, linear reconstruction,
+               anisotropy, outliers; r, delta and alpha held against a
+               float64 recomputation on the card; the probe and the
+               projections need scikit-learn and are not called), then
+               hubness_stats over 20,940 seeded f32 unit rows x 1024 (3 x
+               mMARCO dev) sampled to max_vectors = 20,000, k = 10 (kernel 2,
+               f32 instance): its neighbour ids equal the plain route's
+               (topk_ip(method="full"), f32 with TF32 off) except on rows
+               whose plain 10th and 11th neighbour scores lie within TOL_F32,
+               and its in-degree stats within those rows' reach; the wall,
+               the share inside kernel 2's wrapper (CUDA events) and the host
+               loop's seconds. 12b: two parallel 131,072-row bf16 stores (en,
+               zh; one planted row for each of 256 query pairs, the alpha =
+               .5 mix of its embeddings) and their qrels; `make-plan en-zh-repro` (3
+               vector-mix jobs: EN docs, ZH docs and the 262,144-row hub, on
+               kernels 2 and A) with the checkpoint, `sweep --slots 2` (each
+               job a `python -m codemix_dense_retrieval_torch` process, then
+               its evaluate steps), RR@10 = 100 at alpha = .5 in every job,
+               the EN job's argv again in this process (kernel 2 counted; its
+               runs byte-equal to the swept ones), `collect` plain and
+               `--reference_format` (3 jobs x 7 alphas), `paper-values
+               --n_boot 200`.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
-runs, each encoder and command of 11) and read just after it; comparison and timing launches happen outside those windows (in
+runs, each encoder and command of 11, 12a's hubness_stats and 12b's
+in-process rerun) and read just after it; comparison and timing launches happen outside those windows (in
 phase 9 the direct searches run while the service is idle, their launches
 taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
@@ -239,6 +265,7 @@ import runpy
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -598,6 +625,255 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
         kernel_a_events=sum("bin_scores_bm_kernel" in n for n in names), kernel_a_symbol=kernel_a[0][:160] if kernel_a else None,
         launches=path_counts["profile"])
     say("phase11", seconds=round(time.perf_counter() - t11, 2))
+
+
+class _TimedPopen(subprocess.Popen):
+    """A Popen that notes when it started and when it exited: a thread
+    waits on the child with WNOWAIT, which leaves it for the scheduler to
+    reap (the scheduler runs a finished job's evaluate steps before it
+    polls the others, so its own poll would add them to the next job's
+    time). Phase 12's seconds per swept job."""
+
+    runs: list = []
+
+    def __init__(self, args, *rest, **kw):
+        super().__init__(args, *rest, **kw)
+        self.started, self.ended = time.perf_counter(), None
+        threading.Thread(target=self._watch, daemon=True).start()
+        _TimedPopen.runs.append(self)
+
+    def _watch(self):
+        try:
+            os.waitid(os.P_PID, self.pid, os.WEXITED | os.WNOWAIT)
+        except ChildProcessError:  # already reaped: its exit is at most this late
+            pass
+        self.ended = time.perf_counter()
+
+
+def phase_12(dev, work, smi, path_counts, ckpt, texts_a, texts_b) -> None:
+    """Phase 12: the host tools on the card (see the module docstring).
+    Adds its paths' launch counts to ``path_counts``; raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from codemix_dense_retrieval_torch.analysis import embedding_space as es
+    from codemix_dense_retrieval_torch.io.shards import ShardStore
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+    from codemix_dense_retrieval_torch.models.registry import load_encoder
+    from codemix_dense_retrieval_torch.ops import kernels, topk
+    from codemix_dense_retrieval_torch.orchestrate.scheduler import load_plan
+
+    t12 = time.perf_counter()
+    root = work / "tools"
+    rng = np.random.default_rng(SEED + 12)
+
+    # 12a. analyze's card part: EN / ZH / CM query embeddings from phase 6's
+    # checkpoint (CM: each EN/ZH pair's words swapped at a random cut), the
+    # host metrics of analyze_triplets (the probe and the projections need
+    # scikit-learn, which the card's machine may lack: not called), then
+    # hubness_stats at its real size on kernel 2's f32 instance
+    texts_cm = []
+    for ta, tb in zip(texts_a, texts_b):
+        wa, wb = ta.split(), tb.split()
+        cut = int(rng.integers(1, min(len(wa), len(wb))))
+        texts_cm.append(" ".join(wa[:cut] + wb[cut:]))
+    enc = load_encoder("BAAI/bge-m3", str(ckpt), device=dev)
+    t0 = time.perf_counter()
+    e_en, e_zh, e_cm = (enc.encode_queries(t, batch_size=128) for t in (texts_a, texts_b, texts_cm))
+    encode_s = time.perf_counter() - t0
+    del enc
+    torch.cuda.empty_cache()
+    r, delta, _, _ = es.line_metrics(e_en, e_zh, e_cm)
+    alpha, _, r2 = es.linear_reconstruction(e_en, e_zh, e_cm)
+    mid = 0.5 * (e_en + e_zh)
+    mid /= np.maximum(np.linalg.norm(mid, axis=1, keepdims=True), 1e-12)
+    cos_mid = np.einsum("bd,bd->b", e_cm / np.linalg.norm(e_cm, axis=1, keepdims=True), mid)
+    aniso = es.anisotropy(np.vstack([e_en, e_zh, e_cm]), seed=SEED)
+    outl = es.detect_outliers(r, delta, cos_mid)
+    # r, delta and alpha against a float64 recomputation on the card
+    en64, zh64, cm64 = (torch.as_tensor(x, dtype=torch.float64, device=dev) for x in (e_en, e_zh, e_cm))
+    axis = zh64 - en64
+    r64 = ((cm64 - en64) * axis).sum(1) / (axis * axis).sum(1)
+    delta64 = (cm64 - en64 - r64[:, None] * axis).norm(dim=1)
+    alpha64 = ((en64 - zh64) * (cm64 - zh64)).sum(1) / (axis * axis).sum(1)
+    geo_err = max(float(np.abs(a - b.cpu().numpy()).max()) for a, b in ((r, r64), (delta, delta64), (alpha, alpha64)))
+    check(all(np.isfinite(x).all() and x.shape == (N_QUERIES,) for x in (r, delta, alpha, r2, cos_mid)),
+          "analyze: non-finite or misshapen per-query metrics")
+    check(geo_err <= 1e-5, f"analyze: line metrics differ from the float64 recomputation by {geo_err}")
+    check(-1.0 <= aniso["avg_random_cosine"] <= 1.0 and aniso["num_pairs"] > 49_000, f"anisotropy {aniso}")
+    check(all(m.shape == (N_QUERIES,) for m in outl.values()), "outlier masks")
+
+    n_hub, hub_max, hub_k = 20_940, 20_000, 10  # 3 x mMARCO dev's 6,980 queries, max_vectors, k
+    emb = rng.standard_normal((n_hub, DIM), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    spans = []
+    real_bin_scores = topk.bin_scores
+
+    def timed_bin_scores(*args, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real_bin_scores(*args, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    topk.bin_scores = timed_bin_scores
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hub = es.hubness_stats(emb, k=hub_k, max_vectors=hub_max, seed=SEED)
+        torch.cuda.synchronize()
+        hub_s = time.perf_counter() - t0
+        path_counts["analyze"] = dict(kernels.LAUNCHES)
+    finally:
+        topk.bin_scores = real_bin_scores
+    kernel_s = sum(s.elapsed_time(e) for s, e in spans) / 1e3
+    check(path_counts["analyze"]["bin_scores_transposed_f32"] > 0, "hubness_stats did not launch kernel 2 (f32)")
+    # the same sample through the kernel route and the plain one (a stable
+    # f32 sort of the full score matrix, TF32 off), outside the count
+    sample = emb[np.random.default_rng(SEED).choice(n_hub, size=hub_max, replace=False)]
+    x = torch.as_tensor(sample, dtype=torch.float32).to(dev)
+    _, kid = topk.topk_ip(x, x, hub_k + 1)
+    pv, pid = topk.topk_ip(x, x, hub_k + 2, method="full")
+    kid, pid, pv = kid.cpu().numpy(), pid.cpu().numpy(), pv.cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    indeg_k = es.knn_indegree(kid, hub_k)
+    loop_s = time.perf_counter() - t0
+    check(es.indegree_stats(indeg_k) == hub, "hubness_stats differs from its own route replayed")
+    tie = (pv[:, hub_k] - pv[:, hub_k + 1]) <= TOL_F32
+    same = np.array([set(a) == set(b) for a, b in zip(kid, pid[:, : hub_k + 1])])
+    check(bool(same[~tie].all()), f"{int((~same & ~tie).sum())} rows' neighbours differ from the plain route's "
+                                  "past a tie")
+    n_tie = int(tie.sum())
+    plain = es.indegree_stats(es.knn_indegree(pid[:, : hub_k + 1], hub_k))
+    slack = 2 * n_tie / (hub_max * hub_k)  # each tie row moves one unit of in-degree
+    check(plain["avg_indegree"] == hub["avg_indegree"] and abs(plain["max_indegree"] - hub["max_indegree"]) <= n_tie
+          and abs(plain["gini_indegree"] - hub["gini_indegree"]) <= slack + 1e-12
+          and abs(plain["frac_mass_top1pct"] - hub["frac_mass_top1pct"]) <= slack + 1e-12,
+          f"hubness {hub} against the plain route's {plain} ({n_tie} tie rows)")
+    say("tools_analyze", smi=smi, queries=N_QUERIES, encode_s=round(encode_s, 3), r_mean=float(np.mean(r)),
+        delta_mean=float(np.mean(delta)), alpha_mean=float(np.mean(alpha)), r2_mean=float(np.mean(r2)),
+        anisotropy=aniso, frac_outlier_delta=float(np.mean(outl["delta_mad"])), line_metrics_err_f64=geo_err,
+        probe_and_projection="not run: scikit-learn is not a dependency of the card's path",
+        hubness=hub, hubness_rows=[n_hub, hub_max, DIM], hubness_wall_s=round(hub_s, 4),
+        hubness_kernel_s=round(kernel_s, 4), hubness_kernel_share=round(kernel_s / hub_s, 4),
+        hubness_host_loop_s=round(loop_s, 4), tie_rows=n_tie, tie_rows_differing=int((~same & tie).sum()),
+        plain_route_hubness=plain, launches=path_counts["analyze"])
+
+    # 12b. make-plan en-zh-repro -> sweep --slots 2 -> collect -> paper-values
+    # over two parallel 131,072-row bf16 stores with one planted row per
+    # query (the alpha = .5 mix of its EN / ZH embeddings) and its qrels;
+    # 256 of the query pairs: the 21 evaluate steps run one after another
+    # in the scheduler's loop, each a process that parses its run
+    n_sweep = N_QUERIES // 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    planted = rng.choice(SMALL_ROWS, n_sweep, replace=False)
+    mix = torch.as_tensor(e_en[:n_sweep] + e_zh[:n_sweep], device=dev)
+    docids = [f"s{i}" for i in range(SMALL_ROWS)]
+    rows = {}
+    for lang in ("en", "zh"):
+        rows[lang] = torch.empty((SMALL_ROWS, DIM), dtype=torch.bfloat16)
+    for c0 in range(0, SMALL_ROWS, 1 << 16):
+        xe = torch.randn(1 << 16, DIM, device=dev, generator=g)
+        sel = np.nonzero((planted >= c0) & (planted < c0 + (1 << 16)))[0]
+        xe[torch.as_tensor(planted[sel] - c0, device=dev)] = mix[torch.as_tensor(sel, device=dev)]
+        xe /= xe.norm(dim=1, keepdim=True)
+        u = torch.randn(xe.shape, device=dev, generator=g)
+        xz = xe + 0.3 * u / u.norm(dim=1, keepdim=True)
+        rows["en"][c0 : c0 + (1 << 16)].copy_(xe.to(torch.bfloat16))
+        rows["zh"][c0 : c0 + (1 << 16)].copy_((xz / xz.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    for lang in ("en", "zh"):
+        ShardStore.build(rows[lang], docids, lang=lang).save(root / "ix" / lang)
+    del rows, mix
+    (root / "q").mkdir(parents=True)
+    qids = [f"q{i}" for i in range(n_sweep)]
+    write_queries_tsv(root / "q" / "queries.en.tsv", zip(qids, texts_a))
+    write_queries_tsv(root / "q" / "queries.zh.tsv", zip(qids, texts_b))
+    qrels = root / "qrels.tsv"
+    qrels.write_text("".join(f"{q}\ts{planted[i]}\t1\n" for i, q in enumerate(qids)))
+    t0 = time.perf_counter()
+    plan = run_cli_json(["codemix_dense_retrieval_torch", "make-plan", "en-zh-repro", "--index_root", str(root / "ix"),
+                         "--query_tsv_root", str(root / "q"), "--result_root", str(root / "res"),
+                         "--checkpoint", str(ckpt), "--qrels", str(qrels), "--size", str(SMALL_ROWS),
+                         "--out", str(root / "plan.json")])
+    plan_s = time.perf_counter() - t0
+    check(plan["jobs"] == 3, f"make-plan en-zh-repro gave {plan['jobs']} jobs")
+    jobs = load_plan(root / "plan.json")
+    saved_pp = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), saved_pp) if p)
+    _TimedPopen.runs = []
+    real_popen, subprocess.Popen = subprocess.Popen, _TimedPopen
+    try:
+        t0 = time.perf_counter()
+        try:
+            swept = run_cli_json(["codemix_dense_retrieval_torch", "sweep", "--plan", str(root / "plan.json"),
+                                  "--slots", "2"])
+        except SystemExit:
+            # the children's output went nowhere: rerun the failed job here
+            for job in jobs:
+                if not job.complete():
+                    run_cli(["codemix_dense_retrieval_torch", *job.argv])
+            raise
+        sweep_s = time.perf_counter() - t0
+    finally:
+        subprocess.Popen = real_popen
+        if saved_pp is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_pp
+    check(sorted(swept["ran"]) == sorted(j.name for j in jobs) and not swept["failed"], f"sweep {swept}")
+    job_s = {}
+    for p in _TimedPopen.runs:
+        if "-m" in p.args and p.args[p.args.index("-m") + 2] != "evaluate":
+            check(p.args[p.args.index("-m") + 1] == "codemix_dense_retrieval_torch", f"the sweep ran {p.args}")
+            job_s[p.args[p.args.index("-m") + 2] + ":" + p.args[p.args.index("--index") + 1].split("/")[-1]] = (
+                round(p.ended - p.started, 2))
+    rr10 = {}
+    for job in jobs:
+        check(job.complete(), f"{job.name}: expected files missing")
+        suffix = "_base" if "bilingual" in job.name else ""
+        agg = sorted(pathlib.Path(job.outdir).glob(f"cm-alpha-0.5{suffix}_dev_*-agg.json"))[-1]
+        rr10[job.name] = json.loads(agg.read_text())["RR@10"]
+        check(rr10[job.name] == 100.0, f"{job.name}: RR@10 {rr10[job.name]} at alpha = .5 on planted qrels")
+    # the EN job's argv again in this process: kernel 2 counted, and its
+    # runs equal the swept ones byte for byte (the subprocess ran the port
+    # on the card)
+    en_job = next(j for j in jobs if "english" in j.name)
+    argv = [a if a != en_job.outdir else str(root / "rerun") for a in en_job.argv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", *argv])
+    rerun_s = time.perf_counter() - t0
+    path_counts["sweep_en_rerun"] = dict(kernels.LAUNCHES)
+    check(path_counts["sweep_en_rerun"]["bin_scores_transposed"] > 0, "the EN job did not launch kernel 2")
+    for name in sorted(p.name for p in (root / "rerun").glob("cm-alpha-*.trec")):
+        check((root / "rerun" / name).read_bytes() == (pathlib.Path(en_job.outdir) / name).read_bytes(),
+              f"the EN job's {name} differs between the sweep and this process")
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "collect", "--results_root", str(root / "res"),
+             "--out", str(root / "col" / "results.csv")])
+    run_cli(["codemix_dense_retrieval_torch", "collect", "--results_root", str(root / "res"),
+             "--out", str(root / "col" / "reference.csv"), "--reference_format"])
+    collect_s = time.perf_counter() - t0
+    for name in ("results.csv", "reference.csv"):
+        n_lines = len((root / "col" / name).read_text().splitlines())
+        check(n_lines == 1 + 3 * 7, f"collect {name}: {n_lines} lines (3 jobs x 7 alphas + header)")
+    t0 = time.perf_counter()
+    run_cli(["codemix_dense_retrieval_torch", "paper-values", "--results_root", str(root / "res"),
+             "--out", str(root / "paper_values.txt"), "--n_boot", "200"])
+    pv_s = time.perf_counter() - t0
+    report_lines = len((root / "paper_values.txt").read_text().splitlines())
+    check(report_lines > 10, f"paper-values wrote {report_lines} lines")
+    say("tools_sweep", smi=smi, store_rows=SMALL_ROWS, hub_rows=2 * SMALL_ROWS, queries=n_sweep,
+        make_plan_s=round(plan_s, 3), sweep_wall_s=round(sweep_s, 2), job_s=job_s, rr10_alpha05=rr10,
+        rerun_en_s=round(rerun_s, 2), rerun_byte_equal=True, collect_s=round(collect_s, 3),
+        paper_values_s=round(pv_s, 3), paper_values_lines=report_lines, launches=path_counts["sweep_en_rerun"])
+    shutil.rmtree(root, ignore_errors=True)
+    say("phase12", seconds=round(time.perf_counter() - t12, 2))
 
 
 def main() -> None:
@@ -3642,6 +3918,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv, qdir,
              work / "en.tsv", work / "zh.tsv")
+
+    # ---------------- phase 12: the host tools ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_12(dev, work, smi, path_counts, work / "ckpt", texts_a, texts_b)
 
     # each kernel's launches over all the paths
     entries.extend(late_entries)

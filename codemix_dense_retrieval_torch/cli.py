@@ -29,6 +29,19 @@ tune                      time the top-k cover and flash dispatch
                           constants on the card into the tuned store
                           (``--sketch_index``: calibrate a sketch tier)
 evaluate                  evaluate a TREC run against qrels
+analyze                   embedding-space geometry of EN/ZH/CM query
+                          triplets (the hubness k-NN on the card)
+make-plan                 a sweep-plan JSON from the built-in matrices
+                          (all-pairs / en-zh-repro / ablation)
+sweep                     run a plan's jobs, each a ``python -m
+                          codemix_dense_retrieval_torch`` process
+collect                   aggregate result trees into CSV summaries
+paper-values              the paper's statistics report over a results tree
+plots                     the paper's figures over a results tree
+generate-bands            code-mix band query sets (needs ``openai`` and
+                          network)
+download-queries          mMARCO dev queries to TSVs (needs ``datasets``
+                          and network)
 ========================  ==============================================
 
 Flags are the JAX package's, plus ``--device {cuda,cpu}`` (default cuda).
@@ -597,6 +610,182 @@ def cmd_tune(args) -> None:
     print(json.dumps(update))
 
 
+def cmd_generate_bands(args) -> None:
+    """Generate code-mix band query sets (reference generate_cm_bands.py)."""
+    from codemix_dense_retrieval_torch.datagen.bands import (
+        UsageTracker,
+        generate_band_dataset,
+        openai_band_generate_fn,
+        openai_generate_fn,
+    )
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv, write_queries_tsv
+    from codemix_dense_retrieval_torch.pipeline.runs import intersect_query_sets
+
+    qids, texts_en, texts_zh = intersect_query_sets(read_queries_tsv(args.en), read_queries_tsv(args.zh))
+    if args.max_queries:
+        qids, texts_en, texts_zh = (
+            qids[: args.max_queries], texts_en[: args.max_queries], texts_zh[: args.max_queries]
+        )
+    bands = []
+    for spec in args.bands:
+        lo, hi = spec.split("-")
+        bands.append((int(lo), int(hi)))
+    usage = UsageTracker()
+    if args.protocol == "kadapt":
+        gen = openai_band_generate_fn(model=args.model, usage=usage)
+    else:
+        gen = openai_generate_fn(model=args.model, usage=usage)
+    generate_band_dataset(
+        list(zip(qids, texts_en, texts_zh)), args.out_dir, gen, bands=bands, num_threads=args.workers,
+        kadapt=args.protocol == "kadapt",
+    )
+    # pure-language endpoint bands used by the word-mix runs
+    out = pathlib.Path(args.out_dir)
+    write_queries_tsv(out / "queries-cm0.tsv", list(zip(qids, texts_en)))
+    write_queries_tsv(out / "queries-cm100.tsv", list(zip(qids, texts_zh)))
+    print(json.dumps({"out_dir": str(out), "queries": len(qids), **usage.summary()}))
+
+
+def cmd_download_queries(args) -> None:
+    from codemix_dense_retrieval_torch.datagen.download import download_mmarco_queries
+
+    download_mmarco_queries(args.langs, args.out, repo=args.repo, split_prefix=args.split_prefix)
+
+
+def cmd_analyze(args) -> None:
+    """Embedding-space geometry over EN/ZH/CM query triplets: the encode
+    and the hubness k-NN on ``--device``, the rest host numpy; the probe
+    and the projections need scikit-learn, the figure matplotlib."""
+    import numpy as np
+
+    from codemix_dense_retrieval_torch.analysis.embedding_space import (
+        analyze_triplets,
+        plot_projection,
+        project_embeddings,
+        write_report,
+    )
+    from codemix_dense_retrieval_torch.analysis.plots import write_projection_html
+    from codemix_dense_retrieval_torch.io.tsv import read_queries_tsv
+    from codemix_dense_retrieval_torch.pipeline.runs import intersect_query_sets
+
+    _reject_unported(args)
+    encoder = _build_encoder(args)
+    tsvs = _parse_lang_path(args.query_tsv)
+    if len(tsvs) != 3:
+        raise SystemExit("[ERROR] analyze needs three LANG=PATH --query_tsv (en, zh, cm)")
+    (l_a, p_a), (l_b, p_b), (l_cm, p_cm) = tsvs.items()
+    rows_cm = dict(read_queries_tsv(p_cm))
+    qids, texts_a, texts_b = intersect_query_sets(read_queries_tsv(p_a), read_queries_tsv(p_b))
+    # filter by index so texts stay aligned with their qids when the CM set
+    # lacks an intersected qid
+    keep = [i for i, q in enumerate(qids) if q in rows_cm]
+    qids = [qids[i] for i in keep]
+    texts_a = [texts_a[i] for i in keep]
+    texts_b = [texts_b[i] for i in keep]
+    texts_cm = [rows_cm[q] for q in qids]
+    if not qids:
+        raise SystemExit("[ERROR] empty qid intersection across the three TSVs")
+    E_a = encoder.encode_queries(texts_a, batch_size=args.enc_batch)
+    E_b = encoder.encode_queries(texts_b, batch_size=args.enc_batch)
+    E_cm = encoder.encode_queries(texts_cm, batch_size=args.enc_batch)
+    result = analyze_triplets(E_a, E_b, E_cm, seed=args.seed, device=args.device)
+    outdir = pathlib.Path(args.outdir)
+    write_report(result, outdir, qids=qids)
+    proj = project_embeddings(E_a, E_b, E_cm, seed=args.seed)
+    plot_projection(proj, outdir / "projection.png")
+    # the interactive 3-D projection (the reference's plotly output)
+    proj3 = project_embeddings(E_a, E_b, E_cm, seed=args.seed, n_components=3)
+    pts3 = np.vstack([proj3["en"], proj3["zh"], proj3["cm"]])
+    groups = [0] * len(proj3["en"]) + [1] * len(proj3["zh"]) + [2] * len(proj3["cm"])
+    write_projection_html(pts3, groups, [l_a.upper(), l_b.upper(), l_cm.upper()], outdir / "projection_3d.html")
+    print(json.dumps(result.summary(), indent=2, default=float))
+
+
+def cmd_sweep(args) -> None:
+    from codemix_dense_retrieval_torch.orchestrate.scheduler import run_sweep_cli
+
+    run_sweep_cli(args)
+
+
+def cmd_make_plan(args) -> None:
+    """A sweep-plan JSON from the built-in experiment matrices (the
+    reference's bash job tables); its jobs run this CLI."""
+    from codemix_dense_retrieval_torch.orchestrate import plans as P
+
+    if args.kind in ("all-pairs", "en-zh-repro") and not args.index_root:
+        raise SystemExit(f"[ERROR] {args.kind} needs --index_root")
+    runner_args = []
+    for spec in args.runner_arg or []:
+        runner_args.extend(spec.split())
+    if args.kind == "all-pairs":
+        plan = P.build_all_pairs_plan(
+            index_root=args.index_root, query_tsv_root=args.query_tsv_root,
+            result_root=args.result_root, encoder=args.encoder,
+            checkpoint=args.checkpoint, qrels=args.qrels, size=args.size,
+            k=args.k, extra_runner_args=runner_args,
+        )
+    elif args.kind == "en-zh-repro":
+        plan = P.build_en_zh_repro_plan(
+            index_root=args.index_root,
+            query_tsv_en=str(pathlib.Path(args.query_tsv_root) / "queries.en.tsv"),
+            query_tsv_zh=str(pathlib.Path(args.query_tsv_root) / "queries.zh.tsv"),
+            band_dir=args.band_dir, result_root=args.result_root,
+            encoder=args.encoder, checkpoint=args.checkpoint,
+            qrels=args.qrels, size=args.size,
+            k=args.k, extra_runner_args=runner_args,
+        )
+    else:  # ablation
+        roots = dict(kv.split("=", 1) for kv in (args.index_root_by_model or []))
+        if not roots:
+            raise SystemExit("[ERROR] ablation needs --index_root_by_model TAG=ROOT ...")
+        cps = dict(kv.split("=", 1) for kv in (args.checkpoints or []))
+        plan = P.build_ablation_plan(
+            index_root_by_model=roots, query_tsv_root=args.query_tsv_root,
+            result_root=args.result_root, checkpoints=cps, qrels=args.qrels,
+            size=args.size,
+        )
+    out = P.write_plan(plan, args.out)
+    print(json.dumps({"plan": str(out), "jobs": len(plan["jobs"])}))
+
+
+def cmd_collect(args) -> None:
+    if args.ablation:
+        from codemix_dense_retrieval_torch.analysis.ablation import collect_ablation_cli
+
+        collect_ablation_cli(args.results_root, args.out, reference_format=args.reference_format)
+    else:
+        from codemix_dense_retrieval_torch.analysis.collect import collect_cli
+
+        collect_cli(args)
+
+
+def cmd_paper_values(args) -> None:
+    """The paper-statistics report over a results tree."""
+    from codemix_dense_retrieval_torch.analysis.collect import collect_results, compute_summary
+    from codemix_dense_retrieval_torch.analysis.paper_values import paper_values_report
+
+    rows = collect_results(args.results_root)
+    summary = compute_summary(rows)
+    report = paper_values_report(summary, rows, n_boot=args.n_boot)
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(report)
+        print(f"wrote {out} ({len(summary)} summary rows)")
+    else:
+        print(report)
+
+
+def cmd_plots(args) -> None:
+    """The paper's figures over a results tree."""
+    from codemix_dense_retrieval_torch.analysis.collect import collect_results, compute_summary
+    from codemix_dense_retrieval_torch.analysis.plots import generate_all
+
+    rows = collect_results(args.results_root)
+    paths = generate_all(rows, compute_summary(rows), args.outdir)
+    print(f"wrote {len(paths)} figures to {args.outdir}")
+
+
 # ---------------------------------------------------------------------------
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -817,6 +1006,83 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser(
         "evaluate", help="evaluate a TREC run (all evaluate.py flags)", add_help=False,
     )
+
+    p = sub.add_parser("generate-bands", help="generate code-mix band query sets (needs OPENAI_API_KEY)")
+    p.add_argument("--en", required=True)
+    p.add_argument("--zh", required=True)
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--bands", nargs="+", default=["0-20", "20-40", "40-60", "60-80", "80-100"])
+    p.add_argument("--model", default="gpt-5-mini")
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--max_queries", type=int, default=0)
+    p.add_argument("--protocol", choices=["kadapt", "multi"], default="kadapt",
+                   help="kadapt = reference-parity per-band K budgets (one JSON call per attempt); "
+                        "multi = simple multi-candidate protocol")
+    p.set_defaults(fn=cmd_generate_bands)
+
+    p = sub.add_parser("download-queries", help="download mMARCO dev queries to TSVs")
+    p.add_argument("--langs", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--repo", default="unicamp-dl/mmarco")
+    p.add_argument("--split_prefix", default="queries-")
+    p.set_defaults(fn=cmd_download_queries)
+
+    p = sub.add_parser("analyze", help="embedding-space geometry analysis (EN/ZH/CM triplets)")
+    _add_common(p)
+    p.add_argument("--query_tsv", nargs=3, required=True, metavar="LANG=PATH")
+    p.add_argument("--outdir", required=True)
+    p.set_defaults(fn=cmd_analyze)
+
+    p = sub.add_parser(
+        "make-plan",
+        help="emit a sweep-plan JSON from the built-in matrices "
+             "(all-pairs 105 jobs / en-zh-repro 6 jobs / ablation blocks)",
+    )
+    p.add_argument("kind", choices=["all-pairs", "en-zh-repro", "ablation"])
+    p.add_argument("--index_root")
+    p.add_argument("--index_root_by_model", nargs="+", metavar="TAG=ROOT")
+    p.add_argument("--query_tsv_root", required=True, help="directory of queries.<lang>.tsv files")
+    p.add_argument("--band_dir", help="word-mix band dir (en-zh-repro)")
+    p.add_argument("--result_root", required=True)
+    p.add_argument("--encoder", default="BAAI/bge-m3")
+    p.add_argument("--checkpoint")
+    p.add_argument("--checkpoints", nargs="+", metavar="TAG=PATH")
+    p.add_argument("--qrels")
+    p.add_argument("--size", type=int, default=100_000)
+    p.add_argument("--k", type=int, help="search depth override for every job")
+    p.add_argument("--runner_arg", action="append", metavar="'--flag value'",
+                   help="extra args appended to every runner argv "
+                        "(repeatable; e.g. --runner_arg '--device cpu --smoke_dim 32')")
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_make_plan)
+
+    p = sub.add_parser("sweep", help="experiment scheduler (replaces the bash schedulers)")
+    p.add_argument("--plan", required=True, help="JSON sweep plan file")
+    p.add_argument("--max_failures", type=int, default=1)
+    p.add_argument("--slots", type=int, default=1,
+                   help="concurrency when the plan has no device_slots table")
+    p.add_argument("--dry_run", action="store_true")
+    p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("collect", help="aggregate result trees into CSV summaries")
+    p.add_argument("--results_root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--ablation", action="store_true")
+    p.add_argument("--reference_format", action="store_true",
+                   help="emit the reference collector's CSV schema "
+                        "(full_mmarco_results.csv columns, metrics x100)")
+    p.set_defaults(fn=cmd_collect)
+
+    p = sub.add_parser("paper-values", help="paper statistics report over a results tree")
+    p.add_argument("--results_root", required=True)
+    p.add_argument("--out", help="report path (stdout when omitted)")
+    p.add_argument("--n_boot", type=int, default=2000)
+    p.set_defaults(fn=cmd_paper_values)
+
+    p = sub.add_parser("plots", help="paper figures over a results tree")
+    p.add_argument("--results_root", required=True)
+    p.add_argument("--outdir", required=True)
+    p.set_defaults(fn=cmd_plots)
     return ap
 
 

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) >= 32
     for name in ("models.packing", "ops.weight_quant", "models.checkpoint", "utils.autotune",
-                 "utils.profiling", "utils.timing", "utils.seeding", "version"):
+                 "utils.profiling", "utils.timing", "utils.seeding", "version", "io.naming",
+                 "analysis.embedding_space", "analysis.plots", "orchestrate.scheduler", "datagen.bands"):
         assert f"codemix_dense_retrieval_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -192,11 +193,28 @@ def _entry_tune_cli():
     main(["tune", "--dry_run", "--rows", "2048", "--dim", "8", "--batch", "2", "--ks", "4"])
 
 
+def _entry_analyze_cli(tmp_path):
+    from codemix_dense_retrieval_torch.cli import main
+    from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
+
+    for lang in ("en", "zh", "cm"):
+        write_queries_tsv(tmp_path / f"{lang}.tsv", [("q1", f"{lang} text"), ("q2", "more")])
+    main(["analyze", "--query_tsv", *(f"{lang}={tmp_path / (lang + '.tsv')}" for lang in ("en", "zh", "cm")),
+          "--outdir", str(tmp_path / "out"), "--smoke_dim", "16"])
+
+
+def _entry_hubness_stats():
+    from codemix_dense_retrieval_torch.analysis.embedding_space import hubness_stats
+
+    hubness_stats(np.eye(8, dtype=np.float32), k=2)
+
+
 @pytest.mark.parametrize("entry", [
     _entry_text_encoder, _entry_load_encoder, _entry_index_to_device,
     _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_index_add,
     _entry_runner, _entry_cli, _entry_serve_cli, _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
     _entry_quantized_text_encoder, _entry_cache_queries_cli, _entry_profile_cli, _entry_tune_cli,
+    _entry_analyze_cli, _entry_hubness_stats,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()
