@@ -242,10 +242,37 @@ Phases (a line of JSON after each):
                runs byte-equal to the swept ones), `collect` plain and
                `--reference_format` (3 jobs x 7 alphas), `paper-values
                --n_boot 200`.
+13. multi-device on the one card (phase_13). 13a: 8,841,823 x 1024 bf16
+               rows by phase 5's recipe (Rows13: a seeded generator per
+               262,144 rows) on a one-shard and a 4-shard mesh of cuda:0
+               (2,210,816 rows a shard, kernel A per shard): 512 query mixes
+               at k = 100 and 1000, ids and values equal; the 256-query
+               block's wall on 1 and 4 shards and the merge's ms; the
+               guaranteed tier (kernel 7) equal to exact; the int8 store
+               (kernel 4) on both meshes, equal; one mutation round per mesh
+               (add 4,096: both grow; remove 4,096; rebalance: rows move
+               between the shards), the searches by docid equal up to the
+               order inside runs of equal scores; phase 6's 131,072-row
+               store on 4 shards (the transposed route, kernel 2), equal.
+               13b: `chip_smoke.py --phase13-worker` processes: 2 on gloo
+               with 2 shards each (NCCL refuses two ranks on one card), each
+               making only its own rows through shard_rows_multihost, and 1
+               on NCCL (world size 1, 4 shards; its all-gather and
+               all-reduce run on the (B, k) payload): every result equals
+               13a's 4-shard one; each rank's wall and gathered bytes. 13c:
+               phase 6's BGE-M3 through TextEncoder(mesh=2 shards of
+               cuda:0) on the 256 passages at the 1024 bucket: kernel B per
+               replica chunk, least cosine MIN_COS_MESH against one device.
+               13d: Qwen3-0.6B (phase 10a's dir) TP over a tp = 2 mesh of
+               cuda:0, 8 / 4 heads per half, 32 x 512 tokens, bf16 and int8:
+               kernel B causal on both halves; bf16 held against the f32
+               forward beside the replicated one (TP_ERR_RATIO), int8 against
+               the replicated int8 forward (MIN_COS_TP_INT8).
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
 runs, each encoder and command of 11, 12a's hubness_stats and 12b's
-in-process rerun) and read just after it; comparison and timing launches happen outside those windows (in
+in-process rerun, 13a's searches and mutation, 13c's encode, 13d's TP
+forwards) and read just after it; comparison and timing launches happen outside those windows (in
 phase 9 the direct searches run while the service is idle, their launches
 taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
@@ -874,6 +901,479 @@ def phase_12(dev, work, smi, path_counts, ckpt, texts_a, texts_b) -> None:
         paper_values_s=round(pv_s, 3), paper_values_lines=report_lines, launches=path_counts["sweep_en_rerun"])
     shutil.rmtree(root, ignore_errors=True)
     say("phase12", seconds=round(time.perf_counter() - t12, 2))
+
+
+# phase 13: multi-device on the one card
+MESH_SHARDS = 4             # the index's shards in 13a / 13b (all on cuda:0)
+ROW_CHUNK_13 = 262_144      # rows per seeded generator of phase 13's index
+N_MUTATE = 4096             # rows added, then removed, in 13a's mutation round
+TP_BATCH, TP_SEQ = 32, 512  # 13d's Qwen3 forward
+# 13c: least pooled cosine of the data-parallel encode against the
+# one-device encode (a bf16 model). 13d: int8 TP against the replicated
+# int8 forward: the cosine PR 11 measured for int8 against bf16 at full
+# width (PERF.md section 6). bf16 TP is held against the f32 forward of the
+# same weights, beside the replicated bf16 forward: the replicated bf16
+# forward of random Qwen3-0.6B weights is itself only ~0.99991 from the f32
+# one (PERF.md section 6, PR 13), so two bf16 computations that round
+# differently (TP sums its row-parallel partials) cannot be held to 0.9999
+# of each other; the TP forward may stray at most TP_ERR_RATIO times as far
+# from the f32 forward, and from the replicated one, as the replicated
+# forward strays from the f32 one (1 - least cosine)
+MIN_COS_MESH = 0.9999
+MIN_COS_TP_INT8 = 0.9989
+TP_ERR_RATIO = 2.0
+
+
+class Rows13:
+    """Rows ``[start, stop)`` of phase 13's 8,841,823 x 1024 bf16 index on
+    the card: phase 5's recipe (seeded unit rows, one planted row near each
+    query pair's alpha = .5 mix, at phase 5's planted positions), with one
+    generator per ROW_CHUNK_13 rows (seeds SEED + 130,000 + chunk, apart
+    from every other seed of the script, so no row repeats another's), so
+    that each process of 13b makes only its own rows. The last chunk made
+    is kept for the next call."""
+
+    def __init__(self, dev, planted_pos, planted_rows) -> None:
+        self.dev, self.pos, self.rows = dev, planted_pos, planted_rows
+        self._chunk = (None, None)
+
+    def chunk(self, c: int):
+        import torch
+
+        if self._chunk[0] != c:
+            n = min(ROW_CHUNK_13, N_ROWS - c * ROW_CHUNK_13)
+            g = torch.Generator(device=self.dev).manual_seed(SEED + 130_000 + c)
+            x = torch.randn(n, DIM, device=self.dev, generator=g)
+            self._chunk = (c, (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+        return self._chunk[1]
+
+    def __call__(self, start: int, stop: int):
+        import torch
+
+        out = torch.empty((stop - start, DIM), dtype=torch.bfloat16, device=self.dev)
+        for c in range(start // ROW_CHUNK_13, (stop - 1) // ROW_CHUNK_13 + 1):
+            lo, hi = max(start, c * ROW_CHUNK_13), min(stop, (c + 1) * ROW_CHUNK_13)
+            out[lo - start : hi - start] = self.chunk(c)[lo - c * ROW_CHUNK_13 : hi - c * ROW_CHUNK_13]
+        sel = (self.pos >= start) & (self.pos < stop)
+        out[self.pos[sel] - start] = self.rows[sel]
+        return out
+
+
+def rows_per_shard_13() -> int:
+    """Rows per shard of phase 13's index on MESH_SHARDS shards (2,211,840)."""
+    per = -(-N_ROWS // MESH_SHARDS)
+    return -(-per // 1024) * 1024
+
+
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def same_up_to_ties(v1, d1, v2, d2) -> int:
+    """Two searches' (scores, docids) are the same: scores equal bit for
+    bit, and the docids equal except for order within a run of equal
+    scores (a tie goes to the lower row id, and two layouts number the rows
+    differently); the last run, which k may cut, is left out. Returns the
+    number of queries whose docid order differed."""
+    import numpy as np
+
+    check(np.array_equal(v1, v2), "scores differ")
+    swapped = 0
+    for a, b, v in zip(d1, d2, v1):
+        if np.array_equal(a, b):
+            continue
+        swapped += 1
+        above = v > v[-1]  # the run at the k-th score may be cut by k
+        va, a, b = v[above], a[above], b[above]
+        bounds = np.flatnonzero(np.r_[True, va[1:] != va[:-1], True])
+        for s0, s1 in zip(bounds[:-1], bounds[1:]):
+            check(set(a[s0:s1]) == set(b[s0:s1]), "docids differ beyond ties")
+    return swapped
+
+
+def phase_13(dev, work, smi, path_counts, ckpt, qdir, mix05, docids, passages, buckets) -> None:
+    """Multi-device on the one card: 13a the row-sharded index (4 shards on
+    cuda:0) against the one-shard index (bf16 exact, mutation, guaranteed,
+    int8, phase 6's store on the transposed route), 13b the multi-process
+    search (2 gloo processes of 2 shards each, and 1 NCCL process), 13c
+    the data-parallel BGE-M3 encode, 13d Qwen3-0.6B tensor parallelism."""
+    import numpy as np
+    import torch
+
+    from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.io.shards import ShardStore
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+    from codemix_dense_retrieval_torch.models.registry import load_encoder
+    from codemix_dense_retrieval_torch.ops import kernels
+    from codemix_dense_retrieval_torch.ops.quant import quantize_rows
+    from codemix_dense_retrieval_torch.parallel.mesh import make_mesh
+    from codemix_dense_retrieval_torch.parallel.sharded_search import merge_shards, sharded_topk_ip
+    from codemix_dense_retrieval_torch.parallel.tp import replicate_params, shard_params_tp
+
+    t13 = time.perf_counter()
+    p13 = work / "phase13"
+    p13.mkdir()
+    mesh1, mesh4 = make_mesh(1, devices=[dev]), make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+
+    # 13a. the rows on one and on four shards of the card
+    planted_pos = torch.randperm(N_ROWS, generator=torch.Generator().manual_seed(SEED + 2))[:N_QUERIES].to(dev)
+    noise = torch.randn(N_QUERIES, DIM, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 1299))
+    near = mix05 + 0.5 * noise / noise.norm(dim=1, keepdim=True)
+    planted_rows = (near / near.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    rows = Rows13(dev, planted_pos, planted_rows)
+    t0 = time.perf_counter()
+    host = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16)
+    for c0 in range(0, N_ROWS, ROW_CHUNK_13):
+        c1 = min(c0 + ROW_CHUNK_13, N_ROWS)
+        host[c0:c1].copy_(rows(c0, c1))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix1 = DenseFlatIndex.build(host, docids).to_device(mesh1)
+    torch.cuda.synchronize()
+    up1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix4 = DenseFlatIndex(ix1.store).to_device(mesh4)
+    torch.cuda.synchronize()
+    up4_s = time.perf_counter() - t0
+    rps4 = ix4._rows_per_shard
+    check(rps4 == rows_per_shard_13() and len(ix4._docs_dev) == MESH_SHARDS
+          and [int(c[0]) for c in ix4._counts_dev] == [rps4] * 3 + [N_ROWS - 3 * rps4], "4-shard layout")
+    q = mix05.float()
+    kernels.reset_launch_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    exact = {}
+    for k in (100, 1000):
+        v1, g1 = ix1.search(q, k, return_docids=False, query_block=256)
+        v4, g4 = ix4.search(q, k, return_docids=False, query_block=256)
+        check(np.array_equal(g1, g4) and np.array_equal(v1, v4), f"4 shards != 1 shard, bf16 exact k={k}")
+        exact[k] = (v4, g4)
+    check(bool((exact[100][1][:, 0] == planted_pos.cpu().numpy()).mean() > 0.99), "planted rows not found")
+    steps["exact_searches_s"] = time.perf_counter() - t0
+    q256 = q[:256].to(torch.bfloat16)
+    walls = {}
+    for k in (100, 1000):
+        walls[f"k{k}_1shard_ms"] = cuda_ms(lambda: sharded_topk_ip(q256, ix1._docs_dev, ix1._counts_dev, k), 3)
+        walls[f"k{k}_4shards_ms"] = cuda_ms(lambda: sharded_topk_ip(q256, ix4._docs_dev, ix4._counts_dev, k), 3)
+        parts = [sharded_topk_ip(q256, d, c, k) for d, c in zip(ix4._docs_dev, ix4._counts_dev)]
+        walls[f"k{k}_merge_ms"] = cuda_ms(lambda: merge_shards([p[0] for p in parts], [p[1] for p in parts], k), 20)
+    del parts
+    # the expected results of 13b, before the mutation
+    np.savez(p13 / "expected.npz", v100=exact[100][0], g100=exact[100][1], v1000=exact[1000][0],
+             g1000=exact[1000][1])
+    torch.save({"planted_pos": planted_pos.cpu(), "planted_rows": planted_rows.cpu(), "queries": q.cpu()},
+               p13 / "inputs.pt")
+
+    # the guaranteed tier (kernel 7): each mesh equals its own exact search
+    t0 = time.perf_counter()
+    for ix in (ix1, ix4):
+        ix.enable_sketch(sketch_dim=128, cache=False)
+    sketch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in (100, 1000):
+        for name, ix in (("1shard", ix1), ("4shards", ix4)):
+            gv, gg = ix.search(q, k, return_docids=False, query_block=256, approx="guaranteed")
+            check(np.array_equal(gg, exact[k][1]) and np.array_equal(gv, exact[k][0]),
+                  f"guaranteed != exact, {name} k={k}")
+    cert = {}
+    for name, ix in (("1shard", ix1), ("4shards", ix4)):
+        ix.search(q, 100, query_block=256, approx=True)
+        cert[name] = float(ix.last_certified.mean())
+        ix._sketch = None  # the sidecar leaves the card before the mutation round
+    torch.cuda.empty_cache()
+    steps["guaranteed_searches_s"] = time.perf_counter() - t0
+
+    # the int8 store (kernel 4): the one-shard index's rows quantized on the
+    # card one chunk at a time, uploaded on both meshes
+    t0 = time.perf_counter()
+    host8 = torch.empty((N_ROWS, DIM), dtype=torch.int8)
+    scales8 = torch.empty(N_ROWS, dtype=torch.float32)
+    for c0 in range(0, N_ROWS, 1 << 20):
+        v8, s8 = quantize_rows(ix1._docs_dev[0][c0 : min(c0 + (1 << 20), N_ROWS)])
+        host8[c0 : c0 + len(v8)].copy_(v8)
+        scales8[c0 : c0 + len(v8)].copy_(s8)
+    del host, v8, s8
+    store8 = ShardStore.build(host8, docids, dtype="int8", scales=scales8.numpy())
+    ix8_1, ix8_4 = DenseFlatIndex(store8).to_device(mesh1), DenseFlatIndex(store8).to_device(mesh4)
+    int8_s = time.perf_counter() - t0
+    for k in (100, 1000):
+        v1, g1 = ix8_1.search(q, k, return_docids=False, query_block=256)
+        v4, g4 = ix8_4.search(q, k, return_docids=False, query_block=256)
+        check(np.array_equal(g1, g4) and np.array_equal(v1, v4), f"4 shards != 1 shard, int8 k={k}")
+    del ix8_1, ix8_4, store8, host8, scales8
+    torch.cuda.empty_cache()
+
+    # one mutation round on each mesh: add (both indexes grow: 1,441 rows of
+    # the 4 shards' pad and 417 of the one shard's are spare), remove,
+    # rebalance (rows move between the 4 shards). The one-shard index's
+    # results are kept and it leaves the card before the 4-shard index
+    # grows (two grown indexes and a score store do not fit in 80 GB)
+    t_mut = time.perf_counter()
+    gm = torch.Generator(device=dev).manual_seed(SEED + 1302)
+    new = torch.randn(N_MUTATE, DIM, device=dev, generator=gm)
+    new /= new.norm(dim=1, keepdim=True)
+    new_ids = [f"m{i}" for i in range(N_MUTATE)]
+    gone = [str(i) for i in np.random.default_rng(SEED + 1303).choice(N_ROWS, N_MUTATE, replace=False)]
+    mut_s, mutated, grown = {}, {}, {}
+    for name in ("1shard", "4shards"):
+        ix = ix1 if name == "1shard" else ix4
+        ix1 = None
+        t0 = time.perf_counter()
+        ix.add(new, new_ids)
+        ix.remove(gone)
+        ix.rebalance()
+        torch.cuda.synchronize()
+        mut_s[name] = time.perf_counter() - t0
+        grown[name] = ix._rows_per_shard
+        check(ix.count == N_ROWS, f"{name} count after the mutation round")
+        t0 = time.perf_counter()
+        mutated[name] = {k: ix.search(q, k, query_block=256) for k in (100, 1000)}
+        steps[f"mutated_searches_{name}_s"] = time.perf_counter() - t0
+        # each added row finds itself; no removed row is found
+        check(ix.search(new[:64], 1)[1][:, 0].tolist() == new_ids[:64], f"{name}: added rows not found")
+        gone_set = set(gone)
+        check(not any(d in gone_set for d in mutated[name][1000][1].ravel()), f"{name}: a removed row was found")
+        t0 = time.perf_counter()
+        del ix
+        torch.cuda.empty_cache()
+        steps[f"free_{name}_s"] = time.perf_counter() - t0
+    counts4 = [int(c[0]) for c in ix4._counts_dev]
+    per = -(-N_ROWS // MESH_SHARDS)
+    check(counts4 == [per] * 3 + [N_ROWS - 3 * per], f"rebalanced counts {counts4}")
+    swaps = {f"k{k}": same_up_to_ties(*mutated["1shard"][k], *mutated["4shards"][k]) for k in (100, 1000)}
+    del ix4, mutated
+    torch.cuda.empty_cache()
+    steps["mutation_and_searches_s"] = time.perf_counter() - t_mut
+
+    # phase 6's 131,072-row store: 32,768 rows a shard, the transposed route (kernel 2)
+    t0 = time.perf_counter()
+    small1 = DenseFlatIndex.load(work / "small").to_device(mesh1)
+    small4 = DenseFlatIndex.load(work / "small").to_device(mesh4)
+    check(small4._rows_per_shard == SMALL_ROWS // MESH_SHARDS, "phase 6's store: 32,768 rows a shard")
+    for k in (100, 1000):
+        v1, g1 = small1.search(q, k, return_docids=False, query_block=256)
+        v4, g4 = small4.search(q, k, return_docids=False, query_block=256)
+        check(np.array_equal(g1, g4) and np.array_equal(v1, v4), f"4 shards != 1 shard, small store k={k}")
+    del small1, small4
+    torch.cuda.empty_cache()
+    steps["small_store_s"] = time.perf_counter() - t0
+    path_counts["multi_device"] = dict(kernels.LAUNCHES)
+    for name in ("bin_scores_bin_major", "bin_scores_transposed", "bin_scores_int8_bin_major", "binub"):
+        check(path_counts["multi_device"][name] > 0, f"13a did not launch {name}")
+    say("multi_device", smi=smi, rows=N_ROWS, shards=MESH_SHARDS, rows_per_shard=rps4,
+        gen_s=round(gen_s, 2), upload_1shard_s=round(up1_s, 2), upload_4shards_s=round(up4_s, 2),
+        note="the 4 shards share one card and run one after another: the block walls are the cost "
+             "of sharding on one card, not a speed-up",
+        block_256=walls, sketch_build_s=round(sketch_s, 2), certified_frac_k100=cert,
+        mutation_s=mut_s, rows_per_shard_after_growing=grown, mutated_tie_order_swaps=swaps,
+        int8_build_s=round(int8_s, 2), steps={kk: round(vv, 2) for kk, vv in steps.items()},
+        ids_and_values_equal=True, phase13a_s=round(time.perf_counter() - t13, 2),
+        launches=path_counts["multi_device"])
+
+    # 13b. the multi-process search: 2 processes of 2 shards each (gloo: NCCL
+    # refuses two ranks on one card), then 1 process of 4 shards on NCCL
+    t0 = time.perf_counter()
+    jobs, ports = [], {2: free_port(), 1: free_port()}
+    for rank, world, backend, local in ((0, 2, "gloo", 2), (1, 2, "gloo", 2), (0, 1, "nccl", 4)):
+        port = ports[world]
+        jobs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--phase13-worker", str(rank), str(world), str(port),
+             backend, str(local), str(p13)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in jobs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in jobs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = []
+    for p, out in zip(jobs, outs):
+        last = [ln for ln in out.splitlines() if ln.startswith("{")]
+        check(p.returncode == 0 and bool(last), f"13b worker rc {p.returncode}:\n{out[-4000:]}")
+        ranks.append(json.loads(last[-1]))
+    mp_s = time.perf_counter() - t0
+    say("multi_process", smi=smi, ranks=ranks, wall_s=round(mp_s, 2), results_equal_13a=True)
+
+    # 13c. data-parallel encode: phase 6's BGE-M3 checkpoint, the passages of
+    # phase 4 at the 1024 bucket, two replicas sharing cuda:0
+    t0 = time.perf_counter()
+    enc = load_encoder("BAAI/bge-m3", str(ckpt), device=dev)
+    enc.length_buckets = buckets
+    dp_mesh = make_mesh(2, devices=[dev] * 2)
+    enc_dp = TextEncoder("BAAI/bge-m3", enc.cfg, enc.model.state_dict(), enc.tokenizer, length_buckets=buckets,
+                         mesh=dp_mesh)
+    check(enc_dp._replicas[0] is enc_dp._replicas[1], "repeated devices must share one replica")
+    load13c_s = time.perf_counter() - t0
+    enc.encode_documents(passages[:4], batch_size=32, max_length=1024)
+    enc_dp.encode_documents(passages[:4], batch_size=32, max_length=1024)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = enc.encode_documents(passages, batch_size=32, max_length=1024)
+    one_s = time.perf_counter() - t0
+    one_launches = kernels.LAUNCHES["flash_attention"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    par = enc_dp.encode_documents(passages, batch_size=32, max_length=1024)
+    par_s = time.perf_counter() - t0
+    path_counts["multi_device_dp"] = dict(kernels.LAUNCHES)
+    dp_launches = path_counts["multi_device_dp"]["flash_attention"]
+    check(one_launches > 0 and dp_launches == 2 * one_launches,
+          f"kernel B per replica chunk: {dp_launches} launches vs {one_launches} on one device")
+    check(par.shape == one.shape == (N_PASSAGES, DIM) and bool(np.isfinite(par).all()), "dp encode shape")
+    dp_cos = float((one * par).sum(axis=1).min())
+    check(dp_cos >= MIN_COS_MESH, f"dp encode vs one device: min cos {dp_cos}")
+    say("multi_device_encode", smi=smi, passages=N_PASSAGES, dp=2, load_s=round(load13c_s, 2),
+        one_device_s=round(one_s, 2),
+        dp_s=round(par_s, 2), min_cos=dp_cos, max_abs=float(np.abs(one - par).max()),
+        kernel_b_launches={"one_device": one_launches, "dp": dp_launches})
+    del enc, enc_dp
+    torch.cuda.empty_cache()
+
+    # 13d. tensor parallelism: Qwen3-0.6B (16 / 8 heads of 128) over a tp = 2
+    # mesh on the card, 8 / 4 heads per half, bf16 and int8
+    qwen = "Qwen/Qwen3-Embedding-0.6B"
+    tp_mesh = make_mesh(1, 2, devices=[dev] * 2)
+    tp = {}
+    exact_f32 = None
+
+    def least_cos(a, b) -> float:
+        return float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=1).min())
+
+    for mode in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        qenc = load_encoder(qwen, str(qdir), weight_quant=None if mode == "bf16" else mode, device=dev)
+        load_s = time.perf_counter() - t0
+        g13 = torch.Generator(device=dev).manual_seed(SEED + 1304)
+        ids = torch.randint(3, qenc.cfg.vocab_size, (TP_BATCH, TP_SEQ), device=dev, generator=g13)
+        mask = torch.ones_like(ids)
+        mask[1::2, TP_SEQ // 2 + 7:] = 0  # every second row ragged
+        model = replicate_params(qenc.model, tp_mesh)[0]
+        tp_model = shard_params_tp(qenc.model, tp_mesh, "qwen3")
+        halves = {type(layer.self_attn).__name__ for layer in tp_model.layers}
+        check(halves == {"TensorParallel"}, f"{mode}: the attention did not split ({halves})")
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            rep = model(ids, mask)
+            rep_launches = kernels.LAUNCHES["flash_attention_causal"]
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tp_model(ids, mask)
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t0
+            path_counts[f"multi_device_tp_{mode}"] = dict(kernels.LAUNCHES)
+            rep_ms = cuda_ms(lambda: model(ids, mask), 2)
+            tp_ms = cuda_ms(lambda: tp_model(ids, mask), 2)
+        tp_launches = path_counts[f"multi_device_tp_{mode}"]["flash_attention_causal"]
+        check(rep_launches == qenc.cfg.num_layers and tp_launches == 2 * rep_launches,
+              f"{mode}: kernel B causal {tp_launches} launches over the halves, {rep_launches} replicated")
+        cos = least_cos(got, rep)
+        check(bool(torch.isfinite(got).all()), f"{mode} TP forward not finite")
+        extra = {}
+        if mode == "bf16":
+            # the same weights in f32 with plain attention: the reference both
+            # bf16 forwards are measured against
+            f32_model = load_encoder(qwen, str(qdir), dtype=torch.float32, use_flash=False, device=dev).model
+            with torch.inference_mode():
+                exact_f32 = f32_model(ids, mask)
+            del f32_model
+            rep_err, tp_err = 1.0 - least_cos(rep, exact_f32), 1.0 - least_cos(got, exact_f32)
+            check(tp_err <= TP_ERR_RATIO * rep_err and 1.0 - cos <= TP_ERR_RATIO * rep_err,
+                  f"bf16 TP: 1 - cos {1.0 - cos} vs replicated, {tp_err} vs f32; replicated vs f32 {rep_err}")
+            extra = dict(replicated_vs_f32_min_cos=1.0 - rep_err, tp_vs_f32_min_cos=1.0 - tp_err)
+        else:
+            check(cos >= MIN_COS_TP_INT8, f"int8 TP vs replicated: min cos {cos}")
+        tp[mode] = dict(load_s=round(load_s, 2), min_cos=cos, **extra,
+                        max_abs=float((got.float() - rep.float()).abs().max()),
+                        forward_tp_ms=tp_ms, forward_replicated_ms=rep_ms, first_tp_s=round(tp_s, 3),
+                        kernel_b_causal_launches={"replicated": rep_launches, "tp": tp_launches})
+        del qenc, model, tp_model, rep, got
+        torch.cuda.empty_cache()
+    del exact_f32
+    say("multi_device_tp", smi=smi, model="Qwen3-Embedding-0.6B", batch=TP_BATCH, seq=TP_SEQ, tp=2,
+        heads_per_half="8 / 4", **tp)
+    say("phase13", seconds=round(time.perf_counter() - t13, 2))
+
+
+def phase_13_worker(argv) -> None:
+    """One process of 13b: ``rank world port backend local_shards dir``. It
+    joins the world, makes only its own rows (``rows_fn`` asserts its
+    window), searches at k = 100 and 1000 and holds the results against
+    13a's; prints one JSON line (its wall and the payload it gathered)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from codemix_dense_retrieval_torch.parallel import multihost
+    from codemix_dense_retrieval_torch.parallel.sharded_search import _merge_two_key, search_blocks, sharded_topk_ip
+
+    rank, world, port, backend, local, p13 = (int(argv[0]), int(argv[1]), int(argv[2]), argv[3], int(argv[4]),
+                                               pathlib.Path(argv[5]))
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    inputs = torch.load(p13 / "inputs.pt")
+    want = np.load(p13 / "expected.npz")
+    check(multihost.initialize_multihost(f"localhost:{port}", world, rank, backend=backend), "init")
+    check(dist.get_backend() == backend and dist.get_world_size() == world, "world")
+    mesh = multihost.global_mesh(local_devices=[dev] * local)
+    check(mesh.shape["shard"] == MESH_SHARDS and mesh.first_shard == rank * local, f"mesh {mesh}")
+    rows = Rows13(dev, inputs["planted_pos"].to(dev), inputs["planted_rows"].to(dev))
+    asked = []
+
+    def rows_fn(start, stop):
+        window = multihost.process_local_rows(N_ROWS, rows_per_shard_13(), mesh)
+        check(window.start <= start and stop <= window.stop, f"rows [{start}, {stop}) outside {window}")
+        asked.append(stop - start)
+        return rows(start, stop)
+
+    t0 = time.perf_counter()
+    docs, counts, rps = multihost.shard_rows_multihost(rows_fn, N_ROWS, DIM, torch.bfloat16, mesh)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    check(rps == rows_per_shard_13() and sum(asked) == sum(int(c[0]) for c in counts), "local rows")
+    gathered = []
+    real = dist.all_gather_into_tensor
+
+    def recording(out, src, *a, **kw):
+        gathered.append(src.numel() * src.element_size())
+        return real(out, src, *a, **kw)
+
+    dist.all_gather_into_tensor = recording
+    q = inputs["queries"].to(dev)
+    walls = {}
+    for k in (100, 1000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, gids = search_blocks(
+            q, 256, rps, lambda blk: sharded_topk_ip(blk.to(torch.bfloat16), docs, counts, k, mesh=mesh),
+            mesh.shard_devices(), mesh)
+        v, g = vals.cpu().numpy(), gids.cpu().numpy()
+        walls[f"k{k}_s"] = round(time.perf_counter() - t0, 4)
+        check(np.array_equal(g, want[f"g{k}"]) and np.array_equal(v, want[f"v{k}"]), f"rank {rank} k={k} != 13a")
+        if world == 1:
+            # one process: the merge needs no collective, so run NCCL's
+            # all-gather and all-reduce on the (B, k) payload explicitly
+            vv, gg = multihost.all_gather_candidates(vals[:256], gids[:256], mesh)
+            mv, mg = _merge_two_key(vv, gg, k)
+            check(torch.equal(mv, vals[:256]) and torch.equal(mg, gids[:256]), "NCCL all-gather round trip")
+            check(torch.equal(multihost.all_reduce_max(vals[:, -1], mesh), vals[:, -1]), "NCCL all-reduce")
+    dist.all_gather_into_tensor = real
+    check(bool(gathered) and max(gathered) <= 256 * 1000 * 8, f"a gather moved {max(gathered)} bytes")
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "world": world, "backend": backend, "local_shards": local,
+                      "upload_s": round(upload_s, 2), "search": walls, "gathers": len(gathered),
+                      "payload_bytes": sum(gathered), "wall_s": round(time.perf_counter() - t_start, 2),
+                      "ok": True}), flush=True)
 
 
 def main() -> None:
@@ -1507,7 +2007,7 @@ def main() -> None:
 
     q05 = mix05.to(torch.bfloat16)
     t0 = time.perf_counter()
-    ovals, oids = oracle_topk(q05.float(), index._docs_dev, N_ROWS, 1000)
+    ovals, oids = oracle_topk(q05.float(), index._docs_dev[0], N_ROWS, 1000)
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
     oids = oids.cpu().numpy()
@@ -1523,7 +2023,7 @@ def main() -> None:
     agg = json.loads(agg_path.read_text())
     check(agg["RR@10"] == 100.0, f"RR@10 {agg['RR@10']}")
     # the run equals a stable (score desc, id asc) top-k of the kernel's own scores
-    s64, _ = topk.bin_scores(q05[:64].contiguous(), index._docs_dev, index._counts_dev[:1], 8,
+    s64, _ = topk.bin_scores(q05[:64].contiguous(), index._docs_dev[0], index._counts_dev[0], 8,
                              layout="bin_major")
     thr = torch.topk(s64, 1000, dim=1).values[:, -1]
     own = []
@@ -1547,7 +2047,7 @@ def main() -> None:
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, fids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, index._docs_dev, index._counts_dev, 100,
+    _, fids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, index._docs_dev[0], index._counts_dev, 100,
                                       search_kwargs=index.search_kwargs, query_block=256)
     fids = fids.cpu().numpy()
     tf100 = time.perf_counter() - t0
@@ -1580,7 +2080,7 @@ def main() -> None:
     scales8 = torch.empty(N_ROWS, dtype=torch.float32)
     for c0 in range(0, N_ROWS, 1 << 20):  # one chunk of f32 at a time, never the index
         c1 = min(c0 + (1 << 20), N_ROWS)
-        v8, s8 = quantize_rows(index._docs_dev[c0:c1])
+        v8, s8 = quantize_rows(index._docs_dev[0][c0:c1])
         host8[c0:c1].copy_(v8)
         scales8[c0:c1].copy_(s8)
     del v8, s8
@@ -1589,7 +2089,7 @@ def main() -> None:
     ).to_device()
     torch.cuda.synchronize()
     build8_s = time.perf_counter() - t0
-    check(index8._docs_dev.dtype == torch.int8 and index8._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS,
+    check(index8._docs_dev[0].dtype == torch.int8 and index8._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS,
           "int8 index not int8 on the two-level route")
     out8 = work / "search_int8"
     kernels.reset_launch_counts()
@@ -1613,7 +2113,7 @@ def main() -> None:
     check(agg8["RR@10"] == 100.0, f"int8 RR@10 {agg8['RR@10']}")
     # the exact int8 top-k: the same f32 mixed queries, quantized, against the plain int8 scores
     q8, qs8 = quantize_rows(mix05)
-    d8_big, ds8_big = index8._docs_dev, index8.search_kwargs["doc_scales"]
+    d8_big, ds8_big = index8._docs_dev[0], index8.search_kwargs["doc_scales"][0]
     t0 = time.perf_counter()
     _, o8ids = exact_topk(lambda c0, c1: int8_ip_scores(q8, qs8, d8_big[c0:c1], ds8_big[c0:c1]),
                           N_ROWS, 1000)
@@ -1636,17 +2136,17 @@ def main() -> None:
 
     # ---------------- phase 5c: rescore search (kernel 5) ----------------
     q256 = q05[:256].contiguous()
-    nv_big = index._counts_dev[:1]
+    nv_big = index._counts_dev[0]
     kernels.reset_launch_counts()
     rescore_s = {}
     for _ in range(2):  # the second call is timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, rids100 = topk.topk_ip(q256, index._docs_dev, 100, method="bins_rescore", n_valid=nv_big)
+        _, rids100 = topk.topk_ip(q256, index._docs_dev[0], 100, method="bins_rescore", n_valid=nv_big)
         torch.cuda.synchronize()
         rescore_s["k100"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        _, rids1000 = topk.topk_ip_rescore_two_level(q256, index._docs_dev, 1000, n_valid=nv_big)
+        _, rids1000 = topk.topk_ip_rescore_two_level(q256, index._docs_dev[0], 1000, n_valid=nv_big)
         torch.cuda.synchronize()
         rescore_s["k1000"] = time.perf_counter() - t0
     path_counts["rescore"] = dict(kernels.LAUNCHES)
@@ -1667,7 +2167,7 @@ def main() -> None:
         return y / y.norm(dim=1, keepdim=True)
 
     t0 = time.perf_counter()
-    docs5 = index._docs_dev  # reshaped in place: the recipe of the JAX package's bench
+    docs5 = index._docs_dev[0]  # reshaped in place: the recipe of the JAX package's bench
     for c0 in range(0, N_ROWS, 1 << 20):
         c1 = min(c0 + (1 << 20), N_ROWS)
         docs5[c0:c1] = aniso(docs5[c0:c1]).to(torch.bfloat16)
@@ -1766,26 +2266,26 @@ def main() -> None:
     # the fused sweep on this index, exact and guaranteed: the same ids
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    _, fe_ids, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 100,
+    _, fe_ids, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev[0], index._counts_dev, 100,
                                         search_kwargs=index.search_kwargs, query_block=256)
     fe_ids = fe_ids.cpu().numpy()
     tfe = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, fg_ids, _, fg_cert = fused_alpha_sweep_guaranteed(
-        qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 100, sketch=index._sketch,
+        qa5, qb5, ALPHAS, index._docs_dev[0], index._counts_dev, 100, sketch=index._sketch,
         search_kwargs=index.search_kwargs, query_block=256)
     tfg = time.perf_counter() - t0
     # k = 1, where the planted queries certify at alpha = .5: the fast sweep
     # keeps its certified rows, and the guaranteed one escalates only the rest
     sweep1 = dict(search_kwargs=index.search_kwargs, query_block=256)
-    _, fe1, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1, **sweep1)
+    _, fe1, _, _ = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev[0], index._counts_dev, 1, **sweep1)
     t0 = time.perf_counter()
-    _, ff1, _, ff1_cert = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1,
+    _, ff1, _, ff1_cert = fused_alpha_sweep(qa5, qb5, ALPHAS, index._docs_dev[0], index._counts_dev, 1,
                                             sketch=index._sketch, **sweep1)
     ff1, ff1_cert = ff1.cpu().numpy(), ff1_cert.cpu().numpy()
     tff1 = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, fg1, _, fg1_cert = fused_alpha_sweep_guaranteed(qa5, qb5, ALPHAS, index._docs_dev, index._counts_dev, 1,
+    _, fg1, _, fg1_cert = fused_alpha_sweep_guaranteed(qa5, qb5, ALPHAS, index._docs_dev[0], index._counts_dev, 1,
                                                        sketch=index._sketch, **sweep1)
     tfg1 = time.perf_counter() - t0
     path_counts["fused_sketch"] = dict(kernels.LAUNCHES)
@@ -1827,8 +2327,8 @@ def main() -> None:
         launches=path_counts["sketch"], exact_launches=path_counts["sketch_exact"])
 
     # kernel 7 at the sketch tier's main shape, while the sidecar is alive
-    sk5, tl5, proj5, _ = index._sketch
-    nv_big = index._counts_dev[:1]
+    (sk5,), (tl5,), proj5, _ = index._sketch
+    nv_big = index._counts_dev[0]
     q_sk, q_tl, _ = _sketch_with_err(mixed5(0.5)[:256].to(torch.bfloat16).float(), proj5, torch.bfloat16)
     nb5 = sk5.shape[0]
     ub = sk.binub(q_sk, q_tl, sk5, tl5, 8, nv_big)
@@ -2063,7 +2563,7 @@ def main() -> None:
 
     for label in ("0", "1"):
         cli_ids(label)
-    _, soids = oracle_topk(q05.float(), small_dev._docs_dev, SMALL_ROWS, 100)
+    _, soids = oracle_topk(q05.float(), small_dev._docs_dev[0], SMALL_ROWS, 100)
     cli_ov = overlap(cli_ids("0.5"), soids.cpu().numpy())
     check(cli_ov >= 0.999, f"CLI alpha=0.5 oracle overlap {cli_ov}")
     # run-mix --approx adaptive over the same store: the probed cover on
@@ -2491,7 +2991,7 @@ def main() -> None:
     entries = []
     # kernel A, bin-major, at the search phase's shape
     qa256 = q05[:256].contiguous()
-    docs_big, nv_big = index._docs_dev, index._counts_dev[:1]
+    docs_big, nv_big = index._docs_dev[0], index._counts_dev[0]
     nb_big = docs_big.shape[0]
     col = torch.arange(nb_big, device=dev)
 
@@ -2550,7 +3050,7 @@ def main() -> None:
     del docs_big, index
     # kernel 4, bin-major, at the int8 search phase's shape
     q8_256, qs8_256 = quantize_rows(mix05[:256].contiguous())
-    nv8 = index8._counts_dev[:1]
+    nv8 = index8._counts_dev[0]
 
     def lib_int8_bm():
         acc = torch._int_mm(q8_256, d8_big.T)
@@ -2575,7 +3075,7 @@ def main() -> None:
     ))
     del d8_big, ds8_big, index8
     # kernel A, transposed, at the CLI phase's shape
-    docs_s, nv_s = small_dev._docs_dev, small_dev._counts_dev[:1]
+    docs_s, nv_s = small_dev._docs_dev[0], small_dev._counts_dev[0]
     ns = docs_s.shape[0]
     col_s = torch.arange(ns, device=dev)[:, None]
 
@@ -2732,14 +3232,14 @@ def main() -> None:
     # bin maxima within 1e-4, pad scores and pad bins exactly NEG_INF
     mixh = mix_and_renorm(qa_t.to(dev), qb_t.to(dev), 0.5)
     qblk = mixh[:hub_block].to(torch.bfloat16).contiguous()
-    nv_h, nb_h = hub._counts_dev[:1], hub._docs_dev.shape[0]
-    s_h, bm_h = topk.bin_scores(qblk, hub._docs_dev, nv_h, 8, layout="bin_major")
+    nv_h, nb_h = hub._counts_dev[0], hub._docs_dev[0].shape[0]
+    s_h, bm_h = topk.bin_scores(qblk, hub._docs_dev[0], nv_h, 8, layout="bin_major")
     torch.cuda.synchronize()
     check(bool((s_h[:, hub.count:] == topk.NEG_INF).all()), "A pad scores at the hub's shape")
     check(bool((bm_h[:, -(-hub.count // 8):] == topk.NEG_INF).all()), "A pad bins at the hub's shape")
     err_hub = 0.0
     for r0 in range(0, hub_block, 32):
-        s2, bm2 = topk.bin_scores_plain(qblk[r0 : r0 + 32], hub._docs_dev, nv_h, 8, layout="bin_major")
+        s2, bm2 = topk.bin_scores_plain(qblk[r0 : r0 + 32], hub._docs_dev[0], nv_h, 8, layout="bin_major")
         err_hub = max(err_hub, (bm_h[r0 : r0 + 32] - bm2).abs().max().item())
         for c0 in range(0, hub.count, 1 << 22):
             c1 = min(c0 + (1 << 22), hub.count)
@@ -2776,11 +3276,11 @@ def main() -> None:
         for m in ("RR@10", "nDCG@10", "R@100"):
             metric_gap = max(metric_gap, abs(agg_h[m] - hub_metrics[label][m]))
     # kernel A and one search block at the hub's shape
-    hub_kernel = kernel_ms(lambda: topk.bin_scores(qblk, hub._docs_dev, nv_h, 8, layout="bin_major"), 3)
-    hub_blk500 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev, hub._counts_dev, 500), 3)
-    hub_blk1000 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev, hub._counts_dev, 1000), 3)
+    hub_kernel = kernel_ms(lambda: topk.bin_scores(qblk, hub._docs_dev[0], nv_h, 8, layout="bin_major"), 3)
+    hub_blk500 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev[0], hub._counts_dev, 500), 3)
+    hub_blk1000 = cuda_ms(lambda: sharded_topk_ip(qblk, hub._docs_dev[0], hub._counts_dev, 1000), 3)
     say("hub", rows=hub.count, rows_padded=hub._rows_per_shard, dim=DIM, dtype="bfloat16", langs=["l1", "l2"],
-        card_gb=round(hub._docs_dev.numel() * 2 / 1e9, 2), build_s=round(hub_build_s, 2),
+        card_gb=round(hub._docs_dev[0].numel() * 2 / 1e9, 2), build_s=round(hub_build_s, 2),
         upload_s=round(hub_upload_s, 2), alphas=len(ALPHAS), k=500, query_block_asked=1024,
         query_block=hub_block, kernel_a_max_abs_err=err_hub,
         unfused_queries_per_s=round(len(ALPHAS) * N_QUERIES / t_hub, 1),
@@ -3147,7 +3647,7 @@ def main() -> None:
         """Docids of the exact int8 top-k of the live rows (plain scores)."""
         n = i8.count
         q8, qs8 = quantize_rows(torch.from_numpy(rows).to(dev))
-        sc = int8_ip_scores(q8, qs8, i8._docs_dev[:n], i8.search_kwargs["doc_scales"][:n])
+        sc = int8_ip_scores(q8, qs8, i8._docs_dev[0][:n], i8.search_kwargs["doc_scales"][0][:n])
         return [[str(i8.docids[j]) for j in row] for row in topk._stable_topk(sc, k)[1].cpu().numpy()]
 
     snap_root = work / "snapshots"
@@ -3457,7 +3957,7 @@ def main() -> None:
         hub10 = DenseFlatIndex.merged([
             DenseFlatIndex.build(rows10.cpu(), store10.docids, dtype=sdt, lang="xx"),
             DenseFlatIndex.build(rows_yy.cpu(), store10.docids, dtype=sdt, lang="yy")]).to_device()
-        check(hub10._docs_dev.dtype == rows10.dtype, f"the {sdt} hub's rows")
+        check(hub10._docs_dev[0].dtype == rows10.dtype, f"the {sdt} hub's rows")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         hub_runs, hub_m = run_bilingual_vector_mix_fused(hub10, qids, va10, vb10, [0.5], root / "hub", k=100,
@@ -3584,7 +4084,7 @@ def main() -> None:
     torch.cuda.synchronize()
     up32_s = time.perf_counter() - t0
     del host32
-    d32, nv32 = idx32._docs_dev, idx32._counts_dev[:1]
+    d32, nv32 = idx32._docs_dev[0], idx32._counts_dev[0]
     nb32 = d32.shape[0]
     check(d32.dtype == torch.float32 and idx32._rows_per_shard >= topk.TWO_LEVEL_MIN_ROWS, "f32 index")
     q32 = mix05.float().contiguous()
@@ -3599,8 +4099,8 @@ def main() -> None:
         v1000, i1000 = idx.search(q, 1000, query_block=256, return_docids=False)
         sec = time.perf_counter() - t0
         path_counts[label] = dict(kernels.LAUNCHES)
-        qd = q.to(idx._docs_dev.dtype).float()
-        wv, wi = oracle_topk(qd, idx._docs_dev, N_ROWS, 1000)
+        qd = q.to(idx._docs_dev[0].dtype).float()
+        wv, wi = oracle_topk(qd, idx._docs_dev[0], N_ROWS, 1000)
         wv, wi = wv.cpu().numpy(), wi.cpu().numpy()
         gap = max(float(np.abs(v100 - wv[:, :100]).max()), float(np.abs(v1000 - wv).max()))
         check(gap <= TIE_TOL, f"{label}: rank-wise score gap {gap} to the plain top-k")
@@ -3611,11 +4111,11 @@ def main() -> None:
         adaptive tier (k = 1, where the planted rows certify, and k = 100)
         over the index: the fused ids at alpha = .5 and the adaptive values
         and ids equal exact search's on q32."""
-        sfx = kernels.dtype_suffix(idx._docs_dev.dtype)
+        sfx = kernels.dtype_suffix(idx._docs_dev[0].dtype)
         exact = {k_: idx.search(q32, k_, query_block=256, return_docids=False) for k_ in (1, 100)}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        _, f_ids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, idx._docs_dev, idx._counts_dev, 100,
+        _, f_ids, _, _ = fused_alpha_sweep(qa, qb, ALPHAS, idx._docs_dev[0], idx._counts_dev, 100,
                                            search_kwargs=idx.search_kwargs, query_block=256)
         f_ids = f_ids.cpu().numpy()
         out = {"fused_s": round(time.perf_counter() - t0, 2)}
@@ -3792,7 +4292,7 @@ def main() -> None:
     torch.cuda.synchronize()
     up16_s = time.perf_counter() - t0
     del host16
-    d16, nv16 = idx16._docs_dev, idx16._counts_dev[:1]
+    d16, nv16 = idx16._docs_dev[0], idx16._counts_dev[0]
     ov16 = full_size_search(idx16, q32, "search_f16")
     check(path_counts["search_f16"]["bin_scores_bin_major_f16"] > 0, "f16 search did not launch kernel A (f16)")
     tiers16 = tiers(idx16, "f16")
@@ -3924,6 +4424,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_12(dev, work, smi, path_counts, work / "ckpt", texts_a, texts_b)
 
+    # ---------------- phase 13: multi-device on the one card ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_13(dev, work, smi, path_counts, work / "ckpt", qdir, mix05, docids, passages, buckets)
+
     # each kernel's launches over all the paths
     entries.extend(late_entries)
     for e in entries:
@@ -3941,4 +4446,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase13-worker"]:
+        phase_13_worker(sys.argv[2:])
+    else:
+        main()

@@ -52,9 +52,11 @@ probed-exact tier (``run-rerank`` takes ``--approx`` for its dense stage,
 which the JAX CLI does not); ``encode-corpus --pack`` packs passages into
 shared rows; ``--weight_quant {int8,nf4}`` quantizes the encoder's
 Linear weights (a pre-quantized ``convert`` checkpoint loads quantized
-without it). Options whose paths are not ported yet (``--dp`` > 1,
-``--shards`` > 1) exit with an error that names the ROADMAP item;
-``--fused --approx adaptive`` exits with the JAX package's error.
+without it). ``--shards S`` row-shards every index over S devices (default
+-1: every visible card; on the card S > the cards visible raises, on
+``--device cpu`` S shards share the CPU) and ``--dp N`` makes the encoder
+data-parallel over N devices (the same rules); ``--fused --approx
+adaptive`` exits with the JAX package's error.
 """
 
 from __future__ import annotations
@@ -91,10 +93,22 @@ _FUSED_ADAPTIVE = (
 def _reject_unported(args) -> None:
     if getattr(args, "fused", False) and getattr(args, "approx", "off") == "adaptive":
         raise SystemExit(_FUSED_ADAPTIVE)
-    if args.dp > 1:
-        raise SystemExit("[ERROR] --dp > 1 is not ported yet (ROADMAP: multi-GPU)")
-    if args.shards > 1:
-        raise SystemExit("[ERROR] --shards > 1 is not ported yet (ROADMAP: multi-GPU)")
+
+
+def _mesh(args, size: int):
+    """A ``size``-shard mesh on ``--device``: the visible cards (-1: all;
+    more than visible raises), or ``size`` shards on the CPU (-1: one)."""
+    from codemix_dense_retrieval_torch.parallel.mesh import make_mesh
+
+    if args.device == "cpu":
+        return make_mesh(shard=size, devices=["cpu"] * max(1, size))
+    return make_mesh(shard=size)
+
+
+def _encode_mesh(args):
+    """The data-parallel encode mesh from ``--dp`` (1: one device, no mesh;
+    -1: every device of ``--device``)."""
+    return None if args.dp == 1 else _mesh(args, args.dp)
 
 
 def _approx_mode(args):
@@ -110,7 +124,7 @@ def _build_encoder(args):
         from codemix_dense_retrieval_torch.models.registry import load_encoder
 
         return load_encoder(args.encoder, args.checkpoint, seed=args.seed, device=args.device,
-                            weight_quant=args.weight_quant)
+                            mesh=_encode_mesh(args), weight_quant=args.weight_quant)
     log.warning("no --checkpoint: random-init encoder + hash tokenizer (smoke mode)")
     from codemix_dense_retrieval_torch.models.dialects import default_pooling
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
@@ -124,7 +138,8 @@ def _build_encoder(args):
         pooling=default_pooling(args.encoder),
         use_flash=False,
     )
-    return TextEncoder(args.encoder, cfg, seed=args.seed, device=args.device, weight_quant=args.weight_quant)
+    return TextEncoder(args.encoder, cfg, seed=args.seed, device=args.device, mesh=_encode_mesh(args),
+                       weight_quant=args.weight_quant)
 
 
 def _load_query_sets(args) -> Dict[str, List[Tuple[str, str]]]:
@@ -223,7 +238,7 @@ def cmd_run_mono(args) -> None:
 
     _reject_unported(args)
     encoder = _build_encoder(args)
-    index = DenseFlatIndex.load(args.index).to_device(args.device)
+    index = DenseFlatIndex.load(args.index).to_device(_mesh(args, args.shards))
     sets = _load_query_sets(args)
     if args.max_queries:
         sets = {k: v[: args.max_queries] for k, v in sets.items()}
@@ -251,7 +266,7 @@ def cmd_run_rerank(args) -> None:
             raise SystemExit(
                 f"[ERROR] {tok_dir} is not a token store: re-run encode-corpus with --tokens_per_doc"
             )
-        indexes.append(DenseFlatIndex.load(ix_dir).to_device(args.device))
+        indexes.append(DenseFlatIndex.load(ix_dir).to_device(_mesh(args, args.shards)))
         stores.append(TokenShardStore.open(tok_dir))
     sets = _load_query_sets(args)
     if args.max_queries:
@@ -282,7 +297,7 @@ def cmd_run_mix(args) -> None:
 
     _reject_unported(args)
     encoder = _build_encoder(args)
-    index = DenseFlatIndex.load(args.index).to_device(args.device)
+    index = DenseFlatIndex.load(args.index).to_device(_mesh(args, args.shards))
     tsvs = _parse_lang_path(args.query_tsv)
     if len(tsvs) != 2:
         raise SystemExit("[ERROR] run-mix needs exactly two LANG=PATH --query_tsv")
@@ -360,13 +375,13 @@ def _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx) -> None:
 def _load_hub(args):
     """The per-language ``--index`` stores as one hub (``DenseFlatIndex.merged``,
     derived ids ``base#tag`` with ``--lang_tags`` or each store's language),
-    on ``--device``."""
+    on the ``--shards`` mesh."""
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
 
     indexes = [DenseFlatIndex.load(p) for p in args.index]
     tags = args.lang_tags or [ix.store.manifest.lang or str(i) for i, ix in enumerate(indexes)]
     hub = DenseFlatIndex.merged(indexes, lang_tags=tags) if len(indexes) > 1 else indexes[0]
-    return hub.to_device(args.device)
+    return hub.to_device(_mesh(args, args.shards))
 
 
 def cmd_run_bilingual(args) -> None:
@@ -546,7 +561,7 @@ def cmd_profile(args) -> None:
         vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
         index = DenseFlatIndex.build(vecs, [str(i) for i in range(args.docs)])
         del vecs
-    index.to_device(args.device)
+    index.to_device(_mesh(args, args.shards))
     rng = np.random.default_rng(args.seed + 1)
     q = rng.standard_normal((args.queries, index.dim)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -595,7 +610,7 @@ def cmd_tune(args) -> None:
         from codemix_dense_retrieval_torch.io.shards import storage_to_tensor
 
         idx = DenseFlatIndex.load(args.sketch_index)
-        idx.to_device(args.device)
+        idx.to_device(_mesh(args, args.shards))
         idx.enable_sketch(sketch_dim=args.sketch_dim)
         n_probe = min(512, idx.count)
         stride = max(1, idx.count // n_probe)
@@ -797,8 +812,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "load_in_8bit/4bit analog)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--enc_batch", type=int, default=64)
-    p.add_argument("--dp", type=int, default=1, help="data-parallel encode devices (only 1)")
-    p.add_argument("--shards", type=int, default=-1, help="index shard axis size (one device: -1 or 1)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel encode devices (-1: all; on --device cpu, shards of the CPU)")
+    p.add_argument("--shards", type=int, default=-1,
+                   help="index shard axis size (-1: every visible card; on --device cpu, S CPU shards)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--verbosity", type=int, default=1)
 

@@ -5,7 +5,8 @@ Composition:
 - **storage**: :class:`~codemix_dense_retrieval_torch.io.shards.ShardStore`
   (bf16 or int8 rows + docid sidecars, memory-mappable), or the bilingual
   hub's stores end to end (:meth:`DenseFlatIndex.merged`);
-- **device residency**: rows padded and uploaded to one device
+- **device residency**: rows padded and row-sharded over a device mesh's
+  ``shard`` axis, each shard on its device
   (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.shard_rows`),
   with the per-row scales of an int8 store beside them;
 - **search**: the bin-max cover over kernel A, or kernel 4 for an int8
@@ -19,10 +20,12 @@ Composition:
   (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_adaptive`),
   cheap once :meth:`DenseFlatIndex.reorder_rows` has cluster-ordered the rows;
 - **online mutation** (:meth:`DenseFlatIndex.add`, :meth:`~DenseFlatIndex.remove`,
-  :meth:`~DenseFlatIndex.rebalance`): rows written into the padded capacity
-  on the device, the valid-row count updated after them.
+  :meth:`~DenseFlatIndex.rebalance`): rows written into the shards' padded
+  capacity on their devices, the valid-row counts updated after them.
 
-The row id -> docid remap is a host lookup into the docid table.
+Search results carry global padded positions (shard * rows_per_shard +
+local row); the position -> docid remap is a host lookup into the docid
+table.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardManifest, ShardStore, concat_stores, storage_dtype
 from codemix_dense_retrieval_torch.ops.quant import quantize_rows
+from codemix_dense_retrieval_torch.parallel.mesh import Mesh, as_mesh
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
     _ceil_to,
     search_blocks,
@@ -77,20 +81,22 @@ class DenseFlatIndex:
     Typical lifecycle::
 
         idx = DenseFlatIndex.load(path)          # or .build(vectors, docids)
-        idx.to_device()                          # card-resident
+        idx.to_device()                          # card-resident (or to_device(mesh))
         vals, docids = idx.search(qvecs, k=100)
     """
 
     def __init__(self, store: ShardStore) -> None:
         self.store = store
         self._docids = np.asarray(store.derived_ids, dtype=object)
-        self.device: Optional[torch.device] = None
-        self._docs_dev: Optional[torch.Tensor] = None
-        self._counts_dev: Optional[torch.Tensor] = None
+        self.mesh: Optional[Mesh] = None
+        self.device: Optional[torch.device] = None  # the mesh's first shard's
+        # per-shard device rows and valid-row counts ((1,) int32), shard order
+        self._docs_dev: Optional[list] = None
+        self._counts_dev: Optional[list] = None
         self._rows_per_shard = 0
         self.search_kwargs: dict = {}
         self._pad_multiple = 1024
-        self._sketch = None  # (sketch, tails, proj, settings) on the device
+        self._sketch = None  # (per-shard sketches, per-shard tails, proj, settings)
         # calibrate_adaptive's operating points per clamped k: probe depth,
         # measured speedup over exact search, certificate rate (the a_* keys
         # of sketch.npz, in the JAX package's format)
@@ -168,28 +174,30 @@ class DenseFlatIndex:
 
     def to_device(
         self,
-        device: DeviceLike = None,
+        mesh: Union[Mesh, DeviceLike] = None,
         *,
         pad_multiple: int = 1024,
         **search_kwargs,
     ) -> "DenseFlatIndex":
-        """Upload the rows to ``device`` (the CUDA card by default; raises
-        when there is none and no device is named). ``search_kwargs``
-        (``method``, ``bin_size``, ``tile_b``, ``tile_n``) pass through to
-        every search. An int8 store uploads its int8 rows and its per-row
-        scale sidecar, and searches over kernel 4 (half the card memory of
-        bf16)."""
+        """Upload the rows, row-sharded over ``mesh``'s ``shard`` axis (a
+        :class:`~codemix_dense_retrieval_torch.parallel.mesh.Mesh`; a device
+        is the one-shard mesh on it; default: one shard on the CUDA card,
+        raising when there is none). ``search_kwargs`` (``method``,
+        ``bin_size``, ``tile_b``, ``tile_n``) pass through to every search.
+        An int8 store uploads its int8 rows and its per-row scale sidecar,
+        and searches over kernel 4 (half the card memory of bf16)."""
         if self.store.manifest.dtype == "int8" and self.store.scales is None:
             raise ValueError("int8 store has no scales.bin; it cannot be searched")
-        self.device = resolve_device(device)
+        self.mesh = mesh if isinstance(mesh, Mesh) else as_mesh(resolve_device(mesh))
+        self.device = self.mesh.shard_devices()[0]
         self._pad_multiple = pad_multiple
         self._docs_dev, self._counts_dev, self._rows_per_shard = shard_rows(
-            self.store, self.device, pad_multiple=pad_multiple
+            self.store, self.mesh, pad_multiple=pad_multiple
         )
         self.search_kwargs = dict(search_kwargs)
         if self.store.manifest.dtype == "int8":
             self.search_kwargs["doc_scales"] = shard_row_sidecar(
-                self.store.scales, self.device, self._rows_per_shard
+                self.store.scales, self.mesh, self._rows_per_shard
             )
         return self
 
@@ -197,22 +205,65 @@ class DenseFlatIndex:
         return self.store.manifest.dtype == "int8"
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.mesh.distinct_devices():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _live_positions(self) -> np.ndarray:
+        """Global padded positions of the live rows, shards in order: the
+        row order of :meth:`to_store` (the store's order while unmutated)."""
+        if self._mutable is None:
+            return np.arange(self.store.count, dtype=np.int64)
+        rps, counts = self._rows_per_shard, self._mutable["counts"]
+        return np.concatenate(
+            [np.arange(s * rps, s * rps + int(c), dtype=np.int64) for s, c in enumerate(counts)]
+        )
+
+    def _by_shard(self, positions: np.ndarray):
+        """(shard, batch indices, local positions) for each local shard that
+        ``positions`` (global) touch, in shard order."""
+        shard = positions // self._rows_per_shard - self.mesh.first_shard
+        for s in np.unique(shard):
+            sel = np.flatnonzero(shard == s)
+            yield int(s), sel, positions[sel] - (self.mesh.first_shard + int(s)) * self._rows_per_shard
+
+    def _rows_at(self, s: int, local: np.ndarray) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Shard ``s``'s rows (and int8 scales) at ``local`` positions on its
+        device: a slice when they are one ascending run, else a gather."""
+        scales = self.search_kwargs.get("doc_scales")
+        if len(local) and local[-1] - local[0] + 1 == len(local) and (np.diff(local) == 1).all():
+            sl = slice(int(local[0]), int(local[-1]) + 1)
+            return self._docs_dev[s][sl], None if scales is None else scales[s][sl]
+        idx = torch.from_numpy(local).to(self._docs_dev[s].device)
+        return (self._docs_dev[s].index_select(0, idx),
+                None if scales is None else scales[s].index_select(0, idx))
+
+    def _rows_f32(self, positions: np.ndarray) -> np.ndarray:
+        """The effective rows (dequantized for int8) at global ``positions``
+        as host f32."""
+        out = np.empty((len(positions), self.dim), np.float32)
+        for s, sel, local in self._by_shard(positions):
+            rows, sc = self._rows_at(s, local)
+            rows = rows.to(torch.float32)
+            if sc is not None:
+                rows = rows * sc[:, None]
+            out[sel] = rows.cpu().numpy()
+        return out
 
     # ---------------- online mutation ----------------
     #
     # FAISS's IndexIDMap adds and removes rows of a live index. Here the rows
-    # sit in a capacity-padded device tensor masked by the valid-row count:
-    # an add writes at the count, a remove swaps the last valid row into the
-    # hole and lowers the count (no tombstones), and a full index grows with
-    # headroom. The device rows (with an int8 index's scale sidecar) are the
-    # only copy of the live rows; the host keeps the docid of each row and
-    # the row of each docid. Positions equal the JAX package's on a
-    # one-shard mesh, and with them the (score desc, row asc) tie order.
-    # An int8 row moves as its bytes: for codes and scales made by the
-    # per-row quantizer that equals the JAX package's re-quantization of
-    # the dequantized row (quantize(dequantize(q, s)) == (q, s)).
+    # sit in capacity-padded shards masked by their valid-row counts: an add
+    # writes at the count of the emptiest shard, a remove swaps the last
+    # valid row of the hole's shard into it and lowers that count (no
+    # tombstones), and a full index grows with headroom. The device rows
+    # (with an int8 index's scale sidecar) are the only copy of the live
+    # rows; the host keeps the docid of each global padded position and the
+    # position of each docid. Positions equal the JAX package's on a mesh of
+    # the same shard count, and with them the (score desc, row asc) tie
+    # order. An int8 row moves as its bytes: for codes and scales made by the
+    # per-row quantizer that equals the JAX package's re-quantization of the
+    # dequantized row (quantize(dequantize(q, s)) == (q, s)).
 
     def _ensure_mutable(self) -> None:
         """Upload the index if it is not on a device, and make the docid
@@ -222,40 +273,51 @@ class DenseFlatIndex:
             self.to_device()
         if self._mutable is not None:
             return
+        if self.mesh.process_count > 1:
+            raise NotImplementedError(
+                "online mutation runs on a single-process mesh: each process of a "
+                "multi-process mesh holds only its own shards' rows"
+            )
         t0 = time.perf_counter()
-        n = self.store.count
-        docids = np.empty(self._rows_per_shard, dtype=object)
+        n, rps = self.store.count, self._rows_per_shard
+        counts = np.asarray([int(c[0]) for c in self._counts_dev], np.int64)
+        docids = np.empty(len(counts) * rps, dtype=object)
         docids[:n] = self._docids[:n]
         self._mutable = {
             "count": n,
+            "counts": counts,
             "docids": docids,
-            "row_of": dict(zip(map(str, docids[:n].tolist()), range(n))),
+            "row_of": dict(zip(docids[:n].tolist(), range(n))),
         }
         self._docids = docids
         self.mutation_stats["row_of_s"] = time.perf_counter() - t0
 
     def _refresh_counts(self) -> None:
-        """The valid-row count on the device, enqueued after the row writes
-        it unmasks."""
-        self._counts_dev = torch.tensor([self._mutable["count"]], dtype=torch.int32, device=self.device)
+        """The valid-row counts on the shards' devices, enqueued after the
+        row writes they unmask."""
+        self._counts_dev = [
+            torch.tensor([int(c)], dtype=torch.int32, device=dev)
+            for c, dev in zip(self._mutable["counts"], self.mesh.shard_devices())
+        ]
 
-    def _resketch(self, positions: torch.Tensor) -> None:
-        """Sketch and tail rows of the effective rows at ``positions``
+    def _resketch(self, s: int, local: torch.Tensor) -> None:
+        """Sketch and tail rows of shard ``s``'s effective rows at ``local``
         (dequantized for int8) into the armed sketch sidecar."""
         if self._sketch is None:
             return
         from codemix_dense_retrieval_torch.ops.sketch import sketch_rows, sketch_rows_int8
 
         sk, tails, proj, _ = self._sketch
-        rows = self._docs_dev.index_select(0, positions)
+        rows = self._docs_dev[s].index_select(0, local)
+        proj = proj.to(rows.device)
         if self._is_int8():
             new_sk, new_tails = sketch_rows_int8(
-                rows, self.search_kwargs["doc_scales"].index_select(0, positions), proj
+                rows, self.search_kwargs["doc_scales"][s].index_select(0, local), proj
             )
         else:
             new_sk, new_tails = sketch_rows(rows, proj)
-        sk.index_copy_(0, positions, new_sk.to(sk.dtype))
-        tails.index_copy_(0, positions, new_tails)
+        sk[s].index_copy_(0, local, new_sk.to(sk[s].dtype))
+        tails[s].index_copy_(0, local, new_tails)
 
     def _reproject_sketch(self) -> None:
         """Re-project an armed sketch over the whole (new) row layout."""
@@ -264,64 +326,121 @@ class DenseFlatIndex:
             self._sketch = None  # the old sidecar leaves before the new one is made
             self._sketch = (*self._project_sketch(proj), proj, skw)
 
-    def _write_rows(self, positions: torch.Tensor, rows: torch.Tensor) -> None:
-        """Write f32 ``rows`` at ``positions`` in the index dtype: an int8
-        index quantizes them on the device (bit-identical to the JAX
-        package's host quantizer) and writes their scales."""
-        if self._is_int8():
-            q, scales = quantize_rows(rows)
-            self._docs_dev.index_copy_(0, positions, q)
-            self.search_kwargs["doc_scales"].index_copy_(0, positions, scales)
-        else:
-            self._docs_dev.index_copy_(0, positions, rows.to(self._docs_dev.dtype))
-        self._resketch(positions)
+    def _write_rows(self, positions: np.ndarray, rows: torch.Tensor) -> None:
+        """Write f32 ``rows`` at global ``positions`` in the index dtype, each
+        on its shard's device: an int8 index quantizes them there
+        (bit-identical to the JAX package's host quantizer) and writes their
+        scales."""
+        for s, sel, local in self._by_shard(positions):
+            dev = self._docs_dev[s].device
+            pos = torch.from_numpy(local).to(dev)
+            part = rows[torch.from_numpy(sel).to(rows.device)].to(dev, torch.float32)
+            if self._is_int8():
+                q, scales = quantize_rows(part)
+                self._docs_dev[s].index_copy_(0, pos, q)
+                self.search_kwargs["doc_scales"][s].index_copy_(0, pos, scales)
+            else:
+                self._docs_dev[s].index_copy_(0, pos, part.to(self._docs_dev[s].dtype))
+            self._resketch(s, pos)
 
-    def _move_rows(self, src: torch.Tensor, dst: torch.Tensor) -> None:
-        """Copy the rows ``src`` (with their scales) to ``dst``; the gather
-        completes before the scatter, so chains resolved to their pre-batch
-        sources move in one step."""
-        self._docs_dev.index_copy_(0, dst, self._docs_dev.index_select(0, src))
-        if self._is_int8():
-            scales = self.search_kwargs["doc_scales"]
-            scales.index_copy_(0, dst, scales.index_select(0, src))
-        self._resketch(dst)
+    def _move_rows(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Copy the rows at global ``src`` (with their scales) to ``dst``,
+        each pair within one shard; the gather completes before the scatter,
+        so chains resolved to their pre-batch sources move in one step."""
+        for s, sel, local_dst in self._by_shard(dst):
+            dev = self._docs_dev[s].device
+            d = torch.from_numpy(local_dst).to(dev)
+            c = torch.from_numpy(src[sel] % self._rows_per_shard).to(dev)
+            self._docs_dev[s].index_copy_(0, d, self._docs_dev[s].index_select(0, c))
+            if self._is_int8():
+                scales = self.search_kwargs["doc_scales"][s]
+                scales.index_copy_(0, d, scales.index_select(0, c))
+            self._resketch(s, d)
 
-    def _relayout(self, capacity: int) -> None:
-        """The live rows in a ``capacity``-row layout: the valid prefix
-        copied on the device into a new tensor when the capacity changes,
-        zero rows after it (an int8 index's pad scales 1.0, what the
-        quantizer gives a zero row), the count refreshed and the sketch
-        re-projected: the JAX package's re-upload of its mirror."""
-        n = self._mutable["count"]
-        scales = self.search_kwargs.get("doc_scales")
-        if capacity != self._rows_per_shard:
-            old, self._docs_dev = self._docs_dev, None
-            self._docs_dev = torch.empty((capacity, self.dim), dtype=old.dtype, device=self.device)
-            self._docs_dev[:n].copy_(old[:n])
-            del old
+    def _relayout(self, rows_per_shard: int, sources: Sequence[np.ndarray]) -> None:
+        """Lay the live rows out anew: shard s takes the rows at the global
+        positions ``sources[s]`` (in order) in a ``rows_per_shard``-row shard,
+        zero rows after them (an int8 index's pad scales 1.0, what the
+        quantizer gives a zero row); the counts are refreshed and the sketch
+        re-projected: the JAX package's re-upload of its mirror. A shard
+        that keeps its rows in place is not copied; a shard's old rows leave
+        the device once no later shard reads them."""
+        m, old_rps = self._mutable, self._rows_per_shard
+        devices = self.mesh.shard_devices()
+        dtype = self._docs_dev[0].dtype
+        old_scales = self.search_kwargs.get("doc_scales")
+        stays = [
+            rows_per_shard == old_rps and len(src) == int(m["counts"][s])
+            and (src == s * old_rps + np.arange(len(src))).all()
+            for s, src in enumerate(sources)
+        ]
+        last_reader = {}
+        for s, src in enumerate(sources):
+            for j in np.unique(src // old_rps):
+                last_reader[int(j)] = s
+        new_docs, new_scales = [], []
+        for s, src in enumerate(sources):
+            c = len(src)
+            if stays[s]:
+                rows, scales = self._docs_dev[s], None if old_scales is None else old_scales[s]
+            else:
+                rows = torch.empty((rows_per_shard, self.dim), dtype=dtype, device=devices[s])
+                scales = None if old_scales is None else torch.empty(
+                    rows_per_shard, dtype=torch.float32, device=devices[s])
+                at = 0
+                for j, sel, local in self._by_shard(src):
+                    part, part_scales = self._rows_at(j, local)
+                    rows[at : at + len(sel)].copy_(part)
+                    if scales is not None:
+                        scales[at : at + len(sel)].copy_(part_scales)
+                    at += len(sel)
+            rows[c:].zero_()
             if scales is not None:
-                new = torch.empty(capacity, dtype=torch.float32, device=self.device)
-                new[:n].copy_(scales[:n])
-                self.search_kwargs["doc_scales"] = scales = new
-            docids = np.empty(capacity, dtype=object)
-            docids[:n] = self._mutable["docids"][:n]
-            self._mutable["docids"] = self._docids = docids
-            self._rows_per_shard = capacity
-        self._docs_dev[n:].zero_()
-        if scales is not None:
-            scales[n:].fill_(1.0)
+                scales[c:].fill_(1.0)
+            new_docs.append(rows)
+            new_scales.append(scales)
+            for j in [j for j, reader in last_reader.items() if reader == s]:
+                # no later shard reads old shard j: it leaves the device
+                # unless a new shard holds it in place
+                self._docs_dev[j] = None
+                if old_scales is not None:
+                    old_scales[j] = None
+        if not all(stays) or rows_per_shard != old_rps:
+            docids = np.empty(len(sources) * rows_per_shard, dtype=object)
+            for s, src in enumerate(sources):
+                docids[s * rows_per_shard : s * rows_per_shard + len(src)] = m["docids"][src]
+            moved = any(
+                (src != s * rows_per_shard + np.arange(len(src))).any() for s, src in enumerate(sources)
+            )
+            m["docids"] = self._docids = docids
+            if moved:
+                live = np.flatnonzero(docids != None)  # noqa: E711
+                m["row_of"] = dict(zip(docids[live].tolist(), live.tolist()))
+        m["counts"] = np.asarray([len(src) for src in sources], np.int64)
+        self._docs_dev = new_docs
+        if old_scales is not None:
+            self.search_kwargs["doc_scales"] = new_scales
+        self._rows_per_shard = rows_per_shard
         self._refresh_counts()
         self._reproject_sketch()
 
+    def _shard_ranges(self) -> list:
+        """Each shard's live rows as global positions (its valid prefix)."""
+        rps = self._rows_per_shard
+        return [np.arange(s * rps, s * rps + int(c), dtype=np.int64)
+                for s, c in enumerate(self._mutable["counts"])]
+
     def _grow(self, extra: int) -> None:
-        """Regrow to ``int(1.5 * live rows) + extra`` rows, rounded up to
-        1024 (the JAX package's headroom); the seconds, card synchronized,
-        land in ``mutation_stats["grows"]``."""
-        n = self._mutable["count"]
-        capacity = _ceil_to(max(1, int(1.5 * n) + extra), 1024)
+        """Regrow every shard to ``ceil_to(ceil((int(1.5 * live rows) +
+        extra) / S), 1024)`` rows (the JAX package's headroom), each shard
+        keeping its rows; the seconds, cards synchronized, land in
+        ``mutation_stats["grows"]``."""
+        n, shards = self._mutable["count"], len(self._docs_dev)
+        target = int(1.5 * n) + extra
+        capacity = _ceil_to(max(1, -(-target // shards)), 1024)
         from_rows = self._rows_per_shard
         t0 = time.perf_counter()
-        self._relayout(capacity)
+        self._relayout(capacity, self._shard_ranges())
         self._sync()
         self.mutation_stats["grows"].append(
             {"from_rows": from_rows, "to_rows": capacity, "seconds": time.perf_counter() - t0}
@@ -329,10 +448,11 @@ class DenseFlatIndex:
 
     def add(self, vectors, docids: Sequence[str]) -> np.ndarray:
         """Add rows to the live index (FAISS ``add_with_ids``): f32 rows
-        (numpy or a tensor on any device) written after the live rows, the
-        index regrown when its capacity is spent. A docid already present,
-        or twice in the batch, raises before anything changes. Returns the
-        row positions assigned (row-aligned sidecars, the two-stage token
+        (numpy or a tensor on any device) written into the shards' pad, the
+        emptiest shard first (ties to the lowest), the index regrown when
+        its capacity is spent. A docid already present, or twice in the
+        batch, raises before anything changes. Returns the global padded row
+        positions assigned (row-aligned sidecars, the two-stage token
         blocks, write theirs there)."""
         self._ensure_mutable()
         m = self._mutable
@@ -355,27 +475,37 @@ class DenseFlatIndex:
             raise ValueError(f"docids already present: {dup[:5]}")
         if vectors.shape[1] != self.dim:
             raise ValueError(f"row dim {vectors.shape[1]} != index dim {self.dim}")
-        if len(vectors) > self._rows_per_shard - m["count"]:
+        if len(vectors) > len(self._docs_dev) * self._rows_per_shard - m["count"]:
             self._grow(len(vectors))
-        positions = np.arange(m["count"], m["count"] + len(vectors), dtype=np.int64)
+        rps, counts = self._rows_per_shard, m["counts"]
+        if len(counts) == 1:
+            positions = np.arange(counts[0], counts[0] + len(vectors), dtype=np.int64)
+            counts[0] += len(vectors)
+        else:
+            positions = np.empty(len(vectors), np.int64)
+            for i in range(len(vectors)):
+                sh = int(np.argmin(counts))  # emptiest shard, ties to the lowest
+                positions[i] = sh * rps + counts[sh]
+                counts[sh] += 1
         m["docids"][positions] = docids
         m["row_of"].update(zip(docids, positions.tolist()))
         m["count"] += len(vectors)
         self.mutation_epoch += 1
         self.last_swaps = []
-        # the rows first, then the count that unmasks them: a search between
+        # the rows first, then the counts that unmask them: a search between
         # the two never scores an unwritten row as valid
-        self._write_rows(torch.from_numpy(positions).to(self.device), vectors.to(self.device, torch.float32))
+        self._write_rows(positions, vectors)
         self._refresh_counts()
         return positions
 
     def remove(self, docids: Sequence[str]) -> int:
         """Remove rows by docid (FAISS ``remove_ids``); returns how many were
         removed. Unknown docids are ignored. Each hole takes the last valid
-        row, so the count mask stays exact; ``last_swaps`` journals the
-        (src, dst) moves in order."""
+        row of its shard, so the count masks stay exact; ``last_swaps``
+        journals the (src, dst) moves in order."""
         self._ensure_mutable()
         m = self._mutable
+        rps, counts = self._rows_per_shard, m["counts"]
         touched: dict = {}
         removed = 0
         self.last_swaps = []
@@ -384,7 +514,8 @@ class DenseFlatIndex:
             if pos is None:
                 continue
             removed += 1
-            last = m["count"] - 1
+            sh = pos // rps
+            last = sh * rps + int(counts[sh]) - 1
             if pos != last:
                 moved = m["docids"][last]
                 m["docids"][pos] = moved
@@ -392,70 +523,68 @@ class DenseFlatIndex:
                 touched[pos] = None
                 self.last_swaps.append((int(last), int(pos)))
             m["docids"][last] = None
+            counts[sh] -= 1
             m["count"] -= 1
             touched.pop(last, None)  # past the count now
         if removed:
             self.mutation_epoch += 1
-            # the moved rows first, then the lower count: a search between
+            # the moved rows first, then the lower counts: a search between
             # the two sees at worst a still-counted copy of a live row
             if touched:
                 dst = np.fromiter(touched, np.int64)
-                src = swap_sources(self.last_swaps, dst)
-                self._move_rows(torch.from_numpy(src).to(self.device), torch.from_numpy(dst).to(self.device))
+                self._move_rows(swap_sources(self.last_swaps, dst), dst)
             self._refresh_counts()
         return removed
 
     def rebalance(self) -> "DenseFlatIndex":
-        """Even the live rows out across shards. With one shard the rows
-        stay where they are: the pad past them is cleared and an armed
-        sketch re-projected, as the JAX package's re-upload on a one-shard
-        mesh does. ``mutation_epoch`` is bumped."""
+        """Even the live rows out across shards: with ``per = ceil(n / S)``,
+        shard s takes the live rows ``[s * per, (s + 1) * per)`` of the
+        shard-order listing; the pad past them is cleared and an armed sketch
+        re-projected (with one shard the rows stay where they are), as the
+        JAX package's re-upload does. ``mutation_epoch`` is bumped."""
         self._ensure_mutable()
+        live = self._live_positions()
+        shards = len(self._docs_dev)
+        per = -(-len(live) // shards) if len(live) else 0
         self.mutation_epoch += 1
-        self._relayout(self._rows_per_shard)
+        self._relayout(self._rows_per_shard, [live[s * per : (s + 1) * per] for s in range(shards)])
         return self
 
     def to_store(self) -> ShardStore:
         """The live rows as a host ShardStore (the store itself while the
-        index is unmutated): read back from the device 262,144 rows at a
-        time, docids as the live table names them. ``save`` writes it."""
+        index is unmutated): shards in order, read back from the devices
+        262,144 rows at a time, docids as the live table names them.
+        ``save`` writes it."""
         if self._mutable is None:
             return self.store
-        n = self._mutable["count"]
-        vals, scales = self._rows_to_host(n)
+        live = self._live_positions()
+        vals, scales = self._rows_to_host(live)
         man = self.store.manifest
         return ShardStore(
-            ShardManifest(dim=self.dim, dtype=man.dtype, count=n, files=[], lang=man.lang,
+            ShardManifest(dim=self.dim, dtype=man.dtype, count=len(live), files=[], lang=man.lang,
                           encoder=man.encoder, normalized=man.normalized),
-            vals, [str(x) for x in self._mutable["docids"][:n]], scales=scales,
+            vals, [str(x) for x in self._mutable["docids"][live]], scales=scales,
         )
 
-    def _rows_to_host(
-        self, n: int, perm: Optional[np.ndarray] = None
-    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Device rows ``perm`` (default: the first ``n``) in the host
-        storage dtype, with their scales for int8, 262,144 rows at a time.
-        int8 rows are rebuilt from their dequantized values, as the JAX
-        package does (the per-row quantizer gives the same bytes back)."""
-        scales = self.search_kwargs.get("doc_scales")
+    def _rows_to_host(self, positions: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Device rows at global ``positions`` in the host storage dtype,
+        with their scales for int8, 262,144 rows at a time. int8 rows are
+        rebuilt from their dequantized values, as the JAX package does (the
+        per-row quantizer gives the same bytes back)."""
+        n = len(positions)
         vals = np.empty((n, self.dim), storage_dtype(self.store.manifest.dtype))
-        out_scales = np.empty(n, np.float32) if scales is not None else None
+        out_scales = np.empty(n, np.float32) if self._is_int8() else None
         for lo in range(0, n, 262_144):
             hi = min(lo + 262_144, n)
-            if perm is None:
-                chunk = self._docs_dev[lo:hi]
-                sc = None if scales is None else scales[lo:hi]
-            else:
-                p = torch.from_numpy(perm[lo:hi]).to(self.device)
-                chunk = self._docs_dev.index_select(0, p)
-                sc = None if scales is None else scales.index_select(0, p)
-            if sc is not None:
-                chunk, sc = quantize_rows(chunk.to(torch.float32) * sc[:, None])
-                out_scales[lo:hi] = sc.cpu().numpy()
-            chunk = chunk.cpu()
-            if chunk.dtype == torch.bfloat16:
-                chunk = chunk.view(torch.int16)
-            vals[lo:hi] = chunk.numpy().view(vals.dtype)
+            for s, sel, local in self._by_shard(positions[lo:hi]):
+                chunk, sc = self._rows_at(s, local)
+                if sc is not None:
+                    chunk, sc = quantize_rows(chunk.to(torch.float32) * sc[:, None])
+                    out_scales[lo + sel] = sc.cpu().numpy()
+                chunk = chunk.cpu()
+                if chunk.dtype == torch.bfloat16:
+                    chunk = chunk.view(torch.int16)
+                vals[lo + sel] = chunk.numpy().view(vals.dtype)
         return vals, out_scales
 
     # ---------------- sketch tier ----------------
@@ -505,12 +634,9 @@ class DenseFlatIndex:
         if proj_np is None:
             # strided sample over the live rows, read from the device copy
             # (the same values as the store's: dequantized for int8)
-            n = self.count
-            stride = max(1, n // max(sample, 1))
-            rows = self._docs_dev[:n:stride][:sample].to(torch.float32)
-            if self._is_int8():
-                rows = rows * self.search_kwargs["doc_scales"][:n:stride][:sample, None]
-            proj_np = fit_sketch(rows.cpu().numpy(), sketch_dim, sample=sample)
+            live = self._live_positions()
+            stride = max(1, len(live) // max(sample, 1))
+            proj_np = fit_sketch(self._rows_f32(live[::stride][:sample]), sketch_dim, sample=sample)
         proj = torch.from_numpy(proj_np).to(self.device)
         sk, tails = self._project_sketch(proj)
         self._sketch = (sk, tails, proj, {
@@ -521,13 +647,20 @@ class DenseFlatIndex:
             self._save_sketch_cache()
         return self
 
-    def _project_sketch(self, proj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(sketch, tails) over the padded device rows."""
+    def _project_sketch(self, proj: torch.Tensor) -> Tuple[list, list]:
+        """(sketches, tails) over each shard's padded rows, on its device."""
         from codemix_dense_retrieval_torch.ops.sketch import sketch_rows, sketch_rows_int8
 
-        if self._is_int8():
-            return sketch_rows_int8(self._docs_dev, self.search_kwargs["doc_scales"], proj)
-        return sketch_rows(self._docs_dev, proj)
+        sketches, tails = [], []
+        for s, rows in enumerate(self._docs_dev):
+            p = proj.to(rows.device)
+            if self._is_int8():
+                sk, tl = sketch_rows_int8(rows, self.search_kwargs["doc_scales"][s], p)
+            else:
+                sk, tl = sketch_rows(rows, p)
+            sketches.append(sk)
+            tails.append(tl)
+        return sketches, tails
 
     def _save_sketch_cache(self) -> None:
         _, _, proj, skw = self._sketch
@@ -746,20 +879,21 @@ class DenseFlatIndex:
         it is the host numpy product, in the JAX package's 1M-row chunks."""
         from codemix_dense_retrieval_torch.ops.sketch import full_f32
 
-        n = self.count
-        scales = self.search_kwargs.get("doc_scales")
-        proj_dev = torch.from_numpy(proj).to(self.device)
+        live = self._live_positions()
+        n = len(live)
         out = np.empty((n, proj.shape[1]), np.float32)
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            rows = self._docs_dev[lo:hi].to(torch.float32)
-            if scales is not None:
-                rows = rows * scales[lo:hi, None]
             if self.device.type == "cpu":
-                out[lo:hi] = rows.numpy() @ proj
-            else:
+                out[lo:hi] = self._rows_f32(live[lo:hi]) @ proj
+                continue
+            for s, sel, local in self._by_shard(live[lo:hi]):
+                rows, scales = self._rows_at(s, local)
+                rows = rows.to(torch.float32)
+                if scales is not None:
+                    rows = rows * scales[:, None]
                 with full_f32():
-                    out[lo:hi] = (rows @ proj_dev).cpu().numpy()
+                    out[lo + sel] = (rows @ torch.from_numpy(proj).to(rows.device)).cpu().numpy()
         return out
 
     def reorder_rows(self, *, sketch_dim: int = 64, sample: int = 131072) -> np.ndarray:
@@ -795,16 +929,13 @@ class DenseFlatIndex:
             stats[name] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
-        store, n = self.store, self.count
-        scales = self.search_kwargs.get("doc_scales")
+        store, live = self.store, self._live_positions()
+        n = len(live)
         if self._sketch is not None:
             proj = self._sketch[2].cpu().numpy().astype(np.float32)
         else:
-            idx = torch.from_numpy(sample_index(n, sample)).to(self.device)
-            rows = self._docs_dev.index_select(0, idx).to(torch.float32)
-            if scales is not None:
-                rows = rows * scales.index_select(0, idx)[:, None]
-            proj = fit_sketch(rows.cpu().numpy(), min(sketch_dim, self.dim), sample=sample)
+            rows = self._rows_f32(live[sample_index(n, sample)])
+            proj = fit_sketch(rows, min(sketch_dim, self.dim), sample=sample)
             del rows
         lap("fit_s")
         sketch = self._project_rows(proj)
@@ -812,11 +943,11 @@ class DenseFlatIndex:
         perm = cluster_bisect_order(sketch)
         del sketch
         lap("order_s")
-        new_vals, new_scales = self._rows_to_host(n, perm)
+        new_vals, new_scales = self._rows_to_host(live[perm])
         if self._mutable is not None:
             # the live table: derived ids, which the JAX package's to_store
             # writes as the docids
-            docids, derived = self._mutable["docids"][:n][perm].tolist(), None
+            docids, derived = self._mutable["docids"][live][perm].tolist(), None
         else:
             docids = np.asarray(store.docids, dtype=object)[perm].tolist()
             derived = (np.asarray(store.derived_ids, dtype=object)[perm].tolist()
@@ -833,9 +964,9 @@ class DenseFlatIndex:
         self.mutation_epoch += 1
         lap("permute_s")
         kwargs = {kk: vv for kk, vv in self.search_kwargs.items() if kk != "doc_scales"}
-        # the old rows and scales leave the card before the new ones arrive
-        self._docs_dev = self.search_kwargs = scales = None
-        self.to_device(self.device, pad_multiple=self._pad_multiple, **kwargs)
+        # the old rows and scales leave the cards before the new ones arrive
+        self._docs_dev = self.search_kwargs = None
+        self.to_device(self.mesh, pad_multiple=self._pad_multiple, **kwargs)
         self._reproject_sketch()
         lap("upload_s")
         return perm
@@ -906,7 +1037,7 @@ class DenseFlatIndex:
             )
         k = k_eff
         n_q = len(q)
-        dtype = self._docs_dev.dtype
+        dtype = self._docs_dev[0].dtype
         if dtype == torch.int8:
             dtype = torch.float32  # the int8 path quantizes queries on the device
         if approx == "adaptive" and not self._is_int8():
@@ -941,18 +1072,21 @@ class DenseFlatIndex:
                 approx, guaranteed_direct = False, True
 
         def exact(blk):
-            return sharded_topk_ip(blk.to(dtype), self._docs_dev, self._counts_dev, k, **self.search_kwargs)
+            return sharded_topk_ip(
+                blk.to(dtype), self._docs_dev, self._counts_dev, k, mesh=self.mesh, **self.search_kwargs
+            )
 
         def sketched(blk):
             sk, tails, proj, skw = self._sketch
             probe = probe_bins if probe_bins is not None else skw["probe_by_k"].get(k, skw["probe_bins"])
             return sharded_topk_ip_sketch(
                 blk.to(dtype), self._docs_dev, self._counts_dev, sk, tails, proj, k,
-                probe_bins=probe, expand=skw["expand"],
+                mesh=self.mesh, probe_bins=probe, expand=skw["expand"],
                 doc_scales=self.search_kwargs.get("doc_scales"), **self._sketch_kernel_kwargs(),
             )
 
-        out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact)
+        devices = self.mesh.shard_devices()
+        out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact, devices, self.mesh)
         vals_np, gids_np = out[0].cpu().numpy(), out[1].cpu().numpy()
         self.last_certified = out[2].cpu().numpy() if approx else None
         self.last_guaranteed_direct = guaranteed_direct
@@ -965,7 +1099,9 @@ class DenseFlatIndex:
         if approx == "guaranteed" and not self.last_certified.all():
             # escalate only the uncertified queries through exact search
             bad = np.flatnonzero(~self.last_certified)
-            ev, eg = search_blocks(q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact)
+            ev, eg = search_blocks(
+                q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact, devices, self.mesh
+            )
             vals_np[bad] = ev.cpu().numpy()
             gids_np[bad] = eg.cpu().numpy()
             self.last_certified = np.ones(n_q, bool)
@@ -985,13 +1121,13 @@ class DenseFlatIndex:
 
         def adaptive(blk):
             vals, gids, st = sharded_topk_ip_adaptive(
-                blk.to(self._docs_dev.dtype), self._docs_dev, self._counts_dev, k,
-                probe_bins=probe_bins, **self._adaptive_kernel_kwargs(),
+                blk.to(self._docs_dev[0].dtype), self._docs_dev, self._counts_dev, k,
+                mesh=self.mesh, probe_bins=probe_bins, **self._adaptive_kernel_kwargs(),
             )
             block_stats.append(st)
             return vals, gids
 
-        vals, gids = search_blocks(q, query_block, self._rows_per_shard, adaptive)
+        vals, gids = search_blocks(q, query_block, self._rows_per_shard, adaptive, self.mesh.shard_devices(), self.mesh)
         vals_np, gids_np = vals.cpu().numpy(), gids.cpu().numpy()
         self.last_certified = np.ones(len(q), bool)  # exact by construction
         self.last_adaptive_stats = {

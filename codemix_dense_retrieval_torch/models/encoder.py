@@ -11,7 +11,8 @@ its host phase times in ``last_phase_stats``. Family dialects apply their
 query / passage prompt prefixes, and jina-v3's task adapters their
 per-role task (:meth:`TextEncoder._task_id`). The model is any encoder
 family's module (XLM-R by default; ``model=`` a Qwen3 or GTE module), all
-with one ``(ids, mask, task_id)`` call contract.
+with one ``(ids, mask, task_id)`` call contract. With a ``mesh`` every
+forward is data-parallel over its ``shard`` axis (:meth:`TextEncoder._forward`).
 """
 
 from __future__ import annotations
@@ -58,7 +59,18 @@ from codemix_dense_retrieval_torch.ops.weight_quant import (
     quantize_tree,
     quantized_kinds,
 )
+from codemix_dense_retrieval_torch.parallel.mesh import Mesh, gather_to
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
+
+
+def encoder_device(device: DeviceLike = None, mesh: Optional[Mesh] = None) -> torch.device:
+    """The device an encoder gathers its outputs on: a mesh's first shard
+    device, else ``device`` resolved (the card by default)."""
+    if mesh is not None:
+        if mesh.process_count > 1:
+            raise ValueError("data-parallel encode runs on a single-process mesh")
+        return mesh.shard_devices()[0]
+    return resolve_device(device)
 
 
 def build_model(
@@ -143,12 +155,10 @@ class TextEncoder:
         model: Optional[torch.nn.Module] = None,
         seed: int = 0,
         length_buckets: Sequence[int] = DEFAULT_BUCKETS,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         weight_quant: Optional[str] = None,
         device: DeviceLike = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("multi-device encoding is not ported yet (ROADMAP queue 1, parallelism)")
         pre_quantized = params is not None and has_quantized(params)
         if weight_quant and pre_quantized:
             # stored kernels pass through, so another requested mode would
@@ -164,10 +174,21 @@ class TextEncoder:
         elif weight_quant and weight_quant not in MODES:
             raise ValueError(f"weight_quant mode must be int8|nf4, got {weight_quant!r}")
         self.weight_quant = weight_quant or ("pre-quantized" if pre_quantized else None)
-        self.device = resolve_device(device)
+        self.device = encoder_device(device, mesh)
         self.name = name
         self.cfg = cfg
         self.model = build_model(cfg, self.device, params, seed, model, weight_quant=weight_quant)
+        # data-parallel encode over the mesh's shard axis (the JAX package's
+        # batch-sharded jit): one model replica per distinct shard device,
+        # shared where a device repeats; every batch splits into dp
+        # contiguous chunks (:meth:`_forward`)
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.local_shards
+        self._replicas = [self.model]
+        if self._dp > 1:
+            from codemix_dense_retrieval_torch.parallel.tp import replicate_params
+
+            self._replicas = replicate_params(self.model, mesh)
         if tokenizer is None:
             tokenizer = HashTokenizer(
                 vocab_size=cfg.vocab_size, max_length=cfg.max_position_embeddings - 2
@@ -196,7 +217,7 @@ class TextEncoder:
         (bf16 on the card, f32 on the CPU) unless ``dtype`` is given;
         ``use_flash`` overrides the stored setting."""
         d = pathlib.Path(checkpoint_dir)
-        device = resolve_device(kw.get("device"))
+        device = encoder_device(kw.get("device"), kw.get("mesh"))
         dtype = dtype or default_dtype(device)
         if (d / "params.npz").exists() and (d / "encoder_config.json").exists():
             cfg_dict = json.loads((d / "encoder_config.json").read_text())
@@ -257,6 +278,26 @@ class TextEncoder:
     def _dev(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device, non_blocking=True)
 
+    def _forward(self, method: str, *args: torch.Tensor, **kw):
+        """``model.<method>(*args, **kw)`` (``__call__`` for "forward"). With
+        a mesh the batch (dim 0 of every ``args``) splits into ``dp``
+        contiguous chunks of ``ceil(B / dp)`` rows, chunk i runs on shard
+        i's replica and device, and the rows are gathered back in order on
+        the encoder's device."""
+        if self._dp == 1:
+            fn = self.model if method == "forward" else getattr(self.model, method)
+            return fn(*args, **kw)
+        per = -(-args[0].shape[0] // self._dp)
+        outs = []
+        for i, (replica, dev) in enumerate(zip(self._replicas, self.mesh.shard_devices())):
+            chunk = [a[i * per : (i + 1) * per].to(dev, non_blocking=True) for a in args]
+            if not len(chunk[0]):
+                break
+            outs.append((replica if method == "forward" else getattr(replica, method))(*chunk, **kw))
+        if isinstance(outs[0], tuple):
+            return tuple(gather_to(parts, self.device, dim=0) for parts in zip(*outs))
+        return gather_to(outs, self.device, dim=0)
+
     @staticmethod
     def _start_readback(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
         """Queue ``t``'s copy to the host behind the work that produces it:
@@ -307,6 +348,8 @@ class TextEncoder:
         the prefetch thread (``tokenize_work`` in ``stats``)."""
         ml = max_length or (self.cfg.max_position_embeddings - 2)
         pad_id = getattr(self.tokenizer, "pad_id", 1)
+        # the batch splits evenly over the data-parallel axis
+        batch_size = -(-batch_size // self._dp) * self._dp
 
         def prep(start: int):
             t0 = time.perf_counter()
@@ -393,7 +436,7 @@ class TextEncoder:
 
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
-                emb = self.model(self._dev(ids), self._dev(mask), task_id=task_id)
+                emb = self._forward("forward", self._dev(ids), self._dev(mask), task_id=task_id)
                 if readback_dtype is not None:
                     emb = emb.to(readback_dtype)
                 yield self._host_f32, self._start_readback(emb)
@@ -463,7 +506,8 @@ class TextEncoder:
         ``batch_size`` passages per forward at 4-8 passages a row. The row
         length is chosen per chunk in :meth:`_packed_chunks`."""
         seq_len = max_length or self.length_buckets[-1]
-        return seq_len, max(1, batch_size // 8), getattr(self.tokenizer, "pad_id", 1)
+        rows_per_batch = -(-max(self._dp, batch_size // 8) // self._dp) * self._dp
+        return seq_len, rows_per_batch, getattr(self.tokenizer, "pad_id", 1)
 
     def _packed_chunks(
         self, texts: Sequence[str], prefix: str, seq_len: int, rows_per_batch: int,
@@ -520,7 +564,7 @@ class TextEncoder:
         for r0 in range(0, n_rows, rows_per_batch):
             args = [self._dev(host[kk][r0 : r0 + rows_per_batch])
                     for kk in ("ids", "segment_ids", "position_ids", "seg_starts", "seg_lengths")]
-            out = getattr(self.model, method)(*args, task_id=task_id, max_segments=max_segments)
+            out = self._forward(method, *args, task_id=task_id, max_segments=max_segments)
             outs.append(out if isinstance(out, tuple) else (out,))
         return [torch.cat(parts) if len(parts) > 1 else parts[0] for parts in zip(*outs)]
 
@@ -666,7 +710,7 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                t = self.model.token_embeddings(self._dev(ids), self._dev(mask), task_id=task_id)
+                t = self._forward("token_embeddings", self._dev(ids), self._dev(mask), task_id=task_id)
                 yield (lambda block: block), (t[:, :max_tokens].contiguous(),)
 
         with torch.inference_mode():
@@ -704,7 +748,7 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                dv, tv = self.model.embed_with_tokens(self._dev(ids), self._dev(mask), task_id=task)
+                dv, tv = self._forward("embed_with_tokens", self._dev(ids), self._dev(mask), task_id=task)
                 toks.append(tv[:, :max_tokens].contiguous())
                 yield self._host_f32, self._start_readback(dv)
 

@@ -26,10 +26,10 @@ from typing import Optional
 import torch
 
 from codemix_dense_retrieval_torch.models import dialects
-from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+from codemix_dense_retrieval_torch.models.encoder import TextEncoder, encoder_device
 from codemix_dense_retrieval_torch.models.tokenizer import load_tokenizer
 from codemix_dense_retrieval_torch.models.xlmr import XLMRConfig
-from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
+from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype
 
 
 def load_encoder(
@@ -47,8 +47,10 @@ def load_encoder(
 
     The compute dtype defaults to bf16 on the card and f32 on the CPU; the
     flash kernel is used on the card. Without ``checkpoint_dir``: a tiny
-    random-init model of the family."""
-    dev = resolve_device(device)
+    random-init model of the family. ``mesh`` (a
+    :class:`~codemix_dense_retrieval_torch.parallel.mesh.Mesh`) makes the
+    encode data-parallel over its ``shard`` axis, on its devices."""
+    dev = encoder_device(device, mesh)
     family = dialects.detect_encoder_family(name)
     if dtype is None:
         dtype = default_dtype(dev)

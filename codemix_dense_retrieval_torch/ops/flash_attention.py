@@ -181,11 +181,10 @@ def attention_flash(
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _flash_lib()(
+    rc = kernels.launch(
+        _flash_lib(), q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lengths.data_ptr(),
         seg_ptr, b, h, kvh, s, dh, strides, int(causal), int(q.dtype == torch.bfloat16),
-        stream,
     )
     kernels.check(rc, "flash_attention")
     kernels.LAUNCHES["flash_attention_causal" if causal else "flash_attention"] += 1

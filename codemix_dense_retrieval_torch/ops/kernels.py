@@ -47,6 +47,8 @@ import threading
 import time
 from typing import Dict, Iterable, List
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {
@@ -202,6 +204,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the ctypes entry point ``fn(*args, stream)`` with ``device``, the
+    card its operands lie on, as the current CUDA device and that device's
+    current stream as the last argument; returns ``fn``'s return code. The
+    C side sets kernel attributes, sizes its persistent grids by the SMs of
+    the runtime's current device and launches there, so without the guard
+    operands on ``cuda:1`` would be launched in ``cuda:0``'s context."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(rc: int, name: str) -> None:

@@ -112,9 +112,10 @@ def maxsim_scores(
     dm = d_mask.to(dev, torch.int32).contiguous()
     if q.data_ptr() % 16 or dt.data_ptr() % 16:
         raise ValueError("q_tokens and d_tokens must be 16-byte aligned")
-    rc = _maxsim_lib()(
+    rc = kernels.launch(
+        _maxsim_lib(), dev,
         q.data_ptr(), qm.data_ptr(), dt.data_ptr(), dm.data_ptr(), out.data_ptr(),
-        b, k, tq, td, d, _DOC_DTYPES[dt.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        b, k, tq, td, d, _DOC_DTYPES[dt.dtype],
     )
     kernels.check(rc, "maxsim")
     kernels.LAUNCHES["maxsim" + kernels.dtype_suffix(dt.dtype)] += 1

@@ -341,10 +341,10 @@ def binub(
             raise ValueError(f"{label} must be contiguous and 16-byte aligned")
     nv_ptr, nv_int = _n_valid_arg(n_valid, d_sketch)
     out = torch.empty((b, n // bin_size), dtype=torch.float32, device=d_sketch.device)
-    rc = _binub_lib(dt)(
+    rc = kernels.launch(
+        _binub_lib(dt), d_sketch.device,
         q_sketch.data_ptr(), q_tail.data_ptr(), d_sketch.data_ptr(), d_tail.data_ptr(),
         out.data_ptr(), nv_ptr, nv_int, b, n, ds, bin_size,
-        torch.cuda.current_stream(d_sketch.device).cuda_stream,
     )
     kernels.check(rc, "binub")
     kernels.LAUNCHES["binub" + kernels.dtype_suffix(dt)] += 1

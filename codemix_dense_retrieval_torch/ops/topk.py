@@ -232,11 +232,11 @@ def bin_scores(
     nb = n // bin_size
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=docs.device)
     binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=docs.device)
-    stream = torch.cuda.current_stream(docs.device).cuda_stream
-    rc = _bin_scores_lib(docs.dtype)(
+    rc = kernels.launch(
+        _bin_scores_lib(docs.dtype), docs.device,
         queries.data_ptr(), docs.data_ptr(), scores.data_ptr(), binmax.data_ptr(),
         nv_ptr, nv_int, b, n, dim, bin_size, int(bin_major),
-        int(score_dtype == torch.bfloat16), stream,
+        int(score_dtype == torch.bfloat16),
     )
     kernels.check(rc, "bin_scores")
     kernels.LAUNCHES[f"bin_scores_{layout}{kernels.dtype_suffix(docs.dtype)}"] += 1
@@ -330,11 +330,11 @@ def bin_scores_int8(
     dev = d_vals.device
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=dev)
     binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=dev)
-    rc = _bin_scores_int8_lib()(
+    rc = kernels.launch(
+        _bin_scores_int8_lib(), dev,
         q_vals.data_ptr(), q_scales.data_ptr(), d_vals.data_ptr(), d_scales.data_ptr(),
         scores.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int, b, n, dim, bin_size,
         int(bin_major), int(score_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(rc, "bin_scores_int8")
     kernels.LAUNCHES[f"bin_scores_int8_{layout}"] += 1
@@ -393,9 +393,10 @@ def binmax_only(
     b, dim, n = _cuda_operands("binmax_only", queries, docs, FLOAT_INDEX_DTYPES, bin_size, 32)
     nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
     binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
-    rc = _binmax_only_lib(docs.dtype)(
+    rc = kernels.launch(
+        _binmax_only_lib(docs.dtype), docs.device,
         queries.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,
-        b, n, dim, bin_size, torch.cuda.current_stream(docs.device).cuda_stream,
+        b, n, dim, bin_size,
     )
     kernels.check(rc, "binmax_only")
     kernels.LAUNCHES["binmax_only" + kernels.dtype_suffix(docs.dtype)] += 1

@@ -1,12 +1,14 @@
 """Fused alpha sweep: mix -> search -> (collapse) -> metrics, on the device.
 
-The index stays on the card for the whole sweep. For each alpha the mixed
-queries are built on the device (:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`),
-searched in query blocks by the exact path (kernel A / 2 / 4) or the sketch
-tier (kernel 7), collapsed for a bilingual hub, and scored on the device; the
-host receives (A, B, k) ids and one metric dict per alpha. Alphas run one
-after another, so one block's (block, N) score store is the peak memory;
-the block is cut to the card's free memory as the unfused search cuts it.
+The index stays on its mesh for the whole sweep. For each alpha the mixed
+queries are built on the first shard's device
+(:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`), searched in
+query blocks by the exact path (kernel A / 2 / 4) or the sketch tier (kernel
+7) on every shard and merged, collapsed for a bilingual hub, and scored on
+the device; the host receives (A, B, k) ids and one metric dict per alpha.
+Alphas run one after another, so one block's (block, N) score store per
+shard is the peak memory; the block is cut to the cards' free memory as the
+unfused search cuts it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ import torch
 from codemix_dense_retrieval_torch.evals.device_metrics import topk_metrics
 from codemix_dense_retrieval_torch.ops.collapse import collapse_topk_parallel_hub
 from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
+from codemix_dense_retrieval_torch.parallel.mesh import Mesh
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
+    Shards,
+    as_shards,
     search_blocks,
     sharded_topk_ip,
     sharded_topk_ip_sketch,
@@ -43,8 +48,8 @@ def _resolve_depths(k, collapse_k_raw, collapse_n_first, docs, counts) -> Tuple[
     padded rows), shared by the sweep and its guaranteed escalation so both
     search the same depth."""
     k_raw = collapse_k_raw or (2 * k if collapse_n_first is not None else k)
-    rows_per_shard = docs.shape[0]
-    count = int(counts.sum())
+    rows_per_shard = as_shards(docs)[0].shape[0]
+    count = sum(int(c.sum()) for c in as_shards(counts))
     k_raw_eff = min(k_raw, count, rows_per_shard)
     if k_raw_eff < k_raw:
         log.warning(
@@ -54,11 +59,12 @@ def _resolve_depths(k, collapse_k_raw, collapse_n_first, docs, counts) -> Tuple[
     return min(k, k_raw_eff), k_raw_eff
 
 
-def _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch=None):
+def _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch=None, mesh=None):
     """Exact (or, with ``sketch``, sketch-tier) top-``k_raw`` of the f32
-    queries ``q`` in blocks of ``query_block`` rows, as
-    ``DenseFlatIndex.search`` blocks them (:func:`search_blocks`).
+    queries ``q`` over the shards ``docs`` in blocks of ``query_block``
+    rows, as ``DenseFlatIndex.search`` blocks them (:func:`search_blocks`).
     Returns (values, gids, certified or None)."""
+    docs = as_shards(docs)
     search_kwargs = dict(search_kwargs)
     doc_scales = search_kwargs.pop("doc_scales", None)
 
@@ -68,17 +74,17 @@ def _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch=No
             # index dtype itself, so the certificate covers the rounding
             sk, tails, proj, skw = sketch
             return sharded_topk_ip_sketch(
-                blk, docs, counts, sk, tails, proj, k_raw,
+                blk, docs, counts, sk, tails, proj, k_raw, mesh=mesh,
                 probe_bins=skw.get("probe_by_k", {}).get(k_raw, skw.get("probe_bins")),
                 expand=float(skw.get("expand", 4.0)), doc_scales=doc_scales, **search_kwargs,
             )
         # an int8 index quantizes the f32 queries inside the search; casting
         # them straight to int8 here would truncate them
-        if docs.dtype.is_floating_point:
-            blk = blk.to(docs.dtype)
-        return sharded_topk_ip(blk, docs, counts, k_raw, doc_scales=doc_scales, **search_kwargs)
+        if docs[0].dtype.is_floating_point:
+            blk = blk.to(docs[0].dtype)
+        return sharded_topk_ip(blk, docs, counts, k_raw, mesh=mesh, doc_scales=doc_scales, **search_kwargs)
 
-    out = search_blocks(q, query_block, docs.shape[0], run)
+    out = search_blocks(q, query_block, docs[0].shape[0], run, [d.device for d in docs], mesh)
     return out if sketch is not None else (*out, None)
 
 
@@ -93,8 +99,8 @@ def fused_alpha_sweep(
     primary,  # (B, d) query embeddings, language A
     secondary,  # (B, d) language B, the same qid order
     alphas: Sequence[float],
-    docs: torch.Tensor,
-    counts: torch.Tensor,
+    docs: Shards,
+    counts: Shards,
     k: int,
     *,
     rel_ids=None,  # (B, R) int, -1 padded
@@ -105,14 +111,16 @@ def fused_alpha_sweep(
     collapse_k_raw: Optional[int] = None,
     sketch: Optional[tuple] = None,
     query_block: int = 256,
+    mesh: Optional[Mesh] = None,
 ) -> Sweep:
     """Returns (values (A, B, k), ids (A, B, k), metrics {name: (A,)} or
-    None, certified (A, B) bool or None), all on ``docs``' device.
+    None, certified (A, B) bool or None), all on the first shard's device.
 
-    ``docs``/``counts``/``search_kwargs`` are an index's device rows,
-    valid-row count and search settings (``DenseFlatIndex._docs_dev``,
+    ``docs``/``counts``/``search_kwargs`` are an index's per-shard device
+    rows, valid-row counts and search settings (``DenseFlatIndex._docs_dev``,
     ``_counts_dev``, ``search_kwargs``, which carries an int8 index's
-    ``doc_scales``).
+    ``doc_scales``); ``mesh`` (``DenseFlatIndex.mesh``) is needed only for
+    a multi-process mesh.
 
     ``sketch``: the index's armed sketch tier (``DenseFlatIndex._sketch``)
     routes every alpha's search through it (``--fused --approx fast``); the
@@ -143,13 +151,13 @@ def fused_alpha_sweep(
             kk: vv for kk, vv in search_kwargs.items() if kk in SKETCH_KERNEL_KWARGS + ("doc_scales",)
         }
     k, k_raw = _resolve_depths(k, collapse_k_raw, collapse_n_first, docs, counts)
-    dev = docs.device
+    dev = as_shards(docs)[0].device
     p, s = _f32(primary, dev), _f32(secondary, dev)
     rel = None if rel_ids is None else torch.as_tensor(rel_ids, device=dev)
     vals_all, ids_all, certs, mets = [], [], [], []
     for alpha in alphas:
         q = mix_and_renorm(p, s, float(alpha))
-        vals, gids, cert = _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch)
+        vals, gids, cert = _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch, mesh)
         # a certified raw top-k_raw collapses to the exact collapsed top-k,
         # so the certificate survives the collapse
         vals, gids = _finish(vals, gids, k, collapse_n_first)
@@ -171,8 +179,8 @@ def fused_alpha_sweep_guaranteed(
     primary,
     secondary,
     alphas: Sequence[float],
-    docs: torch.Tensor,
-    counts: torch.Tensor,
+    docs: Shards,
+    counts: Shards,
     k: int,
     *,
     sketch: tuple,
@@ -183,6 +191,7 @@ def fused_alpha_sweep_guaranteed(
     collapse_n_first: Optional[int] = None,
     collapse_k_raw: Optional[int] = None,
     query_block: int = 256,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[np.ndarray, np.ndarray, Optional[Dict[str, np.ndarray]], np.ndarray]:
     """``--fused --approx guaranteed``: the sketch sweep, then exact search of
     every uncertified (alpha, query) pair, so the output equals the exact
@@ -201,7 +210,7 @@ def fused_alpha_sweep_guaranteed(
         rel_ids=rel_ids, metric_cutoffs=metric_cutoffs,
         metric_extra_zero_queries=metric_extra_zero_queries, search_kwargs=search_kwargs,
         collapse_n_first=collapse_n_first, collapse_k_raw=collapse_k_raw, sketch=sketch,
-        query_block=query_block,
+        query_block=query_block, mesh=mesh,
     )
     cert_np = cert.cpu().numpy()
     vals_np, ids_np = vals.cpu().numpy(), ids.cpu().numpy()
@@ -209,7 +218,7 @@ def fused_alpha_sweep_guaranteed(
     if cert_np.all():
         return vals_np, ids_np, metrics_np, cert_np
     k_eff, k_raw = _resolve_depths(k, collapse_k_raw, collapse_n_first, docs, counts)
-    dev = docs.device
+    dev = as_shards(docs)[0].device
     p, s = _f32(primary, dev), _f32(secondary, dev)
     for ai, alpha in enumerate(alphas):
         bad = np.flatnonzero(~cert_np[ai])
@@ -217,7 +226,7 @@ def fused_alpha_sweep_guaranteed(
             continue
         sel = torch.from_numpy(bad).to(dev)
         q = mix_and_renorm(p[sel], s[sel], float(alpha))
-        e_vals, e_gids, _ = _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs or {})
+        e_vals, e_gids, _ = _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs or {}, mesh=mesh)
         e_vals, e_gids = _finish(e_vals, e_gids, k_eff, collapse_n_first)
         vals_np[ai, bad] = e_vals.cpu().numpy()
         ids_np[ai, bad] = e_gids.cpu().numpy()
@@ -259,9 +268,10 @@ def sweep_index(
             index.enable_sketch()
         sketch = index._sketch
     args = (primary, secondary, list(alphas), index._docs_dev, index._counts_dev, k)
+    kw = dict(kw, sketch=sketch, search_kwargs=index.search_kwargs, mesh=index.mesh)
     if approx == "guaranteed":
-        return fused_alpha_sweep_guaranteed(*args, sketch=sketch, search_kwargs=index.search_kwargs, **kw)
-    vals, ids, metrics, cert = fused_alpha_sweep(*args, sketch=sketch, search_kwargs=index.search_kwargs, **kw)
+        return fused_alpha_sweep_guaranteed(*args, **kw)
+    vals, ids, metrics, cert = fused_alpha_sweep(*args, **kw)
     return (
         vals.cpu().numpy(),
         ids.cpu().numpy(),

@@ -247,23 +247,25 @@ class TwoStageSearcher:
                 w.append(blocks, all_lens[rows], [str(x) for x in ids[start : start + len(rows)]])
             w.finalize()
             return
-        n = self.index.count
+        live = self.index._live_positions()  # global padded positions, shards in order
         docids = self.index.docids
-        lens = self._lengths_dev[:n].cpu().numpy()
-        for start in range(0, n, 4096):
-            rows = slice(start, min(start + 4096, n))
-            blocks = self._tok_dev[rows].to(torch.float32)
+        for start in range(0, len(live), 4096):
+            pos = live[start : start + 4096]
+            rows = torch.from_numpy(pos).to(self.device)
+            blocks = self._tok_dev.index_select(0, rows).to(torch.float32)
             if self._scales_dev is not None:
-                blocks = blocks * self._scales_dev[rows][..., None]
-            w.append(blocks, lens[rows], [str(x) for x in docids[rows]])
+                blocks = blocks * self._scales_dev.index_select(0, rows)[..., None]
+            w.append(blocks, self._lengths_dev.index_select(0, rows).cpu().numpy(),
+                     [str(x) for x in docids[pos]])
         w.finalize()
 
     # ---------------- online mutation (card-resident store) ----------------
     #
     # The memmap token store is read-only, so two-stage mutation needs the
-    # card-resident blocks, padded to the dense index's capacity: adds write
-    # new blocks at the positions the dense add assigned, removes replay the
-    # dense side's swap journal (index.last_swaps), so both stay row-aligned.
+    # card-resident blocks, padded to the dense index's capacity over all its
+    # shards (one block per global padded position): adds write new blocks at
+    # the positions the dense add assigned, removes replay the dense side's
+    # swap journal (index.last_swaps), so both stay row-aligned.
 
     def _mutation_capacity(self) -> int:
         if not self.device_resident:
@@ -271,7 +273,7 @@ class TwoStageSearcher:
                 "two-stage mutation requires the device-resident token store (the memmap "
                 "store is read-only); construct with device_resident=True"
             )
-        cap = self.index._rows_per_shard
+        cap = self.index.mesh.shape["shard"] * self.index._rows_per_shard
         pad = cap - self._tok_dev.shape[0]
         if pad > 0:  # zero blocks, scales 1.0 (a zero token's), length 0
             tok, sc, ln = self._tok_dev, self._scales_dev, self._lengths_dev

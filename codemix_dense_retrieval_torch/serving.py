@@ -368,10 +368,10 @@ class SearchService:
             new = type(self.index).load(p.payload[0])
             if new.dim != self.index.dim:
                 raise ValueError(f"snapshot dim {new.dim} != serving dim {self.index.dim}")
-            # the kernel settings carry over; to_device rebuilds doc_scales
-            # from the snapshot's own sidecar
+            # the kernel settings and the mesh carry over; to_device
+            # rebuilds doc_scales from the snapshot's own sidecar
             kw = {k: v for k, v in self.index.search_kwargs.items() if k != "doc_scales"}
-            new.to_device(self.index.device, **kw)
+            new.to_device(self.index.mesh, **kw)
             if self.approx in ("fast", "guaranteed"):
                 new.enable_sketch()
             elif self.approx == "adaptive":

@@ -188,7 +188,7 @@ def test_reorder_rows_matches_jax(dtype):
     ref_ix, port_ix = _pair(docs, ids, dtype)
     v0, d0 = port_ix.search(qs, 20)
     old_rows = np.asarray(port_ix.store.vectors).copy()
-    old_dev = port_ix._docs_dev[: len(docs)].clone()
+    old_dev = port_ix._docs_dev[0][: len(docs)].clone()
     old_scales = None if port_ix.store.scales is None else port_ix.store.scales.copy()
     epoch = port_ix.mutation_epoch
     want = ref_ix.reorder_rows(sketch_dim=16, sample=2048)
@@ -205,7 +205,7 @@ def test_reorder_rows_matches_jax(dtype):
     v1, d1 = port_ix.search(qs, 20)
     np.testing.assert_array_equal(d1, d0)
     np.testing.assert_allclose(v1, v0, rtol=0, atol=1e-6)
-    assert torch.equal(port_ix._docs_dev[: len(docs)], old_dev[torch.from_numpy(perm)])
+    assert torch.equal(port_ix._docs_dev[0][: len(docs)], old_dev[torch.from_numpy(perm)])
 
 
 def test_reorder_rows_reprojects_an_armed_sketch_and_raises_the_certified_share():
@@ -220,8 +220,8 @@ def test_reorder_rows_reprojects_an_armed_sketch_and_raises_the_certified_share(
     ix.search(qs, 10, approx="adaptive", probe_bins=8)
     before = ix.last_adaptive_stats["certified_frac"]
     ix.reorder_rows()
-    sk, tails = port_sketch.sketch_rows(ix._docs_dev, ix._sketch[2])
-    assert torch.equal(ix._sketch[0], sk) and torch.equal(ix._sketch[1], tails)
+    sk, tails = port_sketch.sketch_rows(ix._docs_dev[0], ix._sketch[2])
+    assert torch.equal(ix._sketch[0][0], sk) and torch.equal(ix._sketch[1][0], tails)
     av, ad = ix.search(qs, 10, approx="adaptive", probe_bins=8)
     assert ix.last_adaptive_stats["certified_frac"] > before
     np.testing.assert_array_equal(ad, ed)

@@ -125,7 +125,7 @@ def test_merged_store_matches_concat_stores(hub_data, tmp_path, dtype):
     if dtype == "int8":
         np.testing.assert_array_equal(store.scales, ref_hub.store.scales)
     # the device rows are the JAX package's, and the hub saves as one store
-    np.testing.assert_array_equal(port_hub._docs_dev[: store.count].float().numpy(),
+    np.testing.assert_array_equal(port_hub._docs_dev[0][: store.count].float().numpy(),
                                   np.asarray(ref_hub._docs_dev[: store.count], np.float32))
     port_hub.save(tmp_path / "hub")
     back = RefStore.open(tmp_path / "hub")
@@ -203,7 +203,7 @@ def test_fused_and_unfused_hub_runs_over_float_stores_match_jax(hub_data, tmp_pa
     may differ in the last bit), metrics within 1e-4."""
     docs_a, docs_b, ids, rel, primary, secondary, qids = hub_data
     ref_hub, port_hub = _hubs(docs_a, docs_b, ids, dtype=dtype)
-    assert port_hub._docs_dev.dtype == getattr(torch, dtype)
+    assert port_hub._docs_dev[0].dtype == getattr(torch, dtype)
     qrels = {q: {ids[r]: 1} for q, r in zip(qids, rel)}
     _, want_m = ref.run_bilingual_vector_mix_fused(ref_hub, qids, primary, secondary, ALPHAS, tmp_path / "ref_f",
                                                    k=25, qrels=qrels)

@@ -211,11 +211,18 @@ def test_unported_options_raise_naming_the_roadmap(encoders, tmp_path, kw, item)
 
 @pytest.mark.parametrize("flag", [pytest.param(["--dp", "2", "--weight_quant", "int8"], id="flag1")])
 def test_cli_encode_corpus_refuses_unported_flags(tmp_path, flag):
+    """``--dp`` is ported: ``encode-corpus --device cpu --dp 2`` runs and
+    writes the one-device store bit for bit."""
     from codemix_dense_retrieval_torch.cli import main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["encode-corpus", "--device", "cpu", "--corpus_tsv", f"xx={tmp_path / 'c.tsv'}",
-              "--out", str(tmp_path / "ix"), *flag])
+    paths = _corpus(tmp_path, n=30)
+    common = ["encode-corpus", "--device", "cpu", "--corpus_tsv", f"xx={paths['xx']}", "--smoke_dim", "32",
+              "--batch", "16", "--enc_batch", "8"]
+    main(common + ["--out", str(tmp_path / "one")])
+    main(common + ["--out", str(tmp_path / "dp"), *flag])
+    one, dp = PortStore.open(tmp_path / "one" / "xx"), PortStore.open(tmp_path / "dp" / "xx")
+    assert dp.count == 30 and dp.docids == one.docids
+    np.testing.assert_array_equal(np.asarray(dp.vectors), np.asarray(one.vectors))
 
 
 def test_synthetic_source_matches_jax():

@@ -40,7 +40,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert len(res["modules"]) >= 32
     for name in ("models.packing", "ops.weight_quant", "models.checkpoint", "utils.autotune",
                  "utils.profiling", "utils.timing", "utils.seeding", "version", "io.naming",
-                 "analysis.embedding_space", "analysis.plots", "orchestrate.scheduler", "datagen.bands"):
+                 "analysis.embedding_space", "analysis.plots", "orchestrate.scheduler", "datagen.bands",
+                 "parallel.mesh", "parallel.tp", "parallel.multihost"):
         assert f"codemix_dense_retrieval_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -51,6 +52,11 @@ def _sources():
     if smoke.exists():
         files.append(smoke)
     return files
+
+
+def test_sources_cover_the_multi_device_modules():
+    names = {str(p.relative_to(PORT)) for p in _sources() if PORT in p.parents}
+    assert {"parallel/mesh.py", "parallel/tp.py", "parallel/multihost.py", "parallel/sharded_search.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -203,6 +209,12 @@ def _entry_analyze_cli(tmp_path):
           "--outdir", str(tmp_path / "out"), "--smoke_dim", "16"])
 
 
+def _entry_make_mesh():
+    from codemix_dense_retrieval_torch.parallel.mesh import make_mesh
+
+    make_mesh()
+
+
 def _entry_hubness_stats():
     from codemix_dense_retrieval_torch.analysis.embedding_space import hubness_stats
 
@@ -214,7 +226,7 @@ def _entry_hubness_stats():
     _entry_index_search, _entry_index_adaptive_search, _entry_index_reorder_rows, _entry_index_add,
     _entry_runner, _entry_cli, _entry_serve_cli, _entry_encode_corpus_cli, _entry_encode_corpus_pack_cli,
     _entry_quantized_text_encoder, _entry_cache_queries_cli, _entry_profile_cli, _entry_tune_cli,
-    _entry_analyze_cli, _entry_hubness_stats,
+    _entry_analyze_cli, _entry_hubness_stats, _entry_make_mesh,
 ], ids=lambda f: f.__name__.removeprefix("_entry_"))
 def test_entry_points_raise_without_cuda(entry, no_cuda, tmp_path):
     args = (tmp_path,) if entry.__code__.co_argcount else ()

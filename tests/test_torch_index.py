@@ -123,7 +123,7 @@ def test_every_sharded_method_gives_the_exact_ids(method):
 
     docs, qs, ids = _data(8, n=2000)
     store = PortStore.build(docs, ids)
-    rows, counts, rps = shard_rows(store, torch.device("cpu"))
+    (rows,), (counts,), rps = shard_rows(store, torch.device("cpu"))
     assert rps == 2048 and int(counts[0]) == 2000 and (rows[2000:] == 0).all()
     q = torch.from_numpy(qs).to(torch.bfloat16)
     vals, gids = sharded_topk_ip(q, rows, counts, 64, method=method)

@@ -123,8 +123,8 @@ def test_sharded_int8_search_matches_jax_for_every_method(method):
     rng = np.random.default_rng(9)
     docs, qs = _unit(rng, 2000, 32), _unit(rng, 6, 32)
     store = PortStore.build(docs, [str(i) for i in range(2000)], dtype="int8")
-    rows, counts, rps = port_ss.shard_rows(store, torch.device("cpu"))
-    scales = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
+    (rows,), (counts,), rps = port_ss.shard_rows(store, torch.device("cpu"))
+    (scales,) = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
     assert rows.dtype == torch.int8 and scales.shape == (rps,) and (scales[2000:] == 0).all()
     gv, gi = port_ss.sharded_topk_ip(torch.from_numpy(qs), rows, counts, 64, method=method,
                                      doc_scales=scales)
@@ -146,8 +146,8 @@ def test_int8_index_search_matches_jax(query_block):
     ids = [f"d{i}" for i in range(2500)]
     ref_ix = RefIndex.build(docs, ids, dtype="int8").to_device(make_mesh(shard=1, tp=1))
     port_ix = PortIndex.build(docs, ids, dtype="int8").to_device("cpu")
-    assert port_ix._docs_dev.dtype == torch.int8
-    assert port_ix.search_kwargs["doc_scales"].dtype == torch.float32
+    assert port_ix._docs_dev[0].dtype == torch.int8
+    assert port_ix.search_kwargs["doc_scales"][0].dtype == torch.float32
     for k in (1, 30):
         rv, rd = ref_ix.search(qs, k, query_block=query_block)
         gv, gd = port_ix.search(qs, k, query_block=query_block)
@@ -215,8 +215,8 @@ def test_sharded_int8_bins_xla_pads_a_ragged_tail_up():
     docs = _unit(rng, 1000, 32)
     qs = docs[-3:] + 0.01 * rng.standard_normal((3, 32)).astype(np.float32)  # best rows at the tail
     store = PortStore.build(docs, [str(i) for i in range(1000)], dtype="int8")
-    rows, counts, rps = port_ss.shard_rows(store, torch.device("cpu"), pad_multiple=1000)
-    scales = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
+    (rows,), (counts,), rps = port_ss.shard_rows(store, torch.device("cpu"), pad_multiple=1000)
+    (scales,) = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
     assert rps == 1000
     q = torch.from_numpy(qs)
     _, want = port_ss.sharded_topk_ip(q, rows, counts, 20, method="full", doc_scales=scales)
@@ -239,8 +239,8 @@ def test_sharded_int8_unknown_method_raises_before_scoring(method, monkeypatch):
     monkeypatch.setattr(port_ss, "int8_ip_scores", no_scores)
     rng = np.random.default_rng(17)
     store = PortStore.build(_unit(rng, 300, 16), [str(i) for i in range(300)], dtype="int8")
-    rows, counts, rps = port_ss.shard_rows(store, torch.device("cpu"))
-    scales = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
+    (rows,), (counts,), rps = port_ss.shard_rows(store, torch.device("cpu"))
+    (scales,) = port_ss.shard_row_sidecar(store.scales, torch.device("cpu"), rps)
     q = torch.from_numpy(_unit(rng, 2, 16))
     with pytest.raises(ValueError, match="unknown method"):
         port_ss.sharded_topk_ip(q, rows, counts, 5, method=method, doc_scales=scales)

@@ -52,7 +52,7 @@ def _dev_bits(port, ref):
     """(port rows, JAX rows) of the whole padded device tensor as comparable
     numpy bits."""
     r = np.asarray(ref._docs_dev)
-    p = port._docs_dev
+    p = port._docs_dev[0]
     if p.dtype == torch.bfloat16:
         return p.view(torch.int16).numpy().view(np.uint16), r.view(np.uint16)
     return p.numpy(), r
@@ -66,7 +66,7 @@ def _bits(rows):
 
 
 def _same_sketch(port, ref):
-    ps, pt = port._sketch[0].float().numpy(), port._sketch[1].numpy()
+    ps, pt = port._sketch[0][0].float().numpy(), port._sketch[1][0].numpy()
     rs, rt = np.asarray(ref._sketch[0], np.float32), np.asarray(ref._sketch[1])
     ulp = np.maximum(np.abs(rs), np.abs(ps)) * 2.0 ** -7
     assert (np.abs(ps - rs) <= ulp + 1e-7).all()
@@ -86,7 +86,7 @@ def _same(port, ref, qs, dtype, *, positions=None, want_positions=None, k=10):
     pb, rb = _dev_bits(port, ref)
     np.testing.assert_array_equal(pb, rb)
     if dtype == "int8":
-        np.testing.assert_array_equal(port.search_kwargs["doc_scales"].numpy(),
+        np.testing.assert_array_equal(port.search_kwargs["doc_scales"][0].numpy(),
                                       np.asarray(ref.search_kwargs["doc_scales"]))
     if ref._sketch is not None:
         _same_sketch(port, ref)
@@ -251,7 +251,7 @@ def test_reorder_sketch_and_save_read_the_live_rows(dtype, tmp_path):
     fresh.enable_sketch(sketch_dim=8, cache=False)
     np.testing.assert_array_equal(port._sketch[2].numpy(), fresh._sketch[2].numpy())
     n = port.count
-    assert torch.equal(port._sketch[0][:n], fresh._sketch[0][:n])
+    assert torch.equal(port._sketch[0][0][:n], fresh._sketch[0][0][:n])
     # save writes the live rows
     port.save(tmp_path / "ix")
     saved = PortStore.open(tmp_path / "ix")

@@ -139,11 +139,21 @@ def test_cli_run_mix_smoke_on_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--shards", "2", "--weight_quant", "int8"], ["--dp", "2", "--weight_quant", "nf4"],
                                   ["--shards", "2"], ["--dp", "2"]])
 def test_cli_refuses_unported_options(tmp_path, flag):
+    """``--shards`` and ``--dp`` are ported: on ``--device cpu`` they run
+    (2 CPU shards, 2 data-parallel chunks) and write the one-device runs."""
     from codemix_dense_retrieval_torch.cli import main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["run-mix", "--device", "cpu", "--index", str(tmp_path), "--outdir", str(tmp_path),
-              "--query_tsv", "a=x", "b=y", *flag])
+    rng = np.random.default_rng(4)
+    PortIndex.build(rng.standard_normal((600, 32)).astype(np.float32), [f"d{i}" for i in range(600)]).save(
+        tmp_path / "ix")
+    write_queries_tsv(tmp_path / "en.tsv", [(f"q{i}", f"english text {i}") for i in range(5)])
+    write_queries_tsv(tmp_path / "zh.tsv", [(f"q{i}", f"中文 {i}") for i in range(5)])
+    common = ["run-mix", "--device", "cpu", "--index", str(tmp_path / "ix"), "--smoke_dim", "32", "--k", "7",
+              "--query_tsv", f"en={tmp_path / 'en.tsv'}", f"zh={tmp_path / 'zh.tsv'}", "--cm_alphas", "0.5"]
+    main(common + ["--outdir", str(tmp_path / "one")])
+    main(common + ["--outdir", str(tmp_path / "mesh"), *flag])
+    got = (tmp_path / "mesh" / "cm-alpha-0.5.trec").read_bytes()
+    assert len(got.splitlines()) == 5 * 7 and got == (tmp_path / "one" / "cm-alpha-0.5.trec").read_bytes()
 
 
 def test_word_mix_runner_matches_jax(tmp_path):

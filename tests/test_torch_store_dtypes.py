@@ -62,7 +62,7 @@ def test_index_search_over_float_stores_matches_jax(dtype, k):
     ids = [f"d{i}" for i in range(len(docs))]
     ref = RefIndex.build(docs, ids, dtype=dtype).to_device(make_mesh(shard=1, tp=1))
     port = PortIndex.build(docs, ids, dtype=dtype).to_device("cpu")
-    assert port._docs_dev.dtype == getattr(torch, dtype)
+    assert port._docs_dev[0].dtype == getattr(torch, dtype)
     rv, rd = ref.search(qs, k)
     gv, gd = port.search(qs, k)
     np.testing.assert_array_equal(gd, rd)
@@ -162,7 +162,7 @@ def test_sketch_tier_over_float_stores_matches_jax(dtype):
     port = PortIndex.build(docs, ids, dtype=dtype).to_device("cpu")
     ref.enable_sketch(sketch_dim=16, cache=False)
     port.enable_sketch(sketch_dim=16, cache=False)
-    assert port._sketch[0].dtype == torch.bfloat16
+    assert port._sketch[0][0].dtype == torch.bfloat16
     for mode in (True, "guaranteed"):
         rv, rd = ref.search(qs, 10, approx=mode)
         gv, gd = port.search(qs, 10, approx=mode)
@@ -190,7 +190,7 @@ def test_reorder_and_adaptive_search_over_float_stores_match_jax(dtype):
     port = PortIndex.build(docs, ids, dtype=dtype).to_device("cpu", pad_multiple=256, tile_n=256)
     np.testing.assert_array_equal(port.reorder_rows(sketch_dim=16, sample=4096),
                                   ref.reorder_rows(sketch_dim=16, sample=4096))
-    assert port._docs_dev.dtype == getattr(torch, dtype)
+    assert port._docs_dev[0].dtype == getattr(torch, dtype)
     rv, rd = ref.search(qs, 32, approx="adaptive", probe_bins=64)
     gv, gd = port.search(qs, 32, approx="adaptive", probe_bins=64)
     np.testing.assert_array_equal(gd, rd)
