@@ -169,7 +169,9 @@ Phases (a line of JSON after each):
                encode (within TOL_PACKED_ABS), unit norms; kernel B's causal
                GQA dh=128 instance against its plain version at S = 16-512
                (ragged lengths; packed segment ids) and at 1024, timed there
-               beside SDPA. 10b: `encode-corpus --storage_dtype
+               beside SDPA, and timed at every bucket (S = 16-1024, full and
+               ragged lengths) beside SDPA and its bound (the
+               qwen3_kernel_b_buckets line). 10b: `encode-corpus --storage_dtype
                float32|float16 --token_dtype <same> --tokens_per_doc 32` with
                that checkpoint over the phase-6b corpus, `run-mix` exact,
                `--approx guaranteed` (the exact ids; exact against a plain
@@ -276,7 +278,9 @@ forwards) and read just after it; comparison and timing launches happen outside 
 phase 9 the direct searches run while the service is idle, their launches
 taken back out of the count). Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
-The last line is the device JSON. Any failed check raises (exit code != 0).
+Before the kernels line, a phase_walls line gives the second at which each
+phase began. The last line is the device JSON. Any failed check raises
+(exit code != 0).
 """
 
 from __future__ import annotations
@@ -331,9 +335,9 @@ TIE_TOL_MAXSIM = 1e-4       # the same for MaxSim scores (sums of 32 maxima)
 TQ = TD = 32                # two-stage query and doc tokens
 # the kernels' function names in csrc/ (ptxas reports template instances
 # under mangled names that contain them); the wgmma ones may not spill
-KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma", "flash_fwd_f32",
-                "maxsim_kernel")
-WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "flash_fwd_wgmma"}
+KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "tf32_split_kernel",
+                "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel")
+WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "flash_fwd_wgmma"}
 K_DENSE = 400               # two-stage dense recall depth
 N_CENTERS = 256             # topical clusters of the adaptive phase's rows
 N_PACKED = 4096             # passages of the packed-encode phase
@@ -1394,8 +1398,14 @@ def main() -> None:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     dev = torch.device("cuda", 0)
+    t_main = time.perf_counter()
+    walls = {}  # seconds since the start at which each phase began (the phase_walls line)
+
+    def mark(phase: str) -> None:
+        walls[phase] = round(time.perf_counter() - t_main, 1)
 
     # ---------------- phase 1: card ----------------
+    mark("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1407,6 +1417,7 @@ def main() -> None:
         cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     # ---------------- phase 2: build ----------------
+    mark("2")
     build_s = kernels.build_kernels()
     # ptxas's report per source, grouped by kernel (template instances
     # summed): no wgmma kernel may be serialised (C7518) or spill
@@ -1434,6 +1445,7 @@ def main() -> None:
         fastio_seconds=round(fastio_s, 2), fastio=_fastio.library_path().name)
 
     # ---------------- phase 3: kernels vs plain ----------------
+    mark("3")
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def unit(n, d=DIM):
@@ -1690,6 +1702,7 @@ def main() -> None:
                     "maxsim": f"{TOL_MAXSIM} + {TOL_MAXSIM_REL} |score|"})
 
     # ---------------- phase 4: encoder at BGE-M3 width ----------------
+    mark("4")
     from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore
     from codemix_dense_retrieval_torch.models import dialects
     from codemix_dense_retrieval_torch.models.encoder import TextEncoder
@@ -1759,6 +1772,7 @@ def main() -> None:
         phase_stats_1024=stats_1024)
 
     # ---------------- phase 4b: sequence-packed encode ----------------
+    mark("4b")
     from codemix_dense_retrieval_torch.io.shards import ShardStore
     from codemix_dense_retrieval_torch.io.tsv import write_queries_tsv
     from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
@@ -1923,6 +1937,7 @@ def main() -> None:
         launches={"encode_corpus": path_counts["corpus_pack_cli"], "run_mix": path_counts["corpus_pack_run"]})
 
     # ---------------- phase 5: vector-mix run at full size ----------------
+    mark("5")
     from codemix_dense_retrieval_torch.cli import main as cli_main
     from codemix_dense_retrieval_torch.pipeline.runs import run_vector_mix_search
 
@@ -2075,6 +2090,7 @@ def main() -> None:
         trec_write_python_s=round(python_w_s, 3), launches=path_counts["fused"])
 
     # ---------------- phase 5b: the same run over the int8 index ----------------
+    mark("5b")
     t0 = time.perf_counter()
     host8 = torch.empty((N_ROWS, DIM), dtype=torch.int8)
     scales8 = torch.empty(N_ROWS, dtype=torch.float32)
@@ -2135,6 +2151,7 @@ def main() -> None:
     del host8, scales8
 
     # ---------------- phase 5c: rescore search (kernel 5) ----------------
+    mark("5c")
     q256 = q05[:256].contiguous()
     nv_big = index._counts_dev[0]
     kernels.reset_launch_counts()
@@ -2158,6 +2175,7 @@ def main() -> None:
         overlap_k100=rov100, overlap_k1000=rov1000, launches=path_counts["rescore"])
 
     # ---------------- phase 5d: the sketch tier at full size ----------------
+    mark("5d")
     from codemix_dense_retrieval_torch.ops.sketch import _sketch_with_err
 
     spec = torch.exp(-0.009 * torch.arange(DIM, device=dev, dtype=torch.float32))
@@ -2361,6 +2379,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------- phase 5e: the adaptive tier at full size ----------------
+    mark("5e")
     # clustered rows of its own (18.1 GB more on the card: phases 6-8 still
     # need the phase-5 index): the JAX bench recipe, 256 unit centres and
     # row i = normalize(center[a_i] + 0.35/sqrt(d) noise_i), the assignments
@@ -2531,6 +2550,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------- phase 6: CLI at full width ----------------
+    mark("6")
     t0 = time.perf_counter()
     small = torch.empty((SMALL_ROWS, DIM), dtype=torch.bfloat16)
     for c0 in range(0, SMALL_ROWS, 1 << 16):
@@ -2641,6 +2661,7 @@ def main() -> None:
         launches={"run_mix": path_counts["cli_fused"], "run_bilingual_mix": path_counts["cli_bilingual_fused"]})
 
     # ---------------- phase 6b: encode-corpus (int8) + run-mix over it ----------------
+    mark("6b")
 
     corpus_tsv = work / "corpus.tsv"
     corpus_tsv.write_text("".join(f"c{i}\t{sentence('p', 600, 1000, 50_000)}\n" for i in range(N_CORPUS)))
@@ -2797,6 +2818,7 @@ def main() -> None:
     del cd8
 
     # ---------------- phase 6c: two-stage search at scale ----------------
+    mark("6c")
     from codemix_dense_retrieval_torch.io.token_shards import TokenShardWriter
     from codemix_dense_retrieval_torch.parallel.sharded_search import _merge_two_key
     from codemix_dense_retrieval_torch.pipeline.query_cache import save_query_token_cache
@@ -2954,6 +2976,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------- phase 7: kernels line ----------------
+    mark("7")
     def total(name):
         return sum(c[name] for c in path_counts.values())
 
@@ -3151,6 +3174,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------- phase 8: the bilingual hub at full size ----------------
+    mark("8")
     from codemix_dense_retrieval_torch.config import format_alpha
     from codemix_dense_retrieval_torch.pipeline.bilingual import (
         run_bilingual_vector_mix,
@@ -3304,6 +3328,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------- phase 9: serving ----------------
+    mark("9")
     from concurrent.futures import ThreadPoolExecutor
 
     from codemix_dense_retrieval_torch.serving import SearchService, make_server
@@ -3689,6 +3714,7 @@ def main() -> None:
     del enc
 
     # ---------------- phase 10: store dtypes and encoder families ----------------
+    mark("10")
     t10 = time.perf_counter()
     del host  # phase 10 makes rows of its own, with full f32 mantissas
     gc.collect()  # what earlier phases left in reference cycles, before 10c's 36 GB
@@ -3850,7 +3876,37 @@ def main() -> None:
             qb_, k_rep, v_rep, is_causal=True), 20),
         shape=f"B={bq} H={hq} KVH={kvq} S={sq} dh={dq} bf16 causal (Qwen3-Embedding-0.6B)",
     ))
-    del qb_, kb_, vb_, k_rep, v_rep, qenc
+    del qb_, kb_, vb_, k_rep, v_rep
+    # every bucket the Qwen3 encoder runs kernel B at (B = 128 queries to S =
+    # 256, B = 32 passages at 512 and 1024), full and ragged lengths, each
+    # beside SDPA (is_causal, KV heads repeated: no lengths, so its work is
+    # the full causal square) and the bound of the keys these lengths need
+    qwen_buckets = {}
+    for sb in (16, 64, 128, 256, 512, 1024):
+        bb = 128 if sb <= 256 else 32
+        q_, k_, v_ = (torch.randn(bb, sb, nh, dq, device=dev, generator=g10k).to(torch.bfloat16).transpose(1, 2)
+                      for nh in (hq, kvq, kvq))
+        k_rep, v_rep = k_.repeat_interleave(hq // kvq, dim=1), v_.repeat_interleave(hq // kvq, dim=1)
+        reps = max(20, min(400, 20 * 32 * 1024 * 1024 // (bb * sb * sb)))
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_rep, v_rep, is_causal=True), reps)
+        lens_r = rng10.integers(1, sb + 1, bb).astype(np.int32)
+        for tag, lens_np in (("full", np.full(bb, sb, np.int32)), ("ragged", lens_r)):
+            lens_ = torch.from_numpy(lens_np).to(dev)
+            err_ = (fa.attention_flash(q_, k_, v_, lens_, causal=True).float()
+                    - fa.attention_flash_plain(q_.float(), k_.float(), v_.float(), lens_, causal=True)
+                    ).abs().max().item()
+            check(err_ <= 2e-2, f"B causal GQA err {err_} at S={sb} {tag}")
+            keys = float(np.minimum(np.arange(sb)[None, :] + 1, lens_np[:, None].astype(np.int64)).sum())
+            b_ms_, b_by_ = bound(2 * bb * sb * (hq + kvq) * dq * 2, 4 * hq * dq * keys)
+            _, tiles_ = fa.tile_schedule(bb, hq, kvq, sb, True)
+            qwen_buckets[f"S{sb}_{tag}"] = dict(
+                B=bb, max_abs_err=err_, **kernel_ms(lambda: fa.attention_flash(q_, k_, v_, lens_, causal=True), reps),
+                sdpa_ms=lib_ms, bound_ms=b_ms_, bound_by=b_by_,
+                schedule_balance=fa.schedule_balance(tiles_, lens_np, True))
+        del q_, k_, v_, k_rep, v_rep
+    say("qwen3_kernel_b_buckets", smi=smi, shape="H=16 KVH=8 dh=128 bf16 causal", buckets=qwen_buckets)
+    del qenc
     torch.cuda.empty_cache()
     say("qwen3", config="Qwen3-Embedding-0.6B (28L, d=1024, 16/8 heads of 128, FFN 3072, vocab 151669) "
         "random init bf16, HF-format dir", load_s=round(qload_s, 2),
@@ -4414,22 +4470,27 @@ def main() -> None:
     say("families", smi=smi, **fam, phase10_s=round(time.perf_counter() - t10, 2))
 
     # ---------------- phase 11: weight quantization, tune, profile ----------------
+    mark("11")
     gc.collect()
     torch.cuda.empty_cache()
     phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv, qdir,
              work / "en.tsv", work / "zh.tsv")
 
     # ---------------- phase 12: the host tools ----------------
+    mark("12")
     gc.collect()
     torch.cuda.empty_cache()
     phase_12(dev, work, smi, path_counts, work / "ckpt", texts_a, texts_b)
 
     # ---------------- phase 13: multi-device on the one card ----------------
+    mark("13")
     gc.collect()
     torch.cuda.empty_cache()
     phase_13(dev, work, smi, path_counts, work / "ckpt", qdir, mix05, docids, passages, buckets)
 
     # each kernel's launches over all the paths
+    mark("end")
+    say("phase_walls", seconds_from_start=walls)
     entries.extend(late_entries)
     for e in entries:
         e["launches"] = total(e["name"].replace("[", "_").rstrip("]"))

@@ -11,10 +11,11 @@
 // consumer warpgroups multiply them with wgmma (bf16 or f16 -> f32, tf32
 // parts -> f32, or s8 -> exact s32), and the blocks are persistent (one per
 // SM), so the next tile's chunks load while the current tile's epilogue runs;
-// rows past N and dims past d read as zeros. f32 operands (SPLIT = 2) are
-// split in shared memory per stage into tf32 hi + lo before three wgmmas, and
-// fold each chunk into a running sum (Operand<float>); their ring is as deep
-// as two stages' bytes allow and their query tiles hold at most 128 queries.
+// rows past N and dims past d read as zeros. f32 operands (SPLIT = 2) take
+// three tf32 wgmmas over hi + lo parts and fold each chunk into a running sum
+// (Operand<float>); their query tiles hold at most 128 queries. Bin-major f32
+// has a kernel of its own (bin_scores_f32_kernel, below), the transposed
+// layout splits both operands in shared memory per stage.
 // Epilogues work on the accumulators in registers. The operand type (Operand
 // below) and the epilogue mode (Epi) are template parameters, so the ring, the
 // consumer loop and the bin-max code exist once:
@@ -94,10 +95,10 @@ inline bool shape_ok(int B, long long N, int D, int G, int dim_multiple) {
 }
 
 // what the operand type fixes: the accumulator (f32, or s32 held as raw
-// 32-bit registers), the tensor-map element type, the wgmma, SPLIT (2: each
-// stage is split in shared memory before the products, see Operand<float>)
-// and the largest query tile (MAX_NT). mma's `lo` is the descriptor offset
-// of a stage's split-off low parts (f32 only).
+// 32-bit registers), the tensor-map element type, the wgmma, SPLIT (2: tf32
+// hi + lo parts, see Operand<float>) and the largest query tile (MAX_NT).
+// mma's `lo` is the descriptor offset of a stage's split-off low parts (f32,
+// transposed layout).
 template <typename T>
 struct Operand;
 
@@ -126,15 +127,18 @@ struct Operand<__half> {
   }
 };
 
-// f32 operands, f32-faithful products on tf32 tensor cores (3xTF32): each
-// stage's values x are split in shared memory (split_stage) into hi =
-// tf32(x), in place, and lo = tf32(x - hi), a stage's length further on;
-// x . y = hi.hi + hi.lo + lo.hi, the three wgmmas below, to ~3 * 2^-22 of
-// sum |x_i y_i| (the dropped lo.lo and lo's rounding are each <= 2^-22 of
-// it). The tensor cores' accumulation does not round to nearest and its
-// error grows with the products added into one fragment, so every 128-byte
-// chunk of d (32 dims) accumulates into a fresh fragment that is then added
-// to a running sum with __fadd_rn; holding both caps the query tile at 128.
+// f32 operands, f32-faithful products on tf32 tensor cores (3xTF32): every
+// value x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
+// x . y = hi.hi + hi.lo + lo.hi, three wgmmas, to ~3 * 2^-22 of sum |x_i y_i|
+// (the dropped lo.lo and lo's rounding are each <= 2^-22 of it). Where the
+// split happens: the transposed layout splits each stage in shared memory
+// (split_stage: hi in place, lo a stage's length further on) and runs mma
+// below; bin-major f32 (bin_scores_f32_kernel) splits the rows in registers
+// and takes the queries split once per call. The tensor cores' accumulation
+// does not round to nearest and its error grows with the products added into
+// one fragment, so every 128-byte chunk of d (32 dims) accumulates into a
+// fresh fragment that is then added to a running sum with __fadd_rn; holding
+// both caps the query tile at 128.
 template <>
 struct Operand<float> {
   using Acc = float;
@@ -161,9 +165,10 @@ struct Operand<int8_t> {
   }
 };
 
-// f32 operands: the 256 consumer threads split the `bytes` loaded into a
-// stage (at generic address p) into tf32 hi (in place) and lo (bytes
-// further on), then order the writes before the wgmmas that read them
+// f32 operands, transposed layout: the 256 consumer threads split the
+// `bytes` loaded into a stage (at generic address p) into tf32 hi (in place)
+// and lo (bytes further on), then order the writes before the wgmmas that
+// read them
 __device__ __forceinline__ void split_stage(unsigned char* p, int bytes, int tc) {
   float4* x = reinterpret_cast<float4*>(p);
   float4* lo = reinterpret_cast<float4*>(p + bytes);
@@ -224,17 +229,21 @@ int by_tile(int G, int B, F&& f) {
 }
 
 // the row-major tensor maps of D (N x d) and Q (B x d): 128-byte boxes of
-// T_ROWS and NT rows
+// T_ROWS and NT rows. q_planes = 2: Q is (2, B, d), the queries' tf32 hi
+// and lo planes (bin-major f32), a box from one plane at a time
 template <typename T>
 int make_maps(CUtensorMap* dmap, CUtensorMap* qmap, const void* q, const void* d, int B, long long N,
-              int D, int NT) {
+              int D, int NT, int q_planes = 1) {
   const uint64_t ddims[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N)};
-  const uint64_t qdims[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(B)};
-  const uint64_t row_bytes[1] = {static_cast<uint64_t>(D) * sizeof(T)};
+  const uint64_t qdims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(B),
+                             static_cast<uint64_t>(q_planes)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(D) * sizeof(T),
+                               static_cast<uint64_t>(B) * D * sizeof(T)};
   const uint32_t dbox[2] = {CHUNK_BYTES / sizeof(T), T_ROWS};
-  const uint32_t qbox[2] = {CHUNK_BYTES / sizeof(T), static_cast<uint32_t>(NT)};
-  const int rc = sm90::make_tma(dmap, Operand<T>::TMA, d, 2, ddims, row_bytes, dbox);
-  return rc != 0 ? rc : sm90::make_tma(qmap, Operand<T>::TMA, q, 2, qdims, row_bytes, qbox);
+  const uint32_t qbox[3] = {CHUNK_BYTES / sizeof(T), static_cast<uint32_t>(NT), 1};
+  const int rc = sm90::make_tma(dmap, Operand<T>::TMA, d, 2, ddims, strides, dbox);
+  return rc != 0 ? rc
+                 : sm90::make_tma(qmap, Operand<T>::TMA, q, q_planes == 1 ? 2 : 3, qdims, strides, qbox);
 }
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
@@ -497,22 +506,21 @@ constexpr int W_D_CHUNK = T_ROWS * CHUNK_BYTES;  // one chunk of a 128-row D til
 
 // shared-memory plan, as byte offsets from the 1024-aligned base: resident Q
 // chunks (q_resident) at 0, then the ring of `stages` stages (a D chunk, and
-// a Q chunk after it unless Q is resident: load_bytes, then with split = 2
-// (f32) their split-off low parts), two tiles' per-row epilogue values
+// a Q chunk after it unless Q is resident), two tiles' per-row epilogue values
 // (kernels 7 and 4), the barriers full[stages], empty[stages], q_full, q_empty
 struct WLayout {
   int stages, stage_bytes, load_bytes, ring_off, dx_off, bar_off, bytes, q_resident;
 };
 
 // the plan for NT-query tiles of rows of row_bytes bytes, counted in
-// 128-byte chunks; split = 2 streams Q beside D (no resident Q)
-inline WLayout w_layout(int nt, long long row_bytes, bool epi, int split) {
+// 128-byte chunks
+inline WLayout w_layout(int nt, long long row_bytes, bool epi) {
   const int chunks = static_cast<int>((row_bytes + CHUNK_BYTES - 1) / CHUNK_BYTES);
   const long long q_bytes = static_cast<long long>(chunks) * nt * CHUNK_BYTES;
   const int aux = epi ? 2 * T_ROWS * 4 : 0;  // this tile's and the next one's
   const int fixed = aux + 16 * W_MAX_STAGES + 16 + 1024;  // + 1024-byte alignment slack
   WLayout L{};
-  L.q_resident = split == 1 && q_bytes + 2 * W_D_CHUNK + fixed <= W_SMEM_MAX;
+  L.q_resident = q_bytes + 2 * W_D_CHUNK + fixed <= W_SMEM_MAX;
   if (L.q_resident) {
     L.stage_bytes = L.load_bytes = W_D_CHUNK;
     L.ring_off = static_cast<int>(q_bytes);
@@ -520,7 +528,7 @@ inline WLayout w_layout(int nt, long long row_bytes, bool epi, int split) {
     if (L.stages > W_MAX_STAGES) L.stages = W_MAX_STAGES;
   } else {
     L.load_bytes = W_D_CHUNK + nt * CHUNK_BYTES;
-    L.stage_bytes = split * L.load_bytes;
+    L.stage_bytes = L.load_bytes;
     L.ring_off = 0;
     L.stages = (W_SMEM_MAX - fixed) / L.stage_bytes;
     if (L.stages > T_STAGES) L.stages = T_STAGES;
@@ -556,8 +564,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
                      const float* __restrict__ q_aux, const float* __restrict__ d_aux,
                      int B, long long N, int D, int q_tiles, long long n_tiles) {
   static_assert(std::is_same<T, int8_t>::value == (EPI == EPI_RESCALE), "int8 products are rescaled");
-  constexpr int SPLIT = Operand<T>::SPLIT;
-  static_assert(SPLIT == 1 || !QRES, "split operands stream Q");
+  static_assert(Operand<T>::SPLIT == 1, "f32 operands take bin_scores_f32_kernel");
   using S = WSplit<NT>;
   constexpr int MB = S::MB;
   constexpr int NW = S::NW;
@@ -645,7 +652,6 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
     const long long nb_total = N / G;
     float* s_dx = reinterpret_cast<float*>(gbase + L.dx_off);
     typename Operand<T>::Acc acc[MB][NW / 2];
-    float run[MB][SPLIT == 2 ? NW / 2 : 1];  // f32: the running sum over chunks
     float qxa[MB], qxb[MB];  // EPI: q_aux of this thread's two queries per m block
     int st = 0, prev = 0, cur_q = -1, q_loads = 0, local = 0;
     uint32_t ph = 0;
@@ -679,7 +685,6 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
         const uint32_t d_st = stage + r_off * CHUNK_BYTES;
         const uint32_t q_st =
             (QRES ? base + kc * (NT * CHUNK_BYTES) : stage + W_D_CHUNK) + q_off * CHUNK_BYTES;
-        if constexpr (SPLIT == 2) split_stage(gbase + (stage - base), L.load_bytes, tc);
 #pragma unroll
         for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
         sm90::wgmma_fence();
@@ -689,20 +694,11 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
 #pragma unroll
           for (int mb = 0; mb < MB; ++mb) {
             const uint64_t da = sm90::desc_sw128(q_st + mb * 64 * CHUNK_BYTES + kk * 32, 16, 1024);
-            Operand<T>::template mma<NW>(acc[mb], da, db, L.load_bytes >> 4,
-                                         SPLIT == 2 ? kk > 0 : kc > 0 || kk > 0);
+            Operand<T>::template mma<NW>(acc[mb], da, db, 0, kc > 0 || kk > 0);
           }
         }
         sm90::wgmma_commit();
-        if constexpr (SPLIT == 2) {  // fold this chunk, then free its stage
-          sm90::wgmma_wait<0>();
-#pragma unroll
-          for (int mb = 0; mb < MB; ++mb) {
-            sm90::fence_regs(acc[mb]);
-            fold_chunk(run[mb], acc[mb], kc == 0);
-          }
-          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
-        } else if (kc > 0) {  // the previous chunk's products are done: free its stage
+        if (kc > 0) {  // the previous chunk's products are done: free its stage
           sm90::wgmma_wait<1>();
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
         }
@@ -712,17 +708,10 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
           ph ^= 1;
         }
       }
-      if constexpr (SPLIT == 2) {
+      sm90::wgmma_wait<0>();
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-          for (int i = 0; i < NW / 2; ++i) acc[mb][i] = run[mb][i];
-      } else {
-        sm90::wgmma_wait<0>();
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
-        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
-      }
+      for (int mb = 0; mb < MB; ++mb) sm90::fence_regs(acc[mb]);
+      if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * prev);
 
       // epilogue from the fragments: in m block mb, this thread holds queries
       // qa and qa + 8 at rows c, c + 1 (acc[mb][4i .. 4i + 3]: (qa, c),
@@ -811,6 +800,246 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bin-major layout over f32 operands (kernels A, 5 and 7 f32, 3xTF32)
+// ---------------------------------------------------------------------------
+
+// Doc rows are wgmma's M (64 per consumer warpgroup, 128-row tiles) and the
+// tile's NT queries its N (n128; n64 for B <= 64), so the rows reach the
+// tensor cores through registers: each 32-dim chunk of the warp's 16 rows is
+// read from the swizzled stage by ldmatrix (tf32 A layout), split there into
+// hi + lo, and fed as the register A operand of hi.lo, lo.hi and hi.hi
+// against the queries' tf32 planes, which arrive split (tf32_split_kernel,
+// once per call) and stream by TMA beside D. Nothing is split or rewritten in
+// shared memory, and wgmma reads only the query planes from it: per chunk of
+// a 128 x 128 tile 96 KB of wgmma reads, 16 KB of ldmatrix and 48 KB of TMA
+// writes, where the queries-as-M layout read 144 KB, wrote 48 and split 48.
+// Each chunk accumulates in a fresh fragment, folded into the running sum
+// with __fadd_rn (Operand<float>). The epilogue turns the fragment's (row,
+// query) pairs into bin-major S rows (a warp's store covers 32 contiguous
+// bytes of each of four queries' rows) and bins of 8 (16) rows, which lie
+// along the fragment's rows: three shuffles over the 8 lanes of a column.
+template <int NT>
+struct FLayout {
+  static constexpr int Q_PLANE = NT * CHUNK_BYTES;           // one plane's chunk
+  static constexpr int STAGE = W_D_CHUNK + 2 * Q_PLANE;      // D, Q hi, Q lo
+  static constexpr int FIT = (W_SMEM_MAX - 2048) / STAGE;
+  static constexpr int STAGES = FIT < T_STAGES ? FIT : T_STAGES;
+  static constexpr int BAR_OFF = STAGES * STAGE;             // full[], empty[]
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;  // + 1024-byte alignment slack
+  static_assert(STAGES >= 2 && BYTES <= W_SMEM_MAX, "the f32 ring does not fit");
+};
+
+template <int NT, int G, typename OutT, int EPI, bool STORE>
+__global__ void __launch_bounds__(T_THREADS, 1)
+bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
+                      const __grid_constant__ CUtensorMap qmap, OutT* __restrict__ scores,
+                      float* __restrict__ binmax, const int* __restrict__ nv_ptr, long long nv_int,
+                      const float* __restrict__ q_aux, const float* __restrict__ d_aux, int B,
+                      long long N, int D, int q_tiles, long long tiles) {
+  static_assert(EPI != EPI_RESCALE, "f32 products take no rescale");
+  using L = FLayout<NT>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int KC = CHUNK_BYTES / 4;  // dims per stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_full = base + L::BAR_OFF;      // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8 * stage
+  const int tid = threadIdx.x;
+  const int chunks = (D + KC - 1) / KC;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(bar_full + 8 * s, 1);
+      sm90::mbar_init(bar_empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (sm90::warpgroup_index() == 0) {
+    // ---- producer: one thread streams (D chunk, Q hi chunk, Q lo chunk) ----
+    sm90::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      sm90::tma_prefetch(&dmap);
+      sm90::tma_prefetch(&qmap);
+      int st = 0;
+      uint32_t ph = 0;
+      for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int q0 = static_cast<int>(tile % q_tiles) * NT;  // query tile fastest
+        const int n0 = static_cast<int>(tile / q_tiles) * T_ROWS;
+        for (int kc = 0; kc < chunks; ++kc) {
+          sm90::mbar_wait(bar_empty + 8 * st, ph ^ 1);
+          sm90::mbar_expect_tx(bar_full + 8 * st, L::STAGE);
+          const uint32_t dst = base + st * L::STAGE;
+          sm90::tma_load_2d(dst, &dmap, bar_full + 8 * st, kc * KC, n0);
+          sm90::tma_load_3d(dst + W_D_CHUNK, &qmap, bar_full + 8 * st, kc * KC, q0, 0);
+          sm90::tma_load_3d(dst + W_D_CHUNK + L::Q_PLANE, &qmap, bar_full + 8 * st, kc * KC, q0, 1);
+          if (++st == STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns doc rows n0 + 64 wg .. + 63 ----
+    sm90::setmaxnreg_inc<232>();
+    const int wg = sm90::warpgroup_index() - 1;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const long long nv = nv_ptr != nullptr ? static_cast<long long>(*nv_ptr) : nv_int;
+    const long long nb_total = N / G;
+    // this lane's ldmatrix row (of the warp's 16) and its 16-byte column half
+    const int lrow = 64 * wg + 16 * warp + ((lane >> 3) & 1) * 8 + (lane & 7);
+    const int lhalf = lane >> 4;
+    float acc[NT / 2], run[NT / 2];
+    int st = 0;
+    uint32_t ph = 0;
+    // the warp's 16 rows x 32 dims of stage `stg` as four tf32 A fragments
+    uint32_t raw[4][4];
+    auto load_rows = [&](int stg) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::ldmatrix_x4(raw[kk], base + stg * L::STAGE + lrow * CHUNK_BYTES +
+                                       (((2 * kk + lhalf) ^ (lrow & 7)) << 4));
+    };
+    // each warpgroup loads its next chunk's rows while its current products
+    // run (the two are not synchronised, so one's fold and split run beside
+    // the other's products)
+    if (blockIdx.x < tiles) {
+      sm90::mbar_wait(bar_full, 0);
+      load_rows(0);
+    }
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int q0 = static_cast<int>(tile % q_tiles) * NT;
+      const long long n0 = (tile / q_tiles) * T_ROWS;
+      const long long r16 = n0 + 64 * wg + 16 * warp;  // this warp's 16 rows
+      const long long ra = r16 + g;                    // this thread's rows ra, ra + 8
+      const long long rb = ra + 8;
+      const bool last_tile = tile + gridDim.x >= tiles;
+      float dxa = 0.0f, dxb = 0.0f;  // EPI: d_aux of the thread's two rows, loaded under the main loop
+      if (EPI != EPI_NONE) {
+        dxa = ra < N ? d_aux[ra] : 0.0f;
+        dxb = rb < N ? d_aux[rb] : 0.0f;
+      }
+      for (int kc = 0; kc < chunks; ++kc) {
+        const uint32_t stage = base + st * L::STAGE;
+        // split the rows into tf32 hi + lo, in registers
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float v = __uint_as_float(raw[kk][j]);
+            const float h = sm90::tf32_rna(v);
+            hi[kk][j] = __float_as_uint(h);
+            lo[kk][j] = __float_as_uint(sm90::tf32_rna(v - h));
+          }
+        }
+        const uint32_t qh = stage + W_D_CHUNK;
+        const bool last = last_tile && kc + 1 == chunks;
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // four k steps of 32 bytes
+          const uint64_t dqh = sm90::desc_sw128(qh + kk * 32, 16, 1024);
+          const uint64_t dql = sm90::desc_sw128(qh + L::Q_PLANE + kk * 32, 16, 1024);
+          sm90::WgmmaTF32RS<NT>::rs(acc, hi[kk], dql, kk > 0);
+          sm90::WgmmaTF32RS<NT>::rs(acc, lo[kk], dqh, 1);
+          sm90::WgmmaTF32RS<NT>::rs(acc, hi[kk], dqh, 1);
+        }
+        sm90::wgmma_commit();
+        const int st_next = st + 1 == STAGES ? 0 : st + 1;
+        if (!last) {  // the next chunk's rows, under these products
+          sm90::mbar_wait(bar_full + 8 * st_next, st_next == 0 ? ph ^ 1 : ph);
+          load_rows(st_next);
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        fold_chunk(run, acc, kc == 0);
+        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
+        st = st_next;
+        if (st == 0) ph ^= 1;
+      }
+
+      // epilogue from the fragments: this thread holds rows ra (run[4i],
+      // run[4i + 1]) and rb (run[4i + 2], run[4i + 3]) of queries q, q + 1,
+      // q = q0 + 8 i + 2 t
+#pragma unroll
+      for (int i = 0; i < NT / 8; ++i) {
+        const int q = q0 + 8 * i + 2 * t;
+        float v0 = run[4 * i + 0], v1 = run[4 * i + 1], v2 = run[4 * i + 2], v3 = run[4 * i + 3];
+        if (EPI == EPI_TAIL) {  // the tail term, in the JAX order
+          const float qx0 = q < B ? q_aux[q] : 0.0f;
+          const float qx1 = q + 1 < B ? q_aux[q + 1] : 0.0f;
+          apply_epi<EPI>(v0, dxa, qx0);
+          apply_epi<EPI>(v1, dxa, qx1);
+          apply_epi<EPI>(v2, dxb, qx0);
+          apply_epi<EPI>(v3, dxb, qx1);
+        }
+        v0 = ra < nv ? v0 : NEG_INF;
+        v1 = ra < nv ? v1 : NEG_INF;
+        v2 = rb < nv ? v2 : NEG_INF;
+        v3 = rb < nv ? v3 : NEG_INF;
+        if (STORE) {  // the 8 lanes of a column write 32 contiguous bytes of a query's row
+          OutT* row_q = scores + static_cast<long long>(q) * N;
+          if (q < B) {
+            if (ra < N) store_out(row_q + ra, v0);
+            if (rb < N) store_out(row_q + rb, v2);
+          }
+          if (q + 1 < B) {
+            if (ra < N) store_out(row_q + N + ra, v1);
+            if (rb < N) store_out(row_q + N + rb, v3);
+          }
+        }
+        if (G == 16) {  // one bin: the warp's 16 rows
+          const float m0 = rows_max(fmaxf(v0, v2));
+          const float m1 = rows_max(fmaxf(v1, v3));
+          const long long bin = r16 / 16;
+          if (bin < nb_total) {
+            if (g == 0 && q < B) binmax[static_cast<long long>(q) * nb_total + bin] = m0;
+            if (g == 1 && q + 1 < B) binmax[static_cast<long long>(q + 1) * nb_total + bin] = m1;
+          }
+        } else {  // two bins: rows r16 .. + 7 and r16 + 8 .. + 15
+          const float a0 = rows_max(v0), a1 = rows_max(v1);
+          const float b0 = rows_max(v2), b1 = rows_max(v3);
+          const long long bin = r16 / 8 + (g >> 1);  // lanes g = 0, 1: bin a; g = 2, 3: bin b
+          const int qw = q + (g & 1);
+          const float m = g == 0 ? a0 : g == 1 ? a1 : g == 2 ? b0 : b1;
+          if (g < 4 && qw < B && bin < nb_total) binmax[static_cast<long long>(qw) * nb_total + bin] = m;
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int G, typename OutT, int EPI, bool STORE>
+int launch_f32(const void* q_split, const void* d, void* scores, void* binmax, const void* nv_ptr,
+               long long nv_int, const void* q_aux, const void* d_aux, int B, long long N, int D,
+               cudaStream_t stream) {
+  using L = FLayout<NT>;
+  CUtensorMap dmap, qmap;
+  const int rc = make_maps<float>(&dmap, &qmap, q_split, d, B, N, D, NT, 2);
+  if (rc != 0) return rc;
+  const int q_tiles = (B + NT - 1) / NT;
+  const long long tiles = (N + T_ROWS - 1) / T_ROWS * q_tiles;
+  const int sms = sm90::sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const unsigned int grid = static_cast<unsigned int>(tiles < sms ? tiles : sms);
+  const int smem = L::BYTES > sm90::ONE_BLOCK_SMEM ? L::BYTES : sm90::ONE_BLOCK_SMEM;
+  auto kernel = bin_scores_f32_kernel<NT, G, OutT, EPI, STORE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, T_THREADS, smem, stream>>>(
+      dmap, qmap, static_cast<OutT*>(scores), static_cast<float*>(binmax),
+      static_cast<const int*>(nv_ptr), nv_int, static_cast<const float*>(q_aux),
+      static_cast<const float*>(d_aux), B, N, D, q_tiles, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int NT, int G, typename OutT, int EPI, bool STORE, bool QRES>
 int launch_bm_q(const WLayout& L, const void* q, const void* d, void* scores, void* binmax,
                 const void* nv_ptr, long long nv_int, const void* q_aux, const void* d_aux,
@@ -843,15 +1072,17 @@ int launch_bin_major(int G, const void* q, const void* d, void* scores, void* bi
                      int B, long long N, int D, cudaStream_t s) {
   return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
     constexpr int NT = decltype(nt)::value, GG = decltype(g)::value;
-    const WLayout L = w_layout(NT, static_cast<long long>(D) * sizeof(T), EPI != EPI_NONE,
-                               Operand<T>::SPLIT);
-    if constexpr (Operand<T>::SPLIT == 1) {
+    if constexpr (Operand<T>::SPLIT == 2) {  // q: the queries' (2, B, d) tf32 split
+      return launch_f32<NT, GG, OutT, EPI, STORE>(q, d, scores, binmax, nv_ptr, nv_int, q_aux, d_aux,
+                                                  B, N, D, s);
+    } else {
+      const WLayout L = w_layout(NT, static_cast<long long>(D) * sizeof(T), EPI != EPI_NONE);
       if (L.q_resident)
         return launch_bm_q<T, NT, GG, OutT, EPI, STORE, true>(L, q, d, scores, binmax, nv_ptr,
                                                               nv_int, q_aux, d_aux, B, N, D, s);
+      return launch_bm_q<T, NT, GG, OutT, EPI, STORE, false>(L, q, d, scores, binmax, nv_ptr,
+                                                             nv_int, q_aux, d_aux, B, N, D, s);
     }
-    return launch_bm_q<T, NT, GG, OutT, EPI, STORE, false>(L, q, d, scores, binmax, nv_ptr, nv_int,
-                                                           q_aux, d_aux, B, N, D, s);
   });
 }
 

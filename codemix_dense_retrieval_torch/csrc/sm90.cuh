@@ -56,6 +56,11 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// `count` arrivals at once
+__device__ __forceinline__ void mbar_arrive_cnt(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -102,6 +107,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                             int c1, int c2, int c3) {
   asm volatile(
@@ -109,6 +123,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// a box of shared memory (at 1024-byte aligned dst, laid out as tma_load
+// writes it) to the tensor at the map's coordinates; out-of-range elements
+// are not written. Completes in bulk groups: bulk_commit, then
+// bulk_wait_read<0> (the shared memory may be reused) or bulk_wait<0>
+// (the writes are done)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- wgmma ----
@@ -395,6 +435,28 @@ SM90_WGMMA_SS(WgmmaTF32, 128, 64, SM90_R64, SM90_ACC64, "64", "65", "66",
 SM90_WGMMA_SS(WgmmaTF32, 256, 128, SM90_R128, SM90_ACC128, "128", "129", "130",
               "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32", ", 1, 1")
 
+// WgmmaTF32RS<N>::rs: the same tf32 product with A (64 x 8) from registers,
+// a[0..3] = (row r, k t), (r + 8, t), (r, t + 4), (r + 8, t + 4) for lane
+// l = 4 (r % 8) + t of warp r / 16 (mma.m16n8k8's tf32 A layout), as
+// ldmatrix_x4 below loads it
+template <int N>
+struct WgmmaTF32RS;
+#define SM90_WGMMA_RS_TF32(N, NR, REGS, ACC, A0, A1, A2, A3, DB, SC)                         \
+  template <>                                                                                \
+  struct WgmmaTF32RS<N> {                                                                    \
+    static __device__ __forceinline__ void rs(float (&d)[NR], const uint32_t (&a)[4],        \
+                                              uint64_t db, int scale_d) {                    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"                          \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, {%" A0 \
+                   ", %" A1 ", %" A2 ", %" A3 "}, %" DB ", p, 1, 1;\n}\n"                      \
+                   : ACC                                                                     \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));      \
+    }                                                                                        \
+  };
+SM90_WGMMA_RS_TF32(64, 32, SM90_R32, SM90_ACC32, "32", "33", "34", "35", "36", "37")
+SM90_WGMMA_RS_TF32(128, 64, SM90_R64, SM90_ACC64, "64", "65", "66", "67", "68", "69")
+#undef SM90_WGMMA_RS_TF32
+
 #undef SM90_WGMMA_SS
 #undef SM90_ACC128
 #undef SM90_ACC64
@@ -409,6 +471,19 @@ __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
+}
+
+// four 8 x 8 b16 matrices from shared memory (ldmatrix .x4): lane l gives
+// the address of row l % 8 of matrix l / 8 and gets word l % 4 of row l / 4
+// of each matrix in r[0..3]; on 32-bit data, word t of row r is element t
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t saddr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr));
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t saddr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(saddr), "r"(v) : "memory");
 }
 
 // orders this thread's generic-proxy shared-memory writes before later reads

@@ -5,7 +5,9 @@
 - :func:`attention_flash`: kernel B, an online-softmax (flash) kernel
   (``csrc/flash_attention.cu``) for CUDA tensors, with its plain version
   :func:`attention_flash_plain` for CPU tensors;
-- :func:`multi_head_attention`: the dispatch between the two.
+- :func:`multi_head_attention`: the dispatch between the two;
+- :func:`tile_schedule`: a model of kernel B's persistent tile order, for
+  tests and for reading a launch's balance (:func:`schedule_balance`).
 
 Layouts follow the JAX package: q (B, H, S, dh), k and v (B, KVH, S, dh)
 with KVH dividing H (grouped-query attention), per-sequence key ``lengths``
@@ -19,6 +21,7 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
@@ -101,6 +104,60 @@ def attention_flash_plain(
     out = torch.matmul(p, v.to(torch.float32)) / p.sum(dim=-1, keepdim=True)
     out = torch.where(mask.any(dim=-1, keepdim=True), out, 0.0)
     return out.to(q.dtype)
+
+
+#: kernel B's query rows per tile and key rows per block (``WQ``, ``WK``)
+TILE_ROWS = 128
+#: waves of tiles in a causal chunk (``CAUSAL_CHUNK_WAVES``)
+CAUSAL_CHUNK_WAVES = 8
+#: the H100's SMs: kernel B's persistent grid
+H100_SMS = 132
+
+
+def tile_schedule(b: int, h: int, kvh: int, s: int, causal: bool, grid: int = H100_SMS):
+    """Kernel B's tiles in launch order, as ``csrc/flash_attention.cu``'s
+    ``tile_plan`` and ``tile_at`` lay them out: ``(mode, tiles)``, ``tiles``
+    an int64 (n, 3) array of (first query row, batch, first q head); block i
+    of ``min(n, grid)`` persistent blocks runs tiles i, i + grid, ...
+
+    - ``"head_pairs"`` (S <= 64 and an even GQA group): a tile is 64 rows of
+      q heads hq and hq + 1, which read one KV head;
+    - ``"causal"``: chunks of whole sequences, about CAUSAL_CHUNK_WAVES waves
+      of ``grid`` tiles each, spread evenly; inside a chunk the last query
+      tile of every (batch, head) first, (batch, head) fastest;
+    - ``"query_fastest"`` (non-causal): (batch, head, query tile), query tile
+      fastest."""
+    n_qt = -(-s // TILE_ROWS)
+    if s <= 64 and (h // kvh) % 2 == 0:
+        t = np.arange(b * (h // 2))
+        return "head_pairs", np.stack([np.zeros_like(t), t // (h // 2), 2 * (t % (h // 2))], axis=1)
+    t = np.arange(n_qt * b * h)
+    if not causal:
+        return "query_fastest", np.stack([(t % n_qt) * TILE_ROWS, t // n_qt // h, t // n_qt % h], axis=1)
+    per_b = h * n_qt
+    want = max(1, -(-CAUSAL_CHUNK_WAVES * grid // per_b))
+    chunks = -(-b // want)
+    chunk_b = -(-b // chunks)
+    full = b // chunk_b
+    c = np.minimum(t // (chunk_b * per_b), full)
+    nb = np.where(c < full, chunk_b, b - full * chunk_b)
+    u = t - c * chunk_b * per_b
+    bh = u % (nb * h)
+    q0 = (n_qt - 1 - u // (nb * h)) * TILE_ROWS
+    return "causal", np.stack([q0, c * chunk_b + bh // h, bh % h], axis=1)
+
+
+def schedule_balance(tiles: np.ndarray, lengths, causal: bool, grid: int = H100_SMS) -> float:
+    """The busiest persistent block's key blocks over the mean block's, for
+    :func:`tile_schedule`'s ``tiles`` at per-sequence ``lengths``: the share
+    of a launch's time the tile order adds past an even split."""
+    lengths = np.asarray(lengths)
+    q0, bat = tiles[:, 0], tiles[:, 1]
+    limit = np.minimum(lengths[bat], q0 + TILE_ROWS) if causal else lengths[bat]
+    work = -(-limit // TILE_ROWS)
+    g = min(grid, len(tiles))
+    per = np.bincount(np.arange(len(tiles)) % g, weights=work, minlength=g)
+    return float(per.max() / per.mean()) if per.mean() > 0 else 1.0
 
 
 _FLASH_ARGTYPES = [

@@ -43,6 +43,7 @@ from codemix_dense_retrieval_torch.ops.quant import quantize_rows
 from codemix_dense_retrieval_torch.ops.topk import (
     NEG_INF,
     Rows,
+    _bin_major_queries,
     _ceil_to,
     _n_valid_arg,
     _prep_shard,
@@ -341,9 +342,10 @@ def binub(
             raise ValueError(f"{label} must be contiguous and 16-byte aligned")
     nv_ptr, nv_int = _n_valid_arg(n_valid, d_sketch)
     out = torch.empty((b, n // bin_size), dtype=torch.float32, device=d_sketch.device)
+    q_arg = _bin_major_queries(q_sketch)
     rc = kernels.launch(
         _binub_lib(dt), d_sketch.device,
-        q_sketch.data_ptr(), q_tail.data_ptr(), d_sketch.data_ptr(), d_tail.data_ptr(),
+        q_arg.data_ptr(), q_tail.data_ptr(), d_sketch.data_ptr(), d_tail.data_ptr(),
         out.data_ptr(), nv_ptr, nv_int, b, n, ds, bin_size,
     )
     kernels.check(rc, "binub")

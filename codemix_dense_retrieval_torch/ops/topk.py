@@ -183,6 +183,50 @@ def _n_valid_arg(n_valid: Rows, docs: torch.Tensor) -> Tuple[Optional[int], int]
     return None, int(n_valid)
 
 
+def tf32_split_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`tf32_split`: the (2, *x.shape) f32 planes hi =
+    tf32(x) and lo = tf32(x - hi), each rounded to 10 fraction bits to
+    nearest with ties away from zero (``cvt.rna.tf32.f32``) by adding half a
+    tf32 ulp to the magnitude's bits and clearing the 13 bits below it."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return torch.stack([hi, rna(x - hi)])
+
+
+_TF32_SPLIT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+
+
+def tf32_split(x: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 split of f32 operands that the bin-major f32 kernels (A, 5
+    and 7 in ``csrc/bin_scores_f32.cu``) take for their queries, made once
+    per call instead of once per doc tile: (2, *x.shape) f32, hi then lo.
+    CPU tensors take :func:`tf32_split_plain`; CUDA tensors (contiguous,
+    16-byte aligned, numel % 4 == 0) launch ``tf32_split_kernel``, as part
+    of the kernel launch it feeds (no launch count of its own)."""
+    if x.device.type == "cpu":
+        return tf32_split_plain(x)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16 or x.numel() % 4:
+        raise ValueError("tf32_split takes a contiguous, 16-byte aligned f32 tensor of numel % 4 == 0")
+    out = torch.empty((2, *x.shape), dtype=torch.float32, device=x.device)
+    fn = kernels.load("bin_scores_f32").tf32_split_launch
+    if fn.argtypes is None:
+        fn.argtypes = _TF32_SPLIT_ARGTYPES
+        fn.restype = ctypes.c_int
+    kernels.check(kernels.launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel()), "tf32_split")
+    return out
+
+
+def _bin_major_queries(queries: torch.Tensor, bin_major: bool = True) -> torch.Tensor:
+    """The query operand of a bin kernel's C entry: bin-major f32 kernels
+    take the queries' tf32 split (:func:`tf32_split`), the rest the queries."""
+    return tf32_split(queries) if bin_major and queries.dtype == torch.float32 else queries
+
+
 _BIN_SCORES_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -232,9 +276,10 @@ def bin_scores(
     nb = n // bin_size
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=docs.device)
     binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=docs.device)
+    q_arg = _bin_major_queries(queries, bin_major)
     rc = kernels.launch(
         _bin_scores_lib(docs.dtype), docs.device,
-        queries.data_ptr(), docs.data_ptr(), scores.data_ptr(), binmax.data_ptr(),
+        q_arg.data_ptr(), docs.data_ptr(), scores.data_ptr(), binmax.data_ptr(),
         nv_ptr, nv_int, b, n, dim, bin_size, int(bin_major),
         int(score_dtype == torch.bfloat16),
     )
@@ -393,9 +438,10 @@ def binmax_only(
     b, dim, n = _cuda_operands("binmax_only", queries, docs, FLOAT_INDEX_DTYPES, bin_size, 32)
     nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
     binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
+    q_arg = _bin_major_queries(queries)
     rc = kernels.launch(
         _binmax_only_lib(docs.dtype), docs.device,
-        queries.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,
+        q_arg.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,
         b, n, dim, bin_size,
     )
     kernels.check(rc, "binmax_only")

@@ -1,7 +1,10 @@
 """ops/flash_attention.py: the port's plain flash attention (kernel B's
 plain version) against the JAX package's Pallas kernel in interpret mode and
 its XLA path, and the port's plain XLA-equivalent path against the JAX
-one. f32 inputs, tolerance 1e-5 abs; fully masked rows exactly 0."""
+one. f32 inputs, tolerance 1e-5 abs; fully masked rows exactly 0. Cases at
+Qwen3's head shape (dh = 128, two q heads per KV head, causal) run below
+one 128-row tile (S = 16, 64) and across tile edges (S = 260). Kernel B's
+tile order (``tile_schedule``) against a numpy model of it."""
 
 import numpy as np
 import pytest
@@ -34,20 +37,25 @@ def _segments(lengths, s, seed):
 
 
 CASES = {
-    "plain": dict(lengths=[200, 137], causal=False, kvh=4, seg=False),
-    "zero_length": dict(lengths=[0, 150], causal=False, kvh=4, seg=False),
-    "causal": dict(lengths=[200, 90], causal=True, kvh=4, seg=False),
-    "gqa": dict(lengths=[180, 200], causal=False, kvh=2, seg=False),
-    "gqa_causal": dict(lengths=[200, 0], causal=True, kvh=2, seg=False),
-    "segments": dict(lengths=[200, 120], causal=False, kvh=4, seg=True),
-    "segments_causal_gqa": dict(lengths=[160, 200], causal=True, kvh=2, seg=True),
+    "plain": dict(lengths=[200, 137], causal=False, kvh=4, seg=False, seed=3),
+    "zero_length": dict(lengths=[0, 150], causal=False, kvh=4, seg=False, seed=6),
+    "causal": dict(lengths=[200, 90], causal=True, kvh=4, seg=False, seed=0),
+    "gqa": dict(lengths=[180, 200], causal=False, kvh=2, seg=False, seed=1),
+    "gqa_causal": dict(lengths=[200, 0], causal=True, kvh=2, seg=False, seed=2),
+    "segments": dict(lengths=[200, 120], causal=False, kvh=4, seg=True, seed=4),
+    "segments_causal_gqa": dict(lengths=[160, 200], causal=True, kvh=2, seg=True, seed=5),
+    # Qwen3's head shape below one 128-row tile (kernel B's head-pair tiles)
+    "qwen3_s16": dict(lengths=[16, 9], causal=True, kvh=2, seg=False, seed=7, s=16, dh=128),
+    "qwen3_s16_segments": dict(lengths=[16, 11], causal=True, kvh=2, seg=True, seed=8, s=16, dh=128),
+    "qwen3_s64": dict(lengths=[64, 37], causal=True, kvh=2, seg=False, seed=9, s=64, dh=128),
+    "qwen3_s64_segments": dict(lengths=[50, 64], causal=True, kvh=2, seg=True, seed=10, s=64, dh=128),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_flash_matches_pallas_and_xla(case):
     c = CASES[case]
-    q, k, v = _qkv(sorted(CASES).index(case), kvh=c["kvh"])
+    q, k, v = _qkv(c["seed"], kvh=c["kvh"], s=c.get("s", 200), dh=c.get("dh", 16))
     lengths = np.asarray(c["lengths"], np.int32)
     seg = _segments(lengths, q.shape[2], 5) if c["seg"] else None
     jseg = None if seg is None else jnp.asarray(seg)
@@ -81,24 +89,30 @@ def test_plain_flash_matches_pallas_and_xla(case):
     np.testing.assert_allclose(got, got_xla, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("causal_gqa_seg", [False, True])
+@pytest.mark.parametrize("causal_gqa_seg", [False, True, "qwen3", "qwen3_segments"])
 def test_plain_flash_matches_pallas_at_tile_edges(causal_gqa_seg):
     """Lengths around kernel B's 128-key tiles (0, 1, 127, 128, 129, S) and
     a sequence length that is not a multiple of its 128-query tiles: the
-    plain version the card holds the kernel to, against the Pallas kernel."""
+    plain version the card holds the kernel to, against the Pallas kernel;
+    "qwen3*" at Qwen3's head shape (dh = 128, 4 q heads over 2 KV heads,
+    causal), without and with segment ids."""
     s = 260
     lengths = np.asarray([0, 1, 127, 128, 129, s], np.int32)
-    kvh = 2 if causal_gqa_seg else 4
-    q, k, v = _qkv(100 + int(causal_gqa_seg), b=len(lengths), kvh=kvh, s=s)
-    seg = _segments(lengths, s, 9) if causal_gqa_seg else None
+    qwen3 = isinstance(causal_gqa_seg, str)
+    with_seg = causal_gqa_seg is True or causal_gqa_seg == "qwen3_segments"
+    causal = causal_gqa_seg is True or qwen3
+    kvh = 2 if causal else 4
+    seed = {False: 100, True: 101, "qwen3": 102, "qwen3_segments": 103}[causal_gqa_seg]
+    q, k, v = _qkv(seed, b=len(lengths), kvh=kvh, s=s, dh=128 if qwen3 else 16)
+    seg = _segments(lengths, s, 9) if with_seg else None
     want = np.asarray(ref.attention_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
-        block_q=64, block_k=64, window=128, interpret=True, causal=causal_gqa_seg,
+        block_q=64, block_k=64, window=128, interpret=True, causal=causal,
         segment_ids=None if seg is None else jnp.asarray(seg),
     ))
     got = port.attention_flash(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(lengths), causal=causal_gqa_seg,
+        torch.from_numpy(lengths), causal=causal,
         segment_ids=None if seg is None else torch.from_numpy(seg),
     ).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
@@ -185,3 +199,49 @@ def test_multi_head_attention_matches_jax_past_crossover():
         num_heads=h,
     ).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _schedule_model(b, h, kvh, s, causal, grid):
+    """Kernel B's tile order written out as loops: head pairs at S <= 64 with
+    an even GQA group; causal, chunks of whole sequences (about 8 waves of
+    ``grid`` tiles, spread evenly), heaviest query tile first and (batch,
+    head) fastest inside a chunk; else query tile fastest."""
+    n_qt = -(-s // 128)
+    if s <= 64 and (h // kvh) % 2 == 0:
+        return [(0, bb, hh) for bb in range(b) for hh in range(0, h, 2)]
+    if not causal:
+        return [(qt * 128, bb, hh) for bb in range(b) for hh in range(h) for qt in range(n_qt)]
+    want = max(1, -(-8 * grid // (h * n_qt)))
+    chunks = -(-b // want)
+    chunk_b = -(-b // chunks)
+    out = []
+    for b0 in range(0, b, chunk_b):
+        for qt in reversed(range(n_qt)):
+            out += [(qt * 128, bb, hh) for bb in range(b0, min(b, b0 + chunk_b)) for hh in range(h)]
+    return out
+
+
+@pytest.mark.parametrize("b,h,kvh,s,causal", [
+    (32, 16, 8, 1024, True),    # Qwen3 passages
+    (32, 16, 8, 512, True),
+    (128, 16, 8, 256, True),    # Qwen3 queries
+    (128, 16, 8, 64, True),     # head pairs
+    (7, 16, 8, 1024, True),     # a last chunk of fewer sequences
+    (32, 16, 16, 1024, False),  # BGE-M3
+    (3, 4, 4, 40, True),        # one head per KV head: no pairs
+])
+def test_tile_schedule_matches_model(b, h, kvh, s, causal):
+    mode, tiles = port.tile_schedule(b, h, kvh, s, causal, grid=132)
+    want = _schedule_model(b, h, kvh, s, causal, 132)
+    assert [tuple(t) for t in tiles.tolist()] == want
+    assert mode == ("head_pairs" if s <= 64 and (h // kvh) % 2 == 0 else "causal" if causal else "query_fastest")
+    if mode != "head_pairs":  # every (query tile, batch, head) exactly once
+        assert len(set(want)) == -(-s // 128) * b * h
+    lengths = np.full(b, s)
+    balance = port.schedule_balance(tiles, lengths, causal, grid=132)
+    if causal and s >= 256 and b >= 32:
+        # the query-fastest order that causal tiles left: each block alternates
+        # two query tiles, the busiest ~1.37x the mean at S = 1024
+        _, fastest = port.tile_schedule(b, h, kvh, s, False, grid=132)
+        assert port.schedule_balance(fastest, lengths, True, grid=132) > 1.3
+        assert balance <= 1.06

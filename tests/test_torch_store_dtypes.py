@@ -294,3 +294,39 @@ def test_cli_encode_corpus_then_run_mix_over_float_stores(tmp_path, dtype):
     lines = runs["off"].splitlines()
     assert len(lines) == 5 * 7 and all(line.split("\t")[2].endswith("#xx") for line in lines)
     assert runs["guaranteed"] == runs["off"]
+
+
+def _rna_model(x):
+    """tf32 rounding (10 fraction bits, to nearest, ties away from zero) as
+    the choice between x's two tf32 neighbours, nearer first, in float64."""
+    bits = x.astype(np.float32).view(np.uint32)
+    down = (bits & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+    up = ((bits & np.uint32(0xFFFFE000)) + np.uint32(0x2000)).view(np.float32).astype(np.float64)
+    xd = x.astype(np.float64)
+    return np.where(np.abs(xd - down) < np.abs(up - xd), down, up).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["unit_rows", "ties", "small_and_zero"])
+def test_tf32_split_plain_matches_a_numpy_model(kind):
+    """The bin-major f32 kernels take their queries split once per call
+    (``topk.tf32_split``: hi = tf32(x), lo = tf32(x - hi)); its plain
+    version against a numpy model of ``cvt.rna.tf32.f32``, and the split's
+    reach: hi + lo within 2^-22 of |x|."""
+    rng = np.random.default_rng(14)
+    if kind == "unit_rows":
+        x = rng.standard_normal((5, 96)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    elif kind == "ties":  # low 13 bits exactly half a tf32 ulp, both signs
+        b = (rng.integers(0x3C000000, 0x41000000, 256, dtype=np.uint32) & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+        x = b.view(np.float32) * np.where(np.arange(256) % 2, -1, 1).astype(np.float32)
+    else:
+        x = np.concatenate([rng.standard_normal(60).astype(np.float32) * np.float32(1e-30),
+                            np.zeros(4, np.float32)])
+    got = port_topk.tf32_split(torch.from_numpy(x)).numpy()
+    hi = _rna_model(x)
+    lo = _rna_model((x.astype(np.float32) - hi).astype(np.float32))
+    np.testing.assert_array_equal(got[0].view(np.uint32), hi.view(np.uint32))
+    np.testing.assert_array_equal(got[1].view(np.uint32), lo.view(np.uint32))
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(got[0].astype(np.float64) + got[1] - x.astype(np.float64))
+    assert (err <= np.abs(x.astype(np.float64)) * 2.0 ** -22 + 1e-45).all()
