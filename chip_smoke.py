@@ -9,7 +9,9 @@ Phases (a line of JSON after each):
  2. build    — compile every kernel (one nvcc per source, in parallel,
                with -Xptxas -v); the line carries ptxas's registers, spill
                bytes and warnings per kernel, and the script fails if a
-               wgmma kernel spills or ptxas serialised its wgmma (C7518).
+               wgmma kernel spills or ptxas serialised its wgmma (C7518),
+               or if an f32 instance is not bin_scores_f32_kernel's (24:
+               A, 5, 7 bin-major and 2 transposed).
  3. kernels  — kernel A (bin scores, bin-major) and kernel 2 (its
                transposed layout), both score dtypes, at 1, 7, 64, 100, 130
                and 256 queries (the n64 / n128 / n256 query tiles), kernel A
@@ -181,7 +183,10 @@ Phases (a line of JSON after each):
                per-document max over both), and `run-rerank` over each
                (kernels 2 and 6 in f32 and f16). 10c: the f16 and f32
                instances of A, 2, 5 and the f32 one of 7 at phase 3's tile
-               edges (1-257 queries, ragged n_valid, G 8 and 16, d = 96);
+               edges (1-257 queries, ragged n_valid, G 8 and 16, d = 96),
+               and kernel 2 f32 at B = 1, 63, 64, 65, 128, 129, 255, 256 x
+               N = 12,816, 20,000, 131,072 x d = 32, 96, 1024 x G x score
+               dtype (n_valid = N - 77);
                then 8,841,823 x 1024 rows
                made in f32 on the card (full mantissas, phase 5's planted
                rows), an f32 index: exact search at k=100 and 1000 (512
@@ -191,7 +196,8 @@ Phases (a line of JSON after each):
                search (kernel 5), the sketch tier guaranteed (exact ids) and
                the f32 sketch tier of ops.sketch (kernel 7 over f32);
                kernels A, 5, 2 and 7 in f32 against their plain versions
-               within TOL_F32 and timed; then the same rows in f16 (search,
+               within TOL_F32 and timed (2 also at hubness_stats' B = 256,
+               N = 20,000); then the same rows in f16 (search,
                fused sweep, adaptive tier, rescore; kernels A, 5, 2 in f16,
                within 1e-4); kernel 6 over f16 and f32 doc
                tokens at the two-stage shape. 10d: GTE-multilingual-base and
@@ -1435,6 +1441,12 @@ def main() -> None:
         check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
         for fam in WGMMA_KERNELS & fams.keys():
             check(fams[fam]["spill_bytes"] == 0, f"{fam} spills {fams[fam]['spill_bytes']} bytes")
+    # every f32 instance is bin_scores_f32_kernel's, under the gate above: A
+    # (8: NT x G x score dtype), 5 and 7 (4 each) and 2 (8, the transposed
+    # epilogue); none of the transposed template
+    f32_fams = ptxas[kernels.SOURCES["bin_scores_f32"]]["kernels"]
+    check("bin_scores_t_kernel" not in f32_fams and f32_fams["bin_scores_f32_kernel"]["instances"] == 24,
+          f"bin_scores_f32.cu instances: {f32_fams}")
     from codemix_dense_retrieval_torch.io import _fastio, trec
 
     t0 = time.perf_counter()
@@ -4123,6 +4135,33 @@ def main() -> None:
                 check(err7e <= TOL_F32, f"7 (f32) ds={ds_} b={b} nv={nv7}: {err7e}")
                 edge("binub[f32]", err7e)
     del docs_e, docs_96, d_sk, d_tl
+    # kernel 2 f32 (bin_scores_f32_kernel's transposed epilogue) at its edges:
+    # B on both sides of the n64 / n128 tiles and of a second query tile, N =
+    # 128 k + 16 (a ragged last row tile), hubness_stats' 20,000 rows and the
+    # CLI store's 131,072, n_valid = N - 77 (a device int for odd B), d = 32,
+    # 96 and 1024, G = 8 and 16, f32 and bf16 scores, held to TOL_F32 (bf16
+    # scores to one ulp); its own generator, so later draws stay as they were
+    t0 = time.perf_counter()
+    g2e = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def unit2(n, d):
+        x = torch.randn(n, d, device=dev, generator=g2e)
+        return x / x.norm(dim=1, keepdim=True)
+
+    for n_e2 in (128 * 100 + 16, 20_000, SMALL_ROWS):
+        nv_e2 = n_e2 - 77
+        nv_dev = torch.tensor([nv_e2], dtype=torch.int32, device=dev)
+        for d_e2 in (32, 96, DIM):
+            docs_e2 = unit2(n_e2, d_e2)
+            for b in (1, 63, 64, 65, 128, 129, 255, 256):
+                q_e2 = unit2(b, d_e2)
+                for g_ in (8, 16):
+                    for sdt in (torch.float32, torch.bfloat16):
+                        edge("bin_scores[transposed_f32]", check_new(
+                            q_e2, docs_e2, nv_dev if b % 2 else nv_e2, nv_e2, g_, "transposed", sdt,
+                            TOL_F32, f"2 f32 b={b} N={n_e2} d={d_e2} G={g_} {sdt}"))
+    del docs_e2, q_e2, nv_dev
+    edges2_f32_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     host32 = torch.empty((N_ROWS, DIM), dtype=torch.float32)
     g10 = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -4325,14 +4364,32 @@ def main() -> None:
 
         b_ms, b_by = bound(256 * DIM * esz + ns * DIM * esz + 256 * ns * 4 + 256 * ns // 16 * 4,
                            passes * 2 * 256 * ns * DIM, peak)
-        out.append(dict(
+        entry = dict(
             name=f"bin_scores[transposed_{label}]", route="cuda", source=source,
             replaces="codemix_dense_retrieval_tpu/ops/topk.py:389", launches=None, max_abs_err=err_2,
             **kernel_ms(lambda: topk.bin_scores(q, ds_, ns, 16, layout="transposed"), 20),
             plain_ms=cuda_ms(lambda: topk.bin_scores_plain(q, ds_, ns, 16, layout="transposed"), 5),
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_tr, 20),
             shape=f"B=256 N={ns} d={DIM} G=16 {label}, f32 scores",
-        ))
+        )
+        # the same kernel at hubness_stats' shape (a 20,000-row sample, 256-query
+        # blocks): 157 row tiles x 2 query tiles on the card's SMs
+        nh = 20_000
+        dh = docs[:nh]
+        col_h = col_t[:nh]
+
+        def lib_hub():
+            s = torch.matmul(dh, q.T).float().masked_fill_(col_h >= nh, -torch.inf)
+            return s.view(nh // 16, 16, 256).amax(dim=1)
+
+        hb_ms, hb_by = bound(256 * DIM * esz + nh * DIM * esz + 256 * nh * 4 + 256 * nh // 16 * 4,
+                             passes * 2 * 256 * nh * DIM, peak)
+        entry["hubness_shape"] = dict(
+            shape=f"B=256 N={nh} d={DIM} G=16 {label}, f32 scores",
+            **kernel_ms(lambda: topk.bin_scores(q, dh, nh, 16, layout="transposed"), 40),
+            plain_ms=cuda_ms(lambda: topk.bin_scores_plain(q, dh, nh, 16, layout="transposed"), 10),
+            bound_ms=hb_ms, bound_by=hb_by, library_ms=cuda_ms(lib_hub, 40))
+        out.append(entry)
         return out
 
     f32_entries = float_entries(d32, nv32, torch.float32, "f32",
@@ -4365,6 +4422,7 @@ def main() -> None:
     del d16, nv16, idx16
     torch.cuda.empty_cache()
     say("store_dtypes_full", smi=smi, rows=N_ROWS, dim=DIM, edge_shape_max_abs_err=edge10,
+        kernel2_f32_edge_checks_s=round(edges2_f32_s, 2),
         card_gb_allocated_at_10=card_gb_10,
         card_gb_allocated_at_10c=card_gb_10c, card_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         gen_f32_s=round(gen32_s, 2),

@@ -5,17 +5,17 @@
 // term, rows >= n_valid masked to NEG_INF (float32 min) and the maximum of
 // every run of G consecutive rows ("bin max"); some also store S.
 //
-// Two warp-specialised Hopper kernels on sm90.cuh carry all of them: a
-// producer thread streams 128-byte chunks of the rows (64 bf16 or f16, 32 f32
-// or 128 int8 dims; 128-byte swizzle) by TMA into an mbarrier ring, two
-// consumer warpgroups multiply them with wgmma (bf16 or f16 -> f32, tf32
-// parts -> f32, or s8 -> exact s32), and the blocks are persistent (one per
-// SM), so the next tile's chunks load while the current tile's epilogue runs;
-// rows past N and dims past d read as zeros. f32 operands (SPLIT = 2) take
-// three tf32 wgmmas over hi + lo parts and fold each chunk into a running sum
-// (Operand<float>); their query tiles hold at most 128 queries. Bin-major f32
-// has a kernel of its own (bin_scores_f32_kernel, below), the transposed
-// layout splits both operands in shared memory per stage.
+// Two warp-specialised Hopper kernels on sm90.cuh carry the bf16, f16 and
+// int8 instances: a producer thread streams 128-byte chunks of the rows (64
+// bf16 or f16 or 128 int8 dims; 128-byte swizzle) by TMA into an mbarrier
+// ring, two consumer warpgroups multiply them with wgmma (bf16 or f16 -> f32,
+// or s8 -> exact s32), and the blocks are persistent (one per SM), so the next
+// tile's chunks load while the current tile's epilogue runs; rows past N and
+// dims past d read as zeros. f32 operands (3xTF32) take a third kernel of the
+// same shape, bin_scores_f32_kernel (below), in both layouts: doc rows split
+// into tf32 hi + lo in registers, the queries split once per call, each
+// 32-dim chunk folded into a running sum; its query tiles hold at most 128
+// queries.
 // Epilogues work on the accumulators in registers. The operand type (Operand
 // below) and the epilogue mode (Epi) are template parameters, so the ring, the
 // consumer loop and the bin-max code exist once:
@@ -35,7 +35,9 @@
 // past that); a Q chunk rides beside each D chunk in a 4-stage ring; S rows
 // are stored from the fragments (a quad writes 32 contiguous bytes) and each
 // bin max takes three __shfl_xor_sync. Kernel 4 keeps the thread's two rows'
-// d_scale in registers and stages the tile's q_scale in shared memory.
+// d_scale in registers and stages the tile's q_scale in shared memory. Kernel
+// 2 over f32 operands runs bin_scores_f32_kernel's main loop with this
+// epilogue (TRANS = true).
 //
 // bin_scores_bm_kernel (bin-major S (B, N), binmax (B, N/G); kernels A, 4, 5
 // and 7) turns the roles round: queries are wgmma's M and the tile's 128 doc
@@ -95,10 +97,8 @@ inline bool shape_ok(int B, long long N, int D, int G, int dim_multiple) {
 }
 
 // what the operand type fixes: the accumulator (f32, or s32 held as raw
-// 32-bit registers), the tensor-map element type, the wgmma, SPLIT (2: tf32
-// hi + lo parts, see Operand<float>) and the largest query tile (MAX_NT).
-// mma's `lo` is the descriptor offset of a stage's split-off low parts (f32,
-// transposed layout).
+// 32-bit registers), the tensor-map element type, the wgmma (f32: see
+// Operand<float>) and the largest query tile (MAX_NT)
 template <typename T>
 struct Operand;
 
@@ -106,10 +106,9 @@ template <>
 struct Operand<__nv_bfloat16> {
   using Acc = float;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static constexpr int SPLIT = 1, MAX_NT = 256;
+  static constexpr int MAX_NT = 256;
   template <int N>
-  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
-                                             int scale_d) {
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
     sm90::Wgmma<N>::template ss<0>(d, da, db, scale_d);
   }
 };
@@ -119,10 +118,9 @@ template <>
 struct Operand<__half> {
   using Acc = float;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  static constexpr int SPLIT = 1, MAX_NT = 256;
+  static constexpr int MAX_NT = 256;
   template <int N>
-  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
-                                             int scale_d) {
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
     sm90::WgmmaF16<N>::ss(d, da, db, scale_d);
   }
 };
@@ -130,59 +128,30 @@ struct Operand<__half> {
 // f32 operands, f32-faithful products on tf32 tensor cores (3xTF32): every
 // value x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
 // x . y = hi.hi + hi.lo + lo.hi, three wgmmas, to ~3 * 2^-22 of sum |x_i y_i|
-// (the dropped lo.lo and lo's rounding are each <= 2^-22 of it). Where the
-// split happens: the transposed layout splits each stage in shared memory
-// (split_stage: hi in place, lo a stage's length further on) and runs mma
-// below; bin-major f32 (bin_scores_f32_kernel) splits the rows in registers
-// and takes the queries split once per call. The tensor cores' accumulation
-// does not round to nearest and its error grows with the products added into
-// one fragment, so every 128-byte chunk of d (32 dims) accumulates into a
-// fresh fragment that is then added to a running sum with __fadd_rn; holding
-// both caps the query tile at 128.
+// (the dropped lo.lo and lo's rounding are each <= 2^-22 of it). Both layouts
+// run bin_scores_f32_kernel, which splits the doc rows in registers and takes
+// the queries split once per call. The tensor cores' accumulation does not
+// round to nearest and its error grows with the products added into one
+// fragment, so every 128-byte chunk of d (32 dims) accumulates into a fresh
+// fragment that is then added to a running sum with __fadd_rn; holding both
+// caps the query tile at 128.
 template <>
 struct Operand<float> {
   using Acc = float;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  static constexpr int SPLIT = 2, MAX_NT = 128;
-  template <int N>
-  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, uint64_t lo,
-                                             int scale_d) {
-    sm90::WgmmaTF32<N>::ss(d, da + lo, db, scale_d);
-    sm90::WgmmaTF32<N>::ss(d, da, db + lo, 1);
-    sm90::WgmmaTF32<N>::ss(d, da, db, 1);
-  }
+  static constexpr int MAX_NT = 128;
 };
 
 template <>
 struct Operand<int8_t> {
   using Acc = uint32_t;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  static constexpr int SPLIT = 1, MAX_NT = 256;
+  static constexpr int MAX_NT = 256;
   template <int N>
-  static __device__ __forceinline__ void mma(uint32_t (&d)[N / 2], uint64_t da, uint64_t db, uint64_t,
-                                             int scale_d) {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
     sm90::WgmmaS8<N>::ss(d, da, db, scale_d);
   }
 };
-
-// f32 operands, transposed layout: the 256 consumer threads split the
-// `bytes` loaded into a stage (at generic address p) into tf32 hi (in place)
-// and lo (bytes further on), then order the writes before the wgmmas that
-// read them
-__device__ __forceinline__ void split_stage(unsigned char* p, int bytes, int tc) {
-  float4* x = reinterpret_cast<float4*>(p);
-  float4* lo = reinterpret_cast<float4*>(p + bytes);
-  for (int i = tc; i < bytes / 16; i += 256) {
-    const float4 v = x[i];
-    const float4 h = make_float4(sm90::tf32_rna(v.x), sm90::tf32_rna(v.y), sm90::tf32_rna(v.z),
-                                 sm90::tf32_rna(v.w));
-    x[i] = h;
-    lo[i] = make_float4(sm90::tf32_rna(v.x - h.x), sm90::tf32_rna(v.y - h.y),
-                        sm90::tf32_rna(v.z - h.z), sm90::tf32_rna(v.w - h.w));
-  }
-  sm90::fence_proxy_async();
-  sm90::named_sync(2, 256);
-}
 
 // f32 operands: fold a chunk's fragment into the running sum
 template <int R>
@@ -279,19 +248,14 @@ __device__ __forceinline__ float rows_max(float x) {
 
 constexpr int W_SMEM_MAX = 227 * 1024;  // a block's dynamic shared memory on an H100
 
-// SPLIT = 2 (f32): a stage holds its loaded bytes, then their split-off low
-// parts, and the ring is as deep as fits (2-4 stages)
-template <int NT, bool RESCALE, int SPLIT>
+template <int NT, bool RESCALE>
 struct TLayout {
   static constexpr int D_BYTES = T_ROWS * CHUNK_BYTES;
-  static constexpr int LOAD = D_BYTES + NT * CHUNK_BYTES;               // D chunk, then Q chunk
-  static constexpr int STAGE = SPLIT * LOAD;
-  static constexpr int FIT = (W_SMEM_MAX - 4096) / STAGE;
-  static constexpr int STAGES = SPLIT == 1 || FIT >= T_STAGES ? T_STAGES : FIT;
-  static constexpr int QS_OFF = STAGES * STAGE;                          // two tiles' q_scale
+  static constexpr int STAGE = D_BYTES + NT * CHUNK_BYTES;              // D chunk, then Q chunk
+  static constexpr int QS_OFF = T_STAGES * STAGE;                       // two tiles' q_scale
   static constexpr int BAR_OFF = QS_OFF + (RESCALE ? 2 * NT * 4 : 0);  // full[], empty[]
-  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;           // + 1024-byte alignment slack
-  static_assert(STAGES >= 2 && BYTES <= W_SMEM_MAX, "the transposed ring does not fit");
+  static constexpr int BYTES = BAR_OFF + 16 * T_STAGES + 1024;         // + 1024-byte alignment slack
+  static_assert(BYTES <= W_SMEM_MAX, "the transposed ring does not fit");
 };
 
 template <typename T, int NT, int G, typename OutT, int EPI>
@@ -303,11 +267,11 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
                     long long N, int D, int q_tiles, long long tiles) {
   static_assert(EPI != EPI_TAIL, "the transposed layout takes no tail term");
   static_assert(std::is_same<T, int8_t>::value == (EPI == EPI_RESCALE), "int8 products are rescaled");
+  static_assert(!std::is_same<T, float>::value, "f32 operands take bin_scores_f32_kernel");
   constexpr bool RESCALE = EPI == EPI_RESCALE;
   constexpr int KC = CHUNK_BYTES / sizeof(T);  // dims per stage
-  constexpr int SPLIT = Operand<T>::SPLIT;
-  using L = TLayout<NT, RESCALE, SPLIT>;
-  constexpr int STAGES = L::STAGES;
+  using L = TLayout<NT, RESCALE>;
+  constexpr int STAGES = T_STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -339,7 +303,7 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
         for (int kc = 0; kc < chunks; ++kc, ++it) {
           const int st = it % STAGES;
           sm90::mbar_wait(bar_empty + 8 * st, ((it / STAGES) & 1) ^ 1);
-          sm90::mbar_expect_tx(bar_full + 8 * st, L::LOAD);
+          sm90::mbar_expect_tx(bar_full + 8 * st, L::STAGE);
           const uint32_t dst = base + st * L::STAGE;
           sm90::tma_load_2d(dst, &dmap, bar_full + 8 * st, kc * KC, n0);
           sm90::tma_load_2d(dst + L::D_BYTES, &qmap, bar_full + 8 * st, kc * KC, qb);
@@ -360,7 +324,6 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
     const bool pair = (B % 2) == 0;  // (row, q) and (row, q + 1) share an aligned pair
     float* s_qs = reinterpret_cast<float*>(gbase + L::QS_OFF);
     typename Operand<T>::Acc acc[NT / 2];
-    float run[SPLIT == 2 ? NT / 2 : 1];  // f32: the running sum over chunks
     int it = 0, local = 0;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++local) {
       const int qb = static_cast<int>(tile % q_tiles) * NT;
@@ -380,34 +343,23 @@ bin_scores_t_kernel(const __grid_constant__ CUtensorMap dmap,
         sm90::mbar_wait(bar_full + 8 * st, (it / STAGES) & 1);
         const uint32_t d_st = base + st * L::STAGE + wg * 64 * CHUNK_BYTES;
         const uint32_t q_st = base + st * L::STAGE + L::D_BYTES;
-        if constexpr (SPLIT == 2) split_stage(gbase + st * L::STAGE, L::LOAD, tc);
         sm90::fence_regs(acc);
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {  // four k steps of 32 bytes
           const uint64_t da = sm90::desc_sw128(d_st + kk * 32, 16, 1024);
           const uint64_t db = sm90::desc_sw128(q_st + kk * 32, 16, 1024);
-          Operand<T>::template mma<NT>(acc, da, db, L::LOAD >> 4, SPLIT == 2 ? kk > 0 : kc > 0 || kk > 0);
+          Operand<T>::template mma<NT>(acc, da, db, kc > 0 || kk > 0);
         }
         sm90::wgmma_commit();
-        if constexpr (SPLIT == 2) {  // fold this chunk, then free its stage
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(acc);
-          fold_chunk(run, acc, kc == 0);
-          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
-        } else if (kc > 0) {  // the previous chunk's products are done: free its stage
+        if (kc > 0) {  // the previous chunk's products are done: free its stage
           sm90::wgmma_wait<1>();
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
         }
       }
-      if constexpr (SPLIT == 2) {
-#pragma unroll
-        for (int i = 0; i < NT / 2; ++i) acc[i] = run[i];
-      } else {
-        sm90::wgmma_wait<0>();
-        sm90::fence_regs(acc);
-        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
-      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
 
       const long long r16 = n0 + wg * 64 + warp * 16;  // this warp's 16 rows
       const long long ra = r16 + g;
@@ -467,7 +419,7 @@ template <typename T, int NT, int G, typename OutT, int EPI>
 int launch_t(const void* q, const void* d, void* scores, void* binmax, const void* nv_ptr,
              long long nv_int, const void* q_aux, const void* d_aux, int B, long long N, int D,
              cudaStream_t stream) {
-  using L = TLayout<NT, EPI == EPI_RESCALE, Operand<T>::SPLIT>;
+  using L = TLayout<NT, EPI == EPI_RESCALE>;
   CUtensorMap dmap, qmap;
   const int rc = make_maps<T>(&dmap, &qmap, q, d, B, N, D, NT);
   if (rc != 0) return rc;
@@ -485,16 +437,6 @@ int launch_t(const void* q, const void* d, void* scores, void* binmax, const voi
       static_cast<const int*>(nv_ptr), nv_int, static_cast<const float*>(q_aux),
       static_cast<const float*>(d_aux), B, N, D, q_tiles, tiles);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename OutT, int EPI>
-int launch_transposed(int G, const void* q, const void* d, void* scores, void* binmax,
-                      const void* nv_ptr, long long nv_int, const void* q_aux, const void* d_aux,
-                      int B, long long N, int D, cudaStream_t s) {
-  return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
-    return launch_t<T, decltype(nt)::value, decltype(g)::value, OutT, EPI>(
-        q, d, scores, binmax, nv_ptr, nv_int, q_aux, d_aux, B, N, D, s);
-  });
 }
 
 // ---------------------------------------------------------------------------
@@ -564,7 +506,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
                      const float* __restrict__ q_aux, const float* __restrict__ d_aux,
                      int B, long long N, int D, int q_tiles, long long n_tiles) {
   static_assert(std::is_same<T, int8_t>::value == (EPI == EPI_RESCALE), "int8 products are rescaled");
-  static_assert(Operand<T>::SPLIT == 1, "f32 operands take bin_scores_f32_kernel");
+  static_assert(!std::is_same<T, float>::value, "f32 operands take bin_scores_f32_kernel");
   using S = WSplit<NT>;
   constexpr int MB = S::MB;
   constexpr int NW = S::NW;
@@ -694,7 +636,7 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
 #pragma unroll
           for (int mb = 0; mb < MB; ++mb) {
             const uint64_t da = sm90::desc_sw128(q_st + mb * 64 * CHUNK_BYTES + kk * 32, 16, 1024);
-            Operand<T>::template mma<NW>(acc[mb], da, db, 0, kc > 0 || kk > 0);
+            Operand<T>::template mma<NW>(acc[mb], da, db, kc > 0 || kk > 0);
           }
         }
         sm90::wgmma_commit();
@@ -801,7 +743,8 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
 }
 
 // ---------------------------------------------------------------------------
-// the bin-major layout over f32 operands (kernels A, 5 and 7 f32, 3xTF32)
+// f32 operands, both layouts (kernels A, 5 and 7 bin-major, 2 transposed;
+// 3xTF32)
 // ---------------------------------------------------------------------------
 
 // Doc rows are wgmma's M (64 per consumer warpgroup, 128-row tiles) and the
@@ -815,9 +758,11 @@ bin_scores_bm_kernel(const __grid_constant__ CUtensorMap dmap,
 // a 128 x 128 tile 96 KB of wgmma reads, 16 KB of ldmatrix and 48 KB of TMA
 // writes, where the queries-as-M layout read 144 KB, wrote 48 and split 48.
 // Each chunk accumulates in a fresh fragment, folded into the running sum
-// with __fadd_rn (Operand<float>). The epilogue turns the fragment's (row,
-// query) pairs into bin-major S rows (a warp's store covers 32 contiguous
-// bytes of each of four queries' rows) and bins of 8 (16) rows, which lie
+// with __fadd_rn (Operand<float>). Both layouts share the ring and this main
+// loop; only the epilogue's addresses differ. The fragment holds (row, query)
+// pairs: bin-major S rows (TRANS = false; a warp's store covers 32 contiguous
+// bytes of each of four queries' rows) or transposed S rows (TRANS; a quad
+// writes 32 contiguous bytes of a row), and bins of 8 (16) rows, which lie
 // along the fragment's rows: three shuffles over the 8 lanes of a column.
 template <int NT>
 struct FLayout {
@@ -830,7 +775,8 @@ struct FLayout {
   static_assert(STAGES >= 2 && BYTES <= W_SMEM_MAX, "the f32 ring does not fit");
 };
 
-template <int NT, int G, typename OutT, int EPI, bool STORE>
+// TRANS: the transposed layout (S (N, B), binmax (N/G, B); EPI_NONE, STORE)
+template <int NT, int G, typename OutT, int EPI, bool STORE, bool TRANS>
 __global__ void __launch_bounds__(T_THREADS, 1)
 bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
                       const __grid_constant__ CUtensorMap qmap, OutT* __restrict__ scores,
@@ -838,6 +784,8 @@ bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
                       const float* __restrict__ q_aux, const float* __restrict__ d_aux, int B,
                       long long N, int D, int q_tiles, long long tiles) {
   static_assert(EPI != EPI_RESCALE, "f32 products take no rescale");
+  static_assert(!TRANS || (EPI == EPI_NONE && STORE),
+                "the transposed layout stores S, with no epilogue term");
   using L = FLayout<NT>;
   constexpr int STAGES = L::STAGES;
   constexpr int KC = CHUNK_BYTES / 4;  // dims per stage
@@ -967,7 +915,11 @@ bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
 
       // epilogue from the fragments: this thread holds rows ra (run[4i],
       // run[4i + 1]) and rb (run[4i + 2], run[4i + 3]) of queries q, q + 1,
-      // q = q0 + 8 i + 2 t
+      // q = q0 + 8 i + 2 t; bin_at is a bin maximum's offset in binmax
+      auto bin_at = [&](int qq, long long bin) {
+        return TRANS ? bin * B + qq : static_cast<long long>(qq) * nb_total + bin;
+      };
+      const bool pair = (B % 2) == 0;  // TRANS: (row, q) and (row, q + 1) share an aligned pair
 #pragma unroll
       for (int i = 0; i < NT / 8; ++i) {
         const int q = q0 + 8 * i + 2 * t;
@@ -984,7 +936,15 @@ bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
         v1 = ra < nv ? v1 : NEG_INF;
         v2 = rb < nv ? v2 : NEG_INF;
         v3 = rb < nv ? v3 : NEG_INF;
-        if (STORE) {  // the 8 lanes of a column write 32 contiguous bytes of a query's row
+        if (TRANS) {  // a quad writes 32 contiguous bytes of rows ra and rb
+          if (q + 1 < B) {
+            if (ra < N) store2(scores + ra * B + q, v0, v1, pair);
+            if (rb < N) store2(scores + rb * B + q, v2, v3, pair);
+          } else if (q < B) {
+            if (ra < N) store_out(scores + ra * B + q, v0);
+            if (rb < N) store_out(scores + rb * B + q, v2);
+          }
+        } else if (STORE) {  // the 8 lanes of a column write 32 contiguous bytes of a query's row
           OutT* row_q = scores + static_cast<long long>(q) * N;
           if (q < B) {
             if (ra < N) store_out(row_q + ra, v0);
@@ -1000,8 +960,8 @@ bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
           const float m1 = rows_max(fmaxf(v1, v3));
           const long long bin = r16 / 16;
           if (bin < nb_total) {
-            if (g == 0 && q < B) binmax[static_cast<long long>(q) * nb_total + bin] = m0;
-            if (g == 1 && q + 1 < B) binmax[static_cast<long long>(q + 1) * nb_total + bin] = m1;
+            if (g == 0 && q < B) binmax[bin_at(q, bin)] = m0;
+            if (g == 1 && q + 1 < B) binmax[bin_at(q + 1, bin)] = m1;
           }
         } else {  // two bins: rows r16 .. + 7 and r16 + 8 .. + 15
           const float a0 = rows_max(v0), a1 = rows_max(v1);
@@ -1009,14 +969,14 @@ bin_scores_f32_kernel(const __grid_constant__ CUtensorMap dmap,
           const long long bin = r16 / 8 + (g >> 1);  // lanes g = 0, 1: bin a; g = 2, 3: bin b
           const int qw = q + (g & 1);
           const float m = g == 0 ? a0 : g == 1 ? a1 : g == 2 ? b0 : b1;
-          if (g < 4 && qw < B && bin < nb_total) binmax[static_cast<long long>(qw) * nb_total + bin] = m;
+          if (g < 4 && qw < B && bin < nb_total) binmax[bin_at(qw, bin)] = m;
         }
       }
     }
   }
 }
 
-template <int NT, int G, typename OutT, int EPI, bool STORE>
+template <int NT, int G, typename OutT, int EPI, bool STORE, bool TRANS>
 int launch_f32(const void* q_split, const void* d, void* scores, void* binmax, const void* nv_ptr,
                long long nv_int, const void* q_aux, const void* d_aux, int B, long long N, int D,
                cudaStream_t stream) {
@@ -1030,7 +990,7 @@ int launch_f32(const void* q_split, const void* d, void* scores, void* binmax, c
   if (sms <= 0) return cudaErrorInvalidDevice;
   const unsigned int grid = static_cast<unsigned int>(tiles < sms ? tiles : sms);
   const int smem = L::BYTES > sm90::ONE_BLOCK_SMEM ? L::BYTES : sm90::ONE_BLOCK_SMEM;
-  auto kernel = bin_scores_f32_kernel<NT, G, OutT, EPI, STORE>;
+  auto kernel = bin_scores_f32_kernel<NT, G, OutT, EPI, STORE, TRANS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, T_THREADS, smem, stream>>>(
@@ -1064,6 +1024,24 @@ int launch_bm_q(const WLayout& L, const void* q, const void* d, void* scores, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// kernels 2 and 4; f32 operands (q: the queries' (2, B, d) tf32 split) take
+// bin_scores_f32_kernel with the transposed epilogue
+template <typename T, typename OutT, int EPI>
+int launch_transposed(int G, const void* q, const void* d, void* scores, void* binmax,
+                      const void* nv_ptr, long long nv_int, const void* q_aux, const void* d_aux,
+                      int B, long long N, int D, cudaStream_t s) {
+  return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
+    constexpr int NT = decltype(nt)::value, GG = decltype(g)::value;
+    if constexpr (std::is_same<T, float>::value) {
+      return launch_f32<NT, GG, OutT, EPI, true, true>(q, d, scores, binmax, nv_ptr, nv_int, q_aux,
+                                                       d_aux, B, N, D, s);
+    } else {
+      return launch_t<T, NT, GG, OutT, EPI>(q, d, scores, binmax, nv_ptr, nv_int, q_aux, d_aux, B, N,
+                                            D, s);
+    }
+  });
+}
+
 // kernels A, 4, 5 and 7: scores may be null when STORE is false, q_aux and
 // d_aux when EPI is EPI_NONE
 template <typename T, typename OutT, int EPI, bool STORE>
@@ -1072,9 +1050,9 @@ int launch_bin_major(int G, const void* q, const void* d, void* scores, void* bi
                      int B, long long N, int D, cudaStream_t s) {
   return by_tile<Operand<T>::MAX_NT>(G, B, [&](auto nt, auto g) {
     constexpr int NT = decltype(nt)::value, GG = decltype(g)::value;
-    if constexpr (Operand<T>::SPLIT == 2) {  // q: the queries' (2, B, d) tf32 split
-      return launch_f32<NT, GG, OutT, EPI, STORE>(q, d, scores, binmax, nv_ptr, nv_int, q_aux, d_aux,
-                                                  B, N, D, s);
+    if constexpr (std::is_same<T, float>::value) {  // q: the queries' (2, B, d) tf32 split
+      return launch_f32<NT, GG, OutT, EPI, STORE, false>(q, d, scores, binmax, nv_ptr, nv_int, q_aux,
+                                                         d_aux, B, N, D, s);
     } else {
       const WLayout L = w_layout(NT, static_cast<long long>(D) * sizeof(T), EPI != EPI_NONE);
       if (L.q_resident)

@@ -1,4 +1,4 @@
-// Kernels A, 2, 5 and 7 over f32 operands: the templates of bin_kernels.cuh
+// Kernels A, 2, 5 and 7 over f32 operands: bin_kernels.cuh's bin_scores_f32_kernel
 // with f32-faithful products on the tf32 tensor cores (3xTF32: every value
 // split into tf32 hi + lo, three wgmma m64nNk8.f32.tf32.tf32 per k step,
 // hi.hi + hi.lo + lo.hi; each 32-dim chunk accumulated in a fresh fragment
@@ -25,18 +25,17 @@
 // reads, 48 KB of TMA writes and a 48 KB split pass in place, ~240 KB
 // against the SM's 128 bytes per clock, ~1.3x the chunk's tensor time, and
 // the split sat on the consumers' path (68.75 ms, 2.4x the bound).
-// bin_scores_f32_kernel (bin-major: kernels A, 5, 7) turns the roles round:
-// doc rows are M, read into registers by ldmatrix and split there, fed as
-// wgmma's register A operand; the queries are split once per call by
-// tf32_split_kernel (2 MB at B = 256) and both planes stream by TMA beside
-// D, so wgmma reads only them from shared memory (~160 KB a chunk, below
-// the tensor time) and no thread rewrites a stage. Query tiles hold at most
-// 128 queries (the fresh fragment plus the running sum). The transposed
-// layout (kernel 2) still splits both operands in its consumers per stage.
+// bin_scores_f32_kernel (both layouts: kernels A, 5, 7 bin-major, 2
+// transposed) turns the roles round: doc rows are M, read into registers by
+// ldmatrix and split there, fed as wgmma's register A operand; the queries
+// are split once per call by tf32_split_kernel (2 MB at B = 256) and both
+// planes stream by TMA beside D, so wgmma reads only them from shared memory
+// (~160 KB a chunk, below the tensor time) and no thread rewrites a stage.
+// Query tiles hold at most 128 queries (the fresh fragment plus the running
+// sum).
 // Requirements (checked by the Python wrapper): Q, D f32, contiguous and
-// 16-byte aligned, d % 32 == 0, N % G == 0, G in {8, 16}; N < 2^31. The
-// bin-major entries take the queries as their (2, B, d) split
-// (tf32_split_launch), the transposed layout as (B, d).
+// 16-byte aligned, d % 32 == 0, N % G == 0, G in {8, 16}; N < 2^31. Every
+// entry takes the queries as their (2, B, d) split (tf32_split_launch).
 
 #include "bin_kernels.cuh"
 
@@ -59,7 +58,7 @@ __global__ void tf32_split_kernel(const float4* __restrict__ x, float4* __restri
 
 }  // namespace
 
-// The queries' tf32 split for the bin-major entries below: x (n f32, n % 4
+// The queries' tf32 split for the entries below: x (n f32, n % 4
 // == 0, 16-byte aligned) into out (2n f32: hi, then lo). Returns
 // cudaGetLastError().
 extern "C" int tf32_split_launch(const void* x, void* out, long long n, void* stream) {
@@ -73,8 +72,8 @@ extern "C" int tf32_split_launch(const void* x, void* out, long long n, void* st
 }
 
 // Kernel A (bin_major) or kernel 2 (transposed); arguments and return value
-// as bin_scores.cu's bin_scores_launch, but bin-major q is the (2, B, d)
-// split of the queries (tf32_split_launch).
+// as bin_scores.cu's bin_scores_launch, but q is the (2, B, d) split of the
+// queries (tf32_split_launch) in both layouts.
 extern "C" int bin_scores_launch(const void* q, const void* d, void* scores, void* binmax,
                                  const void* nv_ptr, long long nv_int, int B, long long N,
                                  int D, int G, int bin_major, int score_bf16, void* stream) {

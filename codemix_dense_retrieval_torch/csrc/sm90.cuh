@@ -375,12 +375,9 @@ struct WgmmaS8<256> {
 #undef SM90_IACC8
 
 // d (64 x N f32) += A (64 x K) * B (K x N) with both operands from K-major
-// SW128 descriptors, for the other float operand types of the bin kernels:
-// WgmmaF16 (f16, k16, products exact in f32) and WgmmaTF32 (k8; the tensor
-// cores multiply tf32, 10 fraction bits, so a caller that wants f32 products
-// splits each operand into tf32 parts itself; tf32 wgmma takes no transpose).
-// A k step is 32 bytes of each row in both, as for bf16. scale_d = 0
-// overwrites d instead of adding.
+// SW128 descriptors, for the f16 operands of the bin kernels: WgmmaF16 (k16,
+// products exact in f32). A k step is 32 bytes of each row, as for bf16.
+// scale_d = 0 overwrites d instead of adding.
 #define SM90_R32                                                                               \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -426,16 +423,10 @@ SM90_WGMMA_SS(WgmmaF16, 128, 64, SM90_R64, SM90_ACC64, "64", "65", "66",
 SM90_WGMMA_SS(WgmmaF16, 256, 128, SM90_R128, SM90_ACC128, "128", "129", "130",
               "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16", ", 1, 1, 0, 0")
 
-template <int N>
-struct WgmmaTF32;
-SM90_WGMMA_SS(WgmmaTF32, 64, 32, SM90_R32, SM90_ACC32, "32", "33", "34",
-              "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32", ", 1, 1")
-SM90_WGMMA_SS(WgmmaTF32, 128, 64, SM90_R64, SM90_ACC64, "64", "65", "66",
-              "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32", ", 1, 1")
-SM90_WGMMA_SS(WgmmaTF32, 256, 128, SM90_R128, SM90_ACC128, "128", "129", "130",
-              "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32", ", 1, 1")
-
-// WgmmaTF32RS<N>::rs: the same tf32 product with A (64 x 8) from registers,
+// WgmmaTF32RS<N>::rs: d (64 x N f32) += A (64 x 8) * B (8 x N) in tf32 (k8;
+// the tensor cores multiply tf32, 10 fraction bits, so a caller that wants
+// f32 products splits each operand into tf32 parts itself), B from a K-major
+// SW128 descriptor (a k step is 32 bytes of each row) and A from registers,
 // a[0..3] = (row r, k t), (r + 8, t), (r, t + 4), (r + 8, t + 4) for lane
 // l = 4 (r % 8) + t of warp r / 16 (mma.m16n8k8's tf32 A layout), as
 // ldmatrix_x4 below loads it

@@ -43,8 +43,8 @@ from codemix_dense_retrieval_torch.ops.quant import quantize_rows
 from codemix_dense_retrieval_torch.ops.topk import (
     NEG_INF,
     Rows,
-    _bin_major_queries,
     _ceil_to,
+    _kernel_queries,
     _n_valid_arg,
     _prep_shard,
     _rescore_candidates,
@@ -342,7 +342,7 @@ def binub(
             raise ValueError(f"{label} must be contiguous and 16-byte aligned")
     nv_ptr, nv_int = _n_valid_arg(n_valid, d_sketch)
     out = torch.empty((b, n // bin_size), dtype=torch.float32, device=d_sketch.device)
-    q_arg = _bin_major_queries(q_sketch)
+    q_arg = _kernel_queries(q_sketch)
     rc = kernels.launch(
         _binub_lib(dt), d_sketch.device,
         q_arg.data_ptr(), q_tail.data_ptr(), d_sketch.data_ptr(), d_tail.data_ptr(),

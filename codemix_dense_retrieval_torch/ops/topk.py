@@ -202,7 +202,7 @@ _TF32_SPLIT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, cty
 
 
 def tf32_split(x: torch.Tensor) -> torch.Tensor:
-    """The 3xTF32 split of f32 operands that the bin-major f32 kernels (A, 5
+    """The 3xTF32 split of f32 operands that the f32 bin kernels (A, 2, 5
     and 7 in ``csrc/bin_scores_f32.cu``) take for their queries, made once
     per call instead of once per doc tile: (2, *x.shape) f32, hi then lo.
     CPU tensors take :func:`tf32_split_plain`; CUDA tensors (contiguous,
@@ -221,10 +221,11 @@ def tf32_split(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bin_major_queries(queries: torch.Tensor, bin_major: bool = True) -> torch.Tensor:
-    """The query operand of a bin kernel's C entry: bin-major f32 kernels
-    take the queries' tf32 split (:func:`tf32_split`), the rest the queries."""
-    return tf32_split(queries) if bin_major and queries.dtype == torch.float32 else queries
+def _kernel_queries(queries: torch.Tensor) -> torch.Tensor:
+    """The query operand of a float bin kernel's C entry: the f32 kernels
+    (both layouts) take the queries' tf32 split (:func:`tf32_split`), the
+    bf16 and f16 ones the queries."""
+    return tf32_split(queries) if queries.dtype == torch.float32 else queries
 
 
 _BIN_SCORES_ARGTYPES = [
@@ -276,7 +277,7 @@ def bin_scores(
     nb = n // bin_size
     scores = torch.empty((b, n) if bin_major else (n, b), dtype=score_dtype, device=docs.device)
     binmax = torch.empty((b, nb) if bin_major else (nb, b), dtype=torch.float32, device=docs.device)
-    q_arg = _bin_major_queries(queries, bin_major)
+    q_arg = _kernel_queries(queries)
     rc = kernels.launch(
         _bin_scores_lib(docs.dtype), docs.device,
         q_arg.data_ptr(), docs.data_ptr(), scores.data_ptr(), binmax.data_ptr(),
@@ -438,7 +439,7 @@ def binmax_only(
     b, dim, n = _cuda_operands("binmax_only", queries, docs, FLOAT_INDEX_DTYPES, bin_size, 32)
     nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
     binmax = torch.empty((b, n // bin_size), dtype=torch.float32, device=docs.device)
-    q_arg = _bin_major_queries(queries)
+    q_arg = _kernel_queries(queries)
     rc = kernels.launch(
         _binmax_only_lib(docs.dtype), docs.device,
         q_arg.data_ptr(), docs.data_ptr(), binmax.data_ptr(), nv_ptr, nv_int,

@@ -9,13 +9,16 @@ variants, in one process on one CUDA card.
 
 A library that exports ``tf32_split_launch`` takes its bin-major queries as
 their (2, B, d) tf32 split, made by that entry inside the timed call; an
-older one takes them as they are. Each library is held against the plain
-f32 versions at edge shapes (unit rows; the tolerance is chip_smoke.py's
-TOL_F32, 2e-6), then timed with CUDA events in turns (ref, new, variants,
-then the same in reverse) at the main path's shapes: kernels A and 5 at
-B = 256, N = 8,842,240, d = 1024, G = 8 (f32 scores), kernel 7 at ds = 128,
-kernel 2 at N = 131,072, G = 16. One JSON line per phase; the card's name
-and power limit come first.
+older one takes them as they are. Its transposed entry (kernel 2) takes the
+split too, unless its sources still split the operands in shared memory
+(``split_stage`` in ``bin_kernels.cuh``), where it takes the queries as
+they are. Each library is held against the plain f32 versions at edge
+shapes (unit rows; the tolerance is chip_smoke.py's TOL_F32, 2e-6), then
+timed with CUDA events in turns (ref, new, variants, then the same in
+reverse) at the main path's shapes: kernels A and 5 at B = 256,
+N = 8,842,240, d = 1024, G = 8 (f32 scores), kernel 7 at ds = 128, kernel 2
+at N = 131,072 and at hubness_stats' N = 20,000, G = 16. One JSON line per
+phase; the card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -110,13 +113,18 @@ def main() -> None:
         return fa, f5, f7, split
 
     calls = {name: entries(lib) for name, lib in libs.items()}
+    # the libraries whose transposed entry takes the queries unsplit
+    raw_transposed = {name for name, src in [("new", kernels.CSRC), *sources.items()]
+                      if "split_stage" in (src / "bin_kernels.cuh").read_text()}
+    say("query_operands", split_transposed=[n for n in libs if n not in raw_transposed],
+        raw_transposed=sorted(raw_transposed))
 
     def qarg(name, q):
         split = calls[name][3]
         return split(q) if split is not None else q
 
     def run_a(name, q, d, s, bm, nv, G, bin_major=True):
-        qa = qarg(name, q) if bin_major else q
+        qa = qarg(name, q) if bin_major or name not in raw_transposed else q
         rc = calls[name][0](qa.data_ptr(), d.data_ptr(), s.data_ptr(), bm.data_ptr(), None, nv,
                             q.shape[0], d.shape[0], d.shape[1], G, int(bin_major), 0, stream)
         kernels.check(rc, "bin_scores")
@@ -137,13 +145,14 @@ def main() -> None:
         x = torch.randn(n, d, device=dev, generator=g)
         return x / x.norm(dim=1, keepdim=True)
 
-    # edge shapes against the plain versions (B = 1, 65, 130, 257: every tile
-    # size and a ragged last query tile)
+    # edge shapes against the plain versions (B = 1, 64, 65, 130, 257: every
+    # tile size and a ragged last query tile; N = 4,112: a ragged last row tile)
     errs = {}
     for name in libs:
         worst = {"A_bin_major": 0.0, "2_transposed": 0.0, "5": 0.0, "7": 0.0, "split_bits_differ": 0}
         for b, n, d, nv, G in ((1, 4096, 192, 1000, 8), (130, 8192, 1024, 8000, 16),
-                               (257, 4096, 128, 4000, 8), (65, 4096, 64, 100, 16)):
+                               (257, 4096, 128, 4000, 8), (65, 4096, 64, 100, 16),
+                               (64, 4112, 96, 4035, 16)):
             q, docs = unit(b, d), unit(n, d)
             s, bm = torch.empty(b, n, device=dev), torch.empty(b, n // G, device=dev)
             run_a(name, q, docs, s, bm, nv, G)
@@ -209,7 +218,12 @@ def main() -> None:
     dsm = docs[:ns].contiguous()
     times["2_B256_N131072_G16"] = [
         (k, ms(lambda: run_a(k, q, dsm, st, bmt, ns - 77, 16, bin_major=False), 20 * args.reps)) for k in order]
-    del docs, s, dsm
+    nh = 20_000
+    dh = docs[:nh].contiguous()
+    sth, bmth = torch.empty(nh, 256, device=dev), torch.empty(nh // 16, 256, device=dev)
+    times["2_B256_N20000_G16"] = [
+        (k, ms(lambda: run_a(k, q, dh, sth, bmth, nh, 16, bin_major=False), 40 * args.reps)) for k in order]
+    del docs, s, dsm, dh
     torch.cuda.empty_cache()
     qs = unit(256, 128) * 0.5
     ds = unit(n, 128) * 0.5

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no module of it (nor chip_smoke.py)
-imports JAX, Flax or the JAX package, and its entry points refuse to run on
-the CPU unless asked to."""
+"""The PyTorch port stands alone: no module of it (nor chip_smoke.py, nor
+the port's scripts/torch_*.py) imports JAX, Flax or the JAX package, and
+its entry points refuse to run on the CPU unless asked to."""
 
 import ast
 import json
@@ -47,7 +47,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py"))
+    files = sorted(PORT.rglob("*.py")) + sorted((REPO / "scripts").glob("torch_*.py"))
     smoke = REPO / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)

@@ -96,6 +96,35 @@ def test_bin_scores_over_float_operands_match_pallas(dtype, layout):
     np.testing.assert_allclose(gb.numpy(), rb, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("b,n,n_valid", [(1, 272, 251), (65, 400, 100)])
+def test_transposed_f32_bin_scores_match_pallas_at_kernel_tile_edges(b, n, n_valid, g, score_dtype):
+    """Kernel 2's f32 oracle at the card kernel's edges: one query and 65
+    (past the n64 tile), N = 128 k + 16 (a ragged last row tile), n_valid
+    inside a bin and far below N, G = 8 and 16, f32 and bf16 scores;
+    against the JAX Pallas kernel in interpret mode (one tile). Tolerance:
+    f32 scores and bin maxima ATOL; bf16 scores one bf16 ulp (2^-8 of the
+    magnitude) plus ATOL, since the f32 sums, which differ in order, may
+    round to neighbouring bf16 values."""
+    rng = np.random.default_rng(15 + b + g)
+    q, jq = _cast(_unit(rng, b, 64), "float32")
+    x, jx = _cast(_unit(rng, n, 64), "float32")
+    rs, rb = ref_topk._bin_scores_pallas(jq, jx, g, n_valid, tile_b=b, tile_n=n, interpret=True,
+                                         score_dtype=getattr(jnp, score_dtype))
+    gs, gb = port_topk.bin_scores(q, x, n_valid, g, layout="transposed",
+                                  score_dtype=getattr(torch, score_dtype))
+    rs, rb = np.asarray(rs.astype(jnp.float32)), np.asarray(rb)
+    gs, gb = gs.to(torch.float32).numpy(), gb.numpy()
+    assert gs.shape == rs.shape == (n, b) and gb.shape == rb.shape == (n // g, b)
+    lim = ATOL if score_dtype == "float32" else np.abs(rs[:n_valid]) * 2.0 ** -8 + ATOL
+    assert (np.abs(gs[:n_valid] - rs[:n_valid]) <= lim).all()
+    assert (gs[n_valid:] == rs[n_valid:]).all() and (rs[n_valid:] == np.float32(NEG_INF).astype(
+        getattr(jnp, score_dtype)).astype(np.float32)).all()
+    np.testing.assert_allclose(gb, rb, atol=ATOL, rtol=0)
+    assert (gb[-(-n_valid // g):] == NEG_INF).all()
+
+
 @pytest.mark.parametrize("k", [1, 10])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_two_level_route_over_float_operands_gives_the_jax_ids(dtype, k):
@@ -330,3 +359,51 @@ def test_tf32_split_plain_matches_a_numpy_model(kind):
     assert not (got.view(np.uint32) & 0x1FFF).any()
     err = np.abs(got[0].astype(np.float64) + got[1] - x.astype(np.float64))
     assert (err <= np.abs(x.astype(np.float64)) * 2.0 ** -22 + 1e-45).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_queries_split_f32_and_pass_half_types_as_they_are(dtype):
+    """The query operand of the float bin kernels' C entries: the f32
+    kernels (both layouts, and kernels 5 and 7) take the (2, B, d) tf32
+    split, equal bit for bit to ``tf32_split_plain``; bf16 and f16 take the
+    queries themselves."""
+    rng = np.random.default_rng(15)
+    q = torch.from_numpy(_unit(rng, 7, 96)).to(getattr(torch, dtype))
+    got = port_topk._kernel_queries(q)
+    if dtype == "float32":
+        assert got.shape == (2, 7, 96) and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), port_topk.tf32_split_plain(q).view(torch.int32))
+    else:
+        assert got is q
+
+
+@pytest.mark.parametrize("layout", ["bin_major", "transposed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bin_scores_hands_each_layout_its_query_operand(monkeypatch, layout, dtype):
+    """The card route of ``topk.bin_scores`` (its kernel and the operand
+    checks stubbed; tensors on the meta device) splits f32 queries for
+    kernel 2 as for kernel A, and passes bf16 queries unsplit."""
+    from codemix_dense_retrieval_torch.ops import kernels
+
+    split_of = []
+
+    def fake_split(x):
+        split_of.append(x)
+        return torch.empty((2, *x.shape), dtype=torch.float32, device=x.device)
+
+    launched = []
+    monkeypatch.setattr(port_topk, "tf32_split", fake_split)
+    monkeypatch.setattr(port_topk, "_cuda_operands",
+                        lambda name, q, d, *a: (q.shape[0], q.shape[1], d.shape[0]))
+    monkeypatch.setattr(port_topk, "_bin_scores_lib", lambda dt: "bin_scores_launch")
+    monkeypatch.setattr(kernels, "launch", lambda fn, device, *args: launched.append((fn, args)) or 0)
+    monkeypatch.setattr(kernels, "LAUNCHES", {k: 0 for k in kernels.LAUNCHES})
+    dt = getattr(torch, dtype)
+    q = torch.empty((5, 64), dtype=dt, device="meta")
+    docs = torch.empty((256, 64), dtype=dt, device="meta")
+    s, bm = port_topk.bin_scores(q, docs, 250, 16, layout=layout)
+    assert len(launched) == 1 and launched[0][1][-2] == int(layout == "bin_major")
+    assert s.shape == ((5, 256) if layout == "bin_major" else (256, 5))
+    assert bm.shape == ((5, 16) if layout == "bin_major" else (16, 5))
+    assert [x is q for x in split_of] == ([True] if dtype == "float32" else [])
+    assert kernels.LAUNCHES[f"bin_scores_{layout}{kernels.dtype_suffix(dt)}"] == 1
