@@ -56,7 +56,10 @@ without it). ``--shards S`` row-shards every index over S devices (default
 -1: every visible card; on the card S > the cards visible raises, on
 ``--device cpu`` S shards share the CPU) and ``--dp N`` makes the encoder
 data-parallel over N devices (the same rules); ``--fused --approx
-adaptive`` exits with the JAX package's error.
+adaptive`` exits with the JAX package's error. With ``CDR_PROFILE_DIR``
+set, ``encode-corpus``, ``run-mono`` and ``run-mix`` write a
+``torch.profiler`` trace of their work and the totals of the port's spans
+and counters (``trace.json``, ``spans.json``) under ``<dir>/<command>/``.
 """
 
 from __future__ import annotations
@@ -187,6 +190,7 @@ def cmd_encode_corpus(args) -> None:
         TsvCorpusSource,
         encode_corpus,
     )
+    from codemix_dense_retrieval_torch.utils.profiling import maybe_trace
 
     _reject_unported(args)
     sources = {}
@@ -215,26 +219,28 @@ def cmd_encode_corpus(args) -> None:
         neg_prob=args.neg_prob,
         seed=args.seed,
     )
-    dirs = encode_corpus(
-        encoder,
-        sources,
-        args.out,
-        selection=selection,
-        batch_size=args.batch,
-        enc_batch=args.enc_batch,
-        max_docs=args.max_docs,
-        storage_dtype=args.storage_dtype,
-        force=args.force,
-        tokens_per_doc=args.tokens_per_doc,
-        token_dtype=args.token_dtype,
-        pack=args.pack,
-    )
+    with maybe_trace("encode-corpus"):
+        dirs = encode_corpus(
+            encoder,
+            sources,
+            args.out,
+            selection=selection,
+            batch_size=args.batch,
+            enc_batch=args.enc_batch,
+            max_docs=args.max_docs,
+            storage_dtype=args.storage_dtype,
+            force=args.force,
+            tokens_per_doc=args.tokens_per_doc,
+            token_dtype=args.token_dtype,
+            pack=args.pack,
+        )
     print(json.dumps({lang: str(d) for lang, d in dirs.items()}, indent=2))
 
 
 def cmd_run_mono(args) -> None:
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
     from codemix_dense_retrieval_torch.pipeline.runs import run_word_mix_search
+    from codemix_dense_retrieval_torch.utils.profiling import maybe_trace
 
     _reject_unported(args)
     encoder = _build_encoder(args)
@@ -242,10 +248,11 @@ def cmd_run_mono(args) -> None:
     sets = _load_query_sets(args)
     if args.max_queries:
         sets = {k: v[: args.max_queries] for k, v in sets.items()}
-    runs = run_word_mix_search(
-        index, encoder, sets, args.outdir, k=args.k, batch_size=args.enc_batch,
-        query_block=args.qblock, approx=_approx_mode(args),
-    )
+    with maybe_trace("run-mono"):
+        runs = run_word_mix_search(
+            index, encoder, sets, args.outdir, k=args.k, batch_size=args.enc_batch,
+            query_block=args.qblock, approx=_approx_mode(args),
+        )
     print(json.dumps({k: str(v) for k, v in runs.items()}, indent=2))
 
 
@@ -294,6 +301,7 @@ def cmd_run_mix(args) -> None:
         intersect_query_sets,
         run_vector_mix_search,
     )
+    from codemix_dense_retrieval_torch.utils.profiling import maybe_trace
 
     _reject_unported(args)
     encoder = _build_encoder(args)
@@ -322,17 +330,18 @@ def cmd_run_mix(args) -> None:
             return vecs
         return encoder.encode_queries(texts, batch_size=args.enc_batch)
 
-    vecs_a = encode_cached(lang_a, texts_a)
-    vecs_b = encode_cached(lang_b, texts_b)
     alphas = [float(a) for a in args.cm_alphas]
     approx = _approx_mode(args)
-    if args.fused:
-        _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx)
-        return
-    runs = run_vector_mix_search(
-        index, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
-        approx=approx, write_meta=bool(approx),  # the meta carries the certificate rate
-    )
+    with maybe_trace("run-mix"):
+        vecs_a = encode_cached(lang_a, texts_a)
+        vecs_b = encode_cached(lang_b, texts_b)
+        if args.fused:
+            _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx)
+            return
+        runs = run_vector_mix_search(
+            index, qids, vecs_a, vecs_b, alphas, args.outdir, k=args.k, query_block=args.qblock,
+            approx=approx, write_meta=bool(approx),  # the meta carries the certificate rate
+        )
     print(json.dumps({str(a): str(p) for a, p in runs.items()}, indent=2))
 
 
@@ -546,10 +555,13 @@ def cmd_convert(args) -> None:
 def cmd_profile(args) -> None:
     """A ``torch.profiler`` trace (``--trace_dir`` or ``CDR_PROFILE_DIR``;
     a Chrome trace under ``<dir>/search/``) around a search workload over
-    ``--index`` or a synthetic one; prints the timing JSON."""
+    ``--index`` or a synthetic one; prints the timing JSON, with the port's
+    span totals under ``spans`` (empty without a trace: spans record only
+    while the profiler runs)."""
     import numpy as np
 
     from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
+    from codemix_dense_retrieval_torch.utils import timing
     from codemix_dense_retrieval_torch.utils.profiling import maybe_trace, timed_device_fn
 
     _reject_unported(args)
@@ -576,6 +588,7 @@ def cmd_profile(args) -> None:
         stats = timed_device_fn(
             lambda: index.search(q, args.k, return_docids=False, approx=approx), iters=args.iters,
         )
+    stats["spans"] = timing.totals()
     if approx and index.last_certified is not None:
         stats["certified_frac"] = float(index.last_certified.mean())
     stats.update(
@@ -985,7 +998,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persist Linear kernels quantized (2x/~4x smaller checkpoint; loads quantized)")
     p.set_defaults(fn=cmd_convert)
 
-    p = sub.add_parser("profile", help="capture a torch.profiler trace of a search workload")
+    p = sub.add_parser(
+        "profile",
+        help="capture a torch.profiler trace of a search workload (trace.json, with the port's "
+             "spans on rows of their own, and spans.json: their totals; spans record only while "
+             "the profiler runs)",
+    )
     _add_common(p)
     p.add_argument("--index", help="shard dir (omit for a synthetic index)")
     p.add_argument("--docs", type=int, default=100_000)

@@ -49,6 +49,7 @@ from codemix_dense_retrieval_torch.parallel.sharded_search import (
     sharded_topk_ip_adaptive,
     sharded_topk_ip_sketch,
 )
+from codemix_dense_retrieval_torch.utils import timing
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, resolve_device
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
@@ -1012,7 +1013,16 @@ class DenseFlatIndex:
         :meth:`reorder_rows`); per-call stats in ``last_adaptive_stats``. An
         int8 store runs exact search instead (``last_adaptive_stats`` None).
         ``probe_bins`` overrides the probe depth of the adaptive and sketch
-        tiers for this call."""
+        tiers for this call.
+
+        While tracing the call is the span ``search.call``; inside it the
+        host's wait for the results is ``search.readback`` and the docid
+        lookup ``search.docids``."""
+        with timing.span("search.call"):
+            return self._search(queries, k, return_docids, query_block, approx, probe_bins)
+
+    def _search(self, queries, k: int, return_docids: bool, query_block: int, approx,
+                probe_bins: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
         if approx not in (False, True, "guaranteed", "adaptive"):
             raise ValueError(
                 f"approx must be True/False/'adaptive'/'guaranteed', got {approx!r}"
@@ -1087,8 +1097,9 @@ class DenseFlatIndex:
 
         devices = self.mesh.shard_devices()
         out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact, devices, self.mesh)
-        vals_np, gids_np = out[0].cpu().numpy(), out[1].cpu().numpy()
-        self.last_certified = out[2].cpu().numpy() if approx else None
+        with timing.span("search.readback"):
+            vals_np, gids_np = out[0].cpu().numpy(), out[1].cpu().numpy()
+            self.last_certified = out[2].cpu().numpy() if approx else None
         self.last_guaranteed_direct = guaranteed_direct
         self.last_guaranteed_route = (
             "exact" if guaranteed_direct else ("sketch" if approx == "guaranteed" else None)
@@ -1102,12 +1113,14 @@ class DenseFlatIndex:
             ev, eg = search_blocks(
                 q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact, devices, self.mesh
             )
-            vals_np[bad] = ev.cpu().numpy()
-            gids_np[bad] = eg.cpu().numpy()
+            with timing.span("search.readback"):
+                vals_np[bad] = ev.cpu().numpy()
+                gids_np[bad] = eg.cpu().numpy()
             self.last_certified = np.ones(n_q, bool)
         if not return_docids:
             return vals_np, gids_np
-        return vals_np, self._docids[gids_np]
+        with timing.span("search.docids"):
+            return vals_np, self._docids[gids_np]
 
     def _search_adaptive(self, q: torch.Tensor, k: int, query_block: int, probe_bins: Optional[int],
                          return_docids: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -1128,7 +1141,8 @@ class DenseFlatIndex:
             return vals, gids
 
         vals, gids = search_blocks(q, query_block, self._rows_per_shard, adaptive, self.mesh.shard_devices(), self.mesh)
-        vals_np, gids_np = vals.cpu().numpy(), gids.cpu().numpy()
+        with timing.span("search.readback"):
+            vals_np, gids_np = vals.cpu().numpy(), gids.cpu().numpy()
         self.last_certified = np.ones(len(q), bool)  # exact by construction
         self.last_adaptive_stats = {
             "certified_frac": float(np.mean([st["certified_frac"] for st in block_stats])),
@@ -1139,4 +1153,5 @@ class DenseFlatIndex:
         self.last_guaranteed_route = None
         if not return_docids:
             return vals_np, gids_np
-        return vals_np, self._docids[gids_np]
+        with timing.span("search.docids"):
+            return vals_np, self._docids[gids_np]

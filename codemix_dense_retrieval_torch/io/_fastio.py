@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from codemix_dense_retrieval_torch.ops.kernels import BUILD_DIR, CSRC
+from codemix_dense_retrieval_torch.utils import timing
 
 SOURCE = CSRC / "fastio.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
@@ -99,7 +100,8 @@ def write_run(
 ) -> int:
     """Lines written, or -1 when the native path cannot take the call
     (no library, ragged rows, a score array of another shape, a field with
-    a newline). Each column crosses as one newline-separated buffer."""
+    a newline). Each column crosses as one newline-separated buffer, built
+    under the span ``trec.marshal``; the C call is ``trec.native_write``."""
     lib = _lib()
     if lib is None:
         return -1
@@ -107,19 +109,21 @@ def write_run(
     if nq == 0:
         pathlib.Path(path).write_text("")
         return 0
-    docs = np.asarray(docids, dtype=object)
-    sc = np.ascontiguousarray(scores, dtype=np.float32)
-    if docs.ndim != 2 or docs.shape[0] != nq or sc.shape != docs.shape:
-        return -1
-    k = docs.shape[1]
-    qid_blob = ("\n".join(map(str, qids)) + "\n").encode()
-    doc_blob = ("\n".join(map(str, docs.ravel().tolist())) + "\n").encode()
-    if qid_blob.count(b"\n") != nq or doc_blob.count(b"\n") != nq * k:
-        return -1
-    return lib.fastio_write_run(
-        path.encode(), qid_blob, nq, doc_blob,
-        sc.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), k, tag.encode(), precision,
-    )
+    with timing.span("trec.marshal"):
+        docs = np.asarray(docids, dtype=object)
+        sc = np.ascontiguousarray(scores, dtype=np.float32)
+        if docs.ndim != 2 or docs.shape[0] != nq or sc.shape != docs.shape:
+            return -1
+        k = docs.shape[1]
+        qid_blob = ("\n".join(map(str, qids)) + "\n").encode()
+        doc_blob = ("\n".join(map(str, docs.ravel().tolist())) + "\n").encode()
+        if qid_blob.count(b"\n") != nq or doc_blob.count(b"\n") != nq * k:
+            return -1
+    with timing.span("trec.native_write"):
+        return lib.fastio_write_run(
+            path.encode(), qid_blob, nq, doc_blob,
+            sc.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), k, tag.encode(), precision,
+        )
 
 
 def collapse_run_max(in_path: str, out_path: str, tag: str) -> bool:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops.quant import quantize_rows_np
+from codemix_dense_retrieval_torch.utils import timing
 
 PathLike = os.PathLike | str
 
@@ -112,7 +113,9 @@ class ShardManifest:
 class ShardWriter:
     """Streaming writer: ``append`` writes rows to the current bin file
     (flushed) and ``finalize`` writes the manifest last, so a finished
-    manifest means a complete store."""
+    manifest means a complete store. While tracing they are the spans
+    ``store.append`` (its rows counted under ``store.rows``) and
+    ``store.finalize``."""
 
     def __init__(
         self,
@@ -209,56 +212,59 @@ class ShardWriter:
             raise ValueError(f"rows of shape {tuple(vecs.shape)} do not match dim {self.dim}")
         if len(docids) != len(vecs):
             raise ValueError(f"{len(docids)} docids for {len(vecs)} rows")
-        # sidecars first, then rows: resume_partial trusts the row count
-        with open(self.dir / "docids.partial.txt", "a", encoding="utf-8") as fh:
-            fh.write("".join(f"{d}\n" for d in docids))
-        rows, scales = to_storage(vecs, self.dtype_name)
-        if scales is not None:
-            with open(self.dir / "scales.bin", "ab") as fh:
-                fh.write(np.ascontiguousarray(scales, np.float32).tobytes())
-        pos = 0
-        while pos < len(rows):
-            if self._fh is None or self._rows_in_file >= self.rows_per_file:
-                if self._fh is not None:
-                    self._fh.close()
-                self._open_new_file()
-            take = min(len(rows) - pos, self.rows_per_file - self._rows_in_file)
-            self._fh.write(rows[pos : pos + take].tobytes())
-            self._rows_in_file += take
-            self.files[-1]["rows"] = self._rows_in_file
-            pos += take
-        self._fh.flush()
-        self._docids.extend(str(d) for d in docids)
-        src = derived_ids if derived_ids is not None else docids
-        self._derived.extend(str(d) for d in src)
-        self.count += len(rows)
+        with timing.span("store.append"):
+            # sidecars first, then rows: resume_partial trusts the row count
+            with open(self.dir / "docids.partial.txt", "a", encoding="utf-8") as fh:
+                fh.write("".join(f"{d}\n" for d in docids))
+            rows, scales = to_storage(vecs, self.dtype_name)
+            if scales is not None:
+                with open(self.dir / "scales.bin", "ab") as fh:
+                    fh.write(np.ascontiguousarray(scales, np.float32).tobytes())
+            pos = 0
+            while pos < len(rows):
+                if self._fh is None or self._rows_in_file >= self.rows_per_file:
+                    if self._fh is not None:
+                        self._fh.close()
+                    self._open_new_file()
+                take = min(len(rows) - pos, self.rows_per_file - self._rows_in_file)
+                self._fh.write(rows[pos : pos + take].tobytes())
+                self._rows_in_file += take
+                self.files[-1]["rows"] = self._rows_in_file
+                pos += take
+            self._fh.flush()
+            self._docids.extend(str(d) for d in docids)
+            src = derived_ids if derived_ids is not None else docids
+            self._derived.extend(str(d) for d in src)
+            self.count += len(rows)
+        timing.count("store.rows", len(rows))
 
     def finalize(self, extra: Optional[Dict] = None) -> ShardManifest:
-        if self._fh is not None:
-            self._fh.close()
-            self._fh = None
-        (self.dir / "docids.txt").write_text("\n".join(self._docids), encoding="utf-8")
-        with open(self.dir / "docid_map.tsv", "w", encoding="utf-8") as fh:
-            print("int_id\tderived_id\tbase_id\tlang", file=fh)
-            for i, (derived, base) in enumerate(zip(self._derived, self._docids)):
-                print(f"{i}\t{derived}\t{base}\t{self.lang or ''}", file=fh)
-        manifest = ShardManifest(
-            dim=self.dim,
-            dtype=self.dtype_name,
-            count=self.count,
-            files=self.files,
-            lang=self.lang,
-            encoder=self.encoder,
-            normalized=self.normalized,
-            extra=extra or {},
-        )
-        tmp = self.dir / "manifest.json.tmp"
-        tmp.write_text(manifest.to_json(), encoding="utf-8")
-        tmp.replace(self.dir / "manifest.json")
-        partial = self.dir / "docids.partial.txt"
-        if partial.exists():
-            partial.unlink()
-        return manifest
+        with timing.span("store.finalize"):
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+            (self.dir / "docids.txt").write_text("\n".join(self._docids), encoding="utf-8")
+            with open(self.dir / "docid_map.tsv", "w", encoding="utf-8") as fh:
+                print("int_id\tderived_id\tbase_id\tlang", file=fh)
+                for i, (derived, base) in enumerate(zip(self._derived, self._docids)):
+                    print(f"{i}\t{derived}\t{base}\t{self.lang or ''}", file=fh)
+            manifest = ShardManifest(
+                dim=self.dim,
+                dtype=self.dtype_name,
+                count=self.count,
+                files=self.files,
+                lang=self.lang,
+                encoder=self.encoder,
+                normalized=self.normalized,
+                extra=extra or {},
+            )
+            tmp = self.dir / "manifest.json.tmp"
+            tmp.write_text(manifest.to_json(), encoding="utf-8")
+            tmp.replace(self.dir / "manifest.json")
+            partial = self.dir / "docids.partial.txt"
+            if partial.exists():
+                partial.unlink()
+            return manifest
 
 
 class ShardStore:

@@ -12,7 +12,10 @@ qid).
 A C++ fast path (``csrc/fastio.cpp``, :mod:`._fastio`) writes and collapses
 multi-million-line runs; without it both functions take their pure-Python
 path, whose output is the same bytes. ``WRITES`` counts the calls each path
-served.
+served (always); while tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`),
+``write_run`` is the span ``trec.write`` around ``trec.marshal`` and
+``trec.native_write``, or ``trec.python_write``, and counts ``trec.lines``
+and ``trec.bytes``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Iterable, List, Sequence
 import numpy as np
 
 from codemix_dense_retrieval_torch.io import _fastio
+from codemix_dense_retrieval_torch.utils import timing
 
 PathLike = os.PathLike | str
 
@@ -86,13 +90,19 @@ def write_run(
     """Write a TREC run; returns the number of lines written. The native
     writer takes the call when it is built and the rows are rectangular."""
     path = pathlib.Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    n = _fastio.write_run(str(path), qids, docids, np.asarray(scores, np.float32), tag, precision)
-    if n >= 0:
-        WRITES["native"] += 1
-        return n
-    WRITES["python"] += 1
-    return _write_run_python(path, qids, docids, scores, tag, precision)
+    with timing.span("trec.write"):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        n = _fastio.write_run(str(path), qids, docids, np.asarray(scores, np.float32), tag, precision)
+        if n >= 0:
+            WRITES["native"] += 1
+        else:
+            WRITES["python"] += 1
+            with timing.span("trec.python_write"):
+                n = _write_run_python(path, qids, docids, scores, tag, precision)
+        if timing.tracing():
+            timing.count("trec.lines", n)
+            timing.count("trec.bytes", path.stat().st_size)
+    return n
 
 
 def write_run_entries(path: PathLike, entries: Iterable[RunEntry]) -> int:

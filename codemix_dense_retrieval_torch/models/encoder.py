@@ -7,7 +7,11 @@ results back on a reader thread, and return float32 numpy rows in input
 order (per-token document embeddings stay on the device, for the token
 store's writer). ``pack=True`` packs short passages into shared rows
 (:mod:`~codemix_dense_retrieval_torch.models.packing`). Each call leaves
-its host phase times in ``last_phase_stats``. Family dialects apply their
+its host phase times in ``last_phase_stats``; while tracing
+(:mod:`~codemix_dense_retrieval_torch.utils.timing`) the same readings are
+the spans ``encoder.tokenize`` (prefetch thread), ``encoder.tokenize_wait``,
+``encoder.readback`` (reader thread) and ``encoder.readback_wait``, beside
+``encoder.encode`` and ``encoder.forward``. Family dialects apply their
 query / passage prompt prefixes, and jina-v3's task adapters their
 per-role task (:meth:`TextEncoder._task_id`). The model is any encoder
 family's module (XLM-R by default; ``model=`` a Qwen3 or GTE module), all
@@ -60,6 +64,7 @@ from codemix_dense_retrieval_torch.ops.weight_quant import (
     quantized_kinds,
 )
 from codemix_dense_retrieval_torch.parallel.mesh import Mesh, gather_to
+from codemix_dense_retrieval_torch.utils import timing
 from codemix_dense_retrieval_torch.utils.devices import DeviceLike, default_dtype, resolve_device
 
 
@@ -255,10 +260,12 @@ class TextEncoder:
 
     @staticmethod
     def _new_phase_stats() -> dict:
-        """Per-call pipeline phase accumulators (seconds; see
-        ``last_phase_stats``). One writer per key: ``tokenize_work`` the
-        prefetch thread, ``readback_work`` the reader thread, the rest the
-        main thread."""
+        """Per-call pipeline phase accumulators (seconds of
+        ``time.perf_counter``, the clock of the durations of
+        :mod:`~codemix_dense_retrieval_torch.utils.timing`'s spans; see
+        ``last_phase_stats``). One writer per key:
+        ``tokenize_work`` the prefetch thread, ``readback_work`` the reader
+        thread, the rest the main thread."""
         return {
             "tokenize_work": 0.0,  # prefetch thread: tokenize + pad (+ pack)
             "tokenize_wait": 0.0,  # main thread blocked on the prefetch
@@ -283,20 +290,25 @@ class TextEncoder:
         a mesh the batch (dim 0 of every ``args``) splits into ``dp``
         contiguous chunks of ``ceil(B / dp)`` rows, chunk i runs on shard
         i's replica and device, and the rows are gathered back in order on
-        the encoder's device."""
-        if self._dp == 1:
-            fn = self.model if method == "forward" else getattr(self.model, method)
-            return fn(*args, **kw)
-        per = -(-args[0].shape[0] // self._dp)
-        outs = []
-        for i, (replica, dev) in enumerate(zip(self._replicas, self.mesh.shard_devices())):
-            chunk = [a[i * per : (i + 1) * per].to(dev, non_blocking=True) for a in args]
-            if not len(chunk[0]):
-                break
-            outs.append((replica if method == "forward" else getattr(replica, method))(*chunk, **kw))
-        if isinstance(outs[0], tuple):
-            return tuple(gather_to(parts, self.device, dim=0) for parts in zip(*outs))
-        return gather_to(outs, self.device, dim=0)
+        the encoder's device. While tracing the call is the span
+        ``encoder.forward`` (its host seconds are the forward's dispatch;
+        its device seconds the stream's time from its start to its end,
+        idle gaps included), counted under ``encoder.batches``."""
+        timing.count("encoder.batches")
+        with timing.span("encoder.forward", device=self.device):
+            if self._dp == 1:
+                fn = self.model if method == "forward" else getattr(self.model, method)
+                return fn(*args, **kw)
+            per = -(-args[0].shape[0] // self._dp)
+            outs = []
+            for i, (replica, dev) in enumerate(zip(self._replicas, self.mesh.shard_devices())):
+                chunk = [a[i * per : (i + 1) * per].to(dev, non_blocking=True) for a in args]
+                if not len(chunk[0]):
+                    break
+                outs.append((replica if method == "forward" else getattr(replica, method))(*chunk, **kw))
+            if isinstance(outs[0], tuple):
+                return tuple(gather_to(parts, self.device, dim=0) for parts in zip(*outs))
+            return gather_to(outs, self.device, dim=0)
 
     @staticmethod
     def _start_readback(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
@@ -324,15 +336,15 @@ class TextEncoder:
     def _prefetch(self, starts: Sequence[int], prep, stats: Optional[dict]) -> Iterator:
         """``prep(start)`` for each start on one prefetch thread, at most
         ``_PREFETCH_DEPTH`` ahead, yielded in order; the main thread's wait
-        and the batch count go to ``stats``."""
+        (the span ``encoder.tokenize_wait``) and the batch count go to
+        ``stats``."""
         starts = iter(starts)
-        with ThreadPoolExecutor(max_workers=1) as ex:
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="encoder-prefetch") as ex:
             futs = deque(ex.submit(prep, s) for s in itertools.islice(starts, self._PREFETCH_DEPTH))
             while futs:
-                t0 = time.perf_counter()
-                out = futs.popleft().result()
+                with timing.span("encoder.tokenize_wait", stat=(stats, "tokenize_wait")):
+                    out = futs.popleft().result()
                 if stats is not None:
-                    stats["tokenize_wait"] += time.perf_counter() - t0
                     stats["batches"] += 1
                 nxt = next(starts, None)
                 if nxt is not None:
@@ -345,24 +357,28 @@ class TextEncoder:
     ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         """Yield (ids, mask) int64 host batches (pinned on a card) padded
         with the tokenizer's pad id to a bucket length; tokenization runs on
-        the prefetch thread (``tokenize_work`` in ``stats``)."""
+        the prefetch thread (the span ``encoder.tokenize``, ``tokenize_work``
+        in ``stats``), which counts ``encoder.tokens`` (the mask's sum) and
+        ``encoder.padded_tokens`` (rows x bucket) while tracing."""
         ml = max_length or (self.cfg.max_position_embeddings - 2)
         pad_id = getattr(self.tokenizer, "pad_id", 1)
         # the batch splits evenly over the data-parallel axis
         batch_size = -(-batch_size // self._dp) * self._dp
+        handed = timing.handoff()
 
         def prep(start: int):
-            t0 = time.perf_counter()
-            chunk = [prefix + t for t in texts[start : start + batch_size]]
-            ids, mask = self.tokenizer.encode_batch(chunk, ml)
-            s = bucket_length(ids.shape[1], self.length_buckets)
-            ids_p = np.full((len(chunk), s), pad_id, np.int64)
-            mask_p = np.zeros((len(chunk), s), np.int64)
-            ids_p[:, : ids.shape[1]] = ids[:, :s]
-            mask_p[:, : mask.shape[1]] = mask[:, :s]
-            out = self._host(ids_p, torch.int64), self._host(mask_p, torch.int64)
-            if stats is not None:
-                stats["tokenize_work"] += time.perf_counter() - t0
+            with timing.span("encoder.tokenize", within=handed, stat=(stats, "tokenize_work")):
+                chunk = [prefix + t for t in texts[start : start + batch_size]]
+                ids, mask = self.tokenizer.encode_batch(chunk, ml)
+                s = bucket_length(ids.shape[1], self.length_buckets)
+                ids_p = np.full((len(chunk), s), pad_id, np.int64)
+                mask_p = np.zeros((len(chunk), s), np.int64)
+                ids_p[:, : ids.shape[1]] = ids[:, :s]
+                mask_p[:, : mask.shape[1]] = mask[:, :s]
+                out = self._host(ids_p, torch.int64), self._host(mask_p, torch.int64)
+            if handed is not None:
+                timing.count("encoder.tokens", int(mask_p.sum()), within=handed)
+                timing.count("encoder.padded_tokens", mask_p.size, within=handed)
             return out
 
         return self._prefetch(range(0, len(texts), batch_size), prep, stats)
@@ -381,10 +397,12 @@ class TextEncoder:
 
         With ``stats``, phase walls accumulate: ``job_iter`` (generator
         steps on the main thread: tokenize_wait + dispatch),
-        ``readback_work`` (the reader), ``readback_wait`` (the main thread
-        blocked draining the reader) and ``wall``."""
+        ``readback_work`` (the reader: the span ``encoder.readback``),
+        ``readback_wait`` (the main thread blocked draining the reader:
+        ``encoder.readback_wait``) and ``wall``."""
         t_wall = time.perf_counter()
         it = iter(jobs)
+        handed = timing.handoff()
 
         def step():
             t0 = time.perf_counter()
@@ -394,21 +412,15 @@ class TextEncoder:
             return item
 
         def timed_fn(fn, args):
-            t0 = time.perf_counter()
-            r = fn(*args)
-            if stats is not None:
-                stats["readback_work"] += time.perf_counter() - t0
-            return r
+            with timing.span("encoder.readback", within=handed, stat=(stats, "readback_work")):
+                return fn(*args)
 
         def drain(futs):
-            t0 = time.perf_counter()
-            r = futs.popleft().result()
-            if stats is not None:
-                stats["readback_wait"] += time.perf_counter() - t0
-            return r
+            with timing.span("encoder.readback_wait", stat=(stats, "readback_wait")):
+                return futs.popleft().result()
 
         out: List = []
-        with ThreadPoolExecutor(max_workers=1) as ex:
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="encoder-reader") as ex:
             futs: deque = deque()
             while (item := step()) is not None:
                 fn, args = item
@@ -458,10 +470,13 @@ class TextEncoder:
     def encode_queries(
         self, texts: Sequence[str], batch_size: int = 64, max_length: Optional[int] = None
     ) -> np.ndarray:
-        return self._encode(
-            texts, batch_size, dialects.query_prefix(self.name), max_length,
-            task_id=self._task_id("query"),
-        )
+        """Query rows, f32 (n, d); while tracing the call is the span
+        ``encoder.encode``."""
+        with timing.span("encoder.encode"):
+            return self._encode(
+                texts, batch_size, dialects.query_prefix(self.name), max_length,
+                task_id=self._task_id("query"),
+            )
 
     def encode_documents(
         self,
@@ -473,17 +488,15 @@ class TextEncoder:
     ) -> np.ndarray:
         """``readback_dtype`` (e.g. ``torch.bfloat16``) casts on the device
         before the device -> host copy; the returned array is always f32.
-        ``pack=True`` routes through sequence packing (:meth:`_encode_packed`)."""
+        ``pack=True`` routes through sequence packing (:meth:`_encode_packed`).
+        While tracing the call is the span ``encoder.encode``."""
         task = self._task_id("passage")
-        if pack:
-            return self._encode_packed(
+        encode = self._encode_packed if pack else self._encode
+        with timing.span("encoder.encode"):
+            return encode(
                 texts, batch_size, dialects.doc_prefix(self.name), max_length,
                 readback_dtype=readback_dtype, task_id=task,
             )
-        return self._encode(
-            texts, batch_size, dialects.doc_prefix(self.name), max_length,
-            readback_dtype=readback_dtype, task_id=task,
-        )
 
     # ------------------------------------------------------------------
     # sequence packing
@@ -520,36 +533,40 @@ class TextEncoder:
         leading chunks pay longer rows), and its row count is padded to a
         whole number of forwards. Decoder embedders (``PACKED_POS =
         "zero"``, Qwen3) restart positions at 0 in each segment; XLM-R
-        numbers them from pad_id + 1 (the packer's default)."""
+        numbers them from pad_id + 1 (the packer's default). Tokenizing is
+        the span ``encoder.tokenize``, counted as in :meth:`_batch_inputs`
+        (padded tokens: rows x row length)."""
         chunk_texts = rows_per_batch * 16
         pos_kw = (dict(pos_offset=0, pos_pad=0)
                   if getattr(self.model, "PACKED_POS", "roberta") == "zero" else {})
+        handed = timing.handoff()
 
         def prep(start: int):
-            t0 = time.perf_counter()
-            chunk = [prefix + t for t in texts[start : start + chunk_texts]]
-            ids, mask = self.tokenizer.encode_batch(chunk, seq_len)
-            lens = mask.sum(axis=1).astype(np.int32)
-            row_s = max(
-                min(self._PACK_SEQ_DEFAULT, seq_len),
-                bucket_length(int(lens.max()) if len(lens) else 1, self.length_buckets),
-            )
-            packed = pack_sequences(
-                [ids[i, : lens[i]] for i in range(len(chunk))], row_s, pad_id, max_segments, **pos_kw
-            )
-            packed = pad_rows_to(packed, -(-packed.n_rows // rows_per_batch) * rows_per_batch, pad_id=pad_id)
-            pl = packed.placement
-            host = {
-                "ids": self._host(packed.ids, torch.int64),
-                "segment_ids": self._host(packed.segment_ids, torch.int32),
-                "position_ids": self._host(packed.position_ids, torch.int64),
-                "seg_starts": self._host(packed.seg_starts, torch.int64),
-                "seg_lengths": self._host(packed.seg_lengths, torch.int64),
-                # the used slots of the (R, M) pooled outputs, in input order
-                "slots": self._host(pl[:, 0].astype(np.int64) * max_segments + pl[:, 1], torch.int64),
-            }
-            if stats is not None:
-                stats["tokenize_work"] += time.perf_counter() - t0
+            with timing.span("encoder.tokenize", within=handed, stat=(stats, "tokenize_work")):
+                chunk = [prefix + t for t in texts[start : start + chunk_texts]]
+                ids, mask = self.tokenizer.encode_batch(chunk, seq_len)
+                lens = mask.sum(axis=1).astype(np.int32)
+                row_s = max(
+                    min(self._PACK_SEQ_DEFAULT, seq_len),
+                    bucket_length(int(lens.max()) if len(lens) else 1, self.length_buckets),
+                )
+                packed = pack_sequences(
+                    [ids[i, : lens[i]] for i in range(len(chunk))], row_s, pad_id, max_segments, **pos_kw
+                )
+                packed = pad_rows_to(packed, -(-packed.n_rows // rows_per_batch) * rows_per_batch, pad_id=pad_id)
+                pl = packed.placement
+                host = {
+                    "ids": self._host(packed.ids, torch.int64),
+                    "segment_ids": self._host(packed.segment_ids, torch.int32),
+                    "position_ids": self._host(packed.position_ids, torch.int64),
+                    "seg_starts": self._host(packed.seg_starts, torch.int64),
+                    "seg_lengths": self._host(packed.seg_lengths, torch.int64),
+                    # the used slots of the (R, M) pooled outputs, in input order
+                    "slots": self._host(pl[:, 0].astype(np.int64) * max_segments + pl[:, 1], torch.int64),
+                }
+            if handed is not None:
+                timing.count("encoder.tokens", int(lens.sum()), within=handed)
+                timing.count("encoder.padded_tokens", packed.ids.size, within=handed)
             return start, len(chunk), packed, host
 
         return self._prefetch(range(0, len(texts), chunk_texts), prep, stats)

@@ -26,6 +26,11 @@ over domains whose positions ascend with the ids (selected bin ids are
 re-sorted ascending at each level), so among equal scores the lower id wins
 at every level, the cover boundary included. ``torch.topk`` promises no
 order among ties and is not used for selection.
+
+While tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`) the
+exact routes (two-level and single-level cover, bf16 / f16 / f32 and int8)
+time each query chunk's phase 1 and tail on the card as the spans
+``search.phase1`` and ``search.tail``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from codemix_dense_retrieval_torch.ops import kernels
 from codemix_dense_retrieval_torch.ops.quant import int8_ip_acc_rows, int8_ip_scores, quantize_rows
-from codemix_dense_retrieval_torch.utils import autotune
+from codemix_dense_retrieval_torch.utils import autotune, timing
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -729,16 +734,20 @@ def topk_ip_bins_two_level(
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
     if bin_major:
         def run(q):
-            scores_bm, binmax_bm = bin_scores(
-                q, docs, n_valid, bin_size, layout="bin_major", score_dtype=score_dtype
-            )
-            return _topk_from_bins_two_level_bm(scores_bm, binmax_bm, k, bin_size, super_size)
+            with timing.span("search.phase1", device=docs.device):
+                scores_bm, binmax_bm = bin_scores(
+                    q, docs, n_valid, bin_size, layout="bin_major", score_dtype=score_dtype
+                )
+            with timing.span("search.tail", device=docs.device):
+                return _topk_from_bins_two_level_bm(scores_bm, binmax_bm, k, bin_size, super_size)
     else:
         def run(q):
-            scores_t, bin_max_t = bin_scores(
-                q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
-            )
-            return _topk_from_bins_two_level(scores_t, bin_max_t, k, bin_size, super_size)
+            with timing.span("search.phase1", device=docs.device):
+                scores_t, bin_max_t = bin_scores(
+                    q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
+                )
+            with timing.span("search.tail", device=docs.device):
+                return _topk_from_bins_two_level(scores_t, bin_max_t, k, bin_size, super_size)
     return _by_query_chunks(queries, tile_b, run)
 
 
@@ -819,10 +828,12 @@ def topk_ip_bins(
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs])
 
     def run(q):
-        scores_t, bin_max_t = bin_scores(
-            q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
-        )
-        return _topk_from_bins(scores_t, bin_max_t.T, k, bin_size, scores_transposed=True)
+        with timing.span("search.phase1", device=docs.device):
+            scores_t, bin_max_t = bin_scores(
+                q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
+            )
+        with timing.span("search.tail", device=docs.device):
+            return _topk_from_bins(scores_t, bin_max_t.T, k, bin_size, scores_transposed=True)
 
     return _by_query_chunks(queries, tile_b, run)
 
@@ -863,15 +874,17 @@ def topk_ip_bins_int8(
 
     def run(q):
         q_vals, q_scales = quantize_rows(q)
-        scores, bin_max = bin_scores_int8(
-            q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
-            layout=layout, score_dtype=score_dtype,
-        )
-        if layout == "bin_major":
-            return _topk_from_bins_two_level_bm(scores, bin_max, k, bin_size, super_size)
-        if two_level:
-            return _topk_from_bins_two_level(scores, bin_max, k, bin_size, super_size)
-        return _topk_from_bins(scores, bin_max.T, k, bin_size, scores_transposed=True)
+        with timing.span("search.phase1", device=d_vals.device):
+            scores, bin_max = bin_scores_int8(
+                q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
+                layout=layout, score_dtype=score_dtype,
+            )
+        with timing.span("search.tail", device=d_vals.device):
+            if layout == "bin_major":
+                return _topk_from_bins_two_level_bm(scores, bin_max, k, bin_size, super_size)
+            if two_level:
+                return _topk_from_bins_two_level(scores, bin_max, k, bin_size, super_size)
+            return _topk_from_bins(scores, bin_max.T, k, bin_size, scores_transposed=True)
 
     return _by_query_chunks(queries, tile_b, run)
 

@@ -30,7 +30,7 @@ import torch
 from codemix_dense_retrieval_torch.ops import topk as topk_ops
 from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
 from codemix_dense_retrieval_torch.parallel.mesh import Mesh, as_mesh, gather_to
-from codemix_dense_retrieval_torch.utils import autotune
+from codemix_dense_retrieval_torch.utils import autotune, timing
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 Shards = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -67,20 +67,22 @@ def fit_query_block(
     card's free memory (the driver's free bytes plus what PyTorch's
     allocator holds unused). So the CLI's 1024-query default runs at the
     bilingual hub's size (17.7M x 1024 bf16 rows, 36.2 GB, on an 80 GB
-    card: blocks of 256)."""
+    card: blocks of 256). The free-memory reads are the span
+    ``search.fit_block``."""
     devices = [torch.device(devices)] if not isinstance(devices, (list, tuple)) else devices
     shards_on: dict = {}
     for d in devices:
         shards_on[torch.device(d)] = shards_on.get(torch.device(d), 0) + 1
     fit, short = None, None
-    for device, count in shards_on.items():
-        if device.type != "cuda":
-            continue
-        free, _ = torch.cuda.mem_get_info(device)
-        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        f = int(BLOCK_MEMORY_SHARE * free // (BLOCK_BYTES_PER_ROW * rows_per_shard * count))
-        if fit is None or f < fit:
-            fit, short = f, (device, count, free)
+    with timing.span("search.fit_block"):
+        for device, count in shards_on.items():
+            if device.type != "cuda":
+                continue
+            free, _ = torch.cuda.mem_get_info(device)
+            free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+            f = int(BLOCK_MEMORY_SHARE * free // (BLOCK_BYTES_PER_ROW * rows_per_shard * count))
+            if fit is None or f < fit:
+                fit, short = f, (device, count, free)
     if fit is None or min(query_block or n_queries, n_queries) <= fit:
         return query_block
     capped = 1 << max(0, fit.bit_length() - 1)
@@ -102,7 +104,9 @@ def search_blocks(
     run the same blocks (and the same collectives). A ragged tail block is
     zero-padded to the block size, so every block has one shape, and its
     rows are sliced off. Returns each of ``search``'s outputs concatenated
-    over the blocks, cut to ``len(q)`` rows."""
+    over the blocks, cut to ``len(q)`` rows. While tracing each block is
+    the span ``search.block``, counted with the queries under
+    ``search.blocks`` and ``search.queries``."""
     n = len(q)
     query_block = fit_query_block(query_block, n, rows_per_shard, devices or q.device)
     if _multi_process(mesh):
@@ -112,7 +116,12 @@ def search_blocks(
         query_block = 0 if int(agreed[0]) >= n else int(agreed[0])
     if query_block and n > query_block and n % query_block:
         q = torch.cat([q, q.new_zeros((query_block - n % query_block, q.shape[1]))])
-    outs = [search(blk) for blk in (q.split(query_block) if query_block else [q])]
+    outs = []
+    for blk in q.split(query_block) if query_block else [q]:
+        with timing.span("search.block"):
+            outs.append(search(blk))
+    timing.count("search.blocks", len(outs))
+    timing.count("search.queries", n)
     return tuple(torch.cat(parts)[:n] for parts in zip(*outs))
 
 

@@ -17,7 +17,10 @@
   language whose dense store is finished gets its token store backfilled;
 - the root ``docids.txt`` and ``meta.json``;
 - ``pack=True``: sequence-packed encode (short passages share device rows,
-  :meth:`~codemix_dense_retrieval_torch.models.encoder.TextEncoder.encode_documents`).
+  :meth:`~codemix_dense_retrieval_torch.models.encoder.TextEncoder.encode_documents`);
+- while tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`), each
+  batch of ``encode_corpus`` is the span ``corpus.batch`` and its docid
+  selection loop ``corpus.select``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardStore, ShardWriter
 from codemix_dense_retrieval_torch.io.token_shards import TokenShardStore, TokenShardWriter
+from codemix_dense_retrieval_torch.utils import timing
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 log = get_logger("corpus")
@@ -314,59 +318,63 @@ def encode_corpus(
             return tok_writer is not None and tok_writer.count < writer.count
 
         for batch in _batched(iter(source), batch_size):
-            if lang_idx == 0 and selection.first_lang_done(seen_rel) and not tok_lagging():
-                break
-            if (lang_idx > 0 and selection.subset_mode and kept >= len(selection.selected)
-                    and not tok_lagging()):
-                break
-            keep_ids: List[str] = []
-            keep_texts: List[str] = []
-            new_dense = 0
-            for docid, text in batch:
-                if lang_idx == 0:
-                    ok = selection.select_first_lang(docid)
-                    if ok and docid in selection.rel_ids:
-                        seen_rel.add(docid)
-                else:
-                    ok = selection.select_mirror(docid)
-                if not ok:
-                    continue
-                need_dense = docid not in already_written
-                if max_docs and need_dense and kept + new_dense >= max_docs:
-                    # past the dense cap; token catch-up rows are docids
-                    # already in the dense store, which fills in stream
-                    # order, so none lies past this point
+            with timing.span("corpus.batch"):
+                if lang_idx == 0 and selection.first_lang_done(seen_rel) and not tok_lagging():
                     break
-                need_tok = tok_writer is not None and docid not in tok_written
-                if need_dense or need_tok:
-                    keep_ids.append(docid)
-                    keep_texts.append(text)
-                    new_dense += need_dense
-            if not keep_ids:
+                if (lang_idx > 0 and selection.subset_mode and kept >= len(selection.selected)
+                        and not tok_lagging()):
+                    break
+                with timing.span("corpus.select"):
+                    keep_ids: List[str] = []
+                    keep_texts: List[str] = []
+                    new_dense = 0
+                    for docid, text in batch:
+                        if lang_idx == 0:
+                            ok = selection.select_first_lang(docid)
+                            if ok and docid in selection.rel_ids:
+                                seen_rel.add(docid)
+                        else:
+                            ok = selection.select_mirror(docid)
+                        if not ok:
+                            continue
+                        need_dense = docid not in already_written
+                        if max_docs and need_dense and kept + new_dense >= max_docs:
+                            # past the dense cap; token catch-up rows are docids
+                            # already in the dense store, which fills in stream
+                            # order, so none lies past this point
+                            break
+                        need_tok = tok_writer is not None and docid not in tok_written
+                        if need_dense or need_tok:
+                            keep_ids.append(docid)
+                            keep_texts.append(text)
+                            new_dense += need_dense
+                if not keep_ids:
+                    if max_docs and kept >= max_docs and not tok_lagging():
+                        break
+                    continue
+                if tok_writer is None:
+                    vecs = encoder.encode_documents(
+                        keep_texts, batch_size=enc_batch, readback_dtype=readback, pack=pack
+                    )
+                    toks = lens = None
+                else:
+                    vecs, toks, lens = encoder.encode_documents_with_tokens(
+                        keep_texts, batch_size=enc_batch, max_tokens=tokens_per_doc, pack=pack
+                    )
+                # each store skips only its own rows already written
+                dense_new = [i for i, d in enumerate(keep_ids) if d not in already_written]
+                if dense_new:
+                    ids_n = [keep_ids[i] for i in dense_new]
+                    writer.append(vecs[dense_new], ids_n, [f"{d}#{lang}" for d in ids_n])
+                    kept += len(ids_n)
+                    base_ids_global.update(ids_n)
+                if tok_writer is not None:
+                    tok_new = [i for i, d in enumerate(keep_ids) if d not in tok_written]
+                    if tok_new:
+                        ids_t = [keep_ids[i] for i in tok_new]
+                        tok_writer.append(toks[tok_new], lens[tok_new], ids_t, [f"{d}#{lang}" for d in ids_t])
                 if max_docs and kept >= max_docs and not tok_lagging():
                     break
-                continue
-            if tok_writer is None:
-                vecs = encoder.encode_documents(keep_texts, batch_size=enc_batch, readback_dtype=readback, pack=pack)
-                toks = lens = None
-            else:
-                vecs, toks, lens = encoder.encode_documents_with_tokens(
-                    keep_texts, batch_size=enc_batch, max_tokens=tokens_per_doc, pack=pack
-                )
-            # each store skips only its own rows already written
-            dense_new = [i for i, d in enumerate(keep_ids) if d not in already_written]
-            if dense_new:
-                ids_n = [keep_ids[i] for i in dense_new]
-                writer.append(vecs[dense_new], ids_n, [f"{d}#{lang}" for d in ids_n])
-                kept += len(ids_n)
-                base_ids_global.update(ids_n)
-            if tok_writer is not None:
-                tok_new = [i for i, d in enumerate(keep_ids) if d not in tok_written]
-                if tok_new:
-                    ids_t = [keep_ids[i] for i in tok_new]
-                    tok_writer.append(toks[tok_new], lens[tok_new], ids_t, [f"{d}#{lang}" for d in ids_t])
-            if max_docs and kept >= max_docs and not tok_lagging():
-                break
         writer.finalize(
             extra={
                 "subset_mode": selection.subset_mode,

@@ -5,6 +5,9 @@ Each runner searches one or many query sets (k=100 by default) and writes
 one TREC run per band / alpha with the JAX package's file names and line
 format. The alpha sweep keeps the index on the card across all alphas and
 mixes on the device in f32 (:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`).
+While tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`) each
+alpha or set is the span ``runs.alpha`` (the mix inside it ``runs.mix``)
+and counts its queries under ``runs.queries``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from codemix_dense_retrieval_torch.config import format_alpha
 from codemix_dense_retrieval_torch.index.flat import DenseFlatIndex
 from codemix_dense_retrieval_torch.io.trec import write_run
 from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
+from codemix_dense_retrieval_torch.utils import timing
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 log = get_logger("runs")
@@ -52,17 +56,19 @@ def run_word_mix_search(
             rows = rows[:max_queries]
         qids = [q for q, _ in rows]
         texts = [t for _, t in rows]
-        qvecs = encoder.encode_queries(texts, batch_size=batch_size)
-        vals, docids = index.search(qvecs, k, query_block=query_block, approx=approx)
-        run_path = outdir / f"{set_name}.trec"
-        write_run(run_path, qids, docids, vals, tag=tag)
-        out[set_name] = run_path
-        if approx and index.last_certified is not None:
-            (outdir / f"{set_name}_meta.json").write_text(json.dumps({
-                "approx": str(approx),
-                "certified_frac": float(index.last_certified.mean()),
-                "num_queries": len(qids), "k": k,
-            }, indent=2))
+        with timing.span("runs.alpha"):
+            timing.count("runs.queries", len(qids))
+            qvecs = encoder.encode_queries(texts, batch_size=batch_size)
+            vals, docids = index.search(qvecs, k, query_block=query_block, approx=approx)
+            run_path = outdir / f"{set_name}.trec"
+            write_run(run_path, qids, docids, vals, tag=tag)
+            out[set_name] = run_path
+            if approx and index.last_certified is not None:
+                (outdir / f"{set_name}_meta.json").write_text(json.dumps({
+                    "approx": str(approx),
+                    "certified_frac": float(index.last_certified.mean()),
+                    "num_queries": len(qids), "k": k,
+                }, indent=2))
         log.info("run saved: %s (%d queries)", run_path, len(qids))
     return out
 
@@ -101,26 +107,29 @@ def run_vector_mix_search(
     out: Dict[float, pathlib.Path] = {}
     for alpha in alphas:
         label = format_alpha(alpha)
-        q_matrix = mix_and_renorm(p, s, float(alpha))
-        vals, docids = index.search(q_matrix, k, query_block=query_block, approx=approx)
-        if cert_out is not None and index.last_certified is not None:
-            # per alpha, inside the loop: the index holds only the latest
-            cert_out[alpha] = float(index.last_certified.mean())
-        run_path = outdir / f"{run_prefix}{label}.trec"
-        write_run(run_path, list(qids), docids, vals, tag=tag, precision=precision)
-        out[alpha] = run_path
-        if write_meta:
-            meta = {
-                "alpha": alpha,
-                "num_queries": len(qids),
-                "k": k,
-                "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
-            }
-            if approx and index.last_certified is not None:
-                meta["approx"] = str(approx)
-                meta["certified_frac"] = float(index.last_certified.mean())
-            meta.update(meta_extra or {})
-            (outdir / f"{run_prefix}{label}_meta.json").write_text(json.dumps(meta, indent=2))
+        with timing.span("runs.alpha"):
+            timing.count("runs.queries", len(qids))
+            with timing.span("runs.mix"):
+                q_matrix = mix_and_renorm(p, s, float(alpha))
+            vals, docids = index.search(q_matrix, k, query_block=query_block, approx=approx)
+            if cert_out is not None and index.last_certified is not None:
+                # per alpha, inside the loop: the index holds only the latest
+                cert_out[alpha] = float(index.last_certified.mean())
+            run_path = outdir / f"{run_prefix}{label}.trec"
+            write_run(run_path, list(qids), docids, vals, tag=tag, precision=precision)
+            out[alpha] = run_path
+            if write_meta:
+                meta = {
+                    "alpha": alpha,
+                    "num_queries": len(qids),
+                    "k": k,
+                    "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+                }
+                if approx and index.last_certified is not None:
+                    meta["approx"] = str(approx)
+                    meta["certified_frac"] = float(index.last_certified.mean())
+                meta.update(meta_extra or {})
+                (outdir / f"{run_prefix}{label}_meta.json").write_text(json.dumps(meta, indent=2))
         log.info("run saved: %s (%d queries, alpha=%s)", run_path, len(qids), label)
     return out
 

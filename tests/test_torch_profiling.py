@@ -1,10 +1,10 @@
-"""utils/profiling.py and utils/timing.py against the JAX package's:
-maybe_trace as a no-op and with a CPU trace (a Chrome trace under
-<dir>/<name>/), timed_device_fn's result and its wait on the result, and
-the phase timers' accounting."""
+"""utils/profiling.py against the JAX package's: maybe_trace as a no-op and
+with a CPU trace (a Chrome trace under <dir>/<name>/, with the port's spans
+on rows of their own and their totals in spans.json), and timed_device_fn's
+result and its wait on the result."""
 
 import json
-import logging
+import threading
 import time
 
 import numpy as np
@@ -13,7 +13,6 @@ import torch
 
 from codemix_dense_retrieval_torch.utils import profiling, timing
 from codemix_dense_retrieval_tpu.utils import profiling as ref_profiling
-from codemix_dense_retrieval_tpu.utils import timing as ref_timing
 
 
 def test_maybe_trace_is_a_noop_without_a_dir(tmp_path, monkeypatch):
@@ -29,7 +28,7 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path, monkeypatch, via_env):
     if via_env:
         monkeypatch.setenv("CDR_PROFILE_DIR", str(tmp_path))
     with profiling.maybe_trace("search", None if via_env else str(tmp_path)):
-        with timing.phase_timer("marked_span", trace=True):
+        with timing.span("marked_span"):
             (torch.randn(64, 64) @ torch.randn(64, 64)).sum()
     trace = json.loads((tmp_path / "search" / "trace.json").read_text())
     names = {ev.get("name") for ev in trace["traceEvents"]}
@@ -60,20 +59,37 @@ def test_timed_device_fn_waits_for_the_result():
     assert profiling.timed_device_fn(slow, iters=2, warmup=0)["mean_s"] >= 0.02
 
 
-def test_timer_and_phase_timer_match_jax(caplog):
-    got, want = timing.Timer(), ref_timing.Timer()
-    for t in (got, want):
-        for name in ("encode", "search", "encode"):
-            with t.phase(name):
-                pass
-    assert {k: v["count"] for k, v in got.summary().items()} == {k: v["count"] for k, v in want.summary().items()}
-    assert set(got.summary()["encode"]) == {"total_s", "count"}
-    with pytest.raises(KeyError):
-        with got.phase("failing"):
-            raise KeyError("x")
-    assert got.counts["failing"] == 1  # a phase that raises is still counted
-    log = logging.getLogger("cdr-test-timing")
-    with caplog.at_level(logging.INFO, logger="cdr-test-timing"):
-        with timing.phase_timer("load", logger=log):
-            pass
-    assert any(r.getMessage().startswith("load took ") for r in caplog.records)
+def test_maybe_trace_writes_spans_json_and_the_helper_threads_rows(tmp_path):
+    timing.reset()
+    with timing.span("before"):   # no profiler yet: not recorded
+        pass
+
+    def work(handed):
+        with timing.span("helper.step", within=handed):
+            time.sleep(0.002)
+
+    with profiling.maybe_trace("enc", str(tmp_path)):
+        with timing.span("caller"):
+            handed = timing.handoff()
+            th = threading.Thread(target=work, args=(handed,), name="helper-1")
+            th.start()
+            th.join(timeout=30)
+        timing.count("items", 5)
+    assert not th.is_alive()
+    spans = json.loads((tmp_path / "enc" / "spans.json").read_text())
+    assert spans == json.loads(json.dumps(timing.totals()))
+    assert set(spans["spans"]) == {"caller", "helper.step"} and spans["counters"] == {"items": 5}
+    assert spans["spans"]["helper.step"]["parent"] == "caller"
+    trace = json.loads((tmp_path / "enc" / "trace.json").read_text())
+    base = trace.get("baseTimeNanoseconds", 0)
+    rows = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+            if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    ours = {e["name"]: e for e in trace["traceEvents"] if e.get("cat") == "span"}
+    assert rows[ours["helper.step"]["tid"]] == "spans: helper-1"
+    assert rows[ours["caller"]["tid"]] == "spans: MainThread"
+    # the helper's row lies inside the caller's host event, on the trace's time base
+    host, = [e for e in trace["traceEvents"] if e.get("cat") == "user_annotation" and e["name"] == "caller"]
+    step = ours["helper.step"]
+    assert host["ts"] <= step["ts"] and step["ts"] + step["dur"] <= host["ts"] + host["dur"]
+    rec, = [r for r in timing.records() if r.name == "helper.step"]
+    assert step["ts"] == pytest.approx((rec.start_ns - base) / 1e3, rel=0, abs=1e-3)
