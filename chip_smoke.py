@@ -1452,7 +1452,7 @@ def main() -> None:
     t0 = time.perf_counter()
     check(_fastio.available(), "the native TREC writer (csrc/fastio.cpp) did not build or load")
     fastio_s = time.perf_counter() - t0
-    trec.WRITES.update(native=0, python=0)
+    trec.WRITES.update(native=0, python=0, table=0)
     say("build", seconds=round(build_s, 2), sources=list(kernels.SOURCES.values()), ptxas=ptxas,
         fastio_seconds=round(fastio_s, 2), fastio=_fastio.library_path().name)
 
@@ -2082,7 +2082,8 @@ def main() -> None:
     check(path_counts["fused"]["bin_scores_bin_major"] > 0, "the fused sweep did not launch kernel A")
     for ai, a in enumerate(ALPHAS):
         check(np.array_equal(fids[ai], run_ids(runs100[a], 100)), f"fused ids differ from the unfused run, alpha={a}")
-    # the k=1000 table written by the native writer and by the Python one
+    # the k=1000 run written from string rows (native and Python) and from row ids
+    # with the index's docid table
     table_ids, table_sc = run_table(runs1000[0.5], 1000)
     table_docs = index.docids[table_ids]
     table_sc = table_sc.astype(np.float32)
@@ -2092,14 +2093,19 @@ def main() -> None:
     t0 = time.perf_counter()
     trec._write_run_python(work / "w_python.trec", qids, table_docs, table_sc, "onepass-cm", 4)
     python_w_s = time.perf_counter() - t0
-    check((work / "w_native.trec").read_bytes() == (work / "w_python.trec").read_bytes(),
-          "the native and Python TREC writers differ")
+    docid_table = index.docid_table()
+    t0 = time.perf_counter()
+    trec.write_run(work / "w_table.trec", qids, table_ids, table_sc, tag="onepass-cm", table=docid_table)
+    table_w_s = time.perf_counter() - t0
+    check((work / "w_native.trec").read_bytes() == (work / "w_python.trec").read_bytes()
+          == (work / "w_table.trec").read_bytes(), "the native, table and Python TREC writers differ")
     say("fused", alphas=len(ALPHAS), k=100, query_block=256,
         unfused_k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t100, 1),
         fused_k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / tf100, 1), fused_ids_equal_unfused=True,
         k1000_queries_per_s_native_writer=round(N_QUERIES / t1000, 1),
         trec_k1000_lines=N_QUERIES * 1000, trec_write_native_s=round(native_w_s, 3),
-        trec_write_python_s=round(python_w_s, 3), launches=path_counts["fused"])
+        trec_write_python_s=round(python_w_s, 3), trec_write_table_s=round(table_w_s, 3),
+        launches=path_counts["fused"])
 
     # ---------------- phase 5b: the same run over the int8 index ----------------
     mark("5b")
@@ -4553,7 +4559,7 @@ def main() -> None:
     for e in entries:
         e["launches"] = total(e["name"].replace("[", "_").rstrip("]"))
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
-    check(trec.WRITES["python"] == 0 and trec.WRITES["native"] > 0,
+    check(trec.WRITES["python"] == 0 and trec.WRITES["native"] > 0 and trec.WRITES["table"] > 0,
           f"TREC runs written by the Python path: {trec.WRITES}")
     say("path_launches", **path_counts)
     shutil.rmtree(work, ignore_errors=True)

@@ -368,7 +368,7 @@ def _run_mix_fused(args, index, qids, vecs_a, vecs_b, alphas, approx) -> None:
     for ai, alpha in enumerate(alphas):
         label = format_alpha(alpha)
         path = outdir / f"cm-alpha-{label}.trec"
-        write_run(path, qids, index.docids[ids[ai]], vals[ai], tag="onepass-cm")
+        write_run(path, qids, ids[ai], vals[ai], tag="onepass-cm", table=index.docid_table())
         out[label] = {
             "run": str(path),
             **({name: round(float(v[ai]) * 100, 4) for name, v in metrics.items()} if metrics else {}),

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardManifest, ShardStore, concat_stores, storage_dtype
+from codemix_dense_retrieval_torch.io.trec import DocidTable
 from codemix_dense_retrieval_torch.ops.quant import quantize_rows
 from codemix_dense_retrieval_torch.parallel.mesh import Mesh, as_mesh
 from codemix_dense_retrieval_torch.parallel.sharded_search import (
@@ -89,6 +90,8 @@ class DenseFlatIndex:
     def __init__(self, store: ShardStore) -> None:
         self.store = store
         self._docids = np.asarray(store.derived_ids, dtype=object)
+        # docid_table()'s cache, dropped wherever the docids change
+        self._docid_table: Optional[DocidTable] = None
         self.mesh: Optional[Mesh] = None
         self.device: Optional[torch.device] = None  # the mesh's first shard's
         # per-shard device rows and valid-row counts ((1,) int32), shard order
@@ -167,6 +170,17 @@ class DenseFlatIndex:
     def docids(self) -> np.ndarray:
         """Derived docid per row."""
         return self._docids
+
+    def docid_table(self) -> DocidTable:
+        """:attr:`docids` as one :class:`~codemix_dense_retrieval_torch.io.trec.DocidTable`
+        (a hole of a mutated index is an empty field), for ``write_run(...,
+        table=)`` over the row ids of :meth:`search` with
+        ``return_docids=False``. Built at first use and kept until the docids
+        change; while tracing each build counts ``trec.table_builds``."""
+        if self._docid_table is None:
+            self._docid_table = DocidTable.build(self._docids)
+            timing.count("trec.table_builds")
+        return self._docid_table
 
     def save(self, directory) -> None:
         self.to_store().save(directory)
@@ -291,6 +305,7 @@ class DenseFlatIndex:
             "row_of": dict(zip(docids[:n].tolist(), range(n))),
         }
         self._docids = docids
+        self._docid_table = None
         self.mutation_stats["row_of_s"] = time.perf_counter() - t0
 
     def _refresh_counts(self) -> None:
@@ -414,6 +429,7 @@ class DenseFlatIndex:
                 (src != s * rows_per_shard + np.arange(len(src))).any() for s, src in enumerate(sources)
             )
             m["docids"] = self._docids = docids
+            self._docid_table = None
             if moved:
                 live = np.flatnonzero(docids != None)  # noqa: E711
                 m["row_of"] = dict(zip(docids[live].tolist(), live.tolist()))
@@ -490,6 +506,7 @@ class DenseFlatIndex:
                 counts[sh] += 1
         m["docids"][positions] = docids
         m["row_of"].update(zip(docids, positions.tolist()))
+        self._docid_table = None
         m["count"] += len(vectors)
         self.mutation_epoch += 1
         self.last_swaps = []
@@ -529,6 +546,7 @@ class DenseFlatIndex:
             touched.pop(last, None)  # past the count now
         if removed:
             self.mutation_epoch += 1
+            self._docid_table = None
             # the moved rows first, then the lower counts: a search between
             # the two sees at worst a still-counted copy of a live row
             if touched:
@@ -960,6 +978,7 @@ class DenseFlatIndex:
             new_vals, docids, derived, scales=new_scales,
         )
         self._docids = np.asarray(self.store.derived_ids, dtype=object)
+        self._docid_table = None
         self._mutable = None
         self.last_swaps = []
         self.mutation_epoch += 1

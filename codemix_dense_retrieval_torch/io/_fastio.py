@@ -68,13 +68,30 @@ def _lib() -> Optional[ctypes.CDLL]:
             lib = ctypes.CDLL(str(library_path()))
         except OSError:
             return None
+        i64p, f32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float)
+        lib.fastio_field_offsets.restype = ctypes.c_long
+        lib.fastio_field_offsets.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, i64p]
+        lib.fastio_write_run_ids.restype = ctypes.c_long
+        lib.fastio_write_run_ids.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_char_p,
+            i64p,
+            ctypes.c_long,
+            ctypes.c_char_p,
+            i64p,
+            i64p,
+            ctypes.c_long,
+            f32p,
+            ctypes.c_char_p,
+            ctypes.c_int,
+        ]
         lib.fastio_write_run.restype = ctypes.c_long
         lib.fastio_write_run.argtypes = [
             ctypes.c_char_p,
             ctypes.c_char_p,
             ctypes.c_long,
             ctypes.c_char_p,
-            ctypes.POINTER(ctypes.c_float),
+            f32p,
             ctypes.c_long,
             ctypes.c_char_p,
             ctypes.c_int,
@@ -90,6 +107,51 @@ def available() -> bool:
     return _lib() is not None
 
 
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def field_offsets(blob: bytes, n: int) -> Optional[np.ndarray]:
+    """The (n + 1,) int64 offsets of the ``n`` newline-ended fields of
+    ``blob`` (field i is ``blob[off[i] : off[i + 1] - 1]``), or None without
+    the library or when ``blob`` holds another number of newlines."""
+    lib = _lib()
+    if lib is None:
+        return None
+    off = np.empty(n + 1, np.int64)
+    if lib.fastio_field_offsets(blob, len(blob), n, _ptr(off, ctypes.c_int64)) != n:
+        return None
+    return off
+
+
+def write_run_ids(path: str, qids: Sequence[str], ids: np.ndarray, scores: np.ndarray, table, tag: str,
+                  precision: int) -> int:
+    """Lines written, or -1 when the native path cannot take the call (no
+    library, a qid with a newline, a precision outside 0-64). ``ids`` is a
+    (Q, k) array of row ids into ``table``, an
+    :class:`~codemix_dense_retrieval_torch.io.trec.DocidTable`, which checks
+    them. The qid offsets and the contiguous ids and scores are made under
+    the span ``trec.marshal``; the C call, which formats and writes every
+    line, is ``trec.native_write``."""
+    lib = _lib()
+    if lib is None:
+        return -1
+    nq = len(qids)
+    with timing.span("trec.marshal"):
+        rows = table.check(ids)
+        sc = np.ascontiguousarray(scores, dtype=np.float32)
+        qid_blob = "".join(f"{q}\n" for q in qids).encode()
+        qid_off = field_offsets(qid_blob, nq)
+        if qid_off is None:
+            return -1
+    with timing.span("trec.native_write"):
+        return lib.fastio_write_run_ids(
+            path.encode(), qid_blob, _ptr(qid_off, ctypes.c_int64), nq,
+            table.blob, _ptr(table.offsets, ctypes.c_int64), _ptr(rows, ctypes.c_int64), rows.shape[1],
+            _ptr(sc, ctypes.c_float), tag.encode(), precision,
+        )
+
+
 def write_run(
     path: str,
     qids: Sequence[str],
@@ -100,8 +162,10 @@ def write_run(
 ) -> int:
     """Lines written, or -1 when the native path cannot take the call
     (no library, ragged rows, a score array of another shape, a field with
-    a newline). Each column crosses as one newline-separated buffer, built
-    under the span ``trec.marshal``; the C call is ``trec.native_write``."""
+    a newline, a precision outside 0-64). Each column crosses as one
+    newline-separated buffer, built under the span ``trec.marshal``; the C
+    call, which splits the buffers and formats and writes every line, is
+    ``trec.native_write``."""
     lib = _lib()
     if lib is None:
         return -1
@@ -117,12 +181,9 @@ def write_run(
         k = docs.shape[1]
         qid_blob = ("\n".join(map(str, qids)) + "\n").encode()
         doc_blob = ("\n".join(map(str, docs.ravel().tolist())) + "\n").encode()
-        if qid_blob.count(b"\n") != nq or doc_blob.count(b"\n") != nq * k:
-            return -1
     with timing.span("trec.native_write"):
         return lib.fastio_write_run(
-            path.encode(), qid_blob, nq, doc_blob,
-            sc.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), k, tag.encode(), precision,
+            path.encode(), qid_blob, nq, doc_blob, _ptr(sc, ctypes.c_float), k, tag.encode(), precision,
         )
 
 

@@ -3,9 +3,12 @@ sweeps over a device-resident index.
 
 Each runner searches one or many query sets (k=100 by default) and writes
 one TREC run per band / alpha with the JAX package's file names and line
-format. The alpha sweep keeps the index on the card across all alphas and
-mixes on the device in f32 (:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`).
-While tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`) each
+format, from the search's row ids and the index's docid table
+(:meth:`~codemix_dense_retrieval_torch.index.flat.DenseFlatIndex.docid_table`,
+built at the first write and kept across alphas). The alpha sweep keeps
+the index on the card across all alphas and mixes on the device in f32
+(:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`). While
+tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`) each
 alpha or set is the span ``runs.alpha`` (the mix inside it ``runs.mix``)
 and counts its queries under ``runs.queries``.
 """
@@ -59,9 +62,9 @@ def run_word_mix_search(
         with timing.span("runs.alpha"):
             timing.count("runs.queries", len(qids))
             qvecs = encoder.encode_queries(texts, batch_size=batch_size)
-            vals, docids = index.search(qvecs, k, query_block=query_block, approx=approx)
+            vals, ids = index.search(qvecs, k, query_block=query_block, approx=approx, return_docids=False)
             run_path = outdir / f"{set_name}.trec"
-            write_run(run_path, qids, docids, vals, tag=tag)
+            write_run(run_path, qids, ids, vals, tag=tag, table=index.docid_table())
             out[set_name] = run_path
             if approx and index.last_certified is not None:
                 (outdir / f"{set_name}_meta.json").write_text(json.dumps({
@@ -111,12 +114,12 @@ def run_vector_mix_search(
             timing.count("runs.queries", len(qids))
             with timing.span("runs.mix"):
                 q_matrix = mix_and_renorm(p, s, float(alpha))
-            vals, docids = index.search(q_matrix, k, query_block=query_block, approx=approx)
+            vals, ids = index.search(q_matrix, k, query_block=query_block, approx=approx, return_docids=False)
             if cert_out is not None and index.last_certified is not None:
                 # per alpha, inside the loop: the index holds only the latest
                 cert_out[alpha] = float(index.last_certified.mean())
             run_path = outdir / f"{run_prefix}{label}.trec"
-            write_run(run_path, list(qids), docids, vals, tag=tag, precision=precision)
+            write_run(run_path, list(qids), ids, vals, tag=tag, precision=precision, table=index.docid_table())
             out[alpha] = run_path
             if write_meta:
                 meta = {

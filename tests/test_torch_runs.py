@@ -107,6 +107,50 @@ def test_evaluate_artifacts_are_byte_identical(make, tmp_path):
         assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "ref" / name).read_bytes(), name
 
 
+def test_docid_table_follows_add_remove_and_rebalance(tmp_path):
+    """A vector-mix sweep after each add / remove / rebalance of a two-shard
+    index writes, on every line, the docid its search's row id names then;
+    traced, each state of the index builds the docid table once and each
+    alpha writes through it."""
+    import torch
+
+    from codemix_dense_retrieval_torch.ops.mix import mix_and_renorm
+    from codemix_dense_retrieval_torch.parallel.mesh import make_mesh as port_mesh
+    from codemix_dense_retrieval_torch.utils import timing
+
+    rng = np.random.default_rng(11)
+    n, d, b, k, alphas = 600, 32, 6, 9, [0.0, 0.5, 1.0]
+    unit = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    index = PortIndex.build(unit(rng.standard_normal((n, d))), [f"d{i}" for i in range(n)]).to_device(
+        port_mesh(shard=2, devices=["cpu"] * 2), pad_multiple=128)
+    qids = [f"q{i}" for i in range(b)]
+    primary = rng.standard_normal((b, d)).astype(np.float32)
+    secondary = primary + 0.5 * rng.standard_normal((b, d)).astype(np.float32)
+    steps = [("initial", lambda: None),
+             ("add", lambda: index.add(unit(rng.standard_normal((40, d))), [f"new{i}" for i in range(40)])),
+             ("remove", lambda: index.remove([f"d{i}" for i in range(0, 300, 3)] + ["new0", "new7"])),
+             ("rebalance", index.rebalance)]
+    timing.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for name, step in steps:
+                step()
+                paths = port_runs.run_vector_mix_search(index, qids, primary, secondary, alphas,
+                                                        tmp_path / name, k=k, query_block=4)
+                for alpha in alphas:
+                    q = mix_and_renorm(torch.from_numpy(primary), torch.from_numpy(secondary), alpha)
+                    _, gid = index.search(q, k, return_docids=False, query_block=4)
+                    got = [line.split("\t")[2] for line in paths[alpha].read_text().splitlines()]
+                    assert got == [str(x) for x in index.docids[gid].ravel()], (name, alpha)
+                    assert None not in index.docids[gid]
+        counters = timing.totals()["counters"]
+    finally:
+        timing.reset()
+    assert index.count == n + 40 - 102
+    assert counters["trec.table_builds"] == len(steps)
+    assert counters["trec.table_writes"] == len(steps) * len(alphas)
+
+
 def test_intersect_query_sets_matches():
     a = [("1", "x"), ("2", "y"), ("3", "z")]
     b = [("3", "Z"), ("1", "X"), ("9", "?")]
