@@ -534,14 +534,13 @@ def cmd_convert(args) -> None:
     takes the XLM-R family only); ``--weight_quant`` stores the Linear
     kernels quantized (2x / ~4x smaller than f32, loaded quantized)."""
     from codemix_dense_retrieval_torch.models.convert import flax_from_state_dict, save_params_npz
-    from codemix_dense_retrieval_torch.models.encoder import checkpoint_config_dict
+    from codemix_dense_retrieval_torch.models.encoder import checkpoint_config_dict, quantize_state_dict
     from codemix_dense_retrieval_torch.models.registry import load_hf_family
-    from codemix_dense_retrieval_torch.ops.weight_quant import quantize_tree
 
     cfg, params, _ = load_hf_family(args.encoder, args.src)
-    tree = flax_from_state_dict(params)
     if args.weight_quant:
-        tree = quantize_tree(tree, args.weight_quant)
+        params = {**params, **quantize_state_dict(params, args.weight_quant)}
+    tree = flax_from_state_dict(params)
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     save_params_npz(out / "params.npz", tree)

@@ -21,6 +21,8 @@ def detect_encoder_family(encoder: str) -> str:
         return "jina-v3"
     if "qwen3-embedding" in name:
         return "qwen3"
+    if "moonlight" in name or "deepseek-v3" in name or "kimi-k2" in name:
+        return "deepseek-v3"
     if "e5" in name and "instruct" in name:
         return "e5-instruct"
     if "e5" in name:
@@ -50,7 +52,7 @@ def doc_prefix(encoder: str) -> str:
 
 def default_pooling(encoder: str) -> str:
     family = detect_encoder_family(encoder)
-    if family == "qwen3":
+    if family in ("qwen3", "deepseek-v3"):
         return "last_token"
     if family in ("e5", "e5-instruct"):
         return "mean"

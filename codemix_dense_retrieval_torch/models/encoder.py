@@ -14,9 +14,11 @@ the spans ``encoder.tokenize`` (prefetch thread), ``encoder.tokenize_wait``,
 ``encoder.encode`` and ``encoder.forward``. Family dialects apply their
 query / passage prompt prefixes, and jina-v3's task adapters their
 per-role task (:meth:`TextEncoder._task_id`). The model is any encoder
-family's module (XLM-R by default; ``model=`` a Qwen3 or GTE module), all
-with one ``(ids, mask, task_id)`` call contract. With a ``mesh`` every
-forward is data-parallel over its ``shard`` axis (:meth:`TextEncoder._forward`).
+family's module (XLM-R by default; ``model=`` a Qwen3, GTE or DeepSeek-V3
+module), all with one ``(ids, mask, task_id)`` call contract; a model that
+routes tokens (``ROUTES_TOKENS``) also gets the batch's real-token count
+(:meth:`TextEncoder._routed`). With a ``mesh`` every forward is
+data-parallel over its ``shard`` axis (:meth:`TextEncoder._forward`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from codemix_dense_retrieval_torch.models.convert import (
     load_params_npz,
     params_from_flax,
 )
+from codemix_dense_retrieval_torch.models.deepseek_v3 import DeepseekV3Config, DeepseekV3Encoder
 from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder
 from codemix_dense_retrieval_torch.models.packing import PackedRows, pack_sequences, pad_rows_to
 from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
@@ -60,6 +63,7 @@ from codemix_dense_retrieval_torch.ops.weight_quant import (
     QuantizedTensor,
     has_quantized,
     install_quantized_,
+    quantize_stacked,
     quantize_tree,
     quantized_kinds,
 )
@@ -119,9 +123,21 @@ def quantize_state_dict(sd: Mapping, mode: str) -> dict:
     QuantizedTensor}``: the JAX package's ``quantize_tree`` over the
     Flax-layout tree of its f32 host copy, so eligibility (2-D, at least
     65,536 elements, no path component containing "embed") and the codes
-    are decided on ``(in, out)`` kernels, as there."""
-    tree = quantize_tree(flax_from_state_dict(sd), mode)
-    return {k: v for k, v in params_from_flax(tree).items() if isinstance(v, QuantizedTensor)}
+    are decided on ``(in, out)`` kernels, as there. A mixture of experts'
+    router (``mlp.gate``) stays in full precision, as bitsandbytes leaves
+    HF's router parameter; its stacked experts (3-D ``weight`` (E, out,
+    in)) are quantized on their own device, each expert's kernel as one
+    2-D kernel (:func:`~codemix_dense_retrieval_torch.ops.weight_quant.quantize_stacked`)
+    where it has at least 65,536 elements."""
+    stacks = {k: v for k, v in sd.items()
+              if isinstance(v, torch.Tensor) and v.ndim == 3 and k.endswith(".weight")}
+    rest = {k: v for k, v in sd.items() if k not in stacks and not k.endswith("mlp.gate.weight")}
+    tree = quantize_tree(flax_from_state_dict(rest), mode)
+    out = {k: v for k, v in params_from_flax(tree).items() if isinstance(v, QuantizedTensor)}
+    for k, w in stacks.items():
+        if w[0].numel() >= 65_536 and w.is_floating_point():
+            out[k] = quantize_stacked(w.detach().transpose(1, 2), mode)
+    return out
 
 
 #: ``encoder_config.json``'s ``model_type`` (absent: XLM-R, the JAX
@@ -130,6 +146,7 @@ CONVERTED_FAMILIES = {
     "xlm-roberta": (XLMRConfig, XLMREncoder),
     "qwen3": (Qwen3Config, Qwen3Encoder),
     "new": (GTEConfig, GTEEncoder),
+    "deepseek_v3": (DeepseekV3Config, DeepseekV3Encoder),
 }
 
 
@@ -310,6 +327,15 @@ class TextEncoder:
                 return tuple(gather_to(parts, self.device, dim=0) for parts in zip(*outs))
             return gather_to(outs, self.device, dim=0)
 
+    def _routed(self, mask: torch.Tensor) -> dict:
+        """``token_count=`` for a model that routes tokens (``ROUTES_TOKENS``,
+        a mixture of experts): the batch's real tokens, summed from the host
+        mask, so the forward's shapes need no read from the card; nothing
+        for other models, or with a mesh (each replica holds a chunk)."""
+        if self._dp > 1 or not getattr(self.model, "ROUTES_TOKENS", False):
+            return {}
+        return {"token_count": int(mask.sum())}
+
     @staticmethod
     def _start_readback(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
         """Queue ``t``'s copy to the host behind the work that produces it:
@@ -448,7 +474,8 @@ class TextEncoder:
 
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
-                emb = self._forward("forward", self._dev(ids), self._dev(mask), task_id=task_id)
+                emb = self._forward("forward", self._dev(ids), self._dev(mask), task_id=task_id,
+                                    **self._routed(mask))
                 if readback_dtype is not None:
                     emb = emb.to(readback_dtype)
                 yield self._host_f32, self._start_readback(emb)
@@ -727,7 +754,8 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                t = self._forward("token_embeddings", self._dev(ids), self._dev(mask), task_id=task_id)
+                t = self._forward("token_embeddings", self._dev(ids), self._dev(mask), task_id=task_id,
+                                  **self._routed(mask))
                 yield (lambda block: block), (t[:, :max_tokens].contiguous(),)
 
         with torch.inference_mode():
@@ -765,7 +793,8 @@ class TextEncoder:
         def jobs():
             for ids, mask in self._batch_inputs(texts, batch_size, prefix, max_length, stats):
                 lengths.append(self._mask_lengths(mask))
-                dv, tv = self._forward("embed_with_tokens", self._dev(ids), self._dev(mask), task_id=task)
+                dv, tv = self._forward("embed_with_tokens", self._dev(ids), self._dev(mask), task_id=task,
+                                       **self._routed(mask))
                 toks.append(tv[:, :max_tokens].contiguous())
                 yield self._host_f32, self._start_readback(dv)
 

@@ -145,11 +145,15 @@ class Qwen3Attention(nn.Module):
 
 
 class Qwen3Mlp(nn.Module):
-    def __init__(self, cfg: Qwen3Config) -> None:
+    """SiLU-gated MLP of width ``intermediate_size`` (the config's by
+    default; DeepSeek-V3's shared experts are one such MLP)."""
+
+    def __init__(self, cfg: Qwen3Config, intermediate_size: Optional[int] = None) -> None:
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        f = intermediate_size or cfg.intermediate_size
+        self.gate_proj = nn.Linear(cfg.hidden_size, f, bias=False)
+        self.up_proj = nn.Linear(cfg.hidden_size, f, bias=False)
+        self.down_proj = nn.Linear(f, cfg.hidden_size, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))

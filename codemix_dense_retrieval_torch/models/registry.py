@@ -7,13 +7,16 @@
 - XLM-R family (``xlm-roberta``): BGE-M3, multilingual-E5, LaBSE-class;
 - Qwen3-Embedding (``qwen3``): decoder, last-token pooling;
 - GTE-multilingual (``new``): RoPE post-LN encoder;
+- DeepSeek-V3 blocks (``deepseek_v3``: Moonlight-16B-A3B, DeepSeek-V3,
+  Kimi-K2): latent attention and sigmoid-routed experts, last-token pooling;
 - jina-embeddings-v3: XLM-R with task-LoRA adapters.
 
 Without a checkpoint it builds a tiny random-init model of the family
 (smoke mode); with one, an HF-format directory (``config.json`` + weights)
 or a pre-converted one (``params.npz`` + ``encoder_config.json``, written by
 ``convert``; the JAX package converts the XLM-R family only, the port any
-family, with ``model_type`` in ``encoder_config.json`` for Qwen3 and GTE).
+family, with ``model_type`` in ``encoder_config.json`` for the families
+other than XLM-R).
 ``weight_quant`` quantizes the encoder's Linear weights in every family.
 """
 
@@ -93,6 +96,17 @@ def load_hf_family(name: str, checkpoint_dir, *, dtype: torch.dtype = torch.floa
         params = convert_qwen3_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
         return cfg, params, Qwen3Encoder
 
+    if model_type == "deepseek_v3" or family == "deepseek-v3":
+        from codemix_dense_retrieval_torch.models.deepseek_v3 import (
+            DeepseekV3Config,
+            DeepseekV3Encoder,
+            convert_deepseek_v3_state_dict,
+        )
+
+        cfg = DeepseekV3Config.from_hf_config(hf_cfg, dtype=dtype)
+        params = convert_deepseek_v3_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
+        return cfg, params, DeepseekV3Encoder
+
     if model_type == "new" or family == "gte":
         from codemix_dense_retrieval_torch.models.gte import (
             GTEConfig,
@@ -137,13 +151,21 @@ def _detect_prefix(sd, marker: str) -> str:
 def _random_init(name, family, dtype, use_flash, **kw) -> TextEncoder:
     """Smoke-mode random-init encoder of the family's shape (tiny). The tiny
     Qwen3 and GTE models attend plainly, as in the JAX package (Qwen3's
-    tiny head dim is 16, which kernel B does not take)."""
+    tiny head dim is 16, which kernel B does not take); DeepSeek-V3's
+    latent attention always does."""
     if family == "qwen3":
         from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
 
         cfg = Qwen3Config.tiny(vocab_size=30_000, dtype=dtype)
         with torch.device("meta"):
             model = Qwen3Encoder(cfg)
+        return TextEncoder(name, cfg, model=model, **kw)
+    if family == "deepseek-v3":
+        from codemix_dense_retrieval_torch.models.deepseek_v3 import DeepseekV3Config, DeepseekV3Encoder
+
+        cfg = DeepseekV3Config.tiny(vocab_size=30_000, dtype=dtype)
+        with torch.device("meta"):
+            model = DeepseekV3Encoder(cfg)
         return TextEncoder(name, cfg, model=model, **kw)
     if family == "gte":
         from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder

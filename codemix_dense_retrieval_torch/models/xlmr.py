@@ -321,6 +321,10 @@ def init_random_(model: nn.Module, generator: torch.Generator, std: float = 0.02
                 module.lora_b.normal_(0.0, std, generator=generator)
             elif hasattr(module, "weight") and module.weight.ndim == 1:  # RMSNorm
                 module.weight.fill_(1.0)
+            elif hasattr(module, "weight") and module.weight.ndim > 1:  # a router, stacked experts
+                module.weight.normal_(0.0, std, generator=generator)
+                if getattr(module, "e_score_correction_bias", None) is not None:
+                    module.e_score_correction_bias.zero_()
 
 
 def pool_and_normalize(

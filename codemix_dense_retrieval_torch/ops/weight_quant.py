@@ -13,6 +13,11 @@
   weight: the codes stay resident on the device and each forward
   dequantizes them into the compute dtype before a plain ``F.linear``
   (the JAX package lets XLA fuse the same dequantize into the matmul).
+- :func:`quantize_stacked` quantizes a stack of E experts' kernels
+  ``(E, in, out)`` (a mixture-of-experts layer's
+  :class:`~codemix_dense_retrieval_torch.ops.grouped_mm.GroupedLinear`) on
+  its own device, each expert as the host quantizers quantize one kernel;
+  :class:`QuantGroupedLinear` runs it.
 
 Embeddings and 1-D parameters stay in full precision, as bitsandbytes
 quantizes ``nn.Linear`` layers only.
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from codemix_dense_retrieval_torch.ops.grouped_mm import GroupedLinear, grouped_mm
 
 NF4_BLOCK = 64
 
@@ -47,7 +54,9 @@ class QuantizedTensor:
     """A quantized ``(in, out)`` kernel: ``codes`` (int8 ``(in, out)``, or
     uint8 ``(blocks, 32)`` holding two NF4 codes a byte) and f32 ``scale``
     (per output channel, or per block of 64), numpy arrays on the host or
-    tensors on a device. ``shape`` is the unpadded ``(in, out)``."""
+    tensors on a device. ``shape`` is the unpadded ``(in, out)``. A stack
+    of E experts' kernels has ``shape`` ``(E, in, out)`` and a leading E on
+    its codes and scales."""
 
     def __init__(self, kind: str, codes, scale, shape: tuple):
         self.kind = kind
@@ -65,12 +74,13 @@ class QuantizedTensor:
         codes = torch.as_tensor(self.codes)
         scale = torch.as_tensor(self.scale, device=codes.device)
         if self.kind == "int8":
-            return (codes.to(torch.float32) * scale).to(dtype)
+            return (codes.to(torch.float32) * scale.unsqueeze(-2)).to(dtype)
         # nf4: each byte's two levels (high nibble first) in one lookup, * absmax
-        pairs = F.embedding(codes.to(torch.int32), _nf4_pairs(codes.device))  # (blocks, 32, 2)
-        vals = pairs.reshape(codes.shape[0], -1) * scale[:, None]
-        size = int(np.prod(self.shape))
-        return vals.reshape(-1)[:size].reshape(self.shape).to(dtype)
+        pairs = F.embedding(codes.to(torch.int32), _nf4_pairs(codes.device))  # (..., blocks, 32, 2)
+        vals = pairs.reshape(*codes.shape[:-1], -1) * scale[..., None]
+        size = int(np.prod(self.shape[-2:]))
+        lead = tuple(self.shape[:-2])
+        return vals.reshape(*lead, -1)[..., :size].reshape(self.shape).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +116,32 @@ def _quantize_leaf_nf4(w: np.ndarray) -> QuantizedTensor:
     codes = np.searchsorted(mids, normed).astype(np.uint8)  # (nb, B)
     packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).astype(np.uint8)
     return QuantizedTensor("nf4", packed, absmax[:, 0], w.shape)
+
+
+def quantize_stacked(w: torch.Tensor, mode: str) -> QuantizedTensor:
+    """A stack of E kernels ``w`` (E, in, out) quantized on its own device,
+    each expert's kernel as :func:`_quantize_leaf_int8` /
+    :func:`_quantize_leaf_nf4` quantize one (the same codes and scales):
+    int8 per output channel (scale (E, out)), or NF4 in blocks of 64 of
+    each expert's row-major kernel (codes (E, blocks, 32), scale (E,
+    blocks)). The f32 copy it works in is one stack's."""
+    if mode not in MODES:
+        raise ValueError(f"weight_quant mode must be int8|nf4, got {mode!r}")
+    w = w.to(torch.float32)
+    if mode == "int8":
+        absmax = w.abs().amax(dim=1)
+        scale = torch.where(absmax > 0, absmax / torch.tensor(127.0, device=w.device), 1.0)
+        codes = torch.round(w / scale[:, None, :]).clamp_(-127, 127).to(torch.int8)
+        return QuantizedTensor("int8", codes, scale, w.shape)
+    flat = w.reshape(w.shape[0], -1)
+    flat = F.pad(flat, (0, (-flat.shape[1]) % NF4_BLOCK))
+    blocks = flat.reshape(w.shape[0], -1, NF4_BLOCK)
+    absmax = blocks.abs().amax(dim=-1, keepdim=True)
+    absmax = torch.where(absmax > 0, absmax, 1.0)
+    table = torch.from_numpy(NF4_TABLE).to(w.device)
+    codes = torch.searchsorted((table[1:] + table[:-1]) / 2, blocks / absmax).to(torch.uint8)
+    packed = (codes[..., 0::2] << 4) | codes[..., 1::2]
+    return QuantizedTensor("nf4", packed, absmax[..., 0], w.shape)
 
 
 def quantize_tree(
@@ -212,7 +248,7 @@ class QuantLinear(nn.Module):
         super().__init__()
         self.kind = weight.kind
         self.shape = weight.shape
-        self.in_features, self.out_features = weight.shape
+        self.in_features, self.out_features = weight.shape[-2:]
         self.register_buffer("codes", torch.as_tensor(weight.codes).to(device), persistent=False)
         scale = torch.as_tensor(weight.scale, dtype=torch.float32)
         self.register_buffer("scale_bits", scale.view(torch.int32).to(device), persistent=False)
@@ -232,12 +268,25 @@ class QuantLinear(nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}, kind={self.kind}"
 
 
+class QuantGroupedLinear(QuantLinear):
+    """:class:`~codemix_dense_retrieval_torch.ops.grouped_mm.GroupedLinear`
+    over a quantized ``(E, in, out)`` stack: every forward dequantizes the
+    stack into the input's dtype for one grouped product."""
+
+    def kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        return self.weight.dequantize(dtype)
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+        return grouped_mm(x, self.kernel(x.dtype), offsets)
+
+
 def install_quantized_(model: nn.Module, state_dict: Mapping) -> dict:
     """Replace each ``nn.Linear`` of ``model`` whose ``<name>.weight`` in
     ``state_dict`` is a :class:`QuantizedTensor` by a :class:`QuantLinear`
     on the model's device (its bias taken from ``<name>.bias``, which stays
-    among the entries, as the layer's state dict holds it); returns the
-    entries left for ``load_state_dict``."""
+    among the entries, as the layer's state dict holds it), and each such
+    ``GroupedLinear`` by a :class:`QuantGroupedLinear`; returns the entries
+    left for ``load_state_dict``."""
     rest = dict(state_dict)
     for key, w in state_dict.items():
         if not isinstance(w, QuantizedTensor):
@@ -246,6 +295,10 @@ def install_quantized_(model: nn.Module, state_dict: Mapping) -> dict:
         parent_name, _, child = name.rpartition(".")
         parent = model.get_submodule(parent_name)
         old = getattr(parent, child)
+        if isinstance(old, GroupedLinear) and tuple(old.weight.shape) == (w.shape[0], *w.shape[:0:-1]):
+            del rest[key]
+            setattr(parent, child, QuantGroupedLinear(w, device=old.weight.device))
+            continue
         if not isinstance(old, nn.Linear) or (old.in_features, old.out_features) != w.shape:
             raise ValueError(f"{key}: quantized {w.shape} does not replace {old!r}")
         bias = state_dict.get(f"{name}.bias")

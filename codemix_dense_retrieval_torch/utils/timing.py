@@ -2,9 +2,10 @@
 session records.
 
 ``with span(name):`` marks one batch-level step of a layer (a search call,
-a query block, a file write, a forward), never a kernel launch or a model
-layer. Tracing is on for a span when a profiler records on the thread that
-opens it; work handed to a helper thread carries the caller's decision and
+a query block, a file write, a forward, a mixture-of-experts layer's
+routing or its grouped products), never a single kernel launch. Tracing
+is on for a span when a profiler records on the thread that opens it;
+work handed to a helper thread carries the caller's decision and
 its innermost span as ``within=handoff()``, since a profiler records only
 the thread that started it. With tracing off ``span`` returns one shared
 no-op context after one flag check, and ``count`` returns at once.
@@ -60,6 +61,7 @@ _LOCAL = threading.local()          # .stack: this thread's open spans
 _RECORDS: List[Record] = []
 _SPANS: Dict[str, dict] = {}
 _COUNTERS: Dict[str, int] = {}
+_DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
 
 
 class _Off:
@@ -193,6 +195,20 @@ def count(name: str, n: int = 1, *, within: Optional[Handoff] = None) -> None:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
 
 
+def count_device(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` (a tensor of counts, e.g. a histogram) to the counter
+    ``name`` on their own device while tracing is on: nothing is read back
+    until :func:`totals` gives the sum as a list."""
+    if not torch.autograd._profiler_enabled():
+        return
+    with _LOCK:
+        acc = _DEVICE_COUNTERS.get(name)
+        if acc is None:
+            _DEVICE_COUNTERS[name] = values.to(torch.int64, copy=True)
+        else:
+            acc.add_(values)
+
+
 def _device_seconds(t: dict) -> Optional[float]:
     """A span name's device seconds, its pending event pairs resolved
     first (waiting for each)."""
@@ -208,14 +224,16 @@ def _device_seconds(t: dict) -> Optional[float]:
 
 def totals() -> dict:
     """``{"spans": {name: {count, seconds, self_seconds, device_seconds,
-    parent}}, "counters": {name: n}}`` since the last :func:`reset`."""
+    parent}}, "counters": {name: n}}`` since the last :func:`reset`; a
+    counter of :func:`count_device` is a list (read from its device)."""
     with _LOCK:
         spans = {
             name: {"count": t["count"], "seconds": t["seconds"], "self_seconds": t["self_seconds"],
                    "device_seconds": _device_seconds(t), "parent": t["parent"]}
             for name, t in _SPANS.items()
         }
-        return {"spans": spans, "counters": dict(_COUNTERS)}
+        device = {name: acc.tolist() for name, acc in _DEVICE_COUNTERS.items()}
+        return {"spans": spans, "counters": {**_COUNTERS, **device}}
 
 
 def records() -> List[Record]:
@@ -229,3 +247,4 @@ def reset() -> None:
         _RECORDS.clear()
         _SPANS.clear()
         _COUNTERS.clear()
+        _DEVICE_COUNTERS.clear()
