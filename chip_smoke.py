@@ -125,7 +125,7 @@ Phases (a line of JSON after each):
                vector, the same docid), joined by DenseFlatIndex.merged
                (17,683,646 x 1024 bf16, 36.2 GB on the card), searched with
                the phase-4 query pairs, asking for the CLI's 1024-query block
-               (cut to what fits beside the hub: fit_query_block);
+               (kept whole: phase 1 writes bin maxima alone; fit_query_block);
                run_bilingual_vector_mix (5 alphas, k=500, raw run + host
                collapse) and run_bilingual_vector_mix_fused (2k raw depth,
                on-device collapse and metrics, planted qrels); kernel A
@@ -253,7 +253,8 @@ Phases (a line of JSON after each):
 13. multi-device on the one card (phase_13). 13a: 8,841,823 x 1024 bf16
                rows by phase 5's recipe (Rows13: a seeded generator per
                262,144 rows) on a one-shard and a 4-shard mesh of cuda:0
-               (2,210,816 rows a shard, kernel A per shard): 512 query mixes
+               (2,210,816 rows a shard, kernel 5 and cover_rescore per
+               shard): 512 query mixes
                at k = 100 and 1000, ids and values equal; the 256-query
                block's wall on 1 and 4 shards and the merge's ms; the
                guaranteed tier (kernel 7) equal to exact; the int8 store
@@ -276,6 +277,19 @@ Phases (a line of JSON after each):
                kernel B causal on both halves; bf16 held against the f32
                forward beside the replicated one (TP_ERR_RATIO), int8 against
                the replicated int8 forward (MIN_COS_TP_INT8).
+14. cover    — cover_rescore (phase_cover_rescore), bf16 and f16, 3 seeds,
+               8,842,240 x 1024 unit rows made on the card with ties planted
+               (16 queries' top rows copied over 20 bins; copies straddling
+               n_valid = 8,841,823, pad rows included): at 256, 100 and 48
+               queries (kernel A's n128 and n64 tiles) kernel 5's bin maxima
+               equal kernel A's and the rescored covered bins (k = 100 and
+               1000 bins) equal kernel A's stored scores, as bits; over 1024
+               queries at k = 10, 100 and 1000 the route without the store
+               (topk_ip_bins_two_level) returns the stored route's values and
+               ids; its time at B = 256, k = 100 beside its bound and plain
+               version, and one 256-query chunk by either route.
+               `python3 chip_smoke.py --cover-rescore` builds the bf16 and
+               f16 bin sources and cover_rescore.cu and runs this phase alone.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
 runs, each encoder and command of 11, 12a's hubness_stats and 12b's
@@ -342,8 +356,9 @@ TQ = TD = 32                # two-stage query and doc tokens
 # the kernels' function names in csrc/ (ptxas reports template instances
 # under mangled names that contain them); the wgmma ones may not spill
 KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "tf32_split_kernel",
-                "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel")
-WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "flash_fwd_wgmma"}
+                "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel", "cover_rescore_kernel")
+WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "flash_fwd_wgmma",
+                 "cover_rescore_kernel"}
 K_DENSE = 400               # two-stage dense recall depth
 N_CENTERS = 256             # topical clusters of the adaptive phase's rows
 N_PACKED = 4096             # passages of the packed-encode phase
@@ -613,7 +628,8 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
                               "--batch", "512", "--ks", "100", "1000", "--iters", "3"])
         tune_s = time.perf_counter() - t0
         path_counts["tune"] = dict(kernels.LAUNCHES)
-        check(path_counts["tune"]["bin_scores_bin_major"] > 0, "the tune sweep did not launch kernel A")
+        check(path_counts["tune"]["binmax_only"] > 0 and path_counts["tune"]["cover_rescore"] > 0,
+              "the tune sweep did not launch kernel 5 and cover_rescore")
         check(tuned["tune_file"] == str(work / "tuned.json"), "tune wrote another store")
         t0 = time.perf_counter()
         qwen_flash = autotune.autotune_flash(heads=16, kv_heads=8, head_dim=128, causal=True)
@@ -653,7 +669,8 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
                          "--queries", "1024", "--k", "100", "--iters", "5", "--trace_dir", str(work / "prof")])
     prof_s = time.perf_counter() - t0
     path_counts["profile"] = dict(kernels.LAUNCHES)
-    check(path_counts["profile"]["bin_scores_bin_major"] > 0, "profile's search did not launch kernel A")
+    check(path_counts["profile"]["binmax_only"] > 0 and path_counts["profile"]["cover_rescore"] > 0,
+          "profile's search did not launch kernel 5 and cover_rescore")
     trace = json.loads((work / "prof" / "search" / "trace.json").read_text())
     names = [ev.get("name", "") for ev in trace["traceEvents"] if ev.get("cat") == "kernel"]
     kernel_a = sorted({n for n in names if "bin_scores_bm_kernel" in n})
@@ -1173,7 +1190,7 @@ def phase_13(dev, work, smi, path_counts, ckpt, qdir, mix05, docids, passages, b
     torch.cuda.empty_cache()
     steps["small_store_s"] = time.perf_counter() - t0
     path_counts["multi_device"] = dict(kernels.LAUNCHES)
-    for name in ("bin_scores_bin_major", "bin_scores_transposed", "bin_scores_int8_bin_major", "binub"):
+    for name in ("binmax_only", "cover_rescore", "bin_scores_transposed", "bin_scores_int8_bin_major", "binub"):
         check(path_counts["multi_device"][name] > 0, f"13a did not launch {name}")
     say("multi_device", smi=smi, rows=N_ROWS, shards=MESH_SHARDS, rows_per_shard=rps4,
         gen_s=round(gen_s, 2), upload_1shard_s=round(up1_s, 2), upload_4shards_s=round(up4_s, 2),
@@ -1384,6 +1401,168 @@ def phase_13_worker(argv) -> None:
                       "upload_s": round(upload_s, 2), "search": walls, "gathers": len(gathered),
                       "payload_bytes": sum(gathered), "wall_s": round(time.perf_counter() - t_start, 2),
                       "ok": True}), flush=True)
+
+
+# phase 14: the rows of each (dtype, seed), made on the card; ties planted
+# for 16 queries (a block of TIE_ROWS copies of one row near the query) and
+# across n_valid (copies of a 17th query's row, the pad rows included)
+RESCORE_SEEDS = (SEED + 141, SEED + 142, SEED + 143)
+N_PAD = -(-N_ROWS // 1024) * 1024
+TIE_QUERIES = 16
+TIE_ROWS = 160              # 20 bins of 8: k = 10 cuts through them, k = 100 holds them
+
+
+def rescore_operands(dtype, seed: int, dev):
+    """(1024 unit queries, N_PAD x DIM unit rows) of ``dtype`` on the card
+    from ``seed``: query b < TIE_QUERIES has TIE_ROWS copies of
+    normalize(q_b + 0.5 u) at a seeded place, and the rows from N_ROWS - 40
+    to the end (pad rows included) are copies of query TIE_QUERIES' such
+    row, so equal bin maxima straddle the k-th bin and n_valid."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def unit(n):
+        x = torch.randn(n, DIM, generator=g, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    q = unit(1024)
+    docs = torch.empty(N_PAD, DIM, dtype=dtype, device=dev)
+    for r0 in range(0, N_PAD, 262_144):
+        r1 = min(r0 + 262_144, N_PAD)
+        docs[r0:r1] = unit(r1 - r0).to(dtype)
+    near = q[: TIE_QUERIES + 1] + 0.5 * unit(TIE_QUERIES + 1)
+    near = (near / near.norm(dim=1, keepdim=True)).to(dtype)
+    offsets = torch.randint(0, 100_000, (TIE_QUERIES,), generator=g, device=dev).tolist()
+    for b in range(TIE_QUERIES):
+        r0 = (b + 1) * 500_000 + offsets[b]
+        docs[r0 : r0 + TIE_ROWS] = near[b]
+    docs[N_ROWS - 40 :] = near[TIE_QUERIES]
+    return q.to(dtype).contiguous(), docs
+
+
+def phase_cover_rescore(dev, smi, path_counts) -> dict:
+    """Phase 14: cover_rescore against kernel A's score store, bit for bit,
+    and the route without the store against the stored route (see the
+    module docstring). Returns the kernel table's cover_rescore entry."""
+    import torch
+
+    from codemix_dense_retrieval_torch.ops import kernels, topk
+
+    nv = torch.tensor([N_ROWS], dtype=torch.int32, device=dev)
+    m = topk._auto_super_size(100)
+    report = {}
+    mismatches = 0
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        for seed in RESCORE_SEEDS:
+            q, docs = rescore_operands(dtype, seed, dev)
+            out = {}
+            # kernel A's store, kernel 5's maxima and the rescored bins at
+            # each of kernel A's query tiles (n128 at 256 and 100, n64 at 48)
+            for b in (256, 100, 48):
+                qb = q[:b].contiguous()
+                s, bm = topk.bin_scores(qb, docs, nv, 8)
+                bm5 = topk.binmax_only(qb, docs, nv, 8)
+                check(torch.equal(bm5.view(torch.int32), bm.view(torch.int32)),
+                      f"{label} seed {seed} B={b}: kernel 5's bin maxima differ from kernel A's")
+                for kb in (100, 1000):
+                    ids = topk._select_bins_two_level(bm5, kb, m)
+                    got = topk.cover_rescore(qb, docs, ids, 8, nv).view(torch.int32)
+                    want = topk._gather_bins(s, ids, 8).view(torch.int32)
+                    bad = int((got != want).sum())
+                    mismatches += bad
+                    out[f"B{b}_kb{kb}_bits_differ"] = bad
+                    if b == 256 and kb == 100:
+                        plain = topk.cover_rescore_plain(qb, docs, ids, 8, nv)
+                        err = (got.view(torch.float32) - plain).abs().max().item()
+                        check(err <= 1e-4, f"{label} cover_rescore vs plain err {err}")
+                        out["vs_plain_max_abs_err"] = err
+                        # every planted tie's query: its top k is inside the tie block
+                        out["tie_bins_selected"] = int((bm5[:TIE_QUERIES].gather(1, ids[:TIE_QUERIES])
+                                                        == bm5[:TIE_QUERIES].amax(1, keepdim=True)).sum())
+                del s, bm, bm5
+            # the two routes over 1024 queries in 256-query launches
+            kernels.reset_launch_counts()
+            for k in (10, 100, 1000):
+                mk = topk._auto_super_size(k)
+                v1, i1 = topk.topk_ip_bins_two_level(q, docs, k, bin_size=8, super_size=mk, tile_b=256, n_valid=nv)
+                v0, i0 = topk._by_query_chunks(q, 256, lambda qq: topk._topk_from_bins_two_level_bm(
+                    *topk.bin_scores(qq, docs, nv, 8), k, 8, mk))
+                same = torch.equal(i1, i0) and torch.equal(v1.view(torch.int32), v0.view(torch.int32))
+                check(same, f"{label} seed {seed} k={k}: the rescored route's results differ from the stored route's")
+                out[f"k{k}_equal"] = same
+            sfx = kernels.dtype_suffix(dtype)
+            counts = dict(kernels.LAUNCHES)
+            check(counts["cover_rescore" + sfx] == 12 and counts["binmax_only" + sfx] == 12,
+                  f"{label}: the rescored route launched {counts['binmax_only' + sfx]} / {counts['cover_rescore' + sfx]}")
+            path_counts[f"cover_rescore_{label}_{seed}"] = counts
+            report[f"{label}_{seed}"] = out
+            if not (dtype == torch.bfloat16 and seed == RESCORE_SEEDS[0]):
+                del q, docs
+                torch.cuda.empty_cache()
+                continue
+            # times at the main path's shape (bf16, B = 256, k = 100: 800 rows a query)
+            q256 = q[:256].contiguous()
+            bm5 = topk.binmax_only(q256, docs, nv, 8)
+            ids = topk._select_bins_two_level(bm5, 100, m)
+            del bm5
+            ms = kernel_ms(lambda: topk.cover_rescore(q256, docs, ids, 8, nv), 20)
+            plain = cuda_ms(lambda: topk.cover_rescore_plain(q256, docs, ids, 8, nv), 3)
+            c = ids.numel() * 8
+            b_ms, b_by = bound(c * DIM * 2 + 256 * DIM * 2 + c * 4 + ids.numel() * 8, 2 * c * DIM)
+            stored = kernel_ms(lambda: topk._topk_from_bins_two_level_bm(
+                *topk.bin_scores(q256, docs, nv, 8), 100, 8, m), 3)
+            rescored = kernel_ms(lambda: topk.topk_ip_bins_two_level(
+                q256, docs, 100, bin_size=8, super_size=m, tile_b=256, n_valid=nv), 3)
+            kernel_a = kernel_ms(lambda: topk.bin_scores(q256, docs, nv, 8), 3)
+            kernel_5 = kernel_ms(lambda: topk.binmax_only(q256, docs, nv, 8), 3)
+            entry = dict(
+                name="cover_rescore", route="cuda", source="codemix_dense_retrieval_torch/csrc/cover_rescore.cu",
+                replaces="none (the exact route's read of kernel A's score store at the covered bins)",
+                launches=0, max_abs_err=out["vs_plain_max_abs_err"], **ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"B=256 k=100 G=8 ({c // 256} rows a query) N={N_PAD} d={DIM} bf16",
+            )
+            report["times"] = dict(cover_rescore=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                   kernel_a=kernel_a, kernel_5=kernel_5, chunk_k100_stored=stored,
+                                   chunk_k100_rescored=rescored)
+            del q, docs, q256, ids
+            torch.cuda.empty_cache()
+    check(mismatches == 0, f"cover_rescore differs from kernel A's store in {mismatches} scores")
+    say("cover_rescore", smi=smi, rows=N_ROWS, rows_padded=N_PAD, dim=DIM, seeds=list(RESCORE_SEEDS),
+        super_size=m, tie_queries=TIE_QUERIES, tie_rows=TIE_ROWS, **report)
+    return entry
+
+
+def main_cover_rescore() -> None:
+    """``chip_smoke.py --cover-rescore``: phase 1's card line, the build of
+    the sources phase 14 runs (ptxas's gate on cover_rescore_kernel), then
+    phase 14 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    sys.path.insert(0, str(REPO))
+    from codemix_dense_retrieval_torch.ops import kernels
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    names = ("bin_scores", "bin_scores_f16", "cover_rescore")
+    build_s = kernels.build_kernels(names)
+    rep = kernels.ptxas_report(kernels.build_log("cover_rescore"))
+    check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
+    check(all(v["spill_bytes"] == 0 for v in rep["kernels"].values()), f"cover_rescore spills: {rep['kernels']}")
+    say("build", seconds=round(build_s, 2), sources=names, cover_rescore_ptxas=rep)
+    path_counts = {}
+    entry = phase_cover_rescore(torch.device("cuda", 0), smi, path_counts)
+    entry["launches"] = sum(c["cover_rescore"] + c["cover_rescore_f16"] for c in path_counts.values())
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(smi, flush=True)
+    say("done", seconds=round(time.perf_counter() - t0, 1))
 
 
 def main() -> None:
@@ -1983,7 +2162,8 @@ def main() -> None:
     runs1000 = run_vector_mix_search(index, qids, qa, qb, [0.5], out5 / "k1000", k=1000, query_block=256)
     t1000 = time.perf_counter() - t0
     path_counts["search"] = dict(kernels.LAUNCHES)
-    check(path_counts["search"]["bin_scores_bin_major"] > 0, "search did not launch kernel A bin-major")
+    check(path_counts["search"]["binmax_only"] > 0 and path_counts["search"]["cover_rescore"] > 0,
+          "search did not launch kernel 5 and cover_rescore")
     say("search", rows=N_ROWS, rows_padded=index._rows_per_shard, dim=DIM, dtype="bfloat16",
         gen_s=round(gen_s, 2), upload_s=round(upload_s, 2),
         k100_alphas=len(ALPHAS), k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t100, 1),
@@ -2079,7 +2259,8 @@ def main() -> None:
     fids = fids.cpu().numpy()
     tf100 = time.perf_counter() - t0
     path_counts["fused"] = dict(kernels.LAUNCHES)
-    check(path_counts["fused"]["bin_scores_bin_major"] > 0, "the fused sweep did not launch kernel A")
+    check(path_counts["fused"]["binmax_only"] > 0 and path_counts["fused"]["cover_rescore"] > 0,
+          "the fused sweep did not launch kernel 5 and cover_rescore")
     for ai, a in enumerate(ALPHAS):
         check(np.array_equal(fids[ai], run_ids(runs100[a], 100)), f"fused ids differ from the unfused run, alpha={a}")
     # the k=1000 run written from string rows (native and Python) and from row ids
@@ -2664,8 +2845,9 @@ def main() -> None:
                            "--qrels", str(qrels_s), "--seed", str(SEED)])
     cli_bi_s = time.perf_counter() - t0
     path_counts["cli_bilingual_fused"] = dict(kernels.LAUNCHES)
-    check(path_counts["cli_bilingual_fused"]["bin_scores_bin_major"] > 0,
-          "run-bilingual-mix --fused did not launch kernel A")
+    check(path_counts["cli_bilingual_fused"]["binmax_only"] > 0
+          and path_counts["cli_bilingual_fused"]["cover_rescore"] > 0,
+          "run-bilingual-mix --fused did not launch kernel 5 and cover_rescore")
     check(sorted(cli_bi) == ["0.0", "0.5", "1.0"], f"run-bilingual-mix --fused payload {sorted(cli_bi)}")
     for a, entry in cli_bi.items():
         n_lines = len(pathlib.Path(entry["run"]).read_text().splitlines())
@@ -3220,18 +3402,21 @@ def main() -> None:
     hub_upload_s = time.perf_counter() - t0
     check(hub.count == 2 * N_ROWS and hub._rows_per_shard == -(-2 * N_ROWS // 1024) * 1024,
           f"hub rows {hub.count} / {hub._rows_per_shard}")
-    # both runs ask for the CLI's 1024-query block; the search cuts it to
-    # what fits beside the hub (256 on an 80 GB card)
+    # both runs ask for the CLI's 1024-query block, which their route (kernel
+    # 5's bin maxima, no score store) keeps whole; kernel A's check below
+    # takes the block a score store leaves room for (256 on an 80 GB card)
     from codemix_dense_retrieval_torch.parallel.sharded_search import fit_query_block
 
     hub_block = min(fit_query_block(1024, N_QUERIES, hub._rows_per_shard, dev), N_QUERIES)
+    run_block = min(fit_query_block(1024, N_QUERIES, hub._rows_per_shard, hub._docs_dev), N_QUERIES)
     out_hub = work / "hub"
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     hub_unfused = run_bilingual_vector_mix(hub, qids, qa, qb, ALPHAS, out_hub / "unfused", k=500, query_block=1024)
     t_hub = time.perf_counter() - t0
     path_counts["hub_unfused"] = dict(kernels.LAUNCHES)
-    check(path_counts["hub_unfused"]["bin_scores_bin_major"] > 0, "the hub run did not launch kernel A")
+    check(path_counts["hub_unfused"]["binmax_only"] > 0 and path_counts["hub_unfused"]["cover_rescore"] > 0,
+          "the hub run did not launch kernel 5 and cover_rescore")
     hub_qrels = {q: {str(int(planted[i])): 1} for i, q in enumerate(qids)}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3239,7 +3424,8 @@ def main() -> None:
         hub, qids, qa, qb, ALPHAS, out_hub / "fused", k=500, qrels=hub_qrels, query_block=1024)
     t_hub_fused = time.perf_counter() - t0
     path_counts["hub_fused"] = dict(kernels.LAUNCHES)
-    check(path_counts["hub_fused"]["bin_scores_bin_major"] > 0, "the fused hub run did not launch kernel A")
+    check(path_counts["hub_fused"]["binmax_only"] > 0 and path_counts["hub_fused"]["cover_rescore"] > 0,
+          "the fused hub run did not launch kernel 5 and cover_rescore")
 
     def trec_rows(path):
         rows = {}
@@ -3324,7 +3510,7 @@ def main() -> None:
     say("hub", rows=hub.count, rows_padded=hub._rows_per_shard, dim=DIM, dtype="bfloat16", langs=["l1", "l2"],
         card_gb=round(hub._docs_dev[0].numel() * 2 / 1e9, 2), build_s=round(hub_build_s, 2),
         upload_s=round(hub_upload_s, 2), alphas=len(ALPHAS), k=500, query_block_asked=1024,
-        query_block=hub_block, kernel_a_max_abs_err=err_hub,
+        query_block=run_block, kernel_a_block=hub_block, kernel_a_max_abs_err=err_hub,
         unfused_queries_per_s=round(len(ALPHAS) * N_QUERIES / t_hub, 1),
         fused_queries_per_s=round(len(ALPHAS) * N_QUERIES / t_hub_fused, 1),
         unfused_min_bases=unfused_len_min, prefix_violations=len(not_prefix),
@@ -3573,7 +3759,8 @@ def main() -> None:
         health1, _ = call(port, "/healthz")
         check(health1["stats"]["errors"] == 0, f"/healthz errors {health1['stats']}")
     peak9 = torch.cuda.max_memory_allocated()
-    check(serve_counts["serve_dense"]["bin_scores_bin_major"] > 0, "dense serving did not launch kernel A")
+    check(serve_counts["serve_dense"]["binmax_only"] > 0 and serve_counts["serve_dense"]["cover_rescore"] > 0,
+          "dense serving did not launch kernel 5 and cover_rescore")
     n_traffic = sum(len(q) for q, _ in jobs)
     batches = stats1["batches"] - stats0["batches"]
     say("serve", smi=smi, rows=N_ROWS, rows_padded=cap9, upload_s=round(upload9_s, 2), max_batch=256,
@@ -4221,8 +4408,11 @@ def main() -> None:
         f_ids = f_ids.cpu().numpy()
         out = {"fused_s": round(time.perf_counter() - t0, 2)}
         path_counts[f"fused_{label}"] = dict(kernels.LAUNCHES)
-        check(path_counts[f"fused_{label}"][f"bin_scores_bin_major{sfx}"] > 0,
-              f"the fused sweep over the {label} index did not launch kernel A ({label})")
+        # f16 takes kernel 5 and cover_rescore, f32 kernel A's store (topk.rescores_cover)
+        route = ((f"binmax_only{sfx}", f"cover_rescore{sfx}") if label == "f16"
+                 else (f"bin_scores_bin_major{sfx}",))
+        check(all(path_counts[f"fused_{label}"][name] > 0 for name in route),
+              f"the fused sweep over the {label} index did not launch {route}")
         check(np.array_equal(f_ids[ALPHAS.index(0.5)], exact[100][1]),
               f"the fused sweep over the {label} index differs from exact search at alpha = .5")
         out["fused_ids_equal_exact"] = True
@@ -4413,7 +4603,8 @@ def main() -> None:
     del host16
     d16, nv16 = idx16._docs_dev[0], idx16._counts_dev[0]
     ov16 = full_size_search(idx16, q32, "search_f16")
-    check(path_counts["search_f16"]["bin_scores_bin_major_f16"] > 0, "f16 search did not launch kernel A (f16)")
+    check(path_counts["search_f16"]["binmax_only_f16"] > 0 and path_counts["search_f16"]["cover_rescore_f16"] > 0,
+          "f16 search did not launch kernel 5 and cover_rescore (f16)")
     tiers16 = tiers(idx16, "f16")
     kernels.reset_launch_counts()
     rv5h, _ = topk.topk_ip(q32[:256].half(), d16, 100, method="bins_rescore", n_valid=nv16)
@@ -4552,6 +4743,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_13(dev, work, smi, path_counts, work / "ckpt", qdir, mix05, docids, passages, buckets)
 
+    # ---------------- phase 14: cover_rescore against kernel A's store ----------------
+    mark("14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    late_entries.append(phase_cover_rescore(dev, smi, path_counts))
+
     # each kernel's launches over all the paths
     mark("end")
     say("phase_walls", seconds_from_start=walls)
@@ -4573,5 +4770,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase13-worker"]:
         phase_13_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cover-rescore"]:
+        main_cover_rescore()
     else:
         main()

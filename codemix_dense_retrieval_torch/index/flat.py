@@ -9,8 +9,9 @@ Composition:
   ``shard`` axis, each shard on its device
   (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.shard_rows`),
   with the per-row scales of an int8 store beside them;
-- **search**: the bin-max cover over kernel A, or kernel 4 for an int8
-  store (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip`);
+- **search**: the bin-max cover over kernel 5 and ``cover_rescore`` (a
+  bf16 or f16 store), kernel A (f32) or kernel 4 (int8)
+  (:func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip`);
 - **sketch tier** (:meth:`DenseFlatIndex.enable_sketch`, ``search(approx=True
   | "guaranteed")``): a PCA sketch sidecar on the device, probed by kernel 7,
   with a per-query exactness certificate
@@ -1114,8 +1115,8 @@ class DenseFlatIndex:
                 doc_scales=self.search_kwargs.get("doc_scales"), **self._sketch_kernel_kwargs(),
             )
 
-        devices = self.mesh.shard_devices()
-        out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact, devices, self.mesh)
+        out = search_blocks(q, query_block, self._rows_per_shard, sketched if approx else exact,
+                            self.mesh.shard_devices() if approx else self._docs_dev, self.mesh)
         with timing.span("search.readback"):
             vals_np, gids_np = out[0].cpu().numpy(), out[1].cpu().numpy()
             self.last_certified = out[2].cpu().numpy() if approx else None
@@ -1130,7 +1131,8 @@ class DenseFlatIndex:
             # escalate only the uncertified queries through exact search
             bad = np.flatnonzero(~self.last_certified)
             ev, eg = search_blocks(
-                q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact, devices, self.mesh
+                q[torch.from_numpy(bad).to(q.device)], query_block, self._rows_per_shard, exact, self._docs_dev,
+                self.mesh,
             )
             with timing.span("search.readback"):
                 vals_np[bad] = ev.cpu().numpy()

@@ -14,24 +14,27 @@ layout), kernel 5 (``binmax_only``) and kernel 7 (``binub``, the sketch
 tier's upper-bound bin maxima) over bf16 operands, ``bin_scores_f16.cu``
 kernels A, 2 and 5 over f16 and ``bin_scores_f32.cu`` kernels A, 2, 5 and 7
 over f32 (3xTF32), ``bin_scores_int8.cu`` kernel 4 (both layouts),
-``flash_attention.cu`` kernel B and ``maxsim.cu`` kernel 6 (the two-stage
-rerank's MaxSim, bf16, f16 or f32 doc tokens). The bin-score kernels (A, 2,
-4, 5, 7) are two templates in ``bin_kernels.cuh``, instantiated per operand
-type and epilogue; they and kernel B are built on ``sm90.cuh`` (TMA,
-mbarrier rings, wgmma). Each operand type of the bin-score kernels is a
-source of its own with the same C entry points, picked by the dtype's
-name suffix, while ``maxsim.cu`` takes its doc dtype as an argument: every
-bin-score source instantiates dozens of wgmma kernels (layout x epilogue x
-tile x bin size), and one source per type lets :func:`build_kernels` run
-their ``nvcc`` side by side instead of one after another.
+``flash_attention.cu`` kernel B, ``maxsim.cu`` kernel 6 (the two-stage
+rerank's MaxSim, bf16, f16 or f32 doc tokens) and ``cover_rescore.cu`` the
+scores of the rows a two-level cover selected, summed as kernel A sums them
+(bf16 or f16: the exact route whose phase 1 is kernel 5). The bin-score
+kernels (A, 2, 4, 5, 7) are two templates in ``bin_kernels.cuh``,
+instantiated per operand type and epilogue; they, ``cover_rescore`` and
+kernel B are built on ``sm90.cuh`` (TMA, mbarrier rings, wgmma). Each
+operand type of the bin-score kernels is a source of its own with the same
+C entry points, picked by the dtype's name suffix, while ``maxsim.cu`` and
+``cover_rescore.cu`` take their dtype as an argument: every bin-score
+source instantiates dozens of wgmma kernels (layout x epilogue x tile x bin
+size), and one source per type lets :func:`build_kernels` run their
+``nvcc`` side by side instead of one after another.
 
 ``LAUNCHES`` holds one plain integer per kernel instance: each wrapper adds
 one where it launches its kernel, and nowhere else. Kernels A and 4 count
 their two layouts apart, since each layout stands for a TPU kernel or a
-route of its own; the f16 and f32 instances of kernels A, 2, 5, 6 and 7
-count under their own names (suffix ``_f16`` / ``_f32``: :func:`dtype_suffix`),
-and kernel B's causal instance (the Qwen3 encoder's) under
-``flash_attention_causal``.
+route of its own; the f16 and f32 instances of kernels A, 2, 5, 6 and 7 and
+the f16 one of ``cover_rescore`` count under their own names (suffix
+``_f16`` / ``_f32``: :func:`dtype_suffix`), and kernel B's causal instance
+(the Qwen3 encoder's) under ``flash_attention_causal``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ SOURCES = {
     "bin_scores_int8": "bin_scores_int8.cu",
     "flash_attention": "flash_attention.cu",
     "maxsim": "maxsim.cu",
+    "cover_rescore": "cover_rescore.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -83,6 +87,8 @@ LAUNCHES: Dict[str, int] = {
     "maxsim": 0,
     "maxsim_f16": 0,
     "maxsim_f32": 0,
+    "cover_rescore": 0,
+    "cover_rescore_f16": 0,
 }
 
 _SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16", "torch.float32": "_f32"}

@@ -14,12 +14,23 @@ cover algorithm.
 3. *Candidate select* gathers the k*G candidate scores and keeps the top k
    by (score desc, id asc).
 
+On the card a bf16 or f16 index searched with f32 scores takes the two-level
+cover without a score matrix (:func:`rescores_cover`): phase 1 is kernel 5
+(:func:`binmax_only`), which writes the bin maxima alone, and step 3 reads
+the candidates' scores from :func:`cover_rescore`, a kernel that sums each
+covered row's score with kernel A's instruction, operand roles and chunk
+order. Its scores are the values kernel A would have stored, bit for bit,
+and kernel 5's maxima are kernel A's, so the argument above holds unchanged
+and the results equal the stored route's. f32 and int8 indexes, a bf16
+score store and CPU tensors keep the stored route.
+
 Two variants share the cover. Over an int8 index (:func:`topk_ip_bins_int8`)
 phase 1 is kernel 4 (:func:`bin_scores_int8`): exact int8 products rescaled
 per row, queries quantized on the device. The rescore search
 (:func:`topk_ip_bins_rescore`, :func:`topk_ip_rescore_two_level`) runs
-kernel 5 (:func:`binmax_only`), which writes the bin maxima alone, then
-gathers the covered bins' doc rows and recomputes their scores.
+kernel 5, then gathers the covered bins' doc rows and recomputes their
+scores in plain f32 products, in another order than the kernel, with slack
+bins for the round-off at the cover boundary.
 
 Tie-break: every selection is a STABLE descending sort followed by a slice,
 over domains whose positions ascend with the ids (selected bin ids are
@@ -30,7 +41,9 @@ order among ties and is not used for selection.
 While tracing (:mod:`~codemix_dense_retrieval_torch.utils.timing`) the
 exact routes (two-level and single-level cover, bf16 / f16 / f32 and int8)
 time each query chunk's phase 1 and tail on the card as the spans
-``search.phase1`` and ``search.tail``.
+``search.phase1`` and ``search.tail``; inside the tail, the route without a
+score matrix times :func:`cover_rescore` as ``search.rescore`` and counts
+the rows it scores under ``search.rescored_rows``.
 """
 
 from __future__ import annotations
@@ -455,6 +468,125 @@ def binmax_only(
     return binmax
 
 
+# --------------------------------------------------------------------------
+# the covered rows' scores without the score matrix (cover_rescore)
+# --------------------------------------------------------------------------
+
+#: the index dtypes ``cover_rescore`` takes on the card: those whose kernel A
+#: sums in the same wgmma it reproduces (the f32 instances split operands
+#: into tf32 parts in registers)
+RESCORE_DTYPES = (torch.bfloat16, torch.float16)
+#: the widest rows ``cover_rescore`` takes: the query's chunks stay in shared
+#: memory beside the ring of gathered rows
+RESCORE_MAX_DIM = 8192
+
+
+def rescores_cover(docs, score_dtype: torch.dtype = torch.float32) -> bool:
+    """Whether :func:`topk_ip_bins_two_level` over ``docs`` (anything with
+    ``device``, ``dtype`` and ``shape``) runs without a score matrix: kernel
+    5's bin maxima, then :func:`cover_rescore`. So it does for a bf16 or f16
+    index on a CUDA card, f32 scores and rows of at most ``RESCORE_MAX_DIM``
+    dims; f32 and int8 indexes, a bf16 score store and CPU tensors keep
+    kernel A's store."""
+    return (
+        docs.device.type == "cuda" and docs.dtype in RESCORE_DTYPES
+        and score_dtype == torch.float32 and docs.shape[1] <= RESCORE_MAX_DIM
+    )
+
+
+def _check_cover_operands(
+    queries: torch.Tensor, docs: torch.Tensor, bin_ids: torch.Tensor, bin_size: int
+) -> None:
+    """The operands :func:`cover_rescore` takes on any device: queries (B, d)
+    of the index dtype, int64 bin ids (B, kb) with 1 <= kb <= N/G, all on
+    one device; bin ids sorted ascending and distinct, each in [0, N/G), is
+    checked here for CPU tensors and by the kernel on the card (no host
+    read)."""
+    if not (queries.device == docs.device == bin_ids.device):
+        raise ValueError(
+            f"cover_rescore: queries on {queries.device}, docs on {docs.device}, "
+            f"bin ids on {bin_ids.device}; all must be on one device"
+        )
+    if not docs.dtype.is_floating_point or queries.dtype != docs.dtype:
+        raise ValueError(
+            f"cover_rescore takes a float index and queries of its dtype, got {docs.dtype} / {queries.dtype}"
+        )
+    if bin_ids.dtype != torch.int64:
+        raise ValueError(f"cover_rescore: bin ids must be int64, got {bin_ids.dtype}")
+    if queries.ndim != 2 or docs.ndim != 2 or queries.shape[1] != docs.shape[1]:
+        raise ValueError(f"shapes {tuple(queries.shape)} x {tuple(docs.shape)} do not contract")
+    n = docs.shape[0]
+    if bin_size <= 0 or n % bin_size:
+        raise ValueError(f"rows {n} not a multiple of bin_size {bin_size}")
+    nb = n // bin_size
+    if bin_ids.ndim != 2 or bin_ids.shape[0] != queries.shape[0] or not 1 <= bin_ids.shape[1] <= nb:
+        raise ValueError(f"bin ids {tuple(bin_ids.shape)} must be (B={queries.shape[0]}, kb) with 1 <= kb <= {nb}")
+    if docs.device.type == "cpu":
+        if bool((bin_ids[:, 1:] <= bin_ids[:, :-1]).any()):
+            raise ValueError("cover_rescore: bin ids must be sorted ascending and distinct per query")
+        if bool(((bin_ids < 0) | (bin_ids >= nb)).any()):
+            raise ValueError(f"cover_rescore: bin ids must lie in [0, {nb})")
+
+
+def cover_rescore_plain(
+    queries: torch.Tensor, docs: torch.Tensor, bin_ids: torch.Tensor, bin_size: int, n_valid: Rows
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cover_rescore`, on any device: the
+    covered rows gathered and scored as f32 products (in another order than
+    kernel A's), ``NEG_INF`` at rows >= ``n_valid``."""
+    b, kb = bin_ids.shape
+    cand_idx = _expand_ids(bin_ids, bin_size)
+    rows = docs.index_select(0, cand_idx.reshape(-1)).reshape(b, kb * bin_size, -1)
+    scores = torch.bmm(rows.to(torch.float32), queries.to(torch.float32)[:, :, None])[:, :, 0]
+    return torch.where(cand_idx < n_valid, scores, NEG_INF)
+
+
+_COVER_RESCORE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _cover_rescore_lib():
+    fn = kernels.load("cover_rescore").cover_rescore_launch
+    if fn.argtypes is None:
+        fn.argtypes = _COVER_RESCORE_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cover_rescore(
+    queries: torch.Tensor, docs: torch.Tensor, bin_ids: torch.Tensor, bin_size: int, n_valid: Rows
+) -> torch.Tensor:
+    """The (B, kb * G) f32 scores of the rows that ``bin_ids`` (B, kb)
+    covers, bin ``bin_ids[b, j]``'s row i at column j * G + i, ``NEG_INF``
+    at rows >= ``n_valid`` (an int or a one-element int32 tensor on the
+    docs' device). CPU tensors take :func:`cover_rescore_plain`; CUDA
+    tensors launch ``csrc/cover_rescore.cu``, whose scores equal kernel A's
+    stored ones bit for bit (a bf16 or f16 index, d % 32 == 0, d <=
+    ``RESCORE_MAX_DIM``, G in {8, 16}, contiguous operands)."""
+    _check_cover_operands(queries, docs, bin_ids, bin_size)
+    if docs.device.type == "cpu":
+        return cover_rescore_plain(queries, docs, bin_ids, bin_size, n_valid)
+    b, dim, n = _cuda_operands("cover_rescore", queries, docs, RESCORE_DTYPES, bin_size, 32)
+    if dim > RESCORE_MAX_DIM or not bin_ids.is_contiguous():
+        raise ValueError(
+            f"cover_rescore takes d <= {RESCORE_MAX_DIM} (got {dim}) and contiguous bin ids"
+        )
+    nv_ptr, nv_int = _n_valid_arg(n_valid, docs)
+    kb = bin_ids.shape[1]
+    out = torch.empty((b, kb * bin_size), dtype=torch.float32, device=docs.device)
+    rc = kernels.launch(
+        _cover_rescore_lib(), docs.device,
+        queries.data_ptr(), docs.data_ptr(), bin_ids.data_ptr(), out.data_ptr(), nv_ptr, nv_int,
+        b, n, dim, kb, bin_size, RESCORE_DTYPES.index(docs.dtype),
+    )
+    kernels.check(rc, "cover_rescore")
+    kernels.LAUNCHES["cover_rescore" + kernels.dtype_suffix(docs.dtype)] += 1
+    return out
+
+
 def _bin_scores_xla(
     queries: torch.Tensor, docs: torch.Tensor, bin_size: int, n_valid: Rows
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -512,8 +644,9 @@ def _by_query_chunks(
     queries: torch.Tensor, tile_b: int,
     fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run phase 1 + tail on at most ``tile_b`` queries at a time: the
-    (tile_b, N) score matrix of one launch is the peak memory."""
+    """Run phase 1 + tail on at most ``tile_b`` queries at a time: one
+    launch's phase-1 output is the peak memory, the (tile_b, N) score matrix
+    where the route stores one, else the (tile_b, N/G) bin maxima."""
     outs = [fn(queries[i : i + tile_b]) for i in range(0, queries.shape[0], tile_b)]
     if len(outs) == 1:
         return outs[0]
@@ -626,6 +759,25 @@ def _topk_from_bins_two_level(
     return vals, torch.gather(cand_idx, 1, p2)
 
 
+def _gather_bins(scores_bm: torch.Tensor, bin_ids: torch.Tensor, bin_size: int) -> torch.Tensor:
+    """The (B, kb * G) f32 scores of the bins ``bin_ids`` (B, kb) in a
+    BIN-MAJOR score store (B, N): one contiguous slice per bin."""
+    b, kb = bin_ids.shape
+    nb = scores_bm.shape[1] // bin_size
+    return torch.gather(
+        scores_bm.reshape(b, nb, bin_size), 1, bin_ids[:, :, None].expand(b, kb, bin_size),
+    ).reshape(b, kb * bin_size).to(torch.float32)
+
+
+def _topk_of_covered(
+    cand: torch.Tensor, bin_ids: torch.Tensor, k: int, bin_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of the covered rows' scores ``cand`` (B, kb * G), bins
+    ``bin_ids`` ascending, as (values, row ids): ties go to the lower id."""
+    vals, pos = _stable_topk(cand, k)
+    return vals, torch.gather(_expand_ids(bin_ids, bin_size), 1, pos)
+
+
 def _topk_from_bins_two_level_bm(
     scores_bm: torch.Tensor,   # (B, N) bin-major scores
     binmax_bm: torch.Tensor,   # (B, nb) bin-major bin maxima
@@ -635,16 +787,28 @@ def _topk_from_bins_two_level_bm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-level selection tail on BIN-MAJOR layouts: every candidate read is
     a contiguous slice (supers' bin maxima, then bins' scores)."""
-    b, nb = binmax_bm.shape
     bin_ids = _select_bins_two_level(binmax_bm, k, super_size)
-    kb = bin_ids.shape[1]
-    cand = torch.gather(
-        scores_bm.reshape(b, nb, bin_size), 1,
-        bin_ids[:, :, None].expand(b, kb, bin_size),
-    ).reshape(b, kb * bin_size).to(torch.float32)
-    cand_idx = _expand_ids(bin_ids, bin_size)
-    vals, pos = _stable_topk(cand, k)
-    return vals, torch.gather(cand_idx, 1, pos)
+    return _topk_of_covered(_gather_bins(scores_bm, bin_ids, bin_size), bin_ids, k, bin_size)
+
+
+def _topk_rescored_two_level(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    binmax_bm: torch.Tensor,   # (B, nb) kernel 5's bin-major bin maxima
+    k: int,
+    bin_size: int,
+    super_size: int,
+    n_valid: Rows,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-level tail of :func:`_topk_from_bins_two_level_bm` with the
+    covered rows scored by :func:`cover_rescore` instead of read from a
+    score store (span ``search.rescore``, counter ``search.rescored_rows``);
+    where those scores are kernel A's, the results are that tail's."""
+    bin_ids = _select_bins_two_level(binmax_bm, k, super_size)
+    with timing.span("search.rescore", device=docs.device):
+        cand = cover_rescore(queries, docs, bin_ids, bin_size, n_valid)
+    timing.count("search.rescored_rows", cand.numel())
+    return _topk_of_covered(cand, bin_ids, k, bin_size)
 
 
 def _topk_from_bins_two_level_bm_probed(
@@ -661,18 +825,11 @@ def _topk_from_bins_two_level_bm_probed(
     probed bins scores strictly below the k-th candidate); ties at the
     boundary fail the strict comparison and escalate. The bound composes
     over shards: merged k-th > max of the shards' ``unsel``."""
-    b, nb = binmax_bm.shape
     bin_ids, unsel = _select_bins_two_level(
         binmax_bm, probe_bins, super_size, return_unselected_bound=True
     )
-    kb = bin_ids.shape[1]
-    cand = torch.gather(
-        scores_bm.reshape(b, nb, bin_size), 1,
-        bin_ids[:, :, None].expand(b, kb, bin_size),
-    ).reshape(b, kb * bin_size).to(torch.float32)
-    cand_idx = _expand_ids(bin_ids, bin_size)
-    vals, pos = _stable_topk(cand, k)
-    return vals, torch.gather(cand_idx, 1, pos), unsel
+    vals, ids = _topk_of_covered(_gather_bins(scores_bm, bin_ids, bin_size), bin_ids, k, bin_size)
+    return vals, ids, unsel
 
 
 def topk_full_tail_bm(
@@ -692,10 +849,7 @@ def topk_full_tail_bm(
     nb = binmax_bm.shape[1]
     bin_ids = _select_bins_two_level(binmax_bm.index_select(0, qsel), k, super_size)
     cand = scores_bm.view(scores_bm.shape[0], nb, bin_size)[qsel[:, None], bin_ids]
-    cand = cand.reshape(len(qsel), -1).to(torch.float32)
-    cand_idx = _expand_ids(bin_ids, bin_size)
-    vals, pos = _stable_topk(cand, k)
-    return vals, torch.gather(cand_idx, 1, pos)
+    return _topk_of_covered(cand.reshape(len(qsel), -1).to(torch.float32), bin_ids, k, bin_size)
 
 
 # --------------------------------------------------------------------------
@@ -724,7 +878,13 @@ def topk_ip_bins_two_level(
 
     Exactness is the transitive cover: a super-bin ranked above the one
     holding a true top-k element x holds an element that outranks x, so at
-    most k-1 supers rank above it; the same holds at the bin level."""
+    most k-1 supers rank above it; the same holds at the bin level.
+
+    Where :func:`rescores_cover` holds (a bf16 or f16 index on the card,
+    f32 scores, ``bin_major``), step 1 is kernel 5, which writes the bin
+    maxima alone, and step 4 scores the k*G covered rows with
+    :func:`cover_rescore`: kernel A's sums, bit for bit, so the results are
+    the same."""
     if bin_size is None:
         bin_size = _auto_bin_size_two_level(k)
     if super_size is None:
@@ -732,7 +892,13 @@ def topk_ip_bins_two_level(
     if tile_b is None:
         tile_b = _tuned_tile_b(k)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
-    if bin_major:
+    if bin_major and rescores_cover(docs, score_dtype):
+        def run(q):
+            with timing.span("search.phase1", device=docs.device):
+                binmax_bm = binmax_only(q, docs, n_valid, bin_size)
+            with timing.span("search.tail", device=docs.device):
+                return _topk_rescored_two_level(q, docs, binmax_bm, k, bin_size, super_size, n_valid)
+    elif bin_major:
         def run(q):
             with timing.span("search.phase1", device=docs.device):
                 scores_bm, binmax_bm = bin_scores(
@@ -913,13 +1079,8 @@ def _rescore_block(
     docs: torch.Tensor, queries: torch.Tensor, bin_ids: torch.Tensor,
     bin_size: int, n_valid: Rows, k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, kb = bin_ids.shape
-    cand_idx = _expand_ids(bin_ids, bin_size)
-    cand_rows = docs.index_select(0, cand_idx.reshape(-1)).reshape(b, kb * bin_size, -1)
-    cand_scores = torch.bmm(cand_rows.to(torch.float32), queries.to(torch.float32)[:, :, None])[:, :, 0]
-    cand_scores = torch.where(cand_idx < n_valid, cand_scores, NEG_INF)
-    vals, pos = _stable_topk(cand_scores, k)
-    return vals, torch.gather(cand_idx, 1, pos)
+    cand = cover_rescore_plain(queries, docs, bin_ids, bin_size, n_valid)
+    return _topk_of_covered(cand, bin_ids, k, bin_size)
 
 
 def _rescore_candidates(

@@ -8,7 +8,7 @@ valid-row count. Each shard is one tensor on its mesh device (a mesh may
 put several shards on one device), with an int8 shard's per-row scales as a
 padded sidecar (:func:`shard_row_sidecar`).
 
-A search launches every shard's kernels (A, 2, 4 or 7) on its own device
+A search launches every shard's kernels (A, 2, 4, 5 or 7) on its own device
 before it reads any result, maps each shard's local ids to global ones
 (``idx + s * rps``), gathers the S (B, k) candidate lists onto the mesh's
 first device and merges them by (score desc, global id asc), the order of
@@ -35,9 +35,13 @@ from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 Shards = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-# card bytes one query of a block takes per padded index row: its f32 score
-# row and its bin maxima at the smallest bin (G = 8)
+# card bytes one query of a block takes per padded index row where phase 1
+# stores its scores: its f32 score row and its bin maxima at the smallest bin
+# (G = 8)
 BLOCK_BYTES_PER_ROW = 4 + 4 / 8
+# the same where phase 1 writes the bin maxima alone (the two-level cover of
+# a bf16 or f16 index on the card: topk.rescores_cover)
+BLOCK_BYTES_PER_ROW_BINMAX = 4 / 8
 # the share of the card's free memory one block's scores may take; the rest
 # is the top-k tail's
 BLOCK_MEMORY_SHARE = 0.75
@@ -54,33 +58,52 @@ def as_shards(x: Optional[Shards]) -> Optional[List[torch.Tensor]]:
     return [x] if isinstance(x, torch.Tensor) else list(x)
 
 
+def block_bytes_per_row(shard: Union[torch.device, str, torch.Tensor]) -> float:
+    """Card bytes one query of a block takes per padded row of ``shard``
+    (a shard's tensor, or anything with its ``device``, ``dtype`` and
+    ``shape``; a bare device counts as a score store):
+    ``BLOCK_BYTES_PER_ROW_BINMAX`` where the search's default route is the
+    two-level cover without a score matrix (:func:`~codemix_dense_retrieval_torch.ops.topk.rescores_cover`),
+    else ``BLOCK_BYTES_PER_ROW``."""
+    if isinstance(shard, (torch.device, str)):
+        return BLOCK_BYTES_PER_ROW
+    if shard.shape[0] >= topk_ops.TWO_LEVEL_MIN_ROWS and topk_ops.rescores_cover(shard):
+        return BLOCK_BYTES_PER_ROW_BINMAX
+    return BLOCK_BYTES_PER_ROW
+
+
 def fit_query_block(
     query_block: int, n_queries: int, rows_per_shard: int,
-    devices: Union[torch.device, Sequence[torch.device]],
+    devices: Union[torch.device, str, torch.Tensor, Sequence[Union[torch.device, str, torch.Tensor]]],
 ) -> int:
     """The query block a search over shards of ``rows_per_shard`` padded rows
-    on ``devices`` (a device, or each shard's device) runs: ``query_block``
-    (0: all ``n_queries`` in one block), on CUDA cards cut to the largest
-    power of two whose score stores and bin maxima (``BLOCK_BYTES_PER_ROW``
-    per query and row, for every shard on the card, since all shards are
-    launched before any is read) fit in ``BLOCK_MEMORY_SHARE`` of each
-    card's free memory (the driver's free bytes plus what PyTorch's
-    allocator holds unused). So the CLI's 1024-query default runs at the
+    on ``devices`` (a device, each shard's device, or the shards' tensors)
+    runs: ``query_block`` (0: all ``n_queries`` in one block), on CUDA cards
+    cut to the largest power of two whose phase-1 outputs (the score stores
+    and bin maxima, :func:`block_bytes_per_row` per query and row, for every
+    shard on the card, since all shards are launched before any is read)
+    fit in ``BLOCK_MEMORY_SHARE`` of each card's free memory (the driver's
+    free bytes plus what PyTorch's allocator holds unused). A bare device
+    counts the score store. So the CLI's 1024-query default runs at the
     bilingual hub's size (17.7M x 1024 bf16 rows, 36.2 GB, on an 80 GB
-    card: blocks of 256). The free-memory reads are the span
+    card) in blocks of 256 where the search stores its scores, and uncut
+    where it writes bin maxima alone. The free-memory reads are the span
     ``search.fit_block``."""
-    devices = [torch.device(devices)] if not isinstance(devices, (list, tuple)) else devices
-    shards_on: dict = {}
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    need: dict = {}  # device -> (shards, bytes per query and padded row)
     for d in devices:
-        shards_on[torch.device(d)] = shards_on.get(torch.device(d), 0) + 1
+        device = torch.device(d) if isinstance(d, (torch.device, str)) else d.device
+        count, per_row = need.get(device, (0, 0.0))
+        need[device] = (count + 1, per_row + block_bytes_per_row(d))
     fit, short = None, None
     with timing.span("search.fit_block"):
-        for device, count in shards_on.items():
+        for device, (count, per_row) in need.items():
             if device.type != "cuda":
                 continue
             free, _ = torch.cuda.mem_get_info(device)
             free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-            f = int(BLOCK_MEMORY_SHARE * free // (BLOCK_BYTES_PER_ROW * rows_per_shard * count))
+            f = int(BLOCK_MEMORY_SHARE * free // (per_row * rows_per_shard))
             if fit is None or f < fit:
                 fit, short = f, (device, count, free)
     if fit is None or min(query_block or n_queries, n_queries) <= fit:
@@ -95,15 +118,15 @@ def fit_query_block(
 
 def search_blocks(
     q: torch.Tensor, query_block: int, rows_per_shard: int, search,
-    devices: Optional[Sequence[torch.device]] = None, mesh: Optional[Mesh] = None,
+    devices: Optional[Sequence[Union[torch.device, torch.Tensor]]] = None, mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """``search(block)`` over the query rows ``q`` in blocks of
     ``query_block`` rows (0 = one block), cut to the cards of ``devices``
-    (each shard's device; default ``q``'s) by :func:`fit_query_block`; over
-    a multi-process ``mesh`` every process takes the smallest cut, so all
-    run the same blocks (and the same collectives). A ragged tail block is
-    zero-padded to the block size, so every block has one shape, and its
-    rows are sliced off. Returns each of ``search``'s outputs concatenated
+    (each shard's device or tensor; default ``q``'s device) by
+    :func:`fit_query_block`; over a multi-process ``mesh`` every process
+    takes the smallest cut, so all run the same blocks (and the same
+    collectives). A ragged tail block is zero-padded to the block size, so
+    every block has one shape, and its rows are sliced off. Returns each of ``search``'s outputs concatenated
     over the blocks, cut to ``len(q)`` rows. While tracing each block is
     the span ``search.block``, counted with the queries under
     ``search.blocks`` and ``search.queries``."""
@@ -338,9 +361,10 @@ def sharded_topk_ip(
     the cross-process merge). Returns (values (B, k) f32, global ids (B, k)
     int64) on the first shard's device; ties go to the lower id.
 
-    Routing: shards of 262,144 rows or more take the two-level cover
-    (kernel A, or kernel 4 for int8, bin-major), smaller ones the
-    single-level cover (the same kernels, transposed); ``method`` may also
+    Routing: shards of 262,144 rows or more take the two-level cover,
+    bin-major (on the card kernel 5 and ``cover_rescore`` for a bf16 or f16
+    index, kernel A for f32, kernel 4 for int8), smaller ones the
+    single-level cover (kernels A and 4, transposed); ``method`` may also
     name ``full`` or ``bins_xla``, which score with the plain versions."""
     docs, counts, doc_scales = as_shards(docs), as_shards(counts), as_shards(doc_scales)
     rows_per_shard = docs[0].shape[0]

@@ -3,11 +3,12 @@
 The index stays on its mesh for the whole sweep. For each alpha the mixed
 queries are built on the first shard's device
 (:func:`~codemix_dense_retrieval_torch.ops.mix.mix_and_renorm`), searched in
-query blocks by the exact path (kernel A / 2 / 4) or the sketch tier (kernel
-7) on every shard and merged, collapsed for a bilingual hub, and scored on
-the device; the host receives (A, B, k) ids and one metric dict per alpha.
-Alphas run one after another, so one block's (block, N) score store per
-shard is the peak memory; the block is cut to the cards' free memory as the
+query blocks by the exact path (kernels 5 and ``cover_rescore``, A, 2 or 4)
+or the sketch tier (kernel 7) on every shard and merged, collapsed for a
+bilingual hub, and scored on the device; the host receives (A, B, k) ids
+and one metric dict per alpha. Alphas run one after another, so one
+block's phase-1 output per shard (bin maxima, or a (block, N) score store)
+is the peak memory; the block is cut to the cards' free memory as the
 unfused search cuts it.
 """
 
@@ -84,7 +85,8 @@ def _search_blocks(q, docs, counts, k_raw, query_block, search_kwargs, sketch=No
             blk = blk.to(docs[0].dtype)
         return sharded_topk_ip(blk, docs, counts, k_raw, mesh=mesh, doc_scales=doc_scales, **search_kwargs)
 
-    out = search_blocks(q, query_block, docs[0].shape[0], run, [d.device for d in docs], mesh)
+    out = search_blocks(q, query_block, docs[0].shape[0], run,
+                        [d.device for d in docs] if sketch is not None else docs, mesh)
     return out if sketch is not None else (*out, None)
 
 
