@@ -637,7 +637,7 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
         for k_ in (100, 1000):
             check(topk._auto_bin_size_two_level(k_) == tuned[f"topk.bin_size.k{k_}"]
                   and topk._auto_super_size(k_) == tuned[f"topk.super_size.k{k_}"]
-                  and topk._tuned_tile_b(k_) == tuned[f"topk.tile_b.k{k_}"], f"the pickers ignore the store at k={k_}")
+                  and topk._tile_b(None, k_, two_level=True) == tuned[f"topk.tile_b.k{k_}"], f"the pickers ignore the store at k={k_}")
         check(autotune.get_tuned("flash.min_seq") == tuned["flash.min_seq"], "the flash dispatch ignores the store")
         gen = torch.Generator(device=dev).manual_seed(SEED + 21)
         docs = torch.randn(262_144, DIM, device=dev, generator=gen)

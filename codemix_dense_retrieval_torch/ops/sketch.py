@@ -543,3 +543,41 @@ def topk_ip_sketch_int8(
         [d_vals, d_scales], [q_i8, q_sc], d_sketch, d_tail, q_sketch, q_tail, rescore,
     )
 
+
+
+def shard_topk_sketch(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    d_sketch: torch.Tensor,
+    d_tail: torch.Tensor,
+    proj: torch.Tensor,
+    k: int,
+    *,
+    n_valid: Optional[Rows],
+    doc_scales: Optional[torch.Tensor] = None,
+    probe_bins: Optional[int] = None,
+    expand: float = 4.0,
+    bin_size: Optional[int] = None,
+    super_size: Optional[int] = None,
+    tile_b: Optional[int] = None,
+    tile_n: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One padded shard's sketch search, the per-shard entry of
+    :func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip_sketch`:
+    :func:`topk_ip_sketch`, or :func:`topk_ip_sketch_int8` over an int8
+    shard (``doc_scales`` its per-row scales). ``bin_size``, ``super_size``
+    and ``tile_b`` None take the tier's own; ``probe_bins`` None is worked
+    out from the shard's ``docs.shape[0] // bin_size`` bins, as the JAX
+    package's sharded tier does."""
+    bin_size = bin_size or DEFAULT_BIN_SIZE
+    if probe_bins is None:
+        probe_bins = _default_probe_bins(k, bin_size, docs.shape[0] // bin_size, expand)
+    kw = dict(probe_bins=probe_bins, bin_size=bin_size, super_size=super_size or DEFAULT_SUPER_SIZE,
+              tile_n=tile_n, n_valid=n_valid)
+    if tile_b is not None:
+        kw["tile_b"] = tile_b
+    if docs.dtype == torch.int8:
+        if doc_scales is None:
+            raise ValueError("int8 index requires doc_scales")
+        return topk_ip_sketch_int8(queries, docs, doc_scales, d_sketch, d_tail, proj, k, **kw)
+    return topk_ip_sketch(queries, docs, d_sketch, d_tail, proj, k, **kw)

@@ -14,15 +14,15 @@ cover algorithm.
 3. *Candidate select* gathers the k*G candidate scores and keeps the top k
    by (score desc, id asc).
 
-On the card a bf16 or f16 index searched with f32 scores takes the two-level
-cover without a score matrix (:func:`rescores_cover`): phase 1 is kernel 5
+On the card a bf16 or f16 index takes the two-level cover without a score
+matrix (:func:`rescores_cover`): phase 1 is kernel 5
 (:func:`binmax_only`), which writes the bin maxima alone, and step 3 reads
 the candidates' scores from :func:`cover_rescore`, a kernel that sums each
 covered row's score with kernel A's instruction, operand roles and chunk
 order. Its scores are the values kernel A would have stored, bit for bit,
 and kernel 5's maxima are kernel A's, so the argument above holds unchanged
-and the results equal the stored route's. f32 and int8 indexes, a bf16
-score store and CPU tensors keep the stored route.
+and the results equal the stored route's. f32 and int8 indexes and CPU
+tensors keep the stored route.
 
 Two variants share the cover. Over an int8 index (:func:`topk_ip_bins_int8`)
 phase 1 is kernel 4 (:func:`bin_scores_int8`): exact int8 products rescaled
@@ -31,6 +31,11 @@ per row, queries quantized on the device. The rescore search
 kernel 5, then gathers the covered bins' doc rows and recomputes their
 scores in plain f32 products, in another order than the kernel, with slack
 bins for the round-off at the cover boundary.
+
+A shard's exact route is decided here and nowhere else: :func:`shard_topk`
+takes its method, bin size and queries per launch (:func:`_tile_b`), and
+:func:`block_bytes_per_row` says what its phase 1 holds on the card per
+query; ``parallel/sharded_search.py`` places, launches and merges shards.
 
 Tie-break: every selection is a STABLE descending sort followed by a slice,
 over domains whose positions ascend with the ids (selected bin ids are
@@ -66,7 +71,10 @@ NEG_INF = float(np.finfo(np.float32).min)
 #: M and tile_b come from the tuned store (:mod:`~codemix_dense_retrieval_torch.utils.autotune`).
 FULL_SORT_MAX_ROWS = 16_384     # topk_ip(method="auto"): below -> full sort
 TWO_LEVEL_MIN_ROWS = 262_144    # at or above -> two-level cover
+TILE_B = 256                    # queries per phase-1 launch unless told otherwise
 
+#: the methods :func:`shard_topk` takes
+SHARD_METHODS = ("auto", "full", "bins_xla", "bins_pallas", "bins_two_level")
 LAYOUTS = ("bin_major", "transposed")
 Rows = Union[int, torch.Tensor]
 
@@ -92,12 +100,23 @@ def _auto_super_size(k: int) -> int:
     return int(autotune.get_tuned("topk.super_size", k=k))
 
 
-def _tuned_tile_b(k: int, default: Optional[int] = None) -> int:
-    """Queries per phase-1 launch: the tuned store's ``topk.tile_b[.k<k>]``,
-    else ``default``, else the built-in 512. The JAX package clamps tuned
-    values above 512 on shards under 1.1M rows, a limit of the TPU
-    compiler's scoped VMEM; the card has none, so the port does not."""
-    return int(autotune.get_tuned("topk.tile_b", k=k, default=default))
+def _tile_b(tile_b: Optional[int], k: int, *, two_level: bool) -> int:
+    """Queries per phase-1 launch, the one rule of every exact route:
+    ``tile_b`` if given; else on the two-level cover the tuned store's
+    ``topk.tile_b[.k<k>]``, which was measured there; else ``TILE_B``. The
+    JAX package clamps tuned values above 512 on shards under 1.1M rows, a
+    limit of the TPU compiler's scoped VMEM; the card has none, so the port
+    does not."""
+    if tile_b is not None:
+        return int(tile_b)
+    if two_level:
+        return int(autotune.get_tuned("topk.tile_b", k=k, default=TILE_B))
+    return TILE_B
+
+
+def _shard_method(rows: int) -> str:
+    """The method ``auto`` takes on a shard of ``rows`` padded rows."""
+    return "bins_two_level" if rows >= TWO_LEVEL_MIN_ROWS else "bins_pallas"
 
 
 # --------------------------------------------------------------------------
@@ -481,17 +500,38 @@ RESCORE_DTYPES = (torch.bfloat16, torch.float16)
 RESCORE_MAX_DIM = 8192
 
 
-def rescores_cover(docs, score_dtype: torch.dtype = torch.float32) -> bool:
+def rescores_cover(docs) -> bool:
     """Whether :func:`topk_ip_bins_two_level` over ``docs`` (anything with
     ``device``, ``dtype`` and ``shape``) runs without a score matrix: kernel
     5's bin maxima, then :func:`cover_rescore`. So it does for a bf16 or f16
-    index on a CUDA card, f32 scores and rows of at most ``RESCORE_MAX_DIM``
-    dims; f32 and int8 indexes, a bf16 score store and CPU tensors keep
-    kernel A's store."""
+    index on a CUDA card with rows of at most ``RESCORE_MAX_DIM`` dims; f32
+    and int8 indexes and CPU tensors keep kernel A's store."""
     return (
         docs.device.type == "cuda" and docs.dtype in RESCORE_DTYPES
-        and score_dtype == torch.float32 and docs.shape[1] <= RESCORE_MAX_DIM
+        and docs.shape[1] <= RESCORE_MAX_DIM
     )
+
+
+#: card bytes one query of a block takes per padded index row where phase 1
+#: stores its scores: its f32 score row and its bin maxima at the smallest
+#: bin (G = 8)
+BLOCK_BYTES_PER_ROW = 4 + 4 / 8
+#: the same where phase 1 writes the bin maxima alone (:func:`rescores_cover`)
+BLOCK_BYTES_PER_ROW_BINMAX = 4 / 8
+
+
+def block_bytes_per_row(shard: Union[torch.device, str, torch.Tensor]) -> float:
+    """Card bytes one query takes per padded row of ``shard`` (a shard's
+    tensor, or anything with its ``device``, ``dtype`` and ``shape``) in
+    phase 1 of :func:`shard_topk`'s ``auto`` route:
+    ``BLOCK_BYTES_PER_ROW_BINMAX`` where that is the two-level cover
+    without a score matrix, else ``BLOCK_BYTES_PER_ROW``, which a bare
+    device also counts."""
+    if isinstance(shard, (torch.device, str)):
+        return BLOCK_BYTES_PER_ROW
+    if _shard_method(shard.shape[0]) == "bins_two_level" and rescores_cover(shard):
+        return BLOCK_BYTES_PER_ROW_BINMAX
+    return BLOCK_BYTES_PER_ROW
 
 
 def _check_cover_operands(
@@ -587,14 +627,6 @@ def cover_rescore(
     return out
 
 
-def _bin_scores_xla(
-    queries: torch.Tensor, docs: torch.Tensor, bin_size: int, n_valid: Rows
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of the ``bins_xla`` route, which never launches a kernel:
-    (scores (B, Npad) f32 with padding = NEG_INF, bin_max (B, Npad/G))."""
-    return bin_scores_plain(queries, docs, n_valid, bin_size, layout="bin_major")
-
-
 # --------------------------------------------------------------------------
 # selection helpers
 # --------------------------------------------------------------------------
@@ -658,11 +690,17 @@ def _by_query_chunks(
 # --------------------------------------------------------------------------
 
 def topk_ip_full(
-    queries: torch.Tensor, docs: torch.Tensor, k: int
+    queries: torch.Tensor, docs: torch.Tensor, k: int, *, n_valid: Optional[Rows] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k via the full f32 score matrix and a stable sort; for small
-    shards."""
+    shards. Rows at or past ``n_valid`` (an int or a one-element tensor on
+    the docs' device) score ``NEG_INF``."""
+    if k > docs.shape[0]:
+        raise ValueError(f"k={k} > num docs {docs.shape[0]}")
     scores = queries.to(torch.float32) @ docs.to(torch.float32).T
+    if n_valid is not None:
+        col = torch.arange(docs.shape[0], device=docs.device)
+        scores = torch.where(col[None, :] < n_valid, scores, NEG_INF)
     return _stable_topk(scores, k)
 
 
@@ -728,35 +766,6 @@ def _select_bins_two_level(
     unsel_super = sup_vals[:, ks] if ns > ks else none
     unsel_cand = vals2[:, kb] if n_cand > kb else none
     return bin_ids, torch.maximum(unsel_super, unsel_cand)
-
-
-def _topk_from_bins_two_level(
-    scores_t: torch.Tensor,    # (N, B) transposed scores
-    bin_max_t: torch.Tensor,   # (nb, B) transposed bin maxima
-    k: int,
-    bin_size: int,
-    super_size: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two-level selection tail over the transposed layouts: super-max
-    reduce -> super top-k -> covered-bin gather + top-k -> element gather +
-    top-k. ``nb`` must divide by ``super_size``; pad rows carry NEG_INF."""
-    nb, b = bin_max_t.shape
-    if nb % super_size:
-        raise ValueError(f"{nb} bins not a multiple of super_size {super_size}")
-    ns = nb // super_size
-    super_max = bin_max_t.reshape(ns, super_size, b).amax(dim=1).T  # (B, ns)
-    ks = min(k, ns)
-    _, sup_ids = _stable_topk(super_max, ks)
-    sup_ids, _ = torch.sort(sup_ids, dim=1)
-    bin_idx = _expand_ids(sup_ids, super_size)
-    cand_binmax = torch.gather(bin_max_t, 0, bin_idx.T).T
-    kb = min(k, cand_binmax.shape[1])
-    _, pos = _stable_topk(cand_binmax, kb)
-    bin_ids, _ = torch.sort(torch.gather(bin_idx, 1, pos), dim=1)
-    cand_idx = _expand_ids(bin_ids, bin_size)
-    cand_scores = torch.gather(scores_t, 0, cand_idx.T).T.to(torch.float32)
-    vals, p2 = _stable_topk(cand_scores, k)
-    return vals, torch.gather(cand_idx, 1, p2)
 
 
 def _gather_bins(scores_bm: torch.Tensor, bin_ids: torch.Tensor, bin_size: int) -> torch.Tensor:
@@ -838,14 +847,18 @@ def topk_full_tail_bm(
     qsel: torch.Tensor,        # (B_esc,) query rows to escalate
     k: int,
     bin_size: int,
-    super_size: int,
+    super_size: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Escalation tail of the probed cover: the full two-level selection for
     the query rows ``qsel`` on the RETAINED phase-1 scores, so kernel A is
     not run again. The selected bins are read where they lie in the score
     store (``kb * bin_size`` elements per query); no row of the store is
     copied (a (B_esc, N) copy is 4.5 GB for 128 queries at 8.8M rows).
-    Results equal :func:`_topk_from_bins_two_level_bm` on those rows."""
+    ``super_size`` None takes the tuned store's, as
+    :func:`topk_ip_bins_two_level_probed` does. Results equal
+    :func:`_topk_from_bins_two_level_bm` on those rows."""
+    if super_size is None:
+        super_size = _auto_super_size(k)
     nb = binmax_bm.shape[1]
     bin_ids = _select_bins_two_level(binmax_bm.index_select(0, qsel), k, super_size)
     cand = scores_bm.view(scores_bm.shape[0], nb, bin_size)[qsel[:, None], bin_ids]
@@ -866,10 +879,8 @@ def topk_ip_bins_two_level(
     tile_b: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
-    score_dtype: torch.dtype = torch.float32,
-    bin_major: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact deep-k top-k via a TWO-LEVEL bin-max cover.
+    """Exact deep-k top-k via a TWO-LEVEL bin-max cover, bin-major.
 
     1. kernel A: scores + bin maxima                       [1 pass over D]
     2. super maxima (N/(G*M)) by a reshape-max              [tiny]
@@ -880,40 +891,28 @@ def topk_ip_bins_two_level(
     holding a true top-k element x holds an element that outranks x, so at
     most k-1 supers rank above it; the same holds at the bin level.
 
-    Where :func:`rescores_cover` holds (a bf16 or f16 index on the card,
-    f32 scores, ``bin_major``), step 1 is kernel 5, which writes the bin
-    maxima alone, and step 4 scores the k*G covered rows with
-    :func:`cover_rescore`: kernel A's sums, bit for bit, so the results are
-    the same."""
+    Where :func:`rescores_cover` holds (a bf16 or f16 index on the card),
+    step 1 is kernel 5, which writes the bin maxima alone, and step 4 scores
+    the k*G covered rows with :func:`cover_rescore`: kernel A's sums, bit
+    for bit, so the results are the same."""
     if bin_size is None:
         bin_size = _auto_bin_size_two_level(k)
     if super_size is None:
         super_size = _auto_super_size(k)
-    if tile_b is None:
-        tile_b = _tuned_tile_b(k)
+    tile_b = _tile_b(tile_b, k, two_level=True)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
-    if bin_major and rescores_cover(docs, score_dtype):
+    if rescores_cover(docs):
         def run(q):
             with timing.span("search.phase1", device=docs.device):
                 binmax_bm = binmax_only(q, docs, n_valid, bin_size)
             with timing.span("search.tail", device=docs.device):
                 return _topk_rescored_two_level(q, docs, binmax_bm, k, bin_size, super_size, n_valid)
-    elif bin_major:
-        def run(q):
-            with timing.span("search.phase1", device=docs.device):
-                scores_bm, binmax_bm = bin_scores(
-                    q, docs, n_valid, bin_size, layout="bin_major", score_dtype=score_dtype
-                )
-            with timing.span("search.tail", device=docs.device):
-                return _topk_from_bins_two_level_bm(scores_bm, binmax_bm, k, bin_size, super_size)
     else:
         def run(q):
             with timing.span("search.phase1", device=docs.device):
-                scores_t, bin_max_t = bin_scores(
-                    q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
-                )
+                scores_bm, binmax_bm = bin_scores(q, docs, n_valid, bin_size, layout="bin_major")
             with timing.span("search.tail", device=docs.device):
-                return _topk_from_bins_two_level(scores_t, bin_max_t, k, bin_size, super_size)
+                return _topk_from_bins_two_level_bm(scores_bm, binmax_bm, k, bin_size, super_size)
     return _by_query_chunks(queries, tile_b, run)
 
 
@@ -927,7 +926,6 @@ def topk_ip_bins_two_level_probed(
     super_size: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
-    score_dtype: torch.dtype = torch.float32,
     keep_scores: bool = False,
 ):
     """Certified probed-exact deep-k: kernel A's bin-major scores at every
@@ -950,9 +948,7 @@ def topk_ip_bins_two_level_probed(
     if super_size is None:
         super_size = _auto_super_size(k)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
-    scores_bm, binmax_bm = bin_scores(
-        queries, docs, n_valid, bin_size, layout="bin_major", score_dtype=score_dtype
-    )
+    scores_bm, binmax_bm = bin_scores(queries, docs, n_valid, bin_size, layout="bin_major")
     nb = binmax_bm.shape[1]
     vals, ids, unsel = _topk_from_bins_two_level_bm_probed(
         scores_bm, binmax_bm, k, bin_size, super_size, min(probe_bins, nb)
@@ -970,38 +966,33 @@ def topk_ip_bins(
     *,
     bin_size: Optional[int] = None,
     use_kernel: bool = True,
-    tile_b: int = 256,
+    tile_b: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
-    score_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact IP top-k via the single-level bin-max cover.
 
     ``docs`` may have any row count; it is padded to a tile multiple and
     padded rows are never selected (masked to NEG_INF). ``use_kernel``
     selects kernel 2, phase 1 in the transposed layout (the ``bins_pallas``
-    route);
-    otherwise phase 1 is plain PyTorch (the ``bins_xla`` route).
-    ``score_dtype=torch.bfloat16`` halves the score writes but rounds scores,
-    so near-ties may reorder. Returns (values f32 (B, k), row ids (B, k));
-    ties go to the lower row id."""
+    route); otherwise phase 1 is plain PyTorch (the ``bins_xla`` route).
+    Returns (values f32 (B, k), row ids (B, k)); ties go to the lower row
+    id."""
     if bin_size is None:
         bin_size = _auto_bin_size(k)
     if not use_kernel:
         (docs,), n_valid = _prep_shard(k, n_valid, bin_size, [docs])
-        scores, bin_max = _bin_scores_xla(queries, docs, bin_size, n_valid)
+        scores, bin_max = bin_scores_plain(queries, docs, n_valid, bin_size)
         return _topk_from_bins(scores, bin_max, k, bin_size)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs])
 
     def run(q):
         with timing.span("search.phase1", device=docs.device):
-            scores_t, bin_max_t = bin_scores(
-                q, docs, n_valid, bin_size, layout="transposed", score_dtype=score_dtype
-            )
+            scores_t, bin_max_t = bin_scores(q, docs, n_valid, bin_size, layout="transposed")
         with timing.span("search.tail", device=docs.device):
             return _topk_from_bins(scores_t, bin_max_t.T, k, bin_size, scores_transposed=True)
 
-    return _by_query_chunks(queries, tile_b, run)
+    return _by_query_chunks(queries, _tile_b(tile_b, k, two_level=False), run)
 
 
 def topk_ip_bins_int8(
@@ -1014,45 +1005,37 @@ def topk_ip_bins_int8(
     tile_b: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
-    score_dtype: torch.dtype = torch.float32,
     super_size: Optional[int] = None,
     two_level: bool = False,
-    bin_major: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bin-max-cover top-k over an int8 index (``d_vals`` (N, d) int8 with
     per-row f32 ``d_scales``): float ``queries`` are quantized per row on
     their device, phase 1 is kernel 4 (:func:`bin_scores_int8`). Single
     level uses the transposed layout; ``two_level`` finishes with the
-    super-bin cover, in the bin-major layout when ``bin_major`` (the
-    two-level route of an int8 shard). The scores are exact, so the ids
-    equal a stable top-k of the plain int8 scores."""
+    super-bin cover in the bin-major layout. The scores are exact, so the
+    ids equal a stable top-k of the plain int8 scores."""
     if bin_size is None:
         bin_size = _auto_bin_size_two_level(k) if two_level else _auto_bin_size(k)
     if super_size is None:
         super_size = _auto_super_size(k)
-    if tile_b is None:
-        tile_b = _tuned_tile_b(k, default=256)
     (d_vals, d_scales), n_valid = _prep_shard(
         k, n_valid, tile_n, [d_vals, d_scales],
         chunk=bin_size * super_size if two_level else None,
     )
-    layout = "bin_major" if two_level and bin_major else "transposed"
+    layout = "bin_major" if two_level else "transposed"
 
     def run(q):
         q_vals, q_scales = quantize_rows(q)
         with timing.span("search.phase1", device=d_vals.device):
             scores, bin_max = bin_scores_int8(
-                q_vals, q_scales, d_vals, d_scales, n_valid, bin_size,
-                layout=layout, score_dtype=score_dtype,
+                q_vals, q_scales, d_vals, d_scales, n_valid, bin_size, layout=layout
             )
         with timing.span("search.tail", device=d_vals.device):
-            if layout == "bin_major":
-                return _topk_from_bins_two_level_bm(scores, bin_max, k, bin_size, super_size)
             if two_level:
-                return _topk_from_bins_two_level(scores, bin_max, k, bin_size, super_size)
+                return _topk_from_bins_two_level_bm(scores, bin_max, k, bin_size, super_size)
             return _topk_from_bins(scores, bin_max.T, k, bin_size, scores_transposed=True)
 
-    return _by_query_chunks(queries, tile_b, run)
+    return _by_query_chunks(queries, _tile_b(tile_b, k, two_level=two_level), run)
 
 
 # --------------------------------------------------------------------------
@@ -1160,7 +1143,7 @@ def topk_ip_bins_rescore(
     *,
     bin_size: Optional[int] = None,
     slack_bins: int = 16,
-    tile_b: int = 256,
+    tile_b: Optional[int] = None,
     tile_n: int = 1024,
     n_valid: Optional[Rows] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1183,7 +1166,7 @@ def topk_ip_bins_rescore(
         bin_ids, _ = torch.sort(bin_ids, dim=1)
         return _rescore_candidates(docs, q, bin_ids, bin_size, n_valid, k)
 
-    return _by_query_chunks(queries, tile_b, run)
+    return _by_query_chunks(queries, _tile_b(tile_b, k, two_level=False), run)
 
 
 def topk_ip_rescore_two_level(
@@ -1207,8 +1190,6 @@ def topk_ip_rescore_two_level(
     lower id."""
     if super_size is None:
         super_size = _auto_super_size(k)
-    if tile_b is None:
-        tile_b = _tuned_tile_b(k)
     (docs,), n_valid = _prep_shard(k, n_valid, tile_n, [docs], chunk=bin_size * super_size)
 
     def run(q):
@@ -1216,7 +1197,64 @@ def topk_ip_rescore_two_level(
         bin_ids = _select_bins_two_level(bin_max, min(k + slack_bins, bin_max.shape[1]), super_size)
         return _rescore_candidates(docs, q, bin_ids, bin_size, n_valid, k)
 
-    return _by_query_chunks(queries, tile_b, run)
+    return _by_query_chunks(queries, _tile_b(tile_b, k, two_level=True), run)
+
+
+def shard_topk(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    *,
+    n_valid: Optional[Rows],
+    doc_scales: Optional[torch.Tensor] = None,
+    method: str = "auto",
+    bin_size: Optional[int] = None,
+    tile_b: Optional[int] = None,
+    tile_n: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's exact top k: (values (B, k) f32, row ids (B, k)), ties to
+    the lower id, rows at or past ``n_valid`` (an int, a one-element int32
+    tensor on the docs' device, or None: every row) never ahead of a valid
+    one. The per-shard entry of
+    :func:`~codemix_dense_retrieval_torch.parallel.sharded_search.sharded_topk_ip`
+    and of :func:`topk_ip`.
+
+    ``method`` (one of ``SHARD_METHODS``; the names are the JAX package's):
+    ``auto`` takes the two-level cover, bin-major, on shards of
+    ``TWO_LEVEL_MIN_ROWS`` rows or more (on the card kernel 5 and
+    :func:`cover_rescore` for a bf16 or f16 index, kernel A for f32, kernel 4
+    for int8) and the single-level cover below (``bins_pallas``: kernels 2
+    and 4, transposed); ``full`` and ``bins_xla`` score with the plain
+    versions. An int8 shard (``docs`` int8 with its per-row f32
+    ``doc_scales``) takes float queries, quantized per row on its device.
+    ``bin_size`` and ``tile_b`` None take the route's own (:func:`_tile_b`)."""
+    if method not in SHARD_METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {SHARD_METHODS}")
+    int8 = docs.dtype == torch.int8
+    if int8 and doc_scales is None:
+        raise ValueError("int8 index requires doc_scales")
+    if method == "auto":
+        method = _shard_method(docs.shape[0])
+    if int8 and method in ("full", "bins_xla"):
+        bin_size = bin_size or _auto_bin_size(k)
+        (docs, doc_scales), n_valid = _prep_shard(k, n_valid, bin_size, [docs, doc_scales])
+        scores, bin_max = bin_scores_int8_plain(*quantize_rows(queries), docs, doc_scales, n_valid, bin_size)
+        return _stable_topk(scores, k) if method == "full" else _topk_from_bins(scores, bin_max, k, bin_size)
+    if int8:
+        return topk_ip_bins_int8(
+            queries, docs, doc_scales, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
+            n_valid=n_valid, two_level=(method == "bins_two_level"),
+        )
+    if method == "full":
+        return topk_ip_full(queries, docs, k, n_valid=n_valid)
+    if method == "bins_two_level":
+        return topk_ip_bins_two_level(
+            queries, docs, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n, n_valid=n_valid
+        )
+    return topk_ip_bins(
+        queries, docs, k, bin_size=bin_size, use_kernel=(method == "bins_pallas"),
+        tile_b=tile_b, tile_n=tile_n, n_valid=n_valid,
+    )
 
 
 def topk_ip(
@@ -1228,32 +1266,15 @@ def topk_ip(
     method: str = "auto",
     **kwargs,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact inner-product top-k. ``method``: auto | full | bins_xla |
-    bins_pallas | bins_two_level | bins_rescore (``bins_pallas`` is the
-    kernel 2 route (the transposed layout), ``bins_rescore`` the kernel 5
-    route of :func:`topk_ip_bins_rescore`; the names are the JAX
-    package's).
-
-    ``auto``: full sort below 16,384 rows, the two-level cover at 262,144
-    rows and above, the single-level cover in between."""
-    n = docs.shape[0]
-    if method == "auto":
-        if n < FULL_SORT_MAX_ROWS:
-            method = "full"
-        elif n >= TWO_LEVEL_MIN_ROWS:
-            method = "bins_two_level"
-        else:
-            method = "bins_pallas"
-    if method == "full":
-        if k > n:
-            raise ValueError(f"k={k} > num docs {n}")
-        return topk_ip_full(queries, docs, k)
-    if method == "bins_xla":
-        return topk_ip_bins(queries, docs, k, bin_size=bin_size, use_kernel=False, **kwargs)
-    if method == "bins_pallas":
-        return topk_ip_bins(queries, docs, k, bin_size=bin_size, use_kernel=True, **kwargs)
-    if method == "bins_two_level":
-        return topk_ip_bins_two_level(queries, docs, k, bin_size=bin_size, **kwargs)
+    """Exact inner-product top-k over ``docs``: ``bins_rescore`` runs the
+    kernel 5 route of :func:`topk_ip_bins_rescore`, any other ``method``
+    :func:`shard_topk` (``kwargs``: its ``n_valid``, ``tile_b`` and
+    ``tile_n``), except that ``auto`` full-sorts below
+    ``FULL_SORT_MAX_ROWS`` rows."""
     if method == "bins_rescore":
         return topk_ip_bins_rescore(queries, docs, k, bin_size=bin_size, **kwargs)
-    raise ValueError(f"unknown method {method!r}")
+    if method == "auto" and docs.shape[0] < FULL_SORT_MAX_ROWS:
+        method = "full"
+    return shard_topk(
+        queries, docs, k, n_valid=kwargs.pop("n_valid", None), method=method, bin_size=bin_size, **kwargs
+    )

@@ -8,13 +8,19 @@ valid-row count. Each shard is one tensor on its mesh device (a mesh may
 put several shards on one device), with an int8 shard's per-row scales as a
 padded sidecar (:func:`shard_row_sidecar`).
 
-A search launches every shard's kernels (A, 2, 4, 5 or 7) on its own device
-before it reads any result, maps each shard's local ids to global ones
+A search launches every shard's search on its own device before it reads
+any result, maps each shard's local ids to global ones
 (``idx + s * rps``), gathers the S (B, k) candidate lists onto the mesh's
 first device and merges them by (score desc, global id asc), the order of
 the JAX package's two-key ``lax.sort``. Across processes
 (``parallel/multihost.py``) the merge adds one all-gather of the (B, k)
 payload. No score matrix and no index row crosses a device.
+
+Which route one shard takes (its method, bin size, queries per launch and
+the phase-1 memory that sizes a query block) is :mod:`~codemix_dense_retrieval_torch.ops.topk`'s
+(``shard_topk``, ``block_bytes_per_row``) and, for the sketch tier,
+:mod:`~codemix_dense_retrieval_torch.ops.sketch`'s (``shard_topk_sketch``);
+this module places the shards, launches them and merges their results.
 
 Shards and their sidecars are passed as lists of per-shard tensors; a bare
 tensor is one shard.
@@ -28,20 +34,12 @@ import numpy as np
 import torch
 
 from codemix_dense_retrieval_torch.ops import topk as topk_ops
-from codemix_dense_retrieval_torch.ops.quant import int8_ip_scores, quantize_rows
 from codemix_dense_retrieval_torch.parallel.mesh import Mesh, as_mesh, gather_to
-from codemix_dense_retrieval_torch.utils import autotune, timing
+from codemix_dense_retrieval_torch.utils import timing
 from codemix_dense_retrieval_torch.utils.logging import get_logger
 
 Shards = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-# card bytes one query of a block takes per padded index row where phase 1
-# stores its scores: its f32 score row and its bin maxima at the smallest bin
-# (G = 8)
-BLOCK_BYTES_PER_ROW = 4 + 4 / 8
-# the same where phase 1 writes the bin maxima alone (the two-level cover of
-# a bf16 or f16 index on the card: topk.rescores_cover)
-BLOCK_BYTES_PER_ROW_BINMAX = 4 / 8
 # the share of the card's free memory one block's scores may take; the rest
 # is the top-k tail's
 BLOCK_MEMORY_SHARE = 0.75
@@ -58,20 +56,6 @@ def as_shards(x: Optional[Shards]) -> Optional[List[torch.Tensor]]:
     return [x] if isinstance(x, torch.Tensor) else list(x)
 
 
-def block_bytes_per_row(shard: Union[torch.device, str, torch.Tensor]) -> float:
-    """Card bytes one query of a block takes per padded row of ``shard``
-    (a shard's tensor, or anything with its ``device``, ``dtype`` and
-    ``shape``; a bare device counts as a score store):
-    ``BLOCK_BYTES_PER_ROW_BINMAX`` where the search's default route is the
-    two-level cover without a score matrix (:func:`~codemix_dense_retrieval_torch.ops.topk.rescores_cover`),
-    else ``BLOCK_BYTES_PER_ROW``."""
-    if isinstance(shard, (torch.device, str)):
-        return BLOCK_BYTES_PER_ROW
-    if shard.shape[0] >= topk_ops.TWO_LEVEL_MIN_ROWS and topk_ops.rescores_cover(shard):
-        return BLOCK_BYTES_PER_ROW_BINMAX
-    return BLOCK_BYTES_PER_ROW
-
-
 def fit_query_block(
     query_block: int, n_queries: int, rows_per_shard: int,
     devices: Union[torch.device, str, torch.Tensor, Sequence[Union[torch.device, str, torch.Tensor]]],
@@ -80,8 +64,10 @@ def fit_query_block(
     on ``devices`` (a device, each shard's device, or the shards' tensors)
     runs: ``query_block`` (0: all ``n_queries`` in one block), on CUDA cards
     cut to the largest power of two whose phase-1 outputs (the score stores
-    and bin maxima, :func:`block_bytes_per_row` per query and row, for every
-    shard on the card, since all shards are launched before any is read)
+    and bin maxima,
+    :func:`~codemix_dense_retrieval_torch.ops.topk.block_bytes_per_row` per
+    query and row, for every shard on the card, since all shards are
+    launched before any is read)
     fit in ``BLOCK_MEMORY_SHARE`` of each card's free memory (the driver's
     free bytes plus what PyTorch's allocator holds unused). A bare device
     counts the score store. So the CLI's 1024-query default runs at the
@@ -95,7 +81,7 @@ def fit_query_block(
     for d in devices:
         device = torch.device(d) if isinstance(d, (torch.device, str)) else d.device
         count, per_row = need.get(device, (0, 0.0))
-        need[device] = (count + 1, per_row + block_bytes_per_row(d))
+        need[device] = (count + 1, per_row + topk_ops.block_bytes_per_row(d))
     fit, short = None, None
     with timing.span("search.fit_block"):
         for device, (count, per_row) in need.items():
@@ -283,62 +269,6 @@ def _check_k(k: int, rows_per_shard: int) -> None:
         )
 
 
-METHODS = ("auto", "full", "bins_xla", "bins_pallas", "bins_two_level")
-
-
-def _resolve_tile_b(tile_b: Optional[int], k: int, default: int) -> int:
-    """``tile_b`` None -> the tuned store's per-depth entry when it holds
-    one (``topk.tile_b.k<k>`` or ``topk.tile_b``), else ``default``, so a
-    card without a store keeps the path's own default."""
-    if tile_b is not None:
-        return int(tile_b)
-    store = autotune.load_tuned()
-    if f"topk.tile_b.k{k}" not in store and "topk.tile_b" not in store:
-        return default
-    return topk_ops._tuned_tile_b(k, default=default)
-
-
-def _shard_topk(
-    q: torch.Tensor, docs: torch.Tensor, n_valid: torch.Tensor, k: int, method: str,
-    bin_size: int, tile_n: int, tile_b: int, doc_scales: Optional[torch.Tensor],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One shard's exact top k: (values (B, k) f32, local ids (B, k))."""
-    rows_per_shard = docs.shape[0]
-    int8_mode = docs.dtype == torch.int8
-    if int8_mode and method in ("bins_pallas", "bins_two_level"):
-        return topk_ops.topk_ip_bins_int8(
-            q, docs, doc_scales, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
-            n_valid=n_valid, two_level=(method == "bins_two_level"),
-        )
-    if method == "full" or int8_mode:
-        if int8_mode:
-            q_vals, q_scales = quantize_rows(q)
-            scores = int8_ip_scores(q_vals, q_scales, docs, doc_scales)
-        else:
-            scores = q.to(torch.float32) @ docs.to(torch.float32).T
-        col = torch.arange(rows_per_shard, device=docs.device)
-        scores = torch.where(col[None, :] < n_valid, scores, topk_ops.NEG_INF)
-        if method == "bins_xla":
-            # pad the tail UP to a bin multiple with NEG_INF (never
-            # selectable): truncating would make tail rows unselectable
-            n_pad_b = -(-scores.shape[1] // bin_size) * bin_size
-            if n_pad_b != scores.shape[1]:
-                scores = torch.nn.functional.pad(
-                    scores, (0, n_pad_b - scores.shape[1]), value=topk_ops.NEG_INF
-                )
-            bin_max = scores.view(scores.shape[0], -1, bin_size).amax(dim=2)
-            return topk_ops._topk_from_bins(scores, bin_max, k, bin_size)
-        return topk_ops._stable_topk(scores, k)
-    if method == "bins_two_level":
-        return topk_ops.topk_ip_bins_two_level(
-            q, docs, k, bin_size=bin_size, tile_b=tile_b, tile_n=tile_n, n_valid=n_valid,
-        )
-    return topk_ops.topk_ip_bins(
-        q, docs, k, bin_size=bin_size, use_kernel=(method == "bins_pallas"),
-        tile_b=tile_b, tile_n=tile_n, n_valid=n_valid,
-    )
-
-
 def sharded_topk_ip(
     queries: torch.Tensor,
     docs: Shards,
@@ -361,37 +291,18 @@ def sharded_topk_ip(
     the cross-process merge). Returns (values (B, k) f32, global ids (B, k)
     int64) on the first shard's device; ties go to the lower id.
 
-    Routing: shards of 262,144 rows or more take the two-level cover,
-    bin-major (on the card kernel 5 and ``cover_rescore`` for a bf16 or f16
-    index, kernel A for f32, kernel 4 for int8), smaller ones the
-    single-level cover (kernels A and 4, transposed); ``method`` may also
-    name ``full`` or ``bins_xla``, which score with the plain versions."""
+    Each shard runs :func:`~codemix_dense_retrieval_torch.ops.topk.shard_topk`,
+    which takes ``method``, ``bin_size``, ``tile_b``, ``tile_n`` and its
+    ``doc_scales`` and decides the route."""
     docs, counts, doc_scales = as_shards(docs), as_shards(counts), as_shards(doc_scales)
-    rows_per_shard = docs[0].shape[0]
-    _check_k(k, rows_per_shard)
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
-    int8_mode = docs[0].dtype == torch.int8
-    if int8_mode and doc_scales is None:
-        raise ValueError("int8 index requires doc_scales")
-    if method == "auto":
-        method = "bins_two_level" if rows_per_shard >= topk_ops.TWO_LEVEL_MIN_ROWS else "bins_pallas"
-    if bin_size is None:
-        bin_size = (
-            topk_ops._auto_bin_size_two_level(k)
-            if method == "bins_two_level" else topk_ops._auto_bin_size(k)
-        )
-    if method == "bins_two_level":
-        tile_b = _resolve_tile_b(tile_b, k, 256)
-    elif tile_b is None:
-        # tuned tile_b entries are measured on the two-level cover only
-        tile_b = 256
+    _check_k(k, docs[0].shape[0])
     # every shard is launched before any result is read
     vals, gids = [], []
     for s, (d, off) in enumerate(zip(docs, _shard_offsets(docs, mesh))):
-        v, idx = _shard_topk(
-            queries.to(d.device, non_blocking=True), d, counts[s][:1], k, method, bin_size,
-            tile_n, tile_b, None if doc_scales is None else doc_scales[s],
+        v, idx = topk_ops.shard_topk(
+            queries.to(d.device, non_blocking=True), d, k, n_valid=counts[s][:1],
+            doc_scales=None if doc_scales is None else doc_scales[s], method=method,
+            bin_size=bin_size, tile_b=tile_b, tile_n=tile_n,
         )
         vals.append(v)
         gids.append(idx + off)
@@ -444,8 +355,6 @@ def sharded_topk_ip_adaptive(
             "int8 indexes use the fixed cover (sharded_topk_ip) or the "
             "int8 sketch tier"
         )
-    if super_size is None:
-        super_size = topk_ops._auto_super_size(k)
     nb_local = rows_per_shard // bin_size
     if probe_bins is None:
         probe_bins = _default_probe_bins(k, bin_size, nb_local, expand)
@@ -515,33 +424,19 @@ def sharded_topk_ip_sketch(
     Returns (values (B, k), global ids (B, k), certified (B,) bool). A
     query's certificate is the AND of its per-shard ones: every shard's
     local top k being exact makes the merged top k exact."""
-    from codemix_dense_retrieval_torch.ops import sketch as sketch_ops
+    from codemix_dense_retrieval_torch.ops.sketch import shard_topk_sketch
 
     docs, counts = as_shards(docs), as_shards(counts)
     sketch, tails, doc_scales = as_shards(sketch), as_shards(tails), as_shards(doc_scales)
-    bin_size = bin_size or sketch_ops.DEFAULT_BIN_SIZE
-    super_size = super_size or sketch_ops.DEFAULT_SUPER_SIZE
-    rows_per_shard = docs[0].shape[0]
-    _check_k(k, rows_per_shard)
-    if probe_bins is None:
-        probe_bins = sketch_ops._default_probe_bins(
-            k, bin_size, rows_per_shard // bin_size, expand
-        )
-    tile_b = 512 if tile_b is None else tile_b
-    int8_mode = docs[0].dtype == torch.int8
-    if int8_mode and doc_scales is None:
-        raise ValueError("int8 index requires doc_scales")
+    _check_k(k, docs[0].shape[0])
     vals, gids, certs = [], [], []
     for s, (d, off) in enumerate(zip(docs, _shard_offsets(docs, mesh))):
-        common = dict(probe_bins=probe_bins, bin_size=bin_size, super_size=super_size,
-                      tile_b=tile_b, tile_n=tile_n, n_valid=counts[s][:1])
-        q = queries.to(d.device, non_blocking=True)
-        if int8_mode:
-            v, idx, cert = sketch_ops.topk_ip_sketch_int8(
-                q, d, doc_scales[s], sketch[s], tails[s], proj, k, **common
-            )
-        else:
-            v, idx, cert = sketch_ops.topk_ip_sketch(q, d, sketch[s], tails[s], proj, k, **common)
+        v, idx, cert = shard_topk_sketch(
+            queries.to(d.device, non_blocking=True), d, sketch[s], tails[s], proj, k,
+            n_valid=counts[s][:1], doc_scales=None if doc_scales is None else doc_scales[s],
+            probe_bins=probe_bins, expand=expand, bin_size=bin_size, super_size=super_size,
+            tile_b=tile_b, tile_n=tile_n,
+        )
         vals.append(v)
         gids.append(idx + off)
         certs.append(cert)

@@ -3,17 +3,17 @@ sweeps that fill it (the port of the JAX package's ``utils/autotune.py``).
 
 ``tune`` times the configurations on the live card and persists the
 winners to a JSON file per card kind; the pickers read them where the JAX
-package's do (`ops.topk._auto_bin_size_two_level`, ``_auto_super_size``
-and ``_tuned_tile_b``, the flash dispatch in
-``ops.flash_attention.multi_head_attention`` and
-``parallel.sharded_search._resolve_tile_b``) and fall back to
+package's do (``ops.topk._auto_bin_size_two_level``, ``_auto_super_size``
+and ``_tile_b``, the one ``tile_b`` rule of the exact routes, and the flash
+dispatch in ``ops.flash_attention.multi_head_attention``) and fall back to
 :data:`DEFAULTS` where the store has no entry.
 
 Every value in :data:`DEFAULTS` was measured by the JAX package on a TPU
 v5e dev chip: they are fallbacks kept for parity, not measurements of any
 CUDA card. The JAX table's ``flash.window`` is left out: it sizes the
 Pallas kernel's K/V tiles, and kernel B (``csrc/flash_attention.cu``) has
-no such parameter.
+no such parameter. So is its ``topk.tile_b``: without a store entry the
+exact routes launch ``ops.topk.TILE_B`` queries.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ _CACHE_PATH: Optional[str] = None
 #: the JAX package's TPU-measured values (fallbacks only, see above)
 DEFAULTS = {
     "topk.super_size": 8,
-    "topk.tile_b": 512,
     "topk.bin_size": 8,
     "flash.min_seq": 512,
 }

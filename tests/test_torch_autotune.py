@@ -30,7 +30,11 @@ def _isolated_store(tmp_path, monkeypatch):
 
 class TestStore:
     def test_missing_file_gives_the_jax_defaults(self):
-        for key in ("topk.super_size", "topk.tile_b", "topk.bin_size", "flash.min_seq"):
+        # topk.tile_b has no built-in entry in the port: without a store the
+        # exact routes launch topk.TILE_B queries (topk._tile_b), the sketch
+        # tier its own 512
+        assert "topk.tile_b" not in autotune.DEFAULTS and autotune.get_tuned("topk.tile_b") is None
+        for key in ("topk.super_size", "topk.bin_size", "flash.min_seq"):
             assert autotune.get_tuned(key) == ref_autotune.get_tuned(key) == autotune.DEFAULTS[key]
         # the Pallas K/V window has no counterpart in kernel B
         assert autotune.get_tuned("flash.window") is None and "flash.window" not in autotune.DEFAULTS
@@ -58,7 +62,7 @@ class TestStore:
         assert autotune.load_tuned() == {}
 
     def test_explicit_default_wins_over_builtin(self):
-        assert autotune.get_tuned("topk.tile_b", default=256) == 256
+        assert autotune.get_tuned("topk.super_size", default=16) == 16
 
     def test_default_path_is_per_card_kind_and_not_the_jax_one(self, monkeypatch, tmp_path):
         monkeypatch.delenv("CDR_TUNE_FILE")
@@ -73,11 +77,11 @@ class TestStore:
 class TestIntegration:
     def test_pickers_consult_store(self):
         assert topk._auto_super_size(1000) == 8 and topk._auto_bin_size_two_level(1000) == 8
-        assert topk._tuned_tile_b(1000) == 512 and topk._tuned_tile_b(1000, default=256) == 256
+        assert topk._tile_b(None, 1000, two_level=True) == topk.TILE_B == 256
         autotune.save_tuned({"topk.super_size.k1000": 4, "topk.bin_size.k1000": 16, "topk.tile_b.k1000": 128})
         assert topk._auto_super_size(1000) == 4 and topk._auto_super_size(500) == 8
         assert topk._auto_bin_size_two_level(1000) == 16 and topk._auto_bin_size_two_level(500) == 8
-        assert topk._tuned_tile_b(1000) == 128 and topk._tuned_tile_b(500) == 512
+        assert topk._tile_b(None, 1000, two_level=True) == 128 and topk._tile_b(None, 500, two_level=True) == 256
 
     def test_two_level_exact_with_tuned_params(self, monkeypatch):
         rng = np.random.default_rng(7)
@@ -103,36 +107,37 @@ class TestIntegration:
         """The JAX package clamps tuned tile_b > 512 below 1.1M rows (the TPU
         compiler's scoped VMEM); the card has no such limit."""
         autotune.save_tuned({"topk.tile_b.k300": 1024})
-        assert topk._tuned_tile_b(300) == 1024
-        assert sharded_search._resolve_tile_b(None, 300, 256) == 1024
+        assert topk._tile_b(None, 300, two_level=True) == 1024
 
     def test_resolve_tile_b_uses_store_entries_only(self):
-        assert sharded_search._resolve_tile_b(None, 100, 256) == 256  # empty store: the path default
+        """The one rule: the argument, else the store's entry on the
+        two-level cover (where it was measured), else ``TILE_B``; the
+        single-level routes never read the store."""
+        assert topk._tile_b(None, 100, two_level=True) == 256  # empty store
         autotune.save_tuned({"topk.tile_b.k100": 384})
-        assert sharded_search._resolve_tile_b(None, 100, 256) == 384
-        assert sharded_search._resolve_tile_b(None, 77, 256) == 256
-        assert sharded_search._resolve_tile_b(768, 100, 256) == 768
+        assert topk._tile_b(None, 100, two_level=True) == 384
+        assert topk._tile_b(None, 100, two_level=False) == 256
+        assert topk._tile_b(None, 77, two_level=True) == 256
+        assert topk._tile_b(768, 100, two_level=True) == 768
         autotune.save_tuned({"topk.tile_b": 64})
-        assert sharded_search._resolve_tile_b(None, 77, 256) == 64
+        assert topk._tile_b(None, 77, two_level=True) == 64
 
     def test_sharded_two_level_route_reads_tuned_tile_b(self, monkeypatch):
-        seen = {}
-        real = topk.topk_ip_bins_two_level
-
-        def spy(*a, **kw):
-            seen["tile_b"] = kw["tile_b"]
-            return real(*a, **kw)
-
-        monkeypatch.setattr(topk, "topk_ip_bins_two_level", spy)
+        seen = []
+        real = topk._by_query_chunks
+        monkeypatch.setattr(topk, "_by_query_chunks",
+                            lambda q, tb, run: seen.append(tb) or real(q, tb, run))
         rng = np.random.default_rng(3)
         d = torch.from_numpy(rng.standard_normal((2048, 16)).astype(np.float32))
         q = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
         counts = torch.tensor([2048])
         sharded_search.sharded_topk_ip(q, d, counts, 10, method="bins_two_level")
-        assert seen["tile_b"] == 256
+        assert seen == [256]
         autotune.save_tuned({"topk.tile_b.k10": 2})
         sharded_search.sharded_topk_ip(q, d, counts, 10, method="bins_two_level")
-        assert seen["tile_b"] == 2
+        # the single-level cover keeps TILE_B whatever the store holds
+        sharded_search.sharded_topk_ip(q, d, counts, 10, method="bins_pallas")
+        assert seen == [256, 2, 256]
 
     def test_flash_dispatch_consults_store(self, monkeypatch):
         rng = np.random.default_rng(11)

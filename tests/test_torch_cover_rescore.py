@@ -125,18 +125,19 @@ def _shard(device="cuda", dtype=torch.bfloat16, rows=8_842_240, dim=1024):
     return SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(rows, dim))
 
 
-@pytest.mark.parametrize("device,dtype,score_dtype,dim,want", [
-    ("cuda", torch.bfloat16, torch.float32, 1024, True),
-    ("cuda", torch.float16, torch.float32, 1024, True),
-    ("cuda", torch.float32, torch.float32, 1024, False),
-    ("cuda", torch.int8, torch.float32, 1024, False),
-    ("cuda", torch.bfloat16, torch.bfloat16, 1024, False),
-    ("cuda", torch.bfloat16, torch.float32, topk.RESCORE_MAX_DIM * 2, False),
-    ("cpu", torch.bfloat16, torch.float32, 1024, False),
-    ("meta", torch.bfloat16, torch.float32, 1024, False),
+@pytest.mark.parametrize("device,dtype,dim,want", [
+    ("cuda", torch.bfloat16, 1024, True),
+    ("cuda", torch.float16, 1024, True),
+    ("cuda", torch.float32, 1024, False),
+    ("cuda", torch.int8, 1024, False),
+    ("cuda", torch.bfloat16, topk.RESCORE_MAX_DIM * 2, False),
+    ("cpu", torch.bfloat16, 1024, False),
+    ("meta", torch.bfloat16, 1024, False),
 ])
-def test_the_route_follows_dtype_device_and_score_dtype(device, dtype, score_dtype, dim, want):
-    assert topk.rescores_cover(_shard(device, dtype, dim=dim), score_dtype) is want
+def test_the_route_follows_dtype_device_and_score_dtype(device, dtype, dim, want):
+    """Routes store f32 scores where they store any, so the index's dtype,
+    its device and its width decide."""
+    assert topk.rescores_cover(_shard(device, dtype, dim=dim)) is want
 
 
 @pytest.fixture
@@ -148,8 +149,8 @@ def card_route(monkeypatch):
     card = topk.rescores_cover
     bin_scores, binmax_only = topk.bin_scores, topk.binmax_only
 
-    def rescores_cover(docs, score_dtype=torch.float32):
-        return card(SimpleNamespace(device=torch.device("cuda"), dtype=docs.dtype, shape=docs.shape), score_dtype)
+    def rescores_cover(docs):
+        return card(SimpleNamespace(device=torch.device("cuda"), dtype=docs.dtype, shape=docs.shape))
 
     def counted_bin_scores(*args, **kw):
         calls["bin_scores"] += 1
@@ -201,12 +202,12 @@ def test_ties_at_the_cover_boundary_go_to_the_lower_ids(card_route):
     assert ids[0].tolist() == list(range(1000, 1010))
 
 
-@pytest.mark.parametrize("dtype,score_dtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-])
-def test_f32_indexes_and_a_bf16_score_store_keep_the_stored_route(card_route, dtype, score_dtype):
+@pytest.mark.parametrize("dtype", [torch.float32])
+def test_f32_indexes_and_a_bf16_score_store_keep_the_stored_route(card_route, dtype):
+    """An f32 index keeps kernel A's store; routes store f32 scores where
+    they store any."""
     q, docs = _tied(dtype, 0)
-    topk.topk_ip_bins_two_level(q, docs, 10, bin_size=8, super_size=8, tile_b=4, score_dtype=score_dtype)
+    topk.topk_ip_bins_two_level(q, docs, 10, bin_size=8, super_size=8, tile_b=4)
     assert card_route == {"bin_scores": 3, "binmax_only": 0, "cover_rescore": 0}
 
 
@@ -262,18 +263,18 @@ def test_the_rescore_span_nests_in_the_tail_and_counts_its_rows(card_route):
 
 
 @pytest.mark.parametrize("shard,per_row", [
-    (_shard(), ss.BLOCK_BYTES_PER_ROW_BINMAX),
-    (_shard(dtype=torch.float16), ss.BLOCK_BYTES_PER_ROW_BINMAX),
-    (_shard(dtype=torch.float32), ss.BLOCK_BYTES_PER_ROW),
-    (_shard(dtype=torch.int8), ss.BLOCK_BYTES_PER_ROW),
-    (_shard(rows=131_072), ss.BLOCK_BYTES_PER_ROW),
-    (_shard(device="cpu"), ss.BLOCK_BYTES_PER_ROW),
-    (torch.device("cuda", 0), ss.BLOCK_BYTES_PER_ROW),
-    ("cuda", ss.BLOCK_BYTES_PER_ROW),
+    (_shard(), topk.BLOCK_BYTES_PER_ROW_BINMAX),
+    (_shard(dtype=torch.float16), topk.BLOCK_BYTES_PER_ROW_BINMAX),
+    (_shard(dtype=torch.float32), topk.BLOCK_BYTES_PER_ROW),
+    (_shard(dtype=torch.int8), topk.BLOCK_BYTES_PER_ROW),
+    (_shard(rows=131_072), topk.BLOCK_BYTES_PER_ROW),
+    (_shard(device="cpu"), topk.BLOCK_BYTES_PER_ROW),
+    (torch.device("cuda", 0), topk.BLOCK_BYTES_PER_ROW),
+    ("cuda", topk.BLOCK_BYTES_PER_ROW),
 ])
 def test_block_bytes_follow_the_route(shard, per_row):
-    assert ss.block_bytes_per_row(shard) == per_row
-    assert ss.BLOCK_BYTES_PER_ROW == 4 + 4 / 8 and ss.BLOCK_BYTES_PER_ROW_BINMAX == 4 / 8
+    assert topk.block_bytes_per_row(shard) == per_row
+    assert topk.BLOCK_BYTES_PER_ROW == 4 + 4 / 8 and topk.BLOCK_BYTES_PER_ROW_BINMAX == 4 / 8
 
 
 def test_fit_query_block_counts_each_shards_route(monkeypatch):

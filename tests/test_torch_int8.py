@@ -101,13 +101,14 @@ def _int8_pair(seed, n=3000, d=64, b=16):
 
 
 @pytest.mark.parametrize("k", [10, 100])
-@pytest.mark.parametrize("two_level,bin_major", [(False, True), (True, True), (True, False)])
-def test_topk_ip_bins_int8_matches_jax(two_level, bin_major, k):
-    qs, dv, ds = _int8_pair(k + 7 * two_level + bin_major)
-    kw = dict(bin_size=8, super_size=4, tile_n=1024, two_level=two_level, bin_major=bin_major,
-              n_valid=2900)
+@pytest.mark.parametrize("two_level", [False, True])
+def test_topk_ip_bins_int8_matches_jax(two_level, k):
+    """Single level (transposed) and two levels (bin-major), the port's two
+    int8 routes."""
+    qs, dv, ds = _int8_pair(k + 7 * two_level + 1)
+    kw = dict(bin_size=8, super_size=4, tile_n=1024, two_level=two_level, n_valid=2900)
     rv, ri = ref.topk_ip_bins_int8(jnp.asarray(qs), jnp.asarray(dv), jnp.asarray(ds), k,
-                                   interpret=True, **kw)
+                                   interpret=True, bin_major=True, **kw)
     gv, gi = port.topk_ip_bins_int8(torch.from_numpy(qs), torch.from_numpy(dv),
                                     torch.from_numpy(ds), k, **kw)
     assert gi.shape == (16, k) and int(gi.max()) < 2900
@@ -229,14 +230,16 @@ def test_sharded_int8_bins_xla_pads_a_ragged_tail_up():
 @pytest.mark.parametrize("method", ["bins_rescore", "bins_palas"])
 def test_sharded_int8_unknown_method_raises_before_scoring(method, monkeypatch):
     """A method the routing does not take is refused up front: no int8
-    scores over the whole shard are computed first."""
+    scores over the whole shard are computed first (the plain routes'
+    scoring is ``ops/topk.py``'s, where the route is decided)."""
     from codemix_dense_retrieval_torch.parallel import sharded_search as port_ss
 
     def no_scores(*args, **kwargs):
         raise AssertionError("scored the shard before checking the method")
 
-    monkeypatch.setattr(port_ss, "quantize_rows", no_scores)
-    monkeypatch.setattr(port_ss, "int8_ip_scores", no_scores)
+    monkeypatch.setattr(port, "quantize_rows", no_scores)
+    monkeypatch.setattr(port, "bin_scores_int8_plain", no_scores)
+    monkeypatch.setattr(port, "bin_scores_int8", no_scores)
     rng = np.random.default_rng(17)
     store = PortStore.build(_unit(rng, 300, 16), [str(i) for i in range(300)], dtype="int8")
     (rows,), (counts,), rps = port_ss.shard_rows(store, torch.device("cpu"))

@@ -28,6 +28,7 @@ import torch
 
 from codemix_dense_retrieval_torch.io.shards import ShardStore as PortStore
 from codemix_dense_retrieval_torch.ops import kernels
+from codemix_dense_retrieval_torch.ops import topk as port_topk
 from codemix_dense_retrieval_torch.parallel import sharded_search as port
 from codemix_dense_retrieval_torch.parallel.mesh import make_mesh as port_mesh
 from codemix_dense_retrieval_tpu.ops import sketch as ref_sketch
@@ -215,11 +216,31 @@ def test_fit_query_block_counts_the_shards_that_share_a_card(monkeypatch):
     rps = 2_211_840
     one = port.fit_query_block(1024, 4096, rps, card)
     four = port.fit_query_block(1024, 4096, rps, [card] * 4)
-    fit1 = int(port.BLOCK_MEMORY_SHARE * free // (port.BLOCK_BYTES_PER_ROW * rps))
-    fit4 = int(port.BLOCK_MEMORY_SHARE * free // (port.BLOCK_BYTES_PER_ROW * rps * 4))
+    fit1 = int(port.BLOCK_MEMORY_SHARE * free // (port_topk.BLOCK_BYTES_PER_ROW * rps))
+    fit4 = int(port.BLOCK_MEMORY_SHARE * free // (port_topk.BLOCK_BYTES_PER_ROW * rps * 4))
     assert one == (1024 if fit1 >= 1024 else 1 << (fit1.bit_length() - 1))
     assert four == 1 << (fit4.bit_length() - 1) and four < one
     assert port.fit_query_block(1024, 4096, rps, [torch.device("cpu")] * 4) == 1024
+
+
+def test_the_route_is_decided_in_topk_alone():
+    """``sharded_search.py`` names no private ``topk`` name and decides no
+    method, bin size or queries per launch: one shard's route is
+    ``topk.shard_topk``'s (and the sketch tier's ``sketch.shard_topk_sketch``'s)."""
+    path = pathlib.Path(port.__file__)
+    tree = ast.parse(path.read_text(), filename=str(path))
+    private = sorted({
+        node.attr for node in ast.walk(tree)
+        if isinstance(node, ast.Attribute) and getattr(node.value, "id", "") == "topk_ops"
+        and node.attr.startswith("_")
+    })
+    assert private == []
+    compared = {
+        node.left.id for node in ast.walk(tree)
+        if isinstance(node, ast.Compare) and isinstance(node.left, ast.Name)
+    }
+    assert not compared & {"method", "tile_b", "bin_size"}
+    assert not hasattr(port, "BLOCK_BYTES_PER_ROW") and not hasattr(port, "METHODS")
 
 
 # ---------------------------------------------------------------- device guard

@@ -217,6 +217,46 @@ def test_bins_rescore_routes_to_the_rescore_search():
     torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("method", ["auto", "full", "bins_xla", "bins_pallas", "bins_two_level"])
+def test_shard_topk_matches_jax_sharded_search_over_one_shard(method, dtype):
+    """``shard_topk``, the per-shard entry of the sharded search, against
+    the JAX package's ``sharded_topk_ip`` over a one-shard mesh: every
+    method, f32 and int8 rows, 2,900 valid rows of 3,072, the rows past
+    them copies of the queries (they would win unmasked). Ids exactly; f32
+    values within 1e-5, int8 values within two f32 ulps (the JAX program's
+    query scales, as in tests/test_torch_int8.py)."""
+    import jax
+
+    from codemix_dense_retrieval_torch.ops.quant import quantize_rows_np
+    from codemix_dense_retrieval_tpu.parallel import sharded_search as ref_ss
+    from codemix_dense_retrieval_tpu.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(40)
+    n, k = 2900, 40
+    qs = _unit(rng, 6, 32)
+    docs = np.concatenate([_unit(rng, n, 32), np.tile(qs, (29, 1))[: 3072 - n]])
+    scales = None
+    if dtype == "int8":
+        docs, scales = quantize_rows_np(docs)
+    mesh = make_mesh(shard=1, tp=1)
+    rrows, rcounts, rps = ref_ss.shard_rows(docs, mesh, pad_multiple=1024)
+    assert rps == 3072
+    rcounts = jax.device_put(np.array([n], np.int32), rcounts.sharding)
+    rsc = None if scales is None else ref_ss.shard_row_sidecar(scales, mesh, rps)
+    rv, ri = ref_ss.sharded_topk_ip(jnp.asarray(qs), rrows, rcounts, k, mesh=mesh, method=method,
+                                    doc_scales=rsc, interpret=True)
+    gv, gi = port.shard_topk(
+        torch.from_numpy(qs), torch.from_numpy(np.array(rrows)), k,
+        n_valid=torch.tensor([n], dtype=torch.int32),
+        doc_scales=None if rsc is None else torch.from_numpy(np.array(rsc)), method=method,
+    )
+    assert gi.shape == (6, k) and int(gi.max()) < n
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    tol = dict(rtol=0, atol=1e-5) if dtype == "float32" else dict(rtol=2.0 ** -22, atol=0)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), **tol)
+
+
 def test_auto_routing_thresholds(monkeypatch):
     seen = []
     monkeypatch.setattr(port, "topk_ip_full", lambda *a, **k: seen.append("full"))
