@@ -290,13 +290,33 @@ Phases (a line of JSON after each):
                version, and one 256-query chunk by either route.
                `python3 chip_smoke.py --cover-rescore` builds the bf16 and
                f16 bin sources and cover_rescore.cu and runs this phase alone.
+15. select   — super_select (phase_super_select): the two-level cover's
+               super level against its plain version on the card (amax,
+               whole-row stable sort, id sort), values and ids as bits, 3
+               seeds of f32 bin maxima made on the card with ties planted
+               (equal supers across the k-th, a row of equal maxima, +0.0 /
+               -0.0 maxima and mixed zero bins, NaNs, NEG_INF past n_valid,
+               rows whose valid supers are fewer than k, top supers packed
+               into few groups): B = 256 at nb = 1,105,280 (8,842,240 rows
+               at G = 8), M = 8, 4, 16, and B = 1, 100, 257, 64, 7, k_bins =
+               10, 100, 1000 and 4095, ns <= k_bins; past 4,096 supers kept
+               (the sort in device memory: k_bins 4096 and 20,000, ns =
+               6,000 and 5,000 <= k_bins); over 1024 queries of
+               phase 14's bf16 index at k = 10, 100 and 1000 the exact route
+               returns the plain super level's values and ids; the kernel's
+               time at the main shape beside its bound, the plain version and
+               amax + torch.topk. `python3 chip_smoke.py --super-select`
+               builds super_select.cu (its ptxas gate), the bf16 bin source
+               and cover_rescore.cu and runs this phase alone.
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
 runs, each encoder and command of 11, 12a's hubness_stats and 12b's
 in-process rerun, 13a's searches and mutation, 13c's encode, 13d's TP
 forwards) and read just after it; comparison and timing launches happen outside those windows (in
 phase 9 the direct searches run while the service is idle, their launches
-taken back out of the count). Every TREC run of the paths is
+taken back out of the count). Phases 14 and 15 keep their bit checks'
+counts under keys starting "bits.", which the kernels line's totals (and
+its "never launched on the main path" check) leave out. Every TREC run of the paths is
 written by the native writer (csrc/fastio.cpp, built in phase 2).
 Before the kernels line, a phase_walls line gives the second at which each
 phase began. The last line is the device JSON. Any failed check raises
@@ -356,9 +376,12 @@ TQ = TD = 32                # two-stage query and doc tokens
 # the kernels' function names in csrc/ (ptxas reports template instances
 # under mangled names that contain them); the wgmma ones may not spill
 KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "tf32_split_kernel",
-                "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel", "cover_rescore_kernel")
+                "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel", "cover_rescore_kernel", "super_max_kernel",
+                "super_select_kernel", "super_select_wide_kernel")
 WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "flash_fwd_wgmma",
                  "cover_rescore_kernel"}
+# kernels that may not spill besides the wgmma ones
+NO_SPILL_KERNELS = WGMMA_KERNELS | {"super_max_kernel", "super_select_kernel", "super_select_wide_kernel"}
 K_DENSE = 400               # two-stage dense recall depth
 N_CENTERS = 256             # topical clusters of the adaptive phase's rows
 N_PACKED = 4096             # passages of the packed-encode phase
@@ -628,8 +651,9 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
                               "--batch", "512", "--ks", "100", "1000", "--iters", "3"])
         tune_s = time.perf_counter() - t0
         path_counts["tune"] = dict(kernels.LAUNCHES)
-        check(path_counts["tune"]["binmax_only"] > 0 and path_counts["tune"]["cover_rescore"] > 0,
-              "the tune sweep did not launch kernel 5 and cover_rescore")
+        check(path_counts["tune"]["binmax_only"] > 0 and path_counts["tune"]["cover_rescore"] > 0
+              and path_counts["tune"]["super_select"] > 0,
+              "the tune sweep did not launch kernel 5, cover_rescore and super_select")
         check(tuned["tune_file"] == str(work / "tuned.json"), "tune wrote another store")
         t0 = time.perf_counter()
         qwen_flash = autotune.autotune_flash(heads=16, kv_heads=8, head_dim=128, causal=True)
@@ -669,8 +693,9 @@ def phase_11(dev, work, smi, path_counts, texts_a, passages, buckets, corpus_tsv
                          "--queries", "1024", "--k", "100", "--iters", "5", "--trace_dir", str(work / "prof")])
     prof_s = time.perf_counter() - t0
     path_counts["profile"] = dict(kernels.LAUNCHES)
-    check(path_counts["profile"]["binmax_only"] > 0 and path_counts["profile"]["cover_rescore"] > 0,
-          "profile's search did not launch kernel 5 and cover_rescore")
+    check(path_counts["profile"]["binmax_only"] > 0 and path_counts["profile"]["cover_rescore"] > 0
+          and path_counts["profile"]["super_select"] > 0,
+          "profile's search did not launch kernel 5, cover_rescore and super_select")
     trace = json.loads((work / "prof" / "search" / "trace.json").read_text())
     names = [ev.get("name", "") for ev in trace["traceEvents"] if ev.get("cat") == "kernel"]
     kernel_a = sorted({n for n in names if "bin_scores_bm_kernel" in n})
@@ -1190,7 +1215,8 @@ def phase_13(dev, work, smi, path_counts, ckpt, qdir, mix05, docids, passages, b
     torch.cuda.empty_cache()
     steps["small_store_s"] = time.perf_counter() - t0
     path_counts["multi_device"] = dict(kernels.LAUNCHES)
-    for name in ("binmax_only", "cover_rescore", "bin_scores_transposed", "bin_scores_int8_bin_major", "binub"):
+    for name in ("binmax_only", "cover_rescore", "bin_scores_transposed", "bin_scores_int8_bin_major", "binub",
+                 "super_select"):
         check(path_counts["multi_device"][name] > 0, f"13a did not launch {name}")
     say("multi_device", smi=smi, rows=N_ROWS, shards=MESH_SHARDS, rows_per_shard=rps4,
         gen_s=round(gen_s, 2), upload_1shard_s=round(up1_s, 2), upload_4shards_s=round(up4_s, 2),
@@ -1495,7 +1521,7 @@ def phase_cover_rescore(dev, smi, path_counts) -> dict:
             counts = dict(kernels.LAUNCHES)
             check(counts["cover_rescore" + sfx] == 12 and counts["binmax_only" + sfx] == 12,
                   f"{label}: the rescored route launched {counts['binmax_only' + sfx]} / {counts['cover_rescore' + sfx]}")
-            path_counts[f"cover_rescore_{label}_{seed}"] = counts
+            path_counts[f"bits.cover_rescore_{label}_{seed}"] = counts
             report[f"{label}_{seed}"] = out
             if not (dtype == torch.bfloat16 and seed == RESCORE_SEEDS[0]):
                 del q, docs
@@ -1534,10 +1560,167 @@ def phase_cover_rescore(dev, smi, path_counts) -> dict:
     return entry
 
 
-def main_cover_rescore() -> None:
-    """``chip_smoke.py --cover-rescore``: phase 1's card line, the build of
-    the sources phase 14 runs (ptxas's gate on cover_rescore_kernel), then
-    phase 14 alone."""
+# phase 15: f32 bin maxima made on the card with ties planted (select_operands)
+SELECT_SEEDS = (SEED + 151, SEED + 152, SEED + 153)
+SELECT_NB = N_PAD // 8      # the cell's bins a query at G = 8: 1,105,280
+
+
+def select_operands(b: int, nb: int, m: int, seed: int, dev):
+    """(b, nb) f32 bin maxima on the card from ``seed``, shaped like kernel
+    5's (values around 0.05, NEG_INF from a ragged n_valid on), with ties
+    planted in the first rows: row 0 has 40 supers of one high maximum at
+    seeded places (k = 10 cuts through them); row 1 is one value
+    throughout; in row 2 every value is negative and 60 supers reach +0.0
+    or -0.0, some with both zeros among their bins, in either order; row 3
+    holds NaNs of both signs, one super three of them; in row 4 all but
+    50 supers are NEG_INF (fewer valid supers than k = 100 or 1000); in row
+    5 the best 3,000 supers lie side by side (the k-th group maximum falls
+    far below the k-th super)."""
+    import torch
+
+    from codemix_dense_retrieval_torch.ops import topk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bm = torch.randn(b, nb, generator=g, device=dev) * 0.03 + 0.05
+    ns = nb // m
+    nv = nb - int(torch.randint(1, min(nb, 4 * m * 32), (1,), generator=g, device=dev))
+    bm[:, nv:] = topk.NEG_INF
+    bits = bm.view(torch.int32)
+    pick = lambda n: torch.randperm(max(ns - 64, 1), generator=g, device=dev)[:n]
+    if b > 0:
+        sup = pick(40)
+        bm[0].view(ns, m)[sup] = 0.0
+        bm[0].view(ns, m)[sup, int(seed) % m] = 0.9
+    if b > 1:
+        bm[1] = 0.25
+    if b > 2:
+        bm[2] = -bm[2].abs() - 0.01
+        sup = pick(60)
+        r2 = bits[2].view(ns, m)
+        for j, s_ in enumerate(sup.tolist()):
+            r2[s_, j % m] = 0 if j % 3 == 0 else -(1 << 31)
+            if j % 2 == 1 and m > 1:
+                r2[s_, (j + 1) % m] = -(1 << 31) if j % 3 == 0 else 0
+    if b > 3:
+        sup = pick(4).tolist()
+        for s_, v in zip(sup, (0x7FC00001, 0x7F800005, 0xFFC00003 - (1 << 32), 0x7FC00001)):
+            bits[3].view(ns, m)[s_, 0] = v
+        if m > 2:  # two NaNs in one super
+            bits[3].view(ns, m)[sup[0], 1] = 0x7F800005
+            bits[3].view(ns, m)[sup[0], m - 1] = 0xFFC00003 - (1 << 32)
+    if b > 4:
+        keep = pick(50)
+        row = torch.full((ns, m), topk.NEG_INF, device=dev)
+        row[keep] = bm[4].view(ns, m)[keep]
+        bm[4] = row.view(-1)
+    if b > 5 and ns > 3_100:
+        bm[5].view(ns, m)[17:3_017] += 1.0
+    return bm
+
+
+def phase_super_select(dev, smi, path_counts) -> dict:
+    """Phase 15: super_select against its plain version, bit for bit, and
+    the exact route with it against the route with the plain super level
+    (see the module docstring). Returns the kernel table's super_select
+    entry."""
+    import torch
+
+    from codemix_dense_retrieval_torch.ops import kernels, topk
+
+    report, bad = {}, 0
+    shapes = [(256, SELECT_NB, 8, k) for k in (10, 100, 1000)]
+    shapes += [(256, SELECT_NB, m, k) for m in (4, 16) for k in (10, 100, 1000)]
+    shapes += [(b, SELECT_NB, 8, k) for b in (1, 100, 257) for k in (10, 100, 1000)]
+    shapes += [(64, SELECT_NB, 8, 4095), (7, 8 * 50, 8, 100), (7, 8 * 101, 8, 100), (7, 8 * 100, 8, 100),
+               (5, 4 * 3_000, 4, 1000)]
+    # past SUPER_SELECT_MAX_K supers kept: the sort in device memory
+    shapes += [(64, SELECT_NB, 8, 4096), (7, SELECT_NB, 16, 20_000), (5, 4 * 6_000, 4, 10**6),
+               (3, 8 * 5_000, 8, 5_000)]
+    kernels.reset_launch_counts()
+    for seed in SELECT_SEEDS:
+        out = {}
+        for b, nb, m, k in shapes:
+            bm = select_operands(b, nb, m, seed, dev)
+            v1, i1 = topk.super_select(bm, k, m)
+            v0, i0 = topk.super_select_plain(bm, k, m)
+            rows = int(((v1.view(torch.int32) != v0.view(torch.int32)).any(1) | (i1 != i0).any(1)).sum())
+            bad += rows
+            out[f"B{b}_nb{nb}_M{m}_k{k}"] = rows
+            if rows:
+                r = int(((v1.view(torch.int32) != v0.view(torch.int32)).any(1) | (i1 != i0).any(1)).nonzero()[0])
+                say("select_mismatch", seed=seed, b=b, nb=nb, m=m, k=k, row=r,
+                    kernel_ids=i1[r, :12].tolist(), plain_ids=i0[r, :12].tolist(),
+                    kernel_bits=[hex(x & 0xFFFFFFFF) for x in v1[r, :12].view(torch.int32).tolist()],
+                    plain_bits=[hex(x & 0xFFFFFFFF) for x in v0[r, :12].view(torch.int32).tolist()])
+            del bm, v0, i0, v1, i1
+        report[str(seed)] = out
+    check(kernels.LAUNCHES["super_select"] == 3 * len(shapes),
+          f"super_select launched {kernels.LAUNCHES['super_select']} times, not {3 * len(shapes)}")
+    path_counts["bits.super_select"] = dict(kernels.LAUNCHES)
+    say("super_select_bits", smi=smi, rows_differ=bad, seeds=list(SELECT_SEEDS), shapes=len(shapes), **report)
+    check(bad == 0, f"super_select differs from its plain version in {bad} rows")
+
+    # the exact route over 1024 queries of phase 14's bf16 index: the
+    # kernel's super level against the plain one
+    nv = torch.tensor([N_ROWS], dtype=torch.int32, device=dev)
+    q, docs = rescore_operands(torch.bfloat16, RESCORE_SEEDS[0], dev)
+    routes = {}
+    card = topk.super_select
+    for k in (10, 100, 1000):
+        mk = topk._auto_super_size(k)
+        kernels.reset_launch_counts()
+        v1, i1 = topk.topk_ip_bins_two_level(q, docs, k, bin_size=8, super_size=mk, tile_b=256, n_valid=nv)
+        launched = kernels.LAUNCHES["super_select"]
+        topk.super_select = topk.super_select_plain
+        try:
+            v0, i0 = topk.topk_ip_bins_two_level(q, docs, k, bin_size=8, super_size=mk, tile_b=256, n_valid=nv)
+        finally:
+            topk.super_select = card
+        same = torch.equal(i1, i0) and torch.equal(v1.view(torch.int32), v0.view(torch.int32))
+        check(launched == 4, f"k={k}: the exact route launched super_select {launched} times, not 4")
+        check(same, f"k={k}: the exact route with super_select differs from the plain super level")
+        routes[f"k{k}_equal"] = same
+
+    # times at the main path's shape, on kernel 5's bin maxima
+    q256 = q[:256].contiguous()
+    m = topk._auto_super_size(100)
+    bm5 = topk.binmax_only(q256, docs, nv, 8)
+    del q, docs
+    torch.cuda.empty_cache()
+    b, nb = bm5.shape
+    ms = kernel_ms(lambda: topk.super_select(bm5, 100, m), 20)
+    plain = kernel_ms(lambda: topk.super_select_plain(bm5, 100, m), 5)
+    library = cuda_ms(lambda: torch.topk(bm5.view(b, -1, m).amax(dim=2), 101, dim=1), 5)
+    ng = -(-(nb // m) // 32)
+    b_ms, b_by = bound(b * nb * 4 + b * ng * 4 + b * (101 * 4 + 100 * 8), 0)
+    entry = dict(
+        name="super_select", route="cuda", source="codemix_dense_retrieval_torch/csrc/super_select.cu",
+        replaces="none (the two-level cover's super-max reduce and whole-row stable sort)",
+        launches=0, **ms, plain_ms=plain["ms"], bound_ms=b_ms, bound_by=b_by, library_ms=library,
+        shape=f"B={b} nb={nb} M={m} k_bins=100 f32 bin maxima",
+    )
+    say("super_select", smi=smi, rows=N_ROWS, bins=nb, super_size=m, routes=routes,
+        times=dict(super_select=ms, plain=plain, library_amax_topk_ms=library, bound_ms=b_ms, bound_by=b_by))
+    del bm5
+    torch.cuda.empty_cache()
+    return entry
+
+
+# the phases that run alone: flag -> (the sources they build, the source
+# whose kernels ptxas gates, the phase, the launch counts of its entry)
+ALONE = {
+    "--cover-rescore": (("bin_scores", "bin_scores_f16", "cover_rescore"), "cover_rescore",
+                        phase_cover_rescore, ("cover_rescore", "cover_rescore_f16")),
+    "--super-select": (("super_select", "bin_scores", "cover_rescore"), "super_select",
+                       phase_super_select, ("super_select",)),
+}
+
+
+def main_alone(flag: str) -> None:
+    """``chip_smoke.py --cover-rescore`` (phase 14) or ``--super-select``
+    (phase 15): phase 1's card line, the build of the sources the phase
+    runs (ptxas's gate on its own source's kernels), then the phase
+    alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1545,21 +1728,21 @@ def main_cover_rescore() -> None:
     sys.path.insert(0, str(REPO))
     from codemix_dense_retrieval_torch.ops import kernels
 
+    names, gated, phase, counted = ALONE[flag]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    names = ("bin_scores", "bin_scores_f16", "cover_rescore")
     build_s = kernels.build_kernels(names)
-    rep = kernels.ptxas_report(kernels.build_log("cover_rescore"))
+    rep = kernels.ptxas_report(kernels.build_log(gated))
     check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
-    check(all(v["spill_bytes"] == 0 for v in rep["kernels"].values()), f"cover_rescore spills: {rep['kernels']}")
-    say("build", seconds=round(build_s, 2), sources=names, cover_rescore_ptxas=rep)
+    check(all(v["spill_bytes"] == 0 for v in rep["kernels"].values()), f"{gated} spills: {rep['kernels']}")
+    say("build", seconds=round(build_s, 2), sources=names, **{f"{gated}_ptxas": rep})
     path_counts = {}
-    entry = phase_cover_rescore(torch.device("cuda", 0), smi, path_counts)
-    entry["launches"] = sum(c["cover_rescore"] + c["cover_rescore_f16"] for c in path_counts.values())
+    entry = phase(torch.device("cuda", 0), smi, path_counts)
+    entry["launches"] = sum(c[name] for c in path_counts.values() for name in counted)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(smi, flush=True)
     say("done", seconds=round(time.perf_counter() - t0, 1))
@@ -1618,7 +1801,7 @@ def main() -> None:
             e["spill_bytes"] += v["spill_bytes"]
         ptxas[source] = {"warnings": rep["warnings"], "kernels": fams}
         check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
-        for fam in WGMMA_KERNELS & fams.keys():
+        for fam in NO_SPILL_KERNELS & fams.keys():
             check(fams[fam]["spill_bytes"] == 0, f"{fam} spills {fams[fam]['spill_bytes']} bytes")
     # every f32 instance is bin_scores_f32_kernel's, under the gate above: A
     # (8: NT x G x score dtype), 5 and 7 (4 each) and 2 (8, the transposed
@@ -2162,8 +2345,9 @@ def main() -> None:
     runs1000 = run_vector_mix_search(index, qids, qa, qb, [0.5], out5 / "k1000", k=1000, query_block=256)
     t1000 = time.perf_counter() - t0
     path_counts["search"] = dict(kernels.LAUNCHES)
-    check(path_counts["search"]["binmax_only"] > 0 and path_counts["search"]["cover_rescore"] > 0,
-          "search did not launch kernel 5 and cover_rescore")
+    check(path_counts["search"]["binmax_only"] > 0 and path_counts["search"]["cover_rescore"] > 0
+          and path_counts["search"]["super_select"] > 0,
+          "search did not launch kernel 5, cover_rescore and super_select")
     say("search", rows=N_ROWS, rows_padded=index._rows_per_shard, dim=DIM, dtype="bfloat16",
         gen_s=round(gen_s, 2), upload_s=round(upload_s, 2),
         k100_alphas=len(ALPHAS), k100_queries_per_s=round(len(ALPHAS) * N_QUERIES / t100, 1),
@@ -2259,8 +2443,9 @@ def main() -> None:
     fids = fids.cpu().numpy()
     tf100 = time.perf_counter() - t0
     path_counts["fused"] = dict(kernels.LAUNCHES)
-    check(path_counts["fused"]["binmax_only"] > 0 and path_counts["fused"]["cover_rescore"] > 0,
-          "the fused sweep did not launch kernel 5 and cover_rescore")
+    check(path_counts["fused"]["binmax_only"] > 0 and path_counts["fused"]["cover_rescore"] > 0
+          and path_counts["fused"]["super_select"] > 0,
+          "the fused sweep did not launch kernel 5, cover_rescore and super_select")
     for ai, a in enumerate(ALPHAS):
         check(np.array_equal(fids[ai], run_ids(runs100[a], 100)), f"fused ids differ from the unfused run, alpha={a}")
     # the k=1000 run written from string rows (native and Python) and from row ids
@@ -2315,8 +2500,9 @@ def main() -> None:
     runs8_1000 = run_vector_mix_search(index8, qids, qa, qb, [0.5], out8 / "k1000", k=1000, query_block=256)
     t8_1000 = time.perf_counter() - t0
     path_counts["search_int8"] = dict(kernels.LAUNCHES)
-    check(path_counts["search_int8"]["bin_scores_int8_bin_major"] > 0,
-          "int8 search did not launch kernel 4 bin-major")
+    check(path_counts["search_int8"]["bin_scores_int8_bin_major"] > 0
+          and path_counts["search_int8"]["super_select"] > 0,
+          "int8 search did not launch kernel 4 bin-major and super_select")
     ids8_100 = run_ids(runs8_100[0.5], 100)
     ids8_1000 = run_ids(runs8_1000[0.5], 1000)
     for a in ALPHAS:
@@ -2366,7 +2552,8 @@ def main() -> None:
         torch.cuda.synchronize()
         rescore_s["k1000"] = time.perf_counter() - t0
     path_counts["rescore"] = dict(kernels.LAUNCHES)
-    check(path_counts["rescore"]["binmax_only"] > 0, "rescore search did not launch kernel 5")
+    check(path_counts["rescore"]["binmax_only"] > 0 and path_counts["rescore"]["super_select"] > 0,
+          "rescore search did not launch kernel 5 and super_select")
     rov100 = overlap(rids100.cpu().numpy(), oids[:256, :100])
     rov1000 = overlap(rids1000.cpu().numpy(), oids[:256])
     check(rov100 >= 0.999 and rov1000 >= 0.999, f"rescore oracle overlap {rov100} / {rov1000}")
@@ -2414,7 +2601,8 @@ def main() -> None:
     cert5d[("fast", 1, 0.5)] = index.last_certified.copy()
     t5d[("fast", 1)] = time.perf_counter() - t0
     path_counts["sketch"] = dict(kernels.LAUNCHES)
-    check(path_counts["sketch"]["binub"] > 0, "the sketch runs did not launch kernel 7")
+    check(path_counts["sketch"]["binub"] > 0 and path_counts["sketch"]["super_select"] > 0,
+          "the sketch runs did not launch kernel 7 and super_select")
     kernels.reset_launch_counts()
     for k, alphas in depths:
         t0 = time.perf_counter()
@@ -2507,7 +2695,8 @@ def main() -> None:
     tfg1 = time.perf_counter() - t0
     path_counts["fused_sketch"] = dict(kernels.LAUNCHES)
     fe1 = fe1.cpu().numpy()
-    check(path_counts["fused_sketch"]["binub"] > 0, "the guaranteed fused sweep did not launch kernel 7")
+    check(path_counts["fused_sketch"]["binub"] > 0 and path_counts["fused_sketch"]["super_select"] > 0,
+          "the guaranteed fused sweep did not launch kernel 7 and super_select")
     check(np.array_equal(fg_ids, fe_ids), "guaranteed fused ids differ from the exact fused sweep's")
     fused_k1 = [0, 0, 0]  # certified rows: equal, equal up to ties, differing
     for ai, a in enumerate(ALPHAS):
@@ -2728,7 +2917,8 @@ def main() -> None:
     check(br_tail is not None, "no probe depth left 1..128 of 256 queries uncertified")
     same5e(br_tail[2], (exact5e[100][0][:256], exact5e[100][1][:256]), "the <= B/2 branch")
     path_counts["adaptive"] = {kk: sum(c[kk] for c in adaptive_counts) for kk in adaptive_counts[0]}
-    check(path_counts["adaptive"]["bin_scores_bin_major"] > 0, "the adaptive tier did not launch kernel A")
+    check(path_counts["adaptive"]["bin_scores_bin_major"] > 0 and path_counts["adaptive"]["super_select"] > 0,
+          "the adaptive tier did not launch kernel A and super_select")
     # the reorder's own effect at equal probe depths, and what a user sees:
     # the default probe before it against the calibrated one after it
     check(any(grid_post[k][p] > grid_pre[k][p] for k in grid5e for p in grid5e[k]),
@@ -2794,7 +2984,8 @@ def main() -> None:
     run_cli([*ad_argv, "--approx", "adaptive"])
     cli_ad_s = time.perf_counter() - t0
     path_counts["cli_adaptive"] = dict(kernels.LAUNCHES)
-    check(path_counts["cli_adaptive"]["bin_scores_bin_major"] > 0, "run-mix --approx adaptive did not launch kernel A")
+    check(path_counts["cli_adaptive"]["bin_scores_bin_major"] > 0 and path_counts["cli_adaptive"]["super_select"] > 0,
+          "run-mix --approx adaptive did not launch kernel A and super_select")
     for label in ("0", "0.5", "1"):
         name = f"cm-alpha-{label}.trec"
         check((work / "cli_adaptive" / name).read_bytes() == (work / "cli_runs" / name).read_bytes(),
@@ -2846,8 +3037,9 @@ def main() -> None:
     cli_bi_s = time.perf_counter() - t0
     path_counts["cli_bilingual_fused"] = dict(kernels.LAUNCHES)
     check(path_counts["cli_bilingual_fused"]["binmax_only"] > 0
-          and path_counts["cli_bilingual_fused"]["cover_rescore"] > 0,
-          "run-bilingual-mix --fused did not launch kernel 5 and cover_rescore")
+          and path_counts["cli_bilingual_fused"]["cover_rescore"] > 0
+          and path_counts["cli_bilingual_fused"]["super_select"] > 0,
+          "run-bilingual-mix --fused did not launch kernel 5, cover_rescore and super_select")
     check(sorted(cli_bi) == ["0.0", "0.5", "1.0"], f"run-bilingual-mix --fused payload {sorted(cli_bi)}")
     for a, entry in cli_bi.items():
         n_lines = len(pathlib.Path(entry["run"]).read_text().splitlines())
@@ -2937,7 +3129,8 @@ def main() -> None:
              "--approx", "guaranteed", "--seed", str(SEED)])
     corpus_grt_s = time.perf_counter() - t0
     path_counts["corpus_grt"] = dict(kernels.LAUNCHES)
-    check(path_counts["corpus_grt"]["binub"] > 0, "run-mix --approx guaranteed did not launch kernel 7")
+    check(path_counts["corpus_grt"]["binub"] > 0 and path_counts["corpus_grt"]["super_select"] > 0,
+          "run-mix --approx guaranteed did not launch kernel 7 and super_select")
     check(bool((corpus_run_ids(work / "corpus_grt_runs" / "cm-alpha-0.5.trec") == want8.cpu().numpy()).all()),
           "run-mix --approx guaranteed over the int8 store differs from the exact int8 top-k")
     grt_meta = json.loads((work / "corpus_grt_runs" / "cm-alpha-0.5_meta.json").read_text())
@@ -3087,7 +3280,8 @@ def main() -> None:
                                   k=100, k_dense=K_DENSE, query_block=256, cache_root=work / "qc6", approx="adaptive")
     path_counts["two_stage_adaptive"] = dict(kernels.LAUNCHES)
     check(path_counts["two_stage_adaptive"]["bin_scores_bin_major"] > 0
-          and path_counts["two_stage_adaptive"]["maxsim"] > 0, "the adaptive two-stage run missed kernel A or 6")
+          and path_counts["two_stage_adaptive"]["maxsim"] > 0 and path_counts["two_stage_adaptive"]["super_select"] > 0,
+          "the adaptive two-stage run missed kernel A, 6 or super_select")
     check(np.array_equal(run_table(runs6a["twostage"], 100, doc_int=lambda d: int(d[1:]))[0], got6),
           "the two-stage run with the adaptive dense stage differs from the exact one")
     # the same searcher card-resident (timed warm) and through the memmap path
@@ -3178,7 +3372,7 @@ def main() -> None:
     # ---------------- phase 7: kernels line ----------------
     mark("7")
     def total(name):
-        return sum(c[name] for c in path_counts.values())
+        return sum(c[name] for key, c in path_counts.items() if not key.startswith("bits."))
 
     def bin_kernel_err(run, run_plain, nv, layout, tol, label):
         """Max |kernel - plain| over the valid scores and the bin maxima at
@@ -3415,8 +3609,9 @@ def main() -> None:
     hub_unfused = run_bilingual_vector_mix(hub, qids, qa, qb, ALPHAS, out_hub / "unfused", k=500, query_block=1024)
     t_hub = time.perf_counter() - t0
     path_counts["hub_unfused"] = dict(kernels.LAUNCHES)
-    check(path_counts["hub_unfused"]["binmax_only"] > 0 and path_counts["hub_unfused"]["cover_rescore"] > 0,
-          "the hub run did not launch kernel 5 and cover_rescore")
+    check(path_counts["hub_unfused"]["binmax_only"] > 0 and path_counts["hub_unfused"]["cover_rescore"] > 0
+          and path_counts["hub_unfused"]["super_select"] > 0,
+          "the hub run did not launch kernel 5, cover_rescore and super_select")
     hub_qrels = {q: {str(int(planted[i])): 1} for i, q in enumerate(qids)}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3424,8 +3619,9 @@ def main() -> None:
         hub, qids, qa, qb, ALPHAS, out_hub / "fused", k=500, qrels=hub_qrels, query_block=1024)
     t_hub_fused = time.perf_counter() - t0
     path_counts["hub_fused"] = dict(kernels.LAUNCHES)
-    check(path_counts["hub_fused"]["binmax_only"] > 0 and path_counts["hub_fused"]["cover_rescore"] > 0,
-          "the fused hub run did not launch kernel 5 and cover_rescore")
+    check(path_counts["hub_fused"]["binmax_only"] > 0 and path_counts["hub_fused"]["cover_rescore"] > 0
+          and path_counts["hub_fused"]["super_select"] > 0,
+          "the fused hub run did not launch kernel 5, cover_rescore and super_select")
 
     def trec_rows(path):
         rows = {}
@@ -3759,8 +3955,9 @@ def main() -> None:
         health1, _ = call(port, "/healthz")
         check(health1["stats"]["errors"] == 0, f"/healthz errors {health1['stats']}")
     peak9 = torch.cuda.max_memory_allocated()
-    check(serve_counts["serve_dense"]["binmax_only"] > 0 and serve_counts["serve_dense"]["cover_rescore"] > 0,
-          "dense serving did not launch kernel 5 and cover_rescore")
+    check(serve_counts["serve_dense"]["binmax_only"] > 0 and serve_counts["serve_dense"]["cover_rescore"] > 0
+          and serve_counts["serve_dense"]["super_select"] > 0,
+          "dense serving did not launch kernel 5, cover_rescore and super_select")
     n_traffic = sum(len(q) for q, _ in jobs)
     batches = stats1["batches"] - stats0["batches"]
     say("serve", smi=smi, rows=N_ROWS, rows_padded=cap9, upload_s=round(upload9_s, 2), max_batch=256,
@@ -4171,8 +4368,9 @@ def main() -> None:
             path_counts[f"qwen3_run_mix_{sdt}_{mode}"] = dict(kernels.LAUNCHES)
             check(path_counts[f"qwen3_run_mix_{sdt}_{mode}"][f"bin_scores_transposed{sfx}"] > 0,
                   f"run-mix {mode} over the {sdt} store did not launch kernel 2 ({sdt})")
-        check(path_counts[f"qwen3_run_mix_{sdt}_guaranteed"]["binub"] > 0,
-              f"run-mix guaranteed over the {sdt} store did not launch kernel 7")
+        check(path_counts[f"qwen3_run_mix_{sdt}_guaranteed"]["binub"] > 0
+              and path_counts[f"qwen3_run_mix_{sdt}_guaranteed"]["super_select"] > 0,
+              f"run-mix guaranteed over the {sdt} store did not launch kernel 7 and super_select")
         check(np.array_equal(runs10["guaranteed"][1][0], runs10["off"][1][0]),
               f"run-mix --approx guaranteed over the {sdt} store differs from the exact run")
         # the exact run against a plain top-k of the store's rows (f32 products
@@ -4422,8 +4620,9 @@ def main() -> None:
             av, ai = idx.search(q32, k_, query_block=256, approx="adaptive", return_docids=False)
             out[f"adaptive_k{k_}_s"] = round(time.perf_counter() - t0, 2)
             path_counts[f"adaptive_{label}_k{k_}"] = dict(kernels.LAUNCHES)
-            check(path_counts[f"adaptive_{label}_k{k_}"][f"bin_scores_bin_major{sfx}"] > 0,
-                  f"the adaptive tier over the {label} index did not launch kernel A ({label})")
+            check(path_counts[f"adaptive_{label}_k{k_}"][f"bin_scores_bin_major{sfx}"] > 0
+                  and path_counts[f"adaptive_{label}_k{k_}"]["super_select"] > 0,
+                  f"the adaptive tier over the {label} index did not launch kernel A ({label}) and super_select")
             check(np.array_equal(ai, exact[k_][1]) and np.array_equal(av, exact[k_][0]),
                   f"the adaptive tier over the {label} index differs from exact search at k = {k_}")
             out[f"adaptive_k{k_}"] = dict(idx.last_adaptive_stats)
@@ -4431,7 +4630,8 @@ def main() -> None:
         return out
 
     ov32 = full_size_search(idx32, q32, "search_f32")
-    check(path_counts["search_f32"]["bin_scores_bin_major_f32"] > 0, "f32 search did not launch kernel A (f32)")
+    check(path_counts["search_f32"]["bin_scores_bin_major_f32"] > 0 and path_counts["search_f32"]["super_select"] > 0,
+          "f32 search did not launch kernel A (f32) and super_select")
     tiers32 = tiers(idx32, "f32")
     # the rescore search (kernel 5) at k = 100 and 1000
     kernels.reset_launch_counts()
@@ -4439,7 +4639,8 @@ def main() -> None:
     rv5, ri5 = topk.topk_ip(qd32, d32, 100, method="bins_rescore", n_valid=nv32)
     rv5k, ri5k = topk.topk_ip_rescore_two_level(qd32, d32, 1000, n_valid=nv32)
     path_counts["rescore_f32"] = dict(kernels.LAUNCHES)
-    check(path_counts["rescore_f32"]["binmax_only_f32"] > 0, "f32 rescore did not launch kernel 5 (f32)")
+    check(path_counts["rescore_f32"]["binmax_only_f32"] > 0 and path_counts["rescore_f32"]["super_select"] > 0,
+          "f32 rescore did not launch kernel 5 (f32) and super_select")
     wv5, wi5 = oracle_topk(qd32, d32, N_ROWS, 1000)
     gap5 = max(float((rv5 - wv5[:, :100]).abs().max()), float((rv5k - wv5).abs().max()))
     check(gap5 <= TIE_TOL, f"f32 rescore: rank-wise score gap {gap5} to the plain top-k")
@@ -4458,7 +4659,9 @@ def main() -> None:
     gv32, gi32 = idx32.search(q32, 100, query_block=256, approx="guaranteed", return_docids=False)
     grt32_s = time.perf_counter() - t0
     path_counts["sketch_f32_guaranteed"] = dict(kernels.LAUNCHES)
-    check(path_counts["sketch_f32_guaranteed"]["binub"] > 0, "the f32 index's sketch tier did not launch kernel 7")
+    check(path_counts["sketch_f32_guaranteed"]["binub"] > 0
+          and path_counts["sketch_f32_guaranteed"]["super_select"] > 0,
+          "the f32 index's sketch tier did not launch kernel 7 and super_select")
     check(np.array_equal(gi32, ei32), "guaranteed search over the f32 index differs from exact search")
     # the f32 sketch tier (ops.sketch with an f32 sidecar, the JAX package's
     # HIGHEST-precision tier): kernel 7 over f32 operands; certified queries
@@ -4470,7 +4673,8 @@ def main() -> None:
     kernels.reset_launch_counts()
     fv32, fi32, fc32 = sk.topk_ip_sketch(q32, d32, sk32, tl32, proj32, 100, n_valid=nv32)
     path_counts["sketch_f32_sidecar"] = dict(kernels.LAUNCHES)
-    check(path_counts["sketch_f32_sidecar"]["binub_f32"] > 0, "the f32 sketch tier did not launch kernel 7 (f32)")
+    check(path_counts["sketch_f32_sidecar"]["binub_f32"] > 0 and path_counts["sketch_f32_sidecar"]["super_select"] > 0,
+          "the f32 sketch tier did not launch kernel 7 (f32) and super_select")
     fc32 = fc32.cpu().numpy()
     check(bool((fi32.cpu().numpy()[fc32] == ei32[fc32]).all()), "certified f32-sketch queries differ from exact")
     del fv32, fi32
@@ -4603,8 +4807,9 @@ def main() -> None:
     del host16
     d16, nv16 = idx16._docs_dev[0], idx16._counts_dev[0]
     ov16 = full_size_search(idx16, q32, "search_f16")
-    check(path_counts["search_f16"]["binmax_only_f16"] > 0 and path_counts["search_f16"]["cover_rescore_f16"] > 0,
-          "f16 search did not launch kernel 5 and cover_rescore (f16)")
+    check(path_counts["search_f16"]["binmax_only_f16"] > 0 and path_counts["search_f16"]["cover_rescore_f16"] > 0
+          and path_counts["search_f16"]["super_select"] > 0,
+          "f16 search did not launch kernel 5 and cover_rescore (f16) and super_select")
     tiers16 = tiers(idx16, "f16")
     kernels.reset_launch_counts()
     rv5h, _ = topk.topk_ip(q32[:256].half(), d16, 100, method="bins_rescore", n_valid=nv16)
@@ -4749,6 +4954,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     late_entries.append(phase_cover_rescore(dev, smi, path_counts))
 
+    # ---------------- phase 15: super_select against its plain version ----------------
+    mark("15")
+    gc.collect()
+    torch.cuda.empty_cache()
+    late_entries.append(phase_super_select(dev, smi, path_counts))
+
     # each kernel's launches over all the paths
     mark("end")
     say("phase_walls", seconds_from_start=walls)
@@ -4770,7 +4981,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase13-worker"]:
         phase_13_worker(sys.argv[2:])
-    elif sys.argv[1:2] == ["--cover-rescore"]:
-        main_cover_rescore()
+    elif sys.argv[1:2] and sys.argv[1] in ALONE:
+        main_alone(sys.argv[1])
     else:
         main()

@@ -15,9 +15,11 @@ tier's upper-bound bin maxima) over bf16 operands, ``bin_scores_f16.cu``
 kernels A, 2 and 5 over f16 and ``bin_scores_f32.cu`` kernels A, 2, 5 and 7
 over f32 (3xTF32), ``bin_scores_int8.cu`` kernel 4 (both layouts),
 ``flash_attention.cu`` kernel B, ``maxsim.cu`` kernel 6 (the two-stage
-rerank's MaxSim, bf16, f16 or f32 doc tokens) and ``cover_rescore.cu`` the
+rerank's MaxSim, bf16, f16 or f32 doc tokens), ``cover_rescore.cu`` the
 scores of the rows a two-level cover selected, summed as kernel A sums them
-(bf16 or f16: the exact route whose phase 1 is kernel 5). The bin-score
+(bf16 or f16: the exact route whose phase 1 is kernel 5), and
+``super_select.cu`` the super level of the two-level cover (each query's best supers from the
+bin maxima, no tensor cores). The bin-score
 kernels (A, 2, 4, 5, 7) are two templates in ``bin_kernels.cuh``,
 instantiated per operand type and epilogue; they, ``cover_rescore`` and
 kernel B are built on ``sm90.cuh`` (TMA, mbarrier rings, wgmma). Each
@@ -62,6 +64,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "maxsim": "maxsim.cu",
     "cover_rescore": "cover_rescore.cu",
+    "super_select": "super_select.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -89,6 +92,7 @@ LAUNCHES: Dict[str, int] = {
     "maxsim_f32": 0,
     "cover_rescore": 0,
     "cover_rescore_f16": 0,
+    "super_select": 0,
 }
 
 _SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16", "torch.float32": "_f32"}

@@ -24,6 +24,13 @@ and kernel 5's maxima are kernel A's, so the argument above holds unchanged
 and the results equal the stored route's. f32 and int8 indexes and CPU
 tensors keep the stored route.
 
+The two-level cover's super level (each query's best k + 1 super maxima and
+the first k of their ids) is :func:`super_select` on the card: one
+hand-written pass over the bin maxima that returns what a reshape-max and a
+stable sort of the whole row return, bit for bit, for every route that
+selects two levels, at any depth (CPU tensors keep the plain version; the
+card raises on bin maxima the kernel does not take).
+
 Two variants share the cover. Over an int8 index (:func:`topk_ip_bins_int8`)
 phase 1 is kernel 4 (:func:`bin_scores_int8`): exact int8 products rescaled
 per row, queries quantized on the device. The rescore search
@@ -48,7 +55,9 @@ exact routes (two-level and single-level cover, bf16 / f16 / f32 and int8)
 time each query chunk's phase 1 and tail on the card as the spans
 ``search.phase1`` and ``search.tail``; inside the tail, the route without a
 score matrix times :func:`cover_rescore` as ``search.rescore`` and counts
-the rows it scores under ``search.rescored_rows``.
+the rows it scores under ``search.rescored_rows``, and every two-level
+selection times its super level as ``search.select`` and counts queries x
+supers kept under ``search.selected_supers``.
 """
 
 from __future__ import annotations
@@ -731,13 +740,129 @@ def _topk_from_bins(
     return vals, torch.gather(cand_idx, 1, pos)
 
 
+#: the most supers :func:`super_select`'s kernel sorts in shared memory
+#: (``min(k_bins, ns) + 1``); above it the kernel sorts them in a buffer in
+#: device memory, (B, the power of two at or above that) int64
+SUPER_SELECT_MAX_K = 4096
+#: the super sizes M it takes on the card: those whose ``amax`` on the card
+#: gives each bin a lane of one shuffle tree, whose order the kernel repeats,
+#: in 16-byte loads
+SUPER_SELECT_SIZES = (4, 8, 16)
+
+
+def _check_super_select(bin_max: torch.Tensor, k_bins: int, super_size: int) -> int:
+    """The operands the super level takes on any device; returns ns."""
+    if bin_max.ndim != 2 or bin_max.dtype != torch.float32:
+        raise ValueError(f"super_select takes (B, nb) f32 bin maxima, got {bin_max.dtype} {tuple(bin_max.shape)}")
+    b, nb = bin_max.shape
+    if super_size <= 0 or nb % super_size or b == 0 or nb == 0:
+        raise ValueError(f"{nb} bins not a multiple of super_size {super_size} (B={b})")
+    if k_bins < 1:
+        raise ValueError(f"k_bins must be >= 1, got {k_bins}")
+    return nb // super_size
+
+
+def _card_refusal(bin_max, super_size: int) -> Optional[str]:
+    """Why the kernel does not take these bin maxima (passed
+    :func:`_check_super_select`), or None where it does. ``bin_max``: a
+    tensor, or anything with its ``device``, ``shape``, ``is_contiguous``
+    and ``data_ptr``."""
+    if bin_max.device.type != "cuda":
+        return f"super_select runs on the CPU or a CUDA card, not {bin_max.device}"
+    ns = bin_max.shape[1] // super_size
+    if super_size not in SUPER_SELECT_SIZES:
+        return f"super_select on CUDA takes M in {SUPER_SELECT_SIZES}, got {super_size}"
+    if not bin_max.is_contiguous() or bin_max.data_ptr() % 16:
+        return "super_select: bin maxima must be contiguous and 16-byte aligned"
+    if ns >= 2**31 - 32:
+        return f"super_select takes fewer than 2^31 - 32 supers a query, got {ns}"
+    return None
+
+
+def super_select_plain(
+    bin_max: torch.Tensor, k_bins: int, super_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`super_select`, on any device: the
+    super maxima by a reshape-max, a stable sort of the whole row, then the
+    chosen ids sorted."""
+    b, nb = bin_max.shape
+    ns = nb // super_size
+    super_max = bin_max.reshape(b, ns, super_size).amax(dim=2)
+    ks = min(k_bins, ns)
+    sup_vals, sup_ids = _stable_topk(super_max, ks + 1)
+    sup_ids, _ = torch.sort(sup_ids[:, :ks], dim=1)
+    return sup_vals, sup_ids
+
+
+_SUPER_SELECT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+]
+
+
+def _super_select_lib():
+    fn = kernels.load("super_select").super_select_launch
+    if fn.argtypes is None:
+        fn.argtypes = _SUPER_SELECT_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _super_select_cuda(bin_max: torch.Tensor, ks: int, super_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/super_select.cu`` on bin maxima it takes; ks =
+    min(k_bins, ns)."""
+    b, nb = bin_max.shape
+    ns = nb // super_size
+    kout = min(ks + 1, ns)
+    dev = bin_max.device
+    gmax = wide = None
+    width = 1 << (kout - 1).bit_length()
+    if kout <= SUPER_SELECT_MAX_K:
+        gmax = torch.empty((b, -(-ns // 32)), dtype=torch.int32, device=dev)
+    else:
+        wide = torch.empty((b, width), dtype=torch.int64, device=dev)
+    vals = torch.empty((b, kout), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, ks), dtype=torch.int64, device=dev)
+    rc = kernels.launch(
+        _super_select_lib(), bin_max.device,
+        bin_max.data_ptr(), None if gmax is None else gmax.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+        None if wide is None else wide.data_ptr(), b, nb, super_size, ks, kout, width,
+    )
+    kernels.check(rc, "super_select")
+    kernels.LAUNCHES["super_select"] += 1
+    return vals, ids
+
+
+def super_select(
+    bin_max: torch.Tensor, k_bins: int, super_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The super level of the two-level cover over bin maxima (B, nb): with
+    ns = nb / M supers of M bins and ks = min(k_bins, ns), returns
+    ``(sup_vals, sup_ids)``: the min(ks + 1, ns) best super maxima per query
+    in order (value desc, super id asc), (B, min(ks + 1, ns)) f32, and the
+    first ks of their ids sorted ascending, (B, ks) int64. CPU tensors take
+    :func:`super_select_plain`; CUDA tensors launch ``csrc/super_select.cu``,
+    whose values and ids equal the plain version's on the card bit for bit
+    (contiguous, 16-byte aligned f32, M in ``SUPER_SELECT_SIZES``, any
+    k_bins); it raises on other operands."""
+    ns = _check_super_select(bin_max, k_bins, super_size)
+    if bin_max.device.type == "cpu":
+        return super_select_plain(bin_max, k_bins, super_size)
+    refusal = _card_refusal(bin_max, super_size)
+    if refusal is not None:
+        raise ValueError(refusal)
+    return _super_select_cuda(bin_max, min(k_bins, ns), super_size)
+
+
 def _select_bins_two_level(
     bin_max: torch.Tensor, k_bins: int, super_size: int, *,
     return_unselected_bound: bool = False,
 ):
     """Two-level bin selection over BIN-MAJOR maxima (B, nb): super-max
     reduce -> best ``k_bins`` supers -> their M-contiguous bin maxima -> best
-    ``k_bins`` bins; returns the bin ids sorted ascending.
+    ``k_bins`` bins; returns the bin ids sorted ascending. The super level is
+    :func:`super_select` (span ``search.select``, counter
+    ``search.selected_supers``: queries x supers kept).
 
     ``return_unselected_bound=True`` also returns, per query, the largest
     bin maximum among the bins NOT selected (the sketch tier's certificate
@@ -745,15 +870,13 @@ def _select_bins_two_level(
     all its bins, and the best covered but unselected bin. Each is the
     (k+1)-th value of a stable sort, which ties do not change; ``NEG_INF``
     where every super or every covered bin was selected."""
+    with timing.span("search.select", device=bin_max.device):
+        sup_vals, sup_ids = super_select(bin_max, k_bins, super_size)
     b, nb = bin_max.shape
-    if nb % super_size:
-        raise ValueError(f"{nb} bins not a multiple of super_size {super_size}")
     ns = nb // super_size
+    ks = sup_ids.shape[1]
+    timing.count("search.selected_supers", b * ks)
     bm3 = bin_max.reshape(b, ns, super_size)
-    super_max = bm3.amax(dim=2)
-    ks = min(k_bins, ns)
-    sup_vals, sup_ids = _stable_topk(super_max, ks + 1)
-    sup_ids, _ = torch.sort(sup_ids[:, :ks], dim=1)
     cand_bm = torch.gather(bm3, 1, sup_ids[:, :, None].expand(b, ks, super_size))
     cand_bins = _expand_ids(sup_ids, super_size)
     n_cand = cand_bins.shape[1]
