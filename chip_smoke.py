@@ -308,6 +308,26 @@ Phases (a line of JSON after each):
                amax + torch.topk. `python3 chip_smoke.py --super-select`
                builds super_select.cu (its ptxas gate), the bf16 bin source
                and cover_rescore.cu and runs this phase alone.
+16. kda      — Kimi Linear's kernels (phase_kda), run alone by `python3
+               chip_smoke.py --kda` and not part of the full run (which
+               already takes ~1,190 s of its 1,200): kda_chunk against its
+               plain version (the same chunk form in f32 torch) at 256 rows
+               x 512 (lengths 1-512) and packed rows of 32 x 512, 32 heads
+               of 128, per-step log decays 0 to -20 (head 0 at -20), beta
+               0 and 1 planted, 2 seeds; on the operands of the cell's 256
+               x 512 forward (and 64 packed rows) kda_ops (short_conv as v,
+               k and q, decay_gate, gated_rms_norm) against theirs, each
+               bf16 element within one rounding of the plain one (g, beta
+               1e-4 relative); moe_rows (gather bit for bit, SiLU-mul,
+               combine) on a MoE layer of the cell's 256-passage forward
+               (~20k tokens, 8 of 256 experts each, 32 held: ~164k slots,
+               ~20k live, the rest NaN and never read); the seven kernels'
+               times beside their bounds and plain versions (the kernel
+               table's rows); encode_corpus through TextEncoder over a
+               4-layer Kimi Linear at the published widths (3 KDA, 1 NoPE
+               MLA, 8 of 64 experts held), unpacked and packed, launching
+               each of the seven. The ptxas gate covers kda_chunk.cu,
+               kda_ops.cu and moe_rows.cu (no spill).
 Launch counts are set to 0 just before each path (phases 4, 4b, 5, 5b, 5c,
 5d, 5e, 6, 6b, 6c, 8, each service of 9, each path of 10 and their fused
 runs, each encoder and command of 11, 12a's hubness_stats and 12b's
@@ -330,6 +350,7 @@ import gc
 import http.client
 import io
 import json
+import math
 import os
 import pathlib
 import runpy
@@ -377,11 +398,14 @@ TQ = TD = 32                # two-stage query and doc tokens
 # under mangled names that contain them); the wgmma ones may not spill
 KERNEL_NAMES = ("bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "tf32_split_kernel",
                 "flash_fwd_wgmma", "flash_fwd_f32", "maxsim_kernel", "cover_rescore_kernel", "super_max_kernel",
-                "super_select_kernel", "super_select_wide_kernel")
+                "super_select_kernel", "super_select_wide_kernel", "kda_chunk_kernel", "kda_conv_kernel",
+                "kda_gate_kernel", "kda_out_kernel", "moe_gather_kernel", "moe_act_kernel", "moe_combine_kernel")
 WGMMA_KERNELS = {"bin_scores_bm_kernel", "bin_scores_t_kernel", "bin_scores_f32_kernel", "flash_fwd_wgmma",
                  "cover_rescore_kernel"}
 # kernels that may not spill besides the wgmma ones
-NO_SPILL_KERNELS = WGMMA_KERNELS | {"super_max_kernel", "super_select_kernel", "super_select_wide_kernel"}
+NO_SPILL_KERNELS = WGMMA_KERNELS | {"super_max_kernel", "super_select_kernel", "super_select_wide_kernel",
+                                    "kda_chunk_kernel", "kda_conv_kernel", "kda_gate_kernel", "kda_out_kernel",
+                                    "moe_gather_kernel", "moe_act_kernel", "moe_combine_kernel"}
 K_DENSE = 400               # two-stage dense recall depth
 N_CENTERS = 256             # topical clusters of the adaptive phase's rows
 N_PACKED = 4096             # passages of the packed-encode phase
@@ -1706,21 +1730,345 @@ def phase_super_select(dev, smi, path_counts) -> dict:
     return entry
 
 
-# the phases that run alone: flag -> (the sources they build, the source
-# whose kernels ptxas gates, the phase, the launch counts of its entry)
+KDA_SEEDS = (SEED + 161, SEED + 162)
+# kda_chunk vs its plain version, both bf16 out: the kernel's products with
+# the state and with U round their operands to TF32 (~2^-11 relative each,
+# over sums of 128 and 64 terms), and both outputs round to bf16 (2^-9); a
+# wrong mask, sign or decay moves the output by its own size
+TOL_KDA_REL = 1e-2
+
+
+def kda_operands(b: int, s: int, h: int, seed: int, dev):
+    """q, k (unit; q scaled by 128^-1/2), v bf16 (B, S, H, 128); per-step log
+    decays g f32 from 0 to -20: channel c's rate spans 0 and 1e-3 to 20,
+    times U(0, 1), with head 0 at exactly -20 everywhere; beta f32 U(0, 1),
+    with exact 0 and 1 planted."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q = torch.nn.functional.normalize(randn(b, s, h, 128), dim=-1) * 128 ** -0.5
+    k = torch.nn.functional.normalize(randn(b, s, h, 128), dim=-1)
+    v = randn(b, s, h, 128)
+    rate = torch.cat([torch.zeros(1, device=dev), torch.logspace(-3, math.log10(20.0), 127, device=dev)])
+    g = -torch.rand(b, s, h, 128, generator=gen, device=dev) * rate
+    g[:, :, 0] = -20.0
+    beta = torch.rand(b, s, h, generator=gen, device=dev)
+    beta[:, ::7] = 0.0
+    beta[:, 3::7] = 1.0
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), g.contiguous(), beta.contiguous()
+
+
+def kda_counts(tokens, heads: int = 32, d: int = 128, chunk: int = 64):
+    """(bytes, operations) of the scan over sequences of ``tokens`` tokens:
+    q, k, v, o bf16 and g, beta f32 once a token and head; the chunk form's
+    products (benchmark/metrics/kda_chunk_roofline.py counts the same)."""
+    nbytes = ops = 0.0
+    for t in tokens:
+        nbytes += t * heads * (4 * d * 2 + d * 4 + 4)
+        for c0 in range(0, t, chunk):
+            n = min(chunk, t - c0)
+            first, last = c0 == 0, c0 + chunk >= t
+            ops += 2.0 * d * n * n                     # A and P
+            ops += 1.0 * n * n * d                     # the triangular solve of U
+            ops += 2.0 * d * n * (n + 1) / 2           # P U
+            ops += 0 if first else 2.0 * 2 * n * d * d  # beta K^ S0 and Q^ S0
+            ops += 0 if last else 2.0 * n * d * d       # the next state
+    return nbytes, ops * heads
+
+
+# kda_ops / moe_rows against their plain versions (f32 inside both, each
+# output rounded to bf16 once): every element at most one bf16 rounding
+# (2^-7 of itself) from the other, plus 2^-7 of 1% of the case's largest
+# value where f32 sums cancel; moe_act rounds twice (SiLU, then the
+# product), as torch does
+TOL_ROUNDINGS = {"kda_conv": 1.0, "kda_out": 1.0, "moe_act": 2.0, "moe_combine": 1.0}
+# g and beta stay f32: elementwise relative error (fast exp, softplus)
+TOL_GATE_REL = 1e-4
+
+
+def bf16_gap(out, ref, live=None) -> dict:
+    """``out`` against ``ref`` over the positions ``live`` selects:
+    ``roundings`` the largest |out - ref| / (2^-7 (|ref| + 1e-2 max|ref|)),
+    ``rel_max`` max|out - ref| / max|ref|, and whether ``out`` is finite."""
+    o, r = out.float(), ref.float()
+    if live is not None:
+        o, r = o[live], r[live]
+    d = (o - r).abs()
+    top = r.abs().max().clamp_min(1e-30)
+    return {"roundings": float((d / (2.0 ** -7 * (r.abs() + 1e-2 * top))).max()),
+            "rel_max": float(d.max() / top), "max_ref": float(top), "finite": bool(o.isfinite().all())}
+
+
+def cell_lengths(rng, n: int, s: int):
+    """``n`` passage lengths as the cell draws them: lognormal, median 70
+    and mean ~80 tokens, cut to 16..s."""
+    import numpy as np
+
+    return np.clip(np.round(rng.lognormal(math.log(70), 0.55, n)), 16, s).astype(np.int64)
+
+
+def packed_segments(rng, rows: int, s: int):
+    """(rows, s) int32 segment ids: segments of 1-300 tokens, pads (0) at
+    the ends of some rows."""
+    import numpy as np
+
+    seg = np.zeros((rows, s), np.int32)
+    for r in range(rows):
+        t, i, end = 0, 1, s - (r % 5) * 20
+        while t < end:
+            n = int(rng.integers(1, 300))
+            seg[r, t: min(t + n, end)] = i
+            t, i = t + n, i + 1
+    return seg
+
+
+def phase_kda(dev, smi, path_counts) -> list:
+    """Phase 16: Kimi Linear's kernels against their plain versions on the
+    card, their times, and the main path's launches (see the module
+    docstring). Returns the kernel table's entries: kda_chunk, kda_conv,
+    kda_gate, kda_out, moe_gather, moe_act, moe_combine."""
+    import numpy as np
+    import torch
+
+    from codemix_dense_retrieval_torch.ops import grouped_mm as gm
+    from codemix_dense_retrieval_torch.ops import kda, kernels
+
+    kernels.reset_launch_counts()
+    errs = {}
+
+    def compare(tag, b, s, h, seed, lengths=None, seg=None):
+        q, k, v, g, beta = kda_operands(b, s, h, seed, dev)
+        o1 = kda.kda_chunk(q, k, v, g, beta, lengths=lengths, segment_ids=seg)
+        o0 = kda.kda_chunk_plain(q, k, v, g, beta, lengths=lengths, segment_ids=seg)
+        torch.cuda.synchronize()
+        diff = (o1.float() - o0.float())
+        rel = float(diff.norm() / o0.float().norm().clamp_min(1e-30))
+        errs[tag] = {"rel_fro": rel, "max_abs": float(diff.abs().max()), "max_ref": float(o0.float().abs().max()),
+                     "finite": bool(torch.isfinite(o1.float()).all())}
+        del q, k, v, g, beta, o0, o1
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 160)
+    for seed in KDA_SEEDS:
+        # the cell's forward at its longest bucket: 256 rows x 512, lengths 16-512
+        lens = cell_lengths(rng, 256, 512)
+        lens[:8] = (1, 63, 64, 65, 128, 200, 511, 512)
+        compare(f"padded_256x512_s{seed}", 256, 512, 32, seed, lengths=torch.as_tensor(lens, device=dev))
+        seg = torch.as_tensor(packed_segments(rng, 32, 512), device=dev)
+        compare(f"packed_32x512_s{seed}", 32, 512, 32, seed, seg=seg)
+        compare(f"short_5x70_s{seed}", 5, 70, 3, seed, lengths=torch.tensor([1, 63, 64, 65, 70], device=dev))
+    say("kda_chunk_check", smi=smi, tol_rel=TOL_KDA_REL, **errs)
+    for tag, e in errs.items():
+        check(e["finite"] and e["rel_fro"] <= TOL_KDA_REL, f"kda_chunk {tag}: {e}")
+
+    # the block's elementwise kernels (kda_ops.cu) on the operands of the
+    # cell's 256 x 512 forward (its lengths) and of 64 packed rows of 512
+    gen = torch.Generator(device=dev).manual_seed(KDA_SEEDS[1])
+    b, s_, h = 256, 512, 32
+    c = h * 128
+    lt = torch.as_tensor(cell_lengths(rng, b, s_), device=dev)
+    live_pad = torch.arange(s_, device=dev)[None] < lt[:, None]
+    segs = torch.as_tensor(packed_segments(rng, 64, s_), device=dev)
+    x = (torch.randn(b, s_, c, generator=gen, device=dev) * 0.5).bfloat16()
+    wconv = (torch.randn(c, 1, 4, generator=gen, device=dev) * 0.5).bfloat16()
+    ops = {}
+    for tag, xr, rows_kw, live in (("padded", x, dict(lengths=lt), live_pad),
+                                   ("packed", x[:64].contiguous(), dict(segment_ids=segs), segs > 0)):
+        # v, k and q as KdaAttention calls it
+        for norm, scale in ((False, 1.0), (True, 1.0), (True, 128 ** -0.5)):
+            y1 = kda.short_conv(xr, wconv, h, **rows_kw, normalize=norm, scale=scale)
+            y0 = kda.short_conv_plain(xr, wconv, h, **rows_kw, normalize=norm, scale=scale)
+            ops[f"conv_{tag}_norm{int(norm)}_scale{scale:.4g}"] = bf16_gap(y1, y0, live)
+            del y1, y0
+    fr = (torch.randn(b, s_, c, generator=gen, device=dev) * 3).bfloat16()
+    fr[:, :, :8] = 25.0  # softplus' linear branch
+    br = (torch.randn(b, s_, h, generator=gen, device=dev) * 2).bfloat16()
+    al = torch.log(torch.linspace(1, 16, h, device=dev)).bfloat16()
+    # softplus(dt_bias) log-uniform in [1e-3, 1e-1], as the cell draws it
+    dt = torch.log(torch.expm1(10 ** (-3 + 2 * torch.rand(c, generator=gen, device=dev)))).bfloat16()
+    g1, be1 = kda.decay_gate(fr, br, al, dt)
+    g0, be0 = kda.decay_gate_plain(fr, br, al, dt)
+    ops["gate_rel"] = float(((g1 - g0).abs() / g0.abs().clamp_min(1e-30))[live_pad].max())
+    ops["beta_rel"] = float(((be1 - be0).abs() / be0.abs().clamp_min(1e-30))[live_pad].max())
+    ops["gate_finite"] = bool(g1.isfinite().all() and be1.isfinite().all())
+    del g1, g0, be1, be0
+    o = torch.randn(b, s_, h, 128, generator=gen, device=dev).bfloat16()
+    ow = (1 + 0.1 * torch.randn(128, generator=gen, device=dev)).bfloat16()
+    n1 = kda.gated_rms_norm(o, fr, ow, 1e-5)
+    n0 = kda.gated_rms_norm_plain(o, fr, ow, 1e-5)
+    ops["out"] = bf16_gap(n1, n0, live_pad)
+    del n1, n0
+    say("kda_ops_check", smi=smi, tol_roundings=TOL_ROUNDINGS, tol_gate_rel=TOL_GATE_REL, **ops)
+    bad = [k_ for k_, e in ops.items() if isinstance(e, dict) and not (
+        e["finite"] and e["roundings"] <= TOL_ROUNDINGS["kda_out" if k_ == "out" else "kda_conv"])]
+    check(not bad and ops["gate_finite"] and ops["gate_rel"] <= TOL_GATE_REL and ops["beta_rel"] <= TOL_GATE_REL,
+          f"kda_ops kernels differ from their plain versions: {bad} {ops}")
+
+    # the row moves of a MoE layer of the cell's 256-passage forward (each
+    # token's 8 of 256 experts, 32 held), against their plain versions (the
+    # count read on the host); rows past the count are NaN and must never be
+    # read
+    n_tok = int(cell_lengths(rng, 256, 512).sum())
+    kk, held, hid, f = 8, 32, 2304, 1024
+    chosen = torch.rand(n_tok, 256, generator=gen, device=dev).topk(kk, dim=1).indices
+    keys = chosen.reshape(-1)
+    keys = torch.where(keys < held, keys, held)
+    ids, order = torch.sort(keys, stable=True)
+    offsets = torch.searchsorted(ids, torch.arange(held, device=dev), right=True).to(torch.int32)
+    cnt = offsets[-1:]
+    live = int(cnt)
+    xm = torch.randn(n_tok, hid, generator=gen, device=dev).bfloat16()
+    src = order // kk
+    xs, xs0 = gm.gather_rows(xm, src, cnt), gm.gather_rows_plain(xm, src, cnt)
+    gu = torch.randn(n_tok * kk, 2 * f, generator=gen, device=dev).bfloat16()
+    gu[live:] = float("nan")
+    act, act0 = gm.silu_mul_rows(gu, cnt), gm.silu_mul_rows_plain(gu, cnt)
+    w = torch.rand(n_tok, kk, generator=gen, device=dev)
+    w = w / w.sum(dim=1, keepdim=True) * 2.446
+    inv = torch.empty_like(order).index_copy_(0, order, torch.arange(n_tok * kk, device=dev)).to(torch.int32)
+    ys = torch.randn(n_tok * kk, hid, generator=gen, device=dev).bfloat16()
+    ys[live:] = float("nan")
+    comb, comb0 = gm.combine_rows(ys, inv, w, cnt), gm.combine_rows_plain(ys, inv, w, cnt)
+    rows = {"tokens": n_tok, "slots": n_tok * kk, "live": live,
+            "gather_equal": bool(torch.equal(xs[:live], xs0[:live])),
+            "act": bf16_gap(act[:live], act0[:live]), "combine": bf16_gap(comb, comb0)}
+    say("moe_rows_check", smi=smi, tol_roundings=TOL_ROUNDINGS, **rows)
+    check(rows["gather_equal"] and rows["act"]["finite"] and rows["combine"]["finite"]
+          and rows["act"]["roundings"] <= TOL_ROUNDINGS["moe_act"]
+          and rows["combine"]["roundings"] <= TOL_ROUNDINGS["moe_combine"],
+          f"moe_rows kernels differ from their plain versions: {rows}")
+    del xs0, act0, comb0
+    expect = {"kda_chunk": 3 * len(KDA_SEEDS), "kda_conv": 6, "kda_gate": 1, "kda_out": 1, "moe_gather": 1,
+              "moe_act": 1, "moe_combine": 1}
+    got = {k_: kernels.LAUNCHES[k_] for k_ in expect}
+    check(got == expect, f"the comparisons launched {got}, not {expect}")
+    path_counts["bits.kda"] = dict(kernels.LAUNCHES)
+
+    # times at the cell's shapes: each kernel, its plain version, its bound
+    def timed(name, source, fn, plain, nbytes, shape):
+        ms = kernel_ms(fn, 20)
+        b_ms, b_by = bound(nbytes, 0)
+        return dict(name=name, route="cuda", source=f"codemix_dense_retrieval_torch/csrc/{source}",
+                    replaces="none (the JAX package runs neither linear attention nor expert layers)",
+                    launches=0, **ms, plain_ms=cuda_ms(plain, 3), bound_ms=b_ms, bound_by=b_by,
+                    roofline_pct=100.0 * b_ms / ms["ms"], shape=shape)
+
+    tok = b * s_
+    fwd = f"B=256 S=512 H=32 d=128 ({int(lt.sum())} live tokens)"
+    entries = {}
+    entries["kda_conv"] = timed(
+        "kda_conv", "kda_ops.cu", lambda: kda.short_conv(x, wconv, h, lengths=lt, normalize=True),
+        lambda: kda.short_conv_plain(x, wconv, h, lengths=lt, normalize=True),
+        2 * tok * c * 2 + c * 4 * 2 + b * 4, fwd + ", q/k (L2 norm)")
+    entries["kda_gate"] = timed(
+        "kda_gate", "kda_ops.cu", lambda: kda.decay_gate(fr, br, al, dt),
+        lambda: kda.decay_gate_plain(fr, br, al, dt),
+        tok * c * (2 + 4) + tok * h * (2 + 4) + c * 2 + h * 2, fwd)
+    entries["kda_out"] = timed(
+        "kda_out", "kda_ops.cu", lambda: kda.gated_rms_norm(o, fr, ow, 1e-5),
+        lambda: kda.gated_rms_norm_plain(o, fr, ow, 1e-5), 3 * tok * c * 2 + 128 * 2, fwd)
+    del x, fr, br, o
+    torch.cuda.empty_cache()
+    moe = f"{n_tok} tokens x 8 of 256 experts, 32 held: {live} of {n_tok * kk} slots live"
+    entries["moe_gather"] = timed(
+        "moe_gather", "moe_rows.cu", lambda: gm.gather_rows(xm, src, cnt),
+        lambda: gm.gather_rows_plain(xm, src, cnt), live * (hid * 2 * 2 + 8) + 4, moe + f", H={hid}")
+    entries["moe_act"] = timed(
+        "moe_act", "moe_rows.cu", lambda: gm.silu_mul_rows(gu, cnt),
+        lambda: gm.silu_mul_rows_plain(gu, cnt), live * (2 * f * 2 + f * 2) + 4, moe + f", F={f}")
+    entries["moe_combine"] = timed(
+        "moe_combine", "moe_rows.cu", lambda: gm.combine_rows(ys, inv, w, cnt),
+        lambda: gm.combine_rows_plain(ys, inv, w, cnt),
+        live * hid * 2 + n_tok * hid * 2 + n_tok * kk * 8 + 4, moe + f", H={hid}")
+    del xm, xs, gu, act, ys, comb, inv, w, order, src
+    torch.cuda.empty_cache()
+
+    # the scan at the cell's longest bucket and at its median one
+    times = {}
+    for s in (512, 128):
+        lens = cell_lengths(rng, 256, s)
+        q, k, v, g, beta = kda_operands(256, s, 32, KDA_SEEDS[0], dev)
+        lt = torch.as_tensor(lens, device=dev)
+        ms = kernel_ms(lambda: kda.kda_chunk(q, k, v, g, beta, lengths=lt), 5)
+        plain = cuda_ms(lambda: kda.kda_chunk_plain(q, k, v, g, beta, lengths=lt), 2)
+        nbytes, flops = kda_counts(lens.tolist())
+        b_ms, b_by = bound(nbytes, flops, TF32_FLOPS)
+        times[f"S{s}"] = dict(ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, tokens=int(lens.sum()),
+                              roofline_pct=100.0 * b_ms / ms["ms"])
+        del q, k, v, g, beta
+        torch.cuda.empty_cache()
+    entries = {"kda_chunk": dict(
+        name="kda_chunk", route="cuda", source="codemix_dense_retrieval_torch/csrc/kda_chunk.cu",
+        replaces="none (Kimi Delta Attention's chunked scan; the JAX package has no linear attention)",
+        launches=0, **times["S512"], shape="B=256 S=512 H=32 d=128, lengths 16-512 (lognormal, median 70)",
+    ), **entries}
+    say("kda_times", smi=smi, kda_chunk=times,
+        **{k_: {n_: e[n_] for n_ in ("ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "roofline_pct")}
+           for k_, e in entries.items() if k_ != "kda_chunk"})
+
+    # the main path: TextEncoder + encode_corpus over a 4-layer Kimi Linear
+    # at the published widths (3 KDA, 1 NoPE MLA; 8 of 64 experts held),
+    # right-padded and packed: each of the seven kernels launched
+    from codemix_dense_retrieval_torch.models.encoder import TextEncoder
+    from codemix_dense_retrieval_torch.models.kimi_linear import KimiLinearConfig, KimiLinearEncoder
+    from codemix_dense_retrieval_torch.pipeline.corpus import encode_corpus
+
+    cfg = KimiLinearConfig(vocab_size=32_000, num_layers=4, full_attn_layers=(4,), n_routed_experts=64,
+                           experts_held=(8, 16), dtype=torch.bfloat16)
+    with torch.device("meta"):
+        module = KimiLinearEncoder(cfg)
+    enc = TextEncoder("moonshotai/Kimi-Linear-48B-A3B-Instruct", cfg, model=module, seed=KDA_SEEDS[0], device=dev)
+    words = [f"w{i}" for i in range(500)]
+    doc_lens = cell_lengths(rng, 512, 512)
+    docs = [(f"d{i}", " ".join(words[(7 * i + j) % 500] for j in range(int(doc_lens[i])))) for i in range(512)]
+    launched = {}
+    for pack in (False, True):
+        kernels.reset_launch_counts()
+        out = encode_corpus(enc, {"xx": iter(docs)}, REPO / "build" / "chip_smoke_kda" / f"pack{int(pack)}",
+                            batch_size=256, enc_batch=64, pack=pack, force=True)
+        tag = f"pack{int(pack)}"
+        launched[tag] = {k_: kernels.LAUNCHES[k_] for k_ in expect}
+        path_counts[f"encode_corpus.{tag}"] = dict(kernels.LAUNCHES)
+        check(all(v > 0 for v in launched[tag].values()),
+              f"encode_corpus (pack={pack}) left a kernel off its path: {launched[tag]}")
+        check((out["xx"] / "manifest.json").exists(), f"encode_corpus (pack={pack}) wrote no store")
+    a = enc.encode_documents([t for _, t in docs[:64]], batch_size=64)
+    b_ = enc.encode_documents([t for _, t in docs[:64]], batch_size=64, pack=True)
+    cos = (torch.as_tensor(a) * torch.as_tensor(b_)).sum(1)
+    say("kda_main_path", smi=smi, launches=launched,
+        packed_vs_padded_cos_min=float(cos.min()), packed_vs_padded_cos_median=float(cos.median()))
+    # bf16 forwards of other batch shapes may flip a token's expert set, so
+    # the median is held and the least reported
+    check(float(cos.median()) >= 0.99, f"packed and padded Kimi Linear embeddings differ: median cos {cos.median()}")
+    del enc, module
+    shutil.rmtree(REPO / "build" / "chip_smoke_kda", ignore_errors=True)
+    torch.cuda.empty_cache()
+    return list(entries.values())
+
+
+# the phases that run alone: flag -> (the sources they build, the sources
+# whose kernels ptxas gates, the phase, the launch counts of an entry where
+# they are not its name's)
 ALONE = {
-    "--cover-rescore": (("bin_scores", "bin_scores_f16", "cover_rescore"), "cover_rescore",
-                        phase_cover_rescore, ("cover_rescore", "cover_rescore_f16")),
-    "--super-select": (("super_select", "bin_scores", "cover_rescore"), "super_select",
-                       phase_super_select, ("super_select",)),
+    "--cover-rescore": (("bin_scores", "bin_scores_f16", "cover_rescore"), ("cover_rescore",),
+                        phase_cover_rescore, {"cover_rescore": ("cover_rescore", "cover_rescore_f16")}),
+    "--super-select": (("super_select", "bin_scores", "cover_rescore"), ("super_select",),
+                       phase_super_select, {}),
+    "--kda": (("kda_chunk", "kda_ops", "moe_rows"), ("kda_chunk", "kda_ops", "moe_rows"), phase_kda, {}),
 }
 
 
 def main_alone(flag: str) -> None:
-    """``chip_smoke.py --cover-rescore`` (phase 14) or ``--super-select``
-    (phase 15): phase 1's card line, the build of the sources the phase
-    runs (ptxas's gate on its own source's kernels), then the phase
-    alone."""
+    """``chip_smoke.py --cover-rescore`` (phase 14), ``--super-select``
+    (phase 15) or ``--kda`` (phase 16): phase 1's card line, the build of
+    the sources the phase runs (ptxas's gate on its own sources' kernels:
+    none spills or serialises wgmma), then the phase alone, and its kernel
+    table entries. An entry's launches are those of the phase's main-path
+    runs, or of its comparisons where it runs no main path (14, 15)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1736,14 +2084,20 @@ def main_alone(flag: str) -> None:
     print(smi, flush=True)
     t0 = time.perf_counter()
     build_s = kernels.build_kernels(names)
-    rep = kernels.ptxas_report(kernels.build_log(gated))
-    check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
-    check(all(v["spill_bytes"] == 0 for v in rep["kernels"].values()), f"{gated} spills: {rep['kernels']}")
-    say("build", seconds=round(build_s, 2), sources=names, **{f"{gated}_ptxas": rep})
+    reports = {}
+    for source in gated:
+        rep = kernels.ptxas_report(kernels.build_log(source))
+        check(not rep["serialized"], f"ptxas serialised wgmma in {rep['serialized']}")
+        check(all(v["spill_bytes"] == 0 for v in rep["kernels"].values()), f"{source} spills: {rep['kernels']}")
+        reports[f"{source}_ptxas"] = rep
+    say("build", seconds=round(build_s, 2), sources=names, **reports)
     path_counts = {}
-    entry = phase(torch.device("cuda", 0), smi, path_counts)
-    entry["launches"] = sum(c[name] for c in path_counts.values() for name in counted)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    found = phase(torch.device("cuda", 0), smi, path_counts)
+    entries = found if isinstance(found, list) else [found]
+    main_path = {k: v for k, v in path_counts.items() if not k.startswith("bits.")} or path_counts
+    for e in entries:
+        e["launches"] = sum(c[name] for c in main_path.values() for name in counted.get(e["name"], (e["name"],)))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     say("done", seconds=round(time.perf_counter() - t0, 1))
 

@@ -152,9 +152,14 @@ def rope_interleaved(x: torch.Tensor, positions: torch.Tensor, theta: float) -> 
 
 
 class MlaAttention(nn.Module):
-    def __init__(self, cfg: DeepseekV3Config) -> None:
+    """Latent attention (module docstring). ``use_rope=False`` is the NoPE
+    variant (Kimi Linear's ``mla_use_nope``): ``q_pe`` and ``k_pe`` enter Q
+    and K unrotated, and ``positions`` is not read."""
+
+    def __init__(self, cfg: DeepseekV3Config, use_rope: bool = True) -> None:
         super().__init__()
         self.cfg = cfg
+        self.use_rope = use_rope
         h, nope, rope, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         self.q_proj = nn.Linear(cfg.hidden_size, h * (nope + rope), bias=False)
         self.kv_a_proj_with_mqa = nn.Linear(cfg.hidden_size, cfg.kv_lora_rank + rope, bias=False)
@@ -172,8 +177,10 @@ class MlaAttention(nn.Module):
             c_kv, k_pe = self.kv_a_proj_with_mqa(x).split([c.kv_lora_rank, rope], dim=-1)
             kv = self.kv_b_proj(self.kv_a_layernorm(c_kv)).reshape(b, s, h, nope + dv)
             k_nope, v = kv.split([nope, dv], dim=-1)
-            q_pe = rope_interleaved(q_pe, positions, c.rope_theta)
-            k_pe = rope_interleaved(k_pe.reshape(b, s, 1, rope), positions, c.rope_theta)
+            k_pe = k_pe.reshape(b, s, 1, rope)
+            if self.use_rope:
+                q_pe = rope_interleaved(q_pe, positions, c.rope_theta)
+                k_pe = rope_interleaved(k_pe, positions, c.rope_theta)
             q = torch.cat([q_nope, q_pe], dim=-1)
             k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], dim=-1)
             # (B, H, S, d) views of the (B, S, H, d) heads

@@ -21,6 +21,8 @@ def detect_encoder_family(encoder: str) -> str:
         return "jina-v3"
     if "qwen3-embedding" in name:
         return "qwen3"
+    if "kimi-linear" in name:
+        return "kimi-linear"
     if "moonlight" in name or "deepseek-v3" in name or "kimi-k2" in name:
         return "deepseek-v3"
     if "e5" in name and "instruct" in name:
@@ -52,7 +54,7 @@ def doc_prefix(encoder: str) -> str:
 
 def default_pooling(encoder: str) -> str:
     family = detect_encoder_family(encoder)
-    if family in ("qwen3", "deepseek-v3"):
+    if family in ("qwen3", "deepseek-v3", "kimi-linear"):
         return "last_token"
     if family in ("e5", "e5-instruct"):
         return "mean"

@@ -44,6 +44,7 @@ from codemix_dense_retrieval_torch.models.convert import (
 )
 from codemix_dense_retrieval_torch.models.deepseek_v3 import DeepseekV3Config, DeepseekV3Encoder
 from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder
+from codemix_dense_retrieval_torch.models.kimi_linear import KimiLinearConfig, KimiLinearEncoder
 from codemix_dense_retrieval_torch.models.packing import PackedRows, pack_sequences, pad_rows_to
 from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Config, Qwen3Encoder
 from codemix_dense_retrieval_torch.models.tokenizer import (
@@ -147,6 +148,7 @@ CONVERTED_FAMILIES = {
     "qwen3": (Qwen3Config, Qwen3Encoder),
     "new": (GTEConfig, GTEEncoder),
     "deepseek_v3": (DeepseekV3Config, DeepseekV3Encoder),
+    "kimi_linear": (KimiLinearConfig, KimiLinearEncoder),
 }
 
 

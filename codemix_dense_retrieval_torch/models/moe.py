@@ -27,18 +27,34 @@ every other position comes out as zeros. The forward reads nothing back
 from the card: every shape follows from ``token_index``'s length. While
 tracing, the steps are spans with device times, ``moe.layer_calls`` and
 ``moe.routed_rows`` (n k) count on the host, and ``moe.expert_rows`` is a
-per-expert histogram summed on the card.
+histogram over the held experts, summed on the card.
+
+Expert parallelism: a layer may hold a share of the experts, ``held =
+(lo, hi)`` of E (all of them by default). The router still scores all E
+and each token still chooses its k of E, weighted over those k; the layer
+computes the part of the result its own experts give and leaves out what
+experts held elsewhere would add (one card of the deployment, without its
+exchange). The sort puts the rows routed to held experts first (the others
+take the key ``hi - lo``), their number stays on the card (the last
+offset), and :func:`~codemix_dense_retrieval_torch.ops.grouped_mm.gather_rows`,
+``silu_mul_rows`` and ``combine_rows`` move only those rows; with every
+expert held the layer runs as above.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from codemix_dense_retrieval_torch.models.qwen3 import Qwen3Mlp
-from codemix_dense_retrieval_torch.ops.grouped_mm import GroupedLinear
+from codemix_dense_retrieval_torch.ops.grouped_mm import (
+    GroupedLinear,
+    combine_rows,
+    gather_rows,
+    silu_mul_rows,
+)
 from codemix_dense_retrieval_torch.utils import timing
 
 
@@ -72,8 +88,12 @@ class RoutedExperts(nn.Module):
         self.gate_up_proj = GroupedLinear(experts, hidden, 2 * width)
         self.down_proj = GroupedLinear(experts, width, hidden)
 
-    def forward(self, xs: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor, offsets: torch.Tensor, counted: bool = False) -> torch.Tensor:
+        """``counted``: only the rows before ``offsets[-1]`` are live (a
+        share of the experts held); the rest are neither read nor written."""
         gu = self.gate_up_proj(xs, offsets)
+        if counted:
+            return self.down_proj(silu_mul_rows(gu, offsets[-1:]), offsets)
         return self.down_proj(nn.functional.silu(gu[:, : self.width]) * gu[:, self.width:], offsets)
 
 
@@ -83,12 +103,16 @@ class MoeLayer(nn.Module):
     ``moe_intermediate_size``, ``num_experts_per_tok``, ``n_shared_experts``,
     ``routed_scaling_factor``, ``norm_topk_prob``)."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, held: Optional[Tuple[int, int]] = None) -> None:
         super().__init__()
         e, h, f = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
-        self.experts_n, self.top_k = e, cfg.num_experts_per_tok
+        lo, hi = held if held is not None else (0, e)
+        if not 0 <= lo < hi <= e:
+            raise ValueError(f"held experts [{lo}, {hi}) not in [0, {e})")
+        self.held = (lo, hi)
+        self.experts_n, self.top_k = hi - lo, cfg.num_experts_per_tok
         self.gate = SigmoidRouter(e, h, self.top_k, cfg.routed_scaling_factor, cfg.norm_topk_prob)
-        self.experts = RoutedExperts(e, h, f)
+        self.experts = RoutedExperts(hi - lo, h, f)
         self.shared_experts = Qwen3Mlp(cfg, f * cfg.n_shared_experts)
 
     def forward(self, h: torch.Tensor, token_index: torch.Tensor) -> torch.Tensor:
@@ -100,19 +124,28 @@ class MoeLayer(nn.Module):
         timing.count("moe.layer_calls")
         timing.count("moe.routed_rows", n * k)
         x = flat.index_select(0, token_index)
+        lo, hi = self.held
+        share = self.experts_n < self.gate.weight.shape[0]
         with timing.span("moe.route", device=dev):
             chosen, weights = self.gate(x)
         with timing.span("moe.dispatch", device=dev):
-            ids, order = torch.sort(chosen.reshape(-1), stable=True)
+            keys = chosen.reshape(-1)
+            if share:
+                keys = torch.where((keys >= lo) & (keys < hi), keys - lo, self.experts_n)
+            ids, order = torch.sort(keys, stable=True)
             experts = torch.arange(self.experts_n, device=dev, dtype=ids.dtype)
             offsets = torch.searchsorted(ids, experts, right=True).to(torch.int32)
-            xs = x.index_select(0, order // k)
+            xs = gather_rows(x, order // k, offsets[-1:]) if share else x.index_select(0, order // k)
         if timing.tracing():
             timing.count_device("moe.expert_rows", torch.diff(offsets, prepend=offsets.new_zeros(1)))
         with timing.span("moe.experts", device=dev):
-            ys = self.experts(xs, offsets)
+            ys = self.experts(xs, offsets, counted=share)
         with timing.span("moe.combine", device=dev):
-            rows = torch.empty_like(ys).index_copy_(0, order, ys).reshape(n, k, -1)
-            routed = (rows.to(torch.float32) * weights[..., None]).sum(dim=1).to(h.dtype)
+            if share:
+                inv = torch.empty_like(order).index_copy_(0, order, torch.arange(n * k, device=dev))
+                routed = combine_rows(ys, inv.to(torch.int32), weights, offsets[-1:])
+            else:
+                rows = torch.empty_like(ys).index_copy_(0, order, ys).reshape(n, k, -1)
+                routed = (rows.to(torch.float32) * weights[..., None]).sum(dim=1).to(h.dtype)
             out = torch.zeros_like(flat).index_copy_(0, token_index, routed + self.shared_experts(x))
         return out.reshape(h.shape)

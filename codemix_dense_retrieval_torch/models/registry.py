@@ -9,6 +9,9 @@
 - GTE-multilingual (``new``): RoPE post-LN encoder;
 - DeepSeek-V3 blocks (``deepseek_v3``: Moonlight-16B-A3B, DeepSeek-V3,
   Kimi-K2): latent attention and sigmoid-routed experts, last-token pooling;
+- Kimi Linear (``kimi_linear``: Kimi-Linear-48B-A3B): Kimi Delta Attention
+  beside NoPE latent attention, sigmoid-routed experts (a share of them
+  where config.json's ``expert_shard`` says so), last-token pooling;
 - jina-embeddings-v3: XLM-R with task-LoRA adapters.
 
 Without a checkpoint it builds a tiny random-init model of the family
@@ -107,6 +110,17 @@ def load_hf_family(name: str, checkpoint_dir, *, dtype: torch.dtype = torch.floa
         params = convert_deepseek_v3_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
         return cfg, params, DeepseekV3Encoder
 
+    if model_type == "kimi_linear" or family == "kimi-linear":
+        from codemix_dense_retrieval_torch.models.kimi_linear import (
+            KimiLinearConfig,
+            KimiLinearEncoder,
+            convert_kimi_linear_state_dict,
+        )
+
+        cfg = KimiLinearConfig.from_hf_config(hf_cfg, dtype=dtype)
+        params = convert_kimi_linear_state_dict(sd, cfg, prefix=_detect_prefix(sd, "embed_tokens.weight"))
+        return cfg, params, KimiLinearEncoder
+
     if model_type == "new" or family == "gte":
         from codemix_dense_retrieval_torch.models.gte import (
             GTEConfig,
@@ -166,6 +180,13 @@ def _random_init(name, family, dtype, use_flash, **kw) -> TextEncoder:
         cfg = DeepseekV3Config.tiny(vocab_size=30_000, dtype=dtype)
         with torch.device("meta"):
             model = DeepseekV3Encoder(cfg)
+        return TextEncoder(name, cfg, model=model, **kw)
+    if family == "kimi-linear":
+        from codemix_dense_retrieval_torch.models.kimi_linear import KimiLinearConfig, KimiLinearEncoder
+
+        cfg = KimiLinearConfig.tiny(vocab_size=30_000, dtype=dtype)
+        with torch.device("meta"):
+            model = KimiLinearEncoder(cfg)
         return TextEncoder(name, cfg, model=model, **kw)
     if family == "gte":
         from codemix_dense_retrieval_torch.models.gte import GTEConfig, GTEEncoder

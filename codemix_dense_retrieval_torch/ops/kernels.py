@@ -19,7 +19,13 @@ rerank's MaxSim, bf16, f16 or f32 doc tokens), ``cover_rescore.cu`` the
 scores of the rows a two-level cover selected, summed as kernel A sums them
 (bf16 or f16: the exact route whose phase 1 is kernel 5), and
 ``super_select.cu`` the super level of the two-level cover (each query's best supers from the
-bin maxima, no tensor cores). The bin-score
+bin maxima, no tensor cores), and ``kda_chunk.cu`` Kimi Delta Attention's
+chunked gated delta-rule scan (``ops/kda.py``; TF32 ``mma.sync``, no TMA),
+``kda_ops.cu`` the elementwise steps of its block (convolution, gates,
+output norm),
+and ``moe_rows.cu`` the row moves of a mixture-of-experts layer that holds
+a share of its experts (``ops/grouped_mm.py``).
+The bin-score
 kernels (A, 2, 4, 5, 7) are two templates in ``bin_kernels.cuh``,
 instantiated per operand type and epilogue; they, ``cover_rescore`` and
 kernel B are built on ``sm90.cuh`` (TMA, mbarrier rings, wgmma). Each
@@ -65,6 +71,9 @@ SOURCES = {
     "maxsim": "maxsim.cu",
     "cover_rescore": "cover_rescore.cu",
     "super_select": "super_select.cu",
+    "kda_chunk": "kda_chunk.cu",
+    "kda_ops": "kda_ops.cu",
+    "moe_rows": "moe_rows.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -93,6 +102,13 @@ LAUNCHES: Dict[str, int] = {
     "cover_rescore": 0,
     "cover_rescore_f16": 0,
     "super_select": 0,
+    "kda_chunk": 0,
+    "kda_conv": 0,
+    "kda_gate": 0,
+    "kda_out": 0,
+    "moe_gather": 0,
+    "moe_act": 0,
+    "moe_combine": 0,
 }
 
 _SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16", "torch.float32": "_f32"}

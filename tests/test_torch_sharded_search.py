@@ -297,17 +297,20 @@ def _launch_calls():
 
 
 def test_every_ctypes_launch_site_goes_through_the_guard():
-    """The nine launch sites (kernels A / 2, 4, 5, 7, 6, B, the f32
-    queries' tf32 split, cover_rescore and super_select) call their entry
-    points only through ``kernels.launch``, with an operand's device; no
-    other module reads a stream handle."""
+    """The sixteen launch sites (kernels A / 2, 4, 5, 7, 6, B, the f32
+    queries' tf32 split, cover_rescore, super_select, Kimi Delta
+    Attention's scan, convolution, gates and output norm, and an expert
+    share's row gather, activation and combine) call their entry points
+    only through ``kernels.launch``, with an operand's device; no other
+    module reads a stream handle."""
     found, direct = _launch_calls()
     assert direct == []
     assert sorted(name for name, _, _ in found) == [
-        "flash_attention.py", "maxsim.py", "sketch.py", "topk.py", "topk.py", "topk.py", "topk.py", "topk.py",
-        "topk.py"]
+        "flash_attention.py", "grouped_mm.py", "grouped_mm.py", "grouped_mm.py", "kda.py", "kda.py", "kda.py",
+        "kda.py", "maxsim.py", "sketch.py", "topk.py", "topk.py", "topk.py", "topk.py", "topk.py", "topk.py"]
     assert {dev for _, _, dev in found} <= {
-        "docs.device", "dev", "q.device", "d_sketch.device", "x.device", "bin_max.device"}
+        "docs.device", "dev", "q.device", "d_sketch.device", "x.device", "bin_max.device", "f.device",
+        "o.device", "gu.device", "ys.device"}
     for path in PORT_OPS.parent.rglob("*.py"):
         if path.name != "kernels.py":
             assert "cuda_stream" not in path.read_text(), path
